@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and ``nvcc`` (the hand-written kernels have
+no CPU mode): they carry the ``cuda`` marker and skip without a card.  The
+file imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import get_all_devices
+from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+from repro_torch.kernels.mandelbrot import ops as mandel_ops
+from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
+from repro_torch.kernels.partition_map import ops as map_ops
+from repro_torch.kernels.partition_map.ref import partition_map_ref
+from repro_torch.kernels.stencil import ops as stencil_ops
+from repro_torch.kernels.stencil.ref import stencil_ref
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# About 0.1 s of device time on an H100: long enough that work queued
+# behind it on one stream is still pending when another stream moves on.
+SLEEP_CYCLES = 200_000_000
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_elementwise_kernels_match_plain(dtype):
+    _need_cuda()
+    reset_launch_counts()
+    td = DTYPES[dtype]
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(1 << 20,)).astype(np.float32))
+    x = x.to("cuda", td)
+    # f32: the kernel rounds each op as eager PyTorch does.  bf16: the
+    # kernel sums in f32 and rounds once, eager PyTorch rounds every op to
+    # bf16, so they differ by a few bf16 ulps of terms up to ~5.
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else dict(rtol=2e-2, atol=5e-2)
+    torch.testing.assert_close(stencil_ops.stencil(x).float(), stencil_ref(x).float(), **tol)
+    x100 = x * 100
+    y = map_ops.partition_map(x100, block=(128, 1, 1), grid=(64, 1, 1))
+    # The kernel computes in f32 with the precise sinf/cosf and rounds each
+    # operation once, as the plain version does in f32: bit for bit.  The
+    # plain f32 result strays from 1 by up to 1.2e-7, so a kernel that wrote
+    # 1 (or left stale ones) fails.
+    want = partition_map_ref(x100.float())
+    assert bool((want != 1).any())
+    torch.testing.assert_close(y, want.to(td), rtol=0, atol=0)
+    torch.testing.assert_close(y.float(), torch.ones_like(y, dtype=torch.float32),
+                               rtol=0, atol=1e-5 if dtype == "float32" else 2e-2)
+    assert launch_counts()["stencil"] == 1 and launch_counts()["partition_map"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,it", [(64, 64, 32), (128, 256, 32), (512, 512, 64)])
+def test_torch_cuda_mandelbrot_bit_equal_to_plain(h, w, it):
+    _need_cuda()
+    size = torch.tensor([h, w], dtype=torch.int32, device="cuda")
+    got = mandel_ops.mandelbrot(size, max_iter=it)
+    torch.testing.assert_close(got, mandelbrot_ref(h, w, it, device="cuda"), rtol=0, atol=0)
+    # and equal to the plain version on the CPU, which the CPU tests hold
+    # bit-equal to the JAX package at the reference's sizes
+    np.testing.assert_array_equal(got.cpu().numpy(), mandelbrot_ref(h, w, it).numpy())
+
+
+@pytest.mark.cuda
+def test_torch_cuda_build_loads_every_library():
+    _need_cuda()
+    libs = _build.load_all()
+    assert set(libs) == set(_build.NAMES)
+    assert all(isinstance(lib, ctypes.CDLL) for lib in libs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reader", ["read", "launch"])
+def test_torch_cuda_write_after_read_on_another_stream_sees_old_data(reader):
+    """A read or launch dispatched on stream A, held back on the device, is
+    not overtaken by an in-place write on stream B."""
+    _need_cuda()
+    dev = get_all_devices(1, 0).get()[0]
+    prog = dev.create_program({"double": lambda x: x * 2.0}, name="war").get()
+    a, b = dev.create_stream(), dev.create_stream()
+    old = np.arange(1 << 20, dtype=np.float32)
+    buf = dev.create_buffer_from(old).get()
+    out = dev.create_buffer(1 << 20, np.float32).get()
+    a.submit(torch.cuda._sleep, SLEEP_CYCLES)  # hold stream A on the device
+    if reader == "read":
+        fut = a.enqueue_read(buf)
+    else:
+        fut = a.launch(prog, [buf], "double", out=[out], sync="dispatch")
+    a.submit(lambda: None).get()  # stream A's lane has dispatched the reader
+    b.enqueue_write(buf, 0, np.zeros_like(old)).get()
+    got = fut.get() if reader == "read" else out.enqueue_read_sync()
+    np.testing.assert_array_equal(got, old if reader == "read" else old * 2)
+    np.testing.assert_array_equal(buf.enqueue_read_sync(), np.zeros_like(old))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_create_buffer_from_pinned_resolves_after_its_copy():
+    _need_cuda()
+    dev = get_all_devices(1, 0).get()[0]
+    src = torch.arange(1 << 20, dtype=torch.float32).pin_memory()
+    want = src.clone()
+    dev.default_stream.submit(torch.cuda._sleep, SLEEP_CYCLES)  # hold the copy back
+    buf = dev.create_buffer_from(src).get()
+    src.zero_()  # the future said the copy is done: the source is free again
+    np.testing.assert_array_equal(buf.enqueue_read_sync(), want.numpy())

@@ -1,0 +1,111 @@
+"""The slice as a whole: the fig3 / fig4 / fig5 flows that ``chip_smoke.py``
+drives on the card run here on the CPU device, at small sizes, through the
+port's runtime and its ``create_program_with_file`` kernels, and are held
+against the same flows through the JAX package (the reference benchmarks'
+drivers, ``benchmarks/fig{3,4,5}_*.py``) on the same numpy inputs."""
+import importlib.util
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref
+from repro.kernels.mandelbrot.ref import mandelbrot_ref as ref_mandelbrot_ref
+from repro.kernels.partition_map.ops import partition_map as ref_partition_map
+from repro.kernels.stencil.ops import stencil as ref_stencil
+from repro_torch.core import get_all_devices
+from repro_torch.kernels import launch_counts, reset_launch_counts
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+KERNEL_DIR = os.path.join(ROOT, "src", "repro_torch", "kernels")
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def device():
+    return get_all_devices(platform="cpu").get()[0]
+
+
+@pytest.fixture(scope="module")
+def ref_device():
+    return ref.get_all_devices(1, 0).get()[0]
+
+
+def _program(device, name):
+    return device.create_program_with_file(os.path.join(KERNEL_DIR, name, "ops.py")).get()
+
+
+def test_torch_fig3_flow_matches_reference(smoke, device, ref_device):
+    rng = np.random.default_rng(3)
+    hosts = [rng.standard_normal(4096, dtype=np.float32) for _ in range(4)]
+    reset_launch_counts()
+    got = smoke.fig3_flow(device, _program(device, "stencil"), hosts)
+    assert launch_counts()["stencil"] == 0  # CPU tensors take the plain version
+
+    # the reference benchmark's futurized driver (fig3_stencil.py)
+    prog = ref_device.create_program({"stencil": lambda x: ref_stencil(x, impl="ref")}, "fig3").get()
+    bufs = [ref_device.create_buffer_from(h) for h in hosts]
+    outs = [b.then(lambda buf: prog.run([buf], "stencil", out=[buf], sync="dispatch").get())
+            for b in bufs]
+    want = [o.then(lambda bl: bl[0].enqueue_read().get()).get() for o in outs]
+    for g, w, h in zip(got, want, hosts):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(g, smoke.host_stencil(h), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_streams", [1, 4])
+def test_torch_fig4_flow_matches_reference(smoke, device, ref_device, n_streams):
+    parts, part = 4, 2048
+    rng = np.random.default_rng(4)
+    hosts = [(rng.normal(size=(part,)) * 10).astype(np.float32) for _ in range(parts)]
+    ins = [device.create_buffer(part, np.float32).get() for _ in range(parts)]
+    outs = [device.create_buffer(part, np.float32).get() for _ in range(parts)]
+    streams = [device.create_stream() for _ in range(n_streams)]
+    got, events = smoke.fig4_flow(device, _program(device, "partition_map"),
+                                  [torch.from_numpy(h) for h in hosts], ins, outs, streams)
+    assert len(events) == parts and all(e.query() for ev in events for e in ev)
+
+    prog = ref_device.create_program({"k": lambda x: ref_partition_map(x, impl="ref")}, "fig4").get()
+    for g, h in zip(got, hosts):
+        b = ref_device.create_buffer_from(h).get()
+        w = prog.run([b], "k", out=[b]).get()[0].enqueue_read_sync()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g, 1.0, rtol=1e-5)
+
+
+def test_torch_fig5_flow_matches_reference(smoke, device, ref_device, tmp_path):
+    h = w = 64
+    size_buf = device.create_buffer_from(np.array([h, w], np.int32)).get()
+    imgs = [device.create_buffer((h, w), np.int32).get() for _ in range(2)]
+    got = smoke.fig5_flow(device, _program(device, "mandelbrot"), size_buf, imgs, str(tmp_path))
+    np.testing.assert_array_equal(np.load(tmp_path / "img1.npy"), got[1])
+
+    # fig5_mandelbrot.py's own image: the jitted jnp oracle at 64 iterations.
+    # (At 64 iterations the Pallas kernel and that oracle already differ in
+    # 2 pixels of 64 x 64; the port equals the oracle there, bit for bit.)
+    want = np.asarray(jax.jit(lambda: ref_mandelbrot_ref(h, w, 64))())
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+
+
+def test_torch_smoke_bound_picks_the_larger_time(smoke):
+    t, by = smoke.bound(3.35e9, 1.0)
+    assert by == "bytes" and t == pytest.approx(1.0)
+    t, by = smoke.bound(1.0, 67e9)
+    assert by == "operations" and t == pytest.approx(1.0)
+
+
+def test_torch_smoke_mandelbrot_flops_count_this_images_work(smoke):
+    # two live pixels (64 iterations each), two escaped after 1 and 2:
+    # 8 flops per iteration, 3 per escape test, 2 per row and per column
+    counts = torch.tensor([[64, 1], [2, 64]], dtype=torch.int32)
+    assert smoke.mandelbrot_flops(counts, 64) == 8 * 131 + 3 * 2 + 2 * (2 + 2)
