@@ -13,17 +13,27 @@ with ``Dim3`` geometry, ``enqueue_read``):
         in 4 partitions, each H2D -> kernel -> D2H on its own stream, timed
         with 1 stream and with 4, with each copy's rate;
   fig5  Mandelbrot at 4096 x 4096, 64 iterations, images written through
-        ``async_``.
+        ``async_``;
+  serve OLMo-1B at full width and depth (seeded random weights, f32, TF32
+        off): 8 requests in two groups of 4 with prompts of 1000 and 2000
+        tokens, each group one future on its own ``Stream``: one
+        ``make_prefill`` call, its KV written into an ``init_cache`` of
+        prompt + 32 slots, then 32 greedy ``serve_step`` calls.  The prefill
+        attention runs the flash kernel (16 layers x 2 prefills = 32
+        launches).  The same requests then run with the plain attention
+        (``impl="ref"``), held against the kernel run (last-position logits
+        within ``SERVE_LOGIT_TOL``, identical greedy tokens up to near-ties
+        of the plain run), and with the params in bf16, timed.
 
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
-0 just before the three phases and read just after; a kernel the main path
-did not launch fails the run.  Then each kernel is held against its plain
-PyTorch version on the card at the main path's shapes and timed beside its
-bound.  The script prints the ``kernels`` JSON line, the card's name and
-power limit, and, last, ``{"ok": true, "device": {...}}``.  It exits
-non-zero, printing no result, without CUDA or outside a checkout of the
-repository.
+0 just before each main-path run (the three fig phases; each serve run) and
+read just after; a kernel the run did not launch fails it.  Then each
+kernel is held against its plain PyTorch version on the card at the main
+path's shapes and timed beside its bound.  The script prints the
+``kernels`` JSON line, the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
+without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
@@ -41,22 +51,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import record_function  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Dim3, async_, dataflow, get_all_devices, wait_all  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref  # noqa: E402
 from repro_torch.kernels.partition_map import kernel as map_kernel  # noqa: E402
 from repro_torch.kernels.partition_map.ref import partition_map_ref  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# f32 FLOP/s outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
+# f32 FLOP/s outside the tensor cores, dense bf16 FLOP/s of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 FIG3_N, FIG3_INPUTS = 1 << 26, 4
 FIG4_N, FIG4_PARTS = 1 << 28, 4
@@ -64,6 +82,23 @@ FIG5_SIZE, FIG5_ITERS, FIG5_IMAGES = 4096, 64, 4
 STENCIL_BLOCK = Dim3(256)
 MAP_BLOCK = Dim3(256)
 MANDEL_BLOCK = Dim3(32, 8)
+FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
+
+SERVE_ARCH = "olmo-1b"
+SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (1000, 2000), 32
+# f32 kernel run against the plain-attention run: both sum in f32, in other
+# orders, through 16 layers; the last-position logits are of order 1 and
+# moved by about 1e-5 on an H100.
+SERVE_LOGIT_TOL = 2e-4
+# A request stops being compared where the plain run's top-2 logit gap is
+# below this: the two runs may then pick either token.
+NEAR_TIE = 1e-4
+# serve_group's parts, as torch.profiler ranges (tools/profile_torch_serve.py)
+SERVE_SPANS = ("serve.prefill", "serve.cache", "serve.decode")
+GQA_SHAPE = (1, 2048, 36, 4, 128)  # StarCoder2-7B's heads: B, S, H, K, D
+# The f32 kernel against its plain version: the reference's tolerance
+# (tests/test_kernels.py).  bf16 is held per element to ``bf16_bound``.
+FLASH_F32_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -129,6 +164,88 @@ def fig5_flow(dev, prog, size_buf, imgs, out_dir, block=MANDEL_BLOCK) -> "list[n
     for w in writes:
         w.get()
     return [r.get() for r in reads]
+
+
+def top2_gap(logits: "torch.Tensor") -> "torch.Tensor":
+    """(B, V) -> (B,): the greedy pick's margin over the runner-up."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, impl: str,
+                t_submit: float) -> dict:
+    """One group of requests, run as a task of ``stream``: prefill, its KV
+    written into a cache of prompt + ``new_tokens`` slots, then
+    ``new_tokens`` greedy decode steps.  Returns the greedy tokens (B,
+    1 + new_tokens), each pick's top-2 gap, the last-position prefill
+    logits, the times, and whether the work ran on the stream's CUDA
+    stream.  Its three parts are the profiler ranges ``SERVE_SPANS``; each
+    ends with the device idle."""
+    cs = torch.cuda.current_stream(dev.torch_device) if dev.is_cuda else None
+    on_stream = cs is None or cs.cuda_stream == stream.cuda_stream.cuda_stream
+    sync = cs.synchronize if cs is not None else (lambda: None)
+    prefill, step = make_prefill(cfg, params, impl=impl), make_serve_step(cfg, params)
+    B, S = prompt.shape
+    span_prefill, span_cache, span_decode = SERVE_SPANS
+    t0 = time.perf_counter()
+    with record_function(span_prefill):
+        logits, kv = prefill({"tokens": torch.from_numpy(prompt).to(dev.torch_device)})
+        sync()
+    t1 = time.perf_counter()
+    with record_function(span_cache):
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        toks, gaps = [tok.cpu()], [top2_gap(logits[:, -1])]
+        t_first = time.perf_counter()
+        cache = get_model(cfg).init_cache(cfg, B, S + new_tokens, dtype=kv["k"].dtype,
+                                          device=dev.torch_device)
+        cache["k"][:, :, :S] = kv["k"]
+        cache["v"][:, :, :S] = kv["v"]
+        del kv
+        sync()
+    t2 = time.perf_counter()
+    with record_function(span_decode):
+        for i in range(new_tokens):
+            tok, step_logits, cache = step(cache, tok, S + i)
+            toks.append(tok)
+            gaps.append(top2_gap(step_logits[:, -1]))
+        tokens = torch.cat([t.cpu() for t in toks], dim=1).numpy()
+    t3 = time.perf_counter()
+    decode_s = t3 - t2
+    return {"on_stream": on_stream, "tokens": tokens,
+            "gaps": torch.stack(gaps, dim=1).cpu().numpy(),
+            "logits_last": logits[:, -1].float().cpu().numpy(),
+            "prefill_s": t1 - t0, "ttft_s": t_first - t_submit, "decode_s": decode_s,
+            "decode_ms_per_step": decode_s / max(new_tokens, 1) * 1e3,
+            "decode_tokens_per_s": B * new_tokens / decode_s}
+
+
+def serve_flow(dev, cfg, params, prompts, streams, new_tokens: int = SERVE_NEW,
+               impl: str = "auto") -> "list[dict]":
+    """Each group of prompts (B, S) as one future on its own stream, all
+    submitted before any is awaited (as ``route_batches`` submits to device
+    lanes); returns each group's ``serve_group`` result."""
+    futs = [s.submit(serve_group, dev, s, cfg, params, p, new_tokens, impl, time.perf_counter())
+            for p, s in zip(prompts, streams)]
+    wait_all(futs)
+    return [f.get() for f in futs]
+
+
+def greedy_cuts(got: np.ndarray, want: np.ndarray, want_gaps: np.ndarray,
+                near_tie: float = NEAR_TIE) -> "tuple[int, int]":
+    """Compare greedy tokens request by request, step by step.  A request
+    is no longer compared from the first step where the reference run's
+    top-2 gap is below ``near_tie``.  Returns (requests that differ before
+    any cut, requests cut)."""
+    differ = cuts = 0
+    for g, w, gap in zip(got, want, want_gaps):
+        for t in range(len(w)):
+            if gap[t] < near_tie:
+                cuts += 1
+                break
+            if g[t] != w[t]:
+                differ += 1
+                break
+    return differ, cuts
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +331,75 @@ def phase_fig5(dev, prog) -> dict:
     return {"wall_s": wall, "images": FIG5_IMAGES, "image": img}
 
 
+def serve_times(g: dict) -> dict:
+    return {k: g[k] for k in ("prefill_s", "ttft_s", "decode_ms_per_step", "decode_tokens_per_s")}
+
+
+def phase_serve(dev) -> dict:
+    # f32 products in full f32 (the card's default, stated and set): the
+    # plain attention and the model's matmuls then round as the kernel does.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+    params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in SERVE_PROMPTS]
+    streams = [dev.create_stream() for _ in prompts]  # reused: the allocator pools per stream
+
+    def run(p, impl, new=SERVE_NEW):
+        dev.synchronize()
+        reset_launch_counts()
+        out = serve_flow(dev, cfg, p, prompts, streams, new, impl)
+        dev.synchronize()
+        return out, launch_counts()["flash_attention"]
+
+    want_launches = cfg.num_layers * len(prompts)
+    run(params, "auto", 2)  # warm-up: cuBLAS handles, the streams' memory pools
+    f32, n_f32 = run(params, "auto")  # the main path
+    require(n_f32 == want_launches, f"serve: flash_attention launched {n_f32} times, "
+                                    f"not {want_launches}")
+    require(all(g["on_stream"] for g in f32), "serve: a group's CUDA work left its stream")
+    # Each group once more on its own, to see what running both at once costs.
+    alone = [serve_flow(dev, cfg, params, [p], [s], SERVE_NEW)[0]
+             for p, s in zip(prompts, streams)]
+    plain, n_plain = run(params, "ref")
+    require(n_plain == 0, f"serve: the plain run launched the flash kernel {n_plain} times")
+    groups = []
+    for S, g, w, a in zip(SERVE_PROMPTS, f32, plain, alone):
+        require(g["tokens"].shape == (SERVE_BATCH, SERVE_NEW + 1), "serve: wrong token shape")
+        require(g["logits_last"].shape == (SERVE_BATCH, cfg.vocab_size)
+                and bool(np.isfinite(g["logits_last"]).all()), "serve: bad prefill logits")
+        require(bool(((g["tokens"] >= 0) & (g["tokens"] < cfg.vocab_size)).all()),
+                "serve: token out of the vocabulary")
+        err = float(np.abs(g["logits_last"] - w["logits_last"]).max())
+        require(err <= SERVE_LOGIT_TOL, f"serve S={S}: prefill logits differ from the plain "
+                                        f"attention's by {err} > {SERVE_LOGIT_TOL}")
+        differ, cuts = greedy_cuts(g["tokens"], w["tokens"], w["gaps"])
+        require(differ == 0, f"serve S={S}: {differ} request(s) decode other greedy tokens "
+                             "than with the plain attention")
+        require(np.array_equal(a["tokens"], g["tokens"]), f"serve S={S}: alone, other tokens")
+        groups.append({"prompt": S, "batch": SERVE_BATCH, "f32": serve_times(g),
+                       "f32_group_alone": serve_times(a), "plain_attention_f32": serve_times(w),
+                       "max_abs_logit_err_vs_plain": err, "near_tie_cuts": cuts,
+                       "min_gap_plain": float(w["gaps"].min())})
+
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    run(params, "auto", 2)
+    bf16, n_bf16 = run(params, "auto")
+    require(n_bf16 == want_launches, f"serve bf16: flash_attention launched {n_bf16} times")
+    for row, g, w in zip(groups, bf16, f32):
+        require(bool(np.isfinite(g["logits_last"]).all()), "serve bf16: non-finite logits")
+        row["bf16"] = serve_times(g)
+        row["bf16_tokens_equal_f32"] = int((g["tokens"] == w["tokens"]).sum())
+        row["tokens"] = int(w["tokens"].size)
+    del params
+    return {"arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
+            "new_tokens": SERVE_NEW, "groups": groups,
+            "flash_launches": {"f32": n_f32, "plain": n_plain, "bf16": n_bf16}}
+
+
 # ---------------------------------------------------------------------------
 # each kernel against its plain version, timed beside its bound
 # ---------------------------------------------------------------------------
@@ -231,8 +417,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> "tuple[float, str]":
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> "tuple[float, str]":
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,6 +491,43 @@ def check_mandelbrot(dev, main_image: np.ndarray, launches: int) -> dict:
                  bound(4 * h * w, flops), None, differing_pixels=differing, flops=flops)
 
 
+def attention_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:
+    """Unmasked (query, key) pairs: query row r sees keys 0..r if causal."""
+    if not causal:
+        return B * H * Sq * Skv
+    return B * H * int(np.minimum(np.arange(1, Sq + 1), Skv).sum())
+
+
+def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict:
+    B, S, H, K, D = shape
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
+               for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    run = lambda: flash_kernel.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
+    got, want = run(), plain()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:  # both sum in f32, in other orders
+        limit = {"max_abs": FLASH_F32_TOL}
+        require(err <= FLASH_F32_TOL, f"{name} differs from its plain version by {err}")
+    else:  # per element, about 2**-7 of its scale: see bf16_bound
+        ratio = float((diff / bf16_bound(q, k, v, want)).max())
+        limit = {"bf16_bound": "2**-7 * (attention of |v| + |o|)", "max_err_over_bound": ratio}
+        require(ratio <= 1, f"{name} differs from its plain version by {ratio} of bf16_bound")
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    flops = 4 * D * attention_pairs(B, H, S, S, True)
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q, k, v, o once each
+    rate, peak = ((F32_FLOP_PER_S, "f32 67 TFLOP/s") if dtype == torch.float32
+                  else (BF16_FLOP_PER_S, "bf16 tensor cores 989 TFLOP/s"))
+    return entry(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:73", launches, err,
+                 cuda_ms(run, 10), cuda_ms(plain, 3), bound(nbytes, flops, rate), cuda_ms(sdpa, 10),
+                 shape={"B": B, "S": S, "H": H, "K": K, "D": D}, dtype=str(dtype).split(".")[-1],
+                 causal=True, flops=flops, flop_peak=peak, limit=limit, **extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's main path needs a card",
@@ -322,7 +545,7 @@ def main() -> int:
     require(len(devices) >= 1 and devices[0].platform == "cuda", "no CUDA device discovered")
     dev = devices[0]
     progs = {name: dev.create_program_with_file(str(KERNEL_DIR / name / "ops.py"))
-             for name in _build.NAMES}
+             for name in FIG_KERNELS}
     progs = {name: f.get() for name, f in progs.items()}
 
     rng = np.random.default_rng(0)
@@ -337,7 +560,7 @@ def main() -> int:
     fig5 = phase_fig5(dev, progs["mandelbrot"])
     dev.synchronize()
     launches = launch_counts()
-    require(all(launches[n] > 0 for n in _build.NAMES), f"a kernel was not launched: {launches}")
+    require(all(launches[n] > 0 for n in FIG_KERNELS), f"a kernel was not launched: {launches}")
 
     main_image = fig5.pop("image")
     print("fig3: " + json.dumps(fig3), flush=True)
@@ -345,11 +568,32 @@ def main() -> int:
     print("fig5: " + json.dumps(fig5), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
 
+    t0 = time.perf_counter()
+    serve = phase_serve(dev)
+    serve["seconds"] = time.perf_counter() - t0
+    for g in serve["groups"]:
+        print(f"serve S={g['prompt']}: near-tie cuts {g['near_tie_cuts']} of {g['batch']} "
+              f"requests; bf16 greedy tokens equal to f32: {g['bf16_tokens_equal_f32']} of {g['tokens']}",
+              flush=True)
+    print("serve: " + json.dumps(serve), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
                check_partition_map(x4, launches["partition_map"]),
                check_mandelbrot(dev.torch_device, main_image, launches["mandelbrot"])]
+    n_flash = serve["flash_launches"]
+    cfg = get_config(SERVE_ARCH)
+    serve_shape = (SERVE_BATCH, max(SERVE_PROMPTS), cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    # The GQA shape is not on the serve path: its check rides in the bf16
+    # entry, and its launch count is left out.
+    gqa = check_flash("flash_attention_gqa_bf16", GQA_SHAPE, torch.bfloat16, None,
+                      dev.torch_device)
+    gqa = {k: v for k, v in gqa.items() if k not in ("route", "source", "replaces", "launches")}
+    kernels += [check_flash("flash_attention", serve_shape, torch.float32, n_flash["f32"],
+                            dev.torch_device),
+                check_flash("flash_attention_bf16", serve_shape, torch.bfloat16, n_flash["bf16"],
+                            dev.torch_device, gqa_check=gqa)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

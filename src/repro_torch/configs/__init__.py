@@ -1,0 +1,55 @@
+"""Config registry: ``get_config(arch_id)`` over the configs the port runs.
+
+The port carries the dense decoder configs only.  The reference's other
+archs are known by name and raise ``KeyError`` naming the ROADMAP item
+that brings their family to the port.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, smoke
+
+_MODULES = {
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+}
+
+# The reference's other archs, with the ROADMAP.md item that ports them.
+_WAITING = {
+    "qwen2-vl-72b": "Queue 1 item 7 (vlm family: vision stub, M-RoPE)",
+    "starcoder2-7b": "Queue 1 item 7 (gelu_mlp with biases; its configs come with the zoo)",
+    "phi3.5-moe-42b-a6.6b": "Queue 1 item 7 (moe family)",
+    "qwen2-moe-a2.7b": "Queue 1 item 7 (moe family)",
+    "mamba2-130m": "Queue 1 item 7 (ssm family, the next slice, with ssd_scan)",
+    "hymba-1.5b": "Queue 1 item 7 (hybrid family)",
+    "whisper-tiny": "Queue 1 item 7 (encdec family)",
+}
+
+# short aliases accepted by --arch
+_ALIASES = {
+    "qwen2-vl": "qwen2-vl-72b",
+    "olmo": "olmo-1b",
+    "starcoder2": "starcoder2-7b",
+    "deepseek": "deepseek-67b",
+    "stablelm": "stablelm-1.6b",
+    "phi3.5-moe": "phi3.5-moe-42b-a6.6b",
+    "qwen2-moe": "qwen2-moe-a2.7b",
+    "mamba2": "mamba2-130m",
+    "hymba": "hymba-1.5b",
+    "whisper": "whisper-tiny",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    key = _ALIASES.get(name, name)
+    mod = _MODULES.get(key)
+    if mod is None:
+        if key in _WAITING:
+            raise KeyError(f"arch '{name}' is not ported yet: ROADMAP.md {_WAITING[key]}")
+        raise KeyError(f"unknown arch '{name}'; known: {sorted(_MODULES)}")
+    return importlib.import_module(mod).CONFIG
+
+
+__all__ = ["SHAPES", "ArchConfig", "ShapeConfig", "get_config", "smoke"]

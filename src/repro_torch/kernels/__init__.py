@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-_PACKAGES = ("mandelbrot", "partition_map", "stencil")
+_PACKAGES = ("flash_attention", "mandelbrot", "partition_map", "stencil")
 
 
 def all_kernels() -> "dict[str, callable]":

@@ -1,0 +1,234 @@
+"""Model building blocks on PyTorch tensors (the dense decoder's parts of
+``src/repro/models/layers.py``).
+
+Conventions
+-----------
+* Activations are ``(batch, seq, ...)``; params are plain dicts of tensors,
+  named as in the JAX tree.
+* Norms, rotary embeddings, scores and softmax compute in f32; projections
+  keep the activation dtype, as the reference's ``preferred_element_type``
+  does; the logits are f32.
+* ``attention`` sends the prefill case on a CUDA tensor (causal, queries
+  and keys both from position 0, Sq == Skv, no valid length) through the
+  hand-written flash kernel
+  (``repro_torch.kernels.flash_attention``).  Every other case, and every
+  CPU tensor, computes the plain math of the reference, chunked over query
+  blocks of ``q_block`` (exact: each block sees all keys).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps: float):
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def layernorm(x, w, b, eps: float):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if w is not None:
+        y = y * w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg, x, p):
+    """Dispatch on cfg.norm_type; ``p`` is the layer's norm param dict."""
+    if cfg.norm_type == "rmsnorm":
+        return rmsnorm(x, p["scale"], cfg.norm_eps)
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    if cfg.norm_type == "layernorm_nobias":
+        return layernorm(x, p["scale"], None, cfg.norm_eps)
+    if cfg.norm_type == "nonparam_layernorm":  # olmo
+        return layernorm(x, None, None, cfg.norm_eps)
+    raise ValueError(cfg.norm_type)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (RoPE / partial RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions, rotary_dim: int, theta: float):
+    """positions: (B, S) int.  Returns (cos, sin) of shape (B, S,
+    rotary_dim), rotate-half convention (angles repeated over both
+    halves).  M-RoPE comes with the vlm family (ROADMAP.md Queue 1 item 7)."""
+    half = rotary_dim // 2
+    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=F32, device=positions.device) / half))
+    freqs = positions.to(F32)[..., None] * inv_freq  # (B, S, half)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x):
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, D_rot_or_more); rotates the first cos.shape[-1] dims."""
+    rot = cos.shape[-1]
+    xr, xp = x[..., :rot], x[..., rot:]
+    c = cos[:, :, None, :].float()
+    s = sin[:, :, None, :].float()
+    xf = xr.float()
+    out = (xf * c + _rotate_half(xf) * s).to(x.dtype)
+    if xp.shape[-1]:
+        out = torch.cat([out, xp], dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention core
+# ---------------------------------------------------------------------------
+
+def _block_attend(q, k, v, qpos, kpos, *, causal, valid_len=None):
+    """q: (B, Sq, K, R, D); k/v: (B, Skv, K, D); qpos: (Sq,); kpos: (Skv,).
+
+    Returns (B, Sq, K, R, D).  Scores and softmax in f32; ``valid_len`` is a
+    scalar (one cache fill level for the whole batch)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqkrd,bskd->bkrqs", q.float(), k.float()) * scale
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if valid_len is not None:
+        mask &= kpos[None, :] < valid_len
+    s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkrqs,bskd->bqkrd", w, v)
+
+
+def attention(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    q_block: "Optional[int]" = None,
+    valid_len: "Optional[int]" = None,
+    impl: str = "auto",
+):
+    """GQA attention. q: (B, Sq, H, D); k/v: (B, Skv, K, D); H % K == 0.
+
+    ``q_block``: the plain path takes queries in blocks of this size, so
+    the peak score tensor is (B, H, q_block, Skv).  ``valid_len``: number
+    of valid cache slots (decode).  ``impl``: ``auto`` sends the prefill
+    case on a CUDA tensor through the flash kernel; ``ref`` keeps every
+    case on the plain path.  Sliding windows and logit softcaps come with
+    the archs that use them (ROADMAP.md Queue 1 item 7)."""
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"impl={impl!r}: use auto or ref")
+    B, Sq, H, D = q.shape
+    if (impl == "auto" and q.is_cuda and causal and q_offset == 0 and Sq == k.shape[1]
+            and valid_len is None):
+        return flash_attention(q, k, v, causal=True)
+    K = k.shape[2]
+    qr = q.reshape(B, Sq, K, H // K, D)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    step = Sq if q_block is None else q_block
+    blocks = [_block_attend(qr[:, i:i + step], k, v, qpos[i:i + step], kpos, causal=causal,
+                            valid_len=valid_len)
+              for i in range(0, Sq, step)]
+    return torch.cat(blocks, dim=1).reshape(B, Sq, H, D)
+
+
+# ---------------------------------------------------------------------------
+# attention block (projections) and MLPs
+# ---------------------------------------------------------------------------
+
+def qkv_proj(cfg, p, x):
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = torch.matmul(x, p["wq"])
+    k = torch.matmul(x, p["wk"])
+    v = torch.matmul(x, p["wv"])
+    if cfg.attn_qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q.reshape(B, S, H, hd), k.reshape(B, S, K, hd), v.reshape(B, S, K, hd)
+
+
+def out_proj(cfg, p, o):
+    B, S = o.shape[:2]
+    y = torch.matmul(o.reshape(B, S, -1), p["wo"])
+    if cfg.attn_out_bias:
+        y = y + p["bo"]
+    return y
+
+
+def mlp(cfg, p, x):
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        g = torch.matmul(x, p["wi_gate"])
+        u = torch.matmul(x, p["wi_up"])
+        if cfg.mlp_bias:
+            g, u = g + p["bi_gate"], u + p["bi_up"]
+        # jax.nn.gelu is the tanh approximation by default
+        act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * u
+    else:
+        h = torch.matmul(x, p["wi"])
+        if cfg.mlp_bias:
+            h = h + p["bi"]
+        h = F.gelu(h, approximate="tanh")
+    y = torch.matmul(h, p["wo"])
+    if cfg.mlp_bias:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(cfg, p, tokens):
+    return p["table"][tokens]
+
+
+def unembed(cfg, p, x):
+    """f32 logits; bf16 operands are widened exactly, so the products and
+    their sums are f32 as in the reference."""
+    w = p["table"].T if cfg.tie_embeddings else p["unembed"]
+    return torch.matmul(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# KV cache helpers (contiguous per-layer cache)
+# ---------------------------------------------------------------------------
+
+def cache_update(ck, cv, k_new, v_new, pos: int):
+    """Insert (B, s, K, D) new keys/values at slot ``pos``.  Updates ``ck``
+    and ``cv`` IN PLACE (the reference returns new arrays) and returns
+    them."""
+    s = k_new.shape[1]
+    ck[:, pos:pos + s] = k_new.to(ck.dtype)
+    cv[:, pos:pos + s] = v_new.to(cv.dtype)
+    return ck, cv
+
+
+def decode_attend(cfg, q, ck, cv, pos: int):
+    """One-token attention against a cache. q: (B, 1, H, D); cache (B, S,
+    K, D); slots past ``pos`` are masked.  Plain math: the flash kernel's
+    causal mask counts query positions from 0."""
+    return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=pos + 1)

@@ -1,0 +1,201 @@
+"""Decoder-only transformer LM, dense family (``src/repro/models/
+transformer.py`` on PyTorch).
+
+Params keep the JAX tree's names and shapes: layer params are stacked
+with a leading L axis, and ``forward``/``decode_step`` walk the layers in
+a Python loop where the reference scans.  MoE blocks, sliding windows,
+logit softcaps, the vision stub and M-RoPE are refused: they come with the
+rest of the model zoo (ROADMAP.md Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models import layers as L
+
+_ZOO = "ROADMAP.md Queue 1 item 7"
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _refuse_unported(cfg) -> None:
+    for what, on in (("MoE blocks", cfg.moe is not None),
+                     ("sliding-window attention", cfg.sliding_window is not None),
+                     ("attention logit softcap", cfg.attn_logit_softcap is not None),
+                     ("the vision stub", cfg.vision_stub),
+                     ("M-RoPE", cfg.rope_type == "mrope")):
+        if on:
+            raise NotImplementedError(f"{cfg.name}: {what} not ported yet ({_ZOO})")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _norm_layout(cfg, lead=()):
+    d = (*lead, cfg.d_model)
+    if cfg.norm_type in ("rmsnorm", "layernorm_nobias"):
+        return {"scale": (d, "ones")}
+    if cfg.norm_type == "layernorm":
+        return {"scale": (d, "ones"), "bias": (d, "zeros")}
+    return {}  # nonparam
+
+
+def _layout(cfg):
+    """Nested dict of (shape, fill) leaves; fill is "ones", "zeros", or the
+    scale of a truncated normal (None: 1/sqrt(fan-in), fan-in = shape[-2])."""
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    f, n = cfg.d_ff, cfg.num_layers
+    attn = {"wq": ((n, d, H * hd), None), "wk": ((n, d, K * hd), None),
+            "wv": ((n, d, K * hd), None), "wo": ((n, H * hd, d), None)}
+    if cfg.attn_qkv_bias:
+        attn.update({"bq": ((n, H * hd), "zeros"), "bk": ((n, K * hd), "zeros"),
+                     "bv": ((n, K * hd), "zeros")})
+    if cfg.attn_out_bias:
+        attn["bo"] = ((n, d), "zeros")
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        mlp = {"wi_gate": ((n, d, f), None), "wi_up": ((n, d, f), None), "wo": ((n, f, d), None)}
+        if cfg.mlp_bias:
+            mlp.update({"bi_gate": ((n, f), "zeros"), "bi_up": ((n, f), "zeros"),
+                        "bo": ((n, d), "zeros")})
+    else:
+        mlp = {"wi": ((n, d, f), None), "wo": ((n, f, d), None)}
+        if cfg.mlp_bias:
+            mlp.update({"bi": ((n, f), "zeros"), "bo": ((n, d), "zeros")})
+    emb = {"table": ((cfg.vocab_size, d), 0.02)}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = ((d, cfg.vocab_size), None)
+    return {
+        "embed": emb,
+        "layers": {"ln1": _norm_layout(cfg, (n,)), "attn": attn, "ln2": _norm_layout(cfg, (n,)),
+                   "mlp": mlp},
+        "final_norm": _norm_layout(cfg),
+    }
+
+
+def param_shapes(cfg):
+    """The params' names and shapes, as the JAX ``init`` makes them."""
+    return tree_map(lambda leaf: leaf[0], _layout(cfg))
+
+
+def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
+    """Truncated-normal ([-2, 2]) weights scaled by 1/sqrt(fan-in), like
+    the reference's ``ninit``; embeddings at 0.02; norm scales 1, biases 0.
+    Drawn from ``generator`` (on ``device``) leaf by leaf in a fixed order."""
+    _refuse_unported(cfg)
+
+    def make(leaf):
+        shape, fill = leaf
+        if fill == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if fill == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        scale = fill if fill is not None else 1.0 / math.sqrt(shape[-2])
+        return t.mul_(scale).to(dtype)
+
+    return tree_map(make, _layout(cfg))
+
+
+def _layer(params, i: int):
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+def _rope(cfg, positions):
+    if cfg.rope_type == "rope":
+        rot = int(cfg.hd * cfg.partial_rotary)
+        return L.rope_angles(positions, rot, cfg.rope_theta)
+    return None, None
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl):
+    h = L.apply_norm(cfg, x, lp["ln1"])
+    q, k, v = L.qkv_proj(cfg, lp["attn"], h)
+    if cos is not None:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    o = L.attention(q, k, v, causal=True, q_block=q_block, impl=impl)
+    x = x + L.out_proj(cfg, lp["attn"], o)
+    h = L.apply_norm(cfg, x, lp["ln2"])
+    return x + L.mlp(cfg, lp["mlp"], h), (k, v)
+
+
+def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bool = False,
+            last_only: bool = False, impl: str = "auto"):
+    """Teacher-forcing forward. batch["tokens"]: (B, S) int.
+
+    Returns (logits, aux_loss) or (logits, aux_loss, kv_cache) with
+    ``return_kv`` (prefill: kv_cache is {'k','v'}: (L, B, S, K, hd)).
+    ``aux_loss`` is 0: the dense family has no router.  ``impl`` goes to
+    ``layers.attention``: ``ref`` keeps attention on the plain path."""
+    _refuse_unported(cfg)
+    tokens = batch["tokens"]
+    x = L.embed(cfg, params["embed"], tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    cos, sin = _rope(cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, (k, v) = _attn_mlp_layer(cfg, _layer(params, i), x, cos, sin, q_block=q_block,
+                                    impl=impl)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    if last_only:  # prefill: only the final position feeds sampling
+        x = x[:, -1:]
+    logits = L.unembed(cfg, params["embed"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_kv:
+        return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# decode (one token, stacked KV cache)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
+    """Zeroed (L, batch, max_seq, K, hd) keys and values on ``device``,
+    which the caller names, as for ``init``: the cache lives beside the
+    params."""
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(cfg, params, cache, tokens, pos: int):
+    """tokens: (B, 1) int; pos: the write position.
+
+    Returns (logits (B, 1, V), cache); the cache is updated in place."""
+    _refuse_unported(cfg)
+    x = L.embed(cfg, params["embed"], tokens)
+    B = x.shape[0]
+    cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.int64, device=x.device))
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = L.apply_norm(cfg, x, lp["ln1"])
+        q, k, v = L.qkv_proj(cfg, lp["attn"], h)
+        if cos is not None:
+            q = L.apply_rope(q, cos, sin)
+            k = L.apply_rope(k, cos, sin)
+        ck, cv = L.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
+        o = L.decode_attend(cfg, q, ck, cv, pos)
+        x = x + L.out_proj(cfg, lp["attn"], o)
+        h = L.apply_norm(cfg, x, lp["ln2"])
+        x = x + L.mlp(cfg, lp["mlp"], h)
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    return L.unembed(cfg, params["embed"], x), cache

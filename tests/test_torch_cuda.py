@@ -12,14 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke
 from repro_torch.core import get_all_devices
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.stencil.ref import stencil_ref
+from repro_torch.models import get_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # About 0.1 s of device time on an H100: long enough that work queued
@@ -113,3 +118,121 @@ def test_torch_cuda_create_buffer_from_pinned_resolves_after_its_copy():
     buf = dev.create_buffer_from(src).get()
     src.zero_()  # the future said the copy is done: the source is free again
     np.testing.assert_array_equal(buf.enqueue_read_sync(), want.numpy())
+
+
+# (B, Sq, Skv, H, K, D): the reference's cases (tests/test_kernels.py:115),
+# then ragged lengths that are no multiple of the kernel's 64-row tiles,
+# causal with Sq != Skv, and the serving head dim 128.
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64),
+    (2, 256, 256, 8, 2, 32),
+    (1, 128, 256, 4, 1, 64),
+    (2, 100, 100, 4, 2, 16),
+    (1, 200, 200, 4, 4, 128),
+    (2, 100, 200, 8, 2, 64),
+    (1, 200, 100, 4, 1, 32),
+    (1, 1000, 1000, 2, 2, 128),
+]
+
+
+def _qkv(B, Sq, Skv, H, K, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", DTYPES[dtype])
+            for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D))]
+
+
+def _assert_within_bf16_bound(got, want, q, k, v, causal):
+    """Per element within ``bf16_bound``: the weights are rounded to bf16
+    before P.V in both, at different points of the online softmax, and the
+    outputs once each."""
+    err = (got.float() - want.float()).abs()
+    bound = bf16_bound(q, k, v, want, causal=causal)
+    assert bool((err <= bound).all()), (
+        f"{int((err > bound).sum())} elements past the bf16 bound, up to "
+        f"{float((err / bound).max())} of it")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_matches_plain(case, causal, dtype):
+    """The kernel against its plain version on the same inputs: 2e-4 in f32
+    (the reference's tolerance; both sum in f32, in other orders), and in
+    bf16 ``bf16_bound`` per element, about 2**-7 of each output's scale."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    q, k, v = _qkv(*case, dtype)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        _assert_within_bf16_bound(got, want, q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_flash_attention_takes_strided_views():
+    """(B, S, H, D) views of a (B, S, H*D) projection and (B, H, S, D)
+    tensors seen through a transpose give the contiguous result."""
+    _need_cuda()
+    q, k, v = _qkv(2, 130, 130, 4, 2, 64, "float32", seed=1)
+    want = flash_kernel.flash_attention(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qt.is_contiguous()
+    torch.testing.assert_close(flash_kernel.flash_attention(qt, kt, vt), want, rtol=0, atol=0)
+    kv = torch.cat([k, v], dim=-1)  # k and v as interleaved views of one tensor
+    got = flash_kernel.flash_attention(q, kv[..., :64], kv[..., 64:])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_flash_attention_refuses_what_it_does_not_take():
+    _need_cuda()
+    reset_launch_counts()
+    q, k, v = _qkv(1, 64, 64, 4, 2, 64, "float32")
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_kernel.flash_attention(*_qkv(1, 64, 64, 2, 2, 256, "float32"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), impl="cuda")
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_kernel.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_kernel.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        flash_kernel.flash_attention(q, k.transpose(-1, -2), v)
+    assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_flash_attention_op_launches_the_kernel():
+    _need_cuda()
+    reset_launch_counts()
+    q, k, v = _qkv(1, 100, 100, 4, 4, 32, "bfloat16")
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    assert launch_counts()["flash_attention"] == 1
+    plain = flash_ops.flash_attention(q, k, v, causal=True, impl="ref")
+    assert launch_counts()["flash_attention"] == 1
+    _assert_within_bf16_bound(got, plain, q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "stablelm-1.6b", "deepseek-67b"])
+def test_torch_cuda_dense_prefill_runs_the_kernel(arch):
+    """On the card the prefill's attention goes through the kernel, once per
+    layer, and agrees with the plain attention within 1e-4 (f32, TF32 off)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config(arch))
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70)))
+    tokens = tokens.to("cuda")
+    reset_launch_counts()
+    got, _, kv = m.forward(cfg, params, {"tokens": tokens}, return_kv=True)
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    want, _, kv_ref = m.forward(cfg, params, {"tokens": tokens}, return_kv=True, impl="ref")
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kv["k"], kv_ref["k"], rtol=1e-4, atol=1e-4)

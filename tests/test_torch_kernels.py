@@ -23,6 +23,7 @@ from repro.kernels.partition_map.kernel import partition_map as pallas_partition
 from repro.kernels.stencil.kernel import stencil as pallas_stencil
 from repro.kernels.stencil.ref import stencil_ref as jax_stencil_ref
 from repro_torch.kernels import _build, _launch, all_kernels, launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref, pixel_step
 from repro_torch.kernels.partition_map import ops as map_ops
@@ -56,7 +57,7 @@ def test_torch_all_kernels_keeps_reference_order():
     from repro.kernels import all_kernels as ref_all_kernels
 
     ks = all_kernels()
-    for name in ("stencil", "partition_map", "mandelbrot"):
+    for name in ("stencil", "partition_map", "mandelbrot", "flash_attention"):
         assert name in ks and callable(ks[name]), name
     ported = [k for k in ref_all_kernels() if k in ks]
     assert ported == list(ks)  # same names, in the reference's package order
@@ -65,7 +66,8 @@ def test_torch_all_kernels_keeps_reference_order():
 
 def test_torch_ops_name_their_cuda_library():
     for op, lib in [(stencil_ops.stencil, "stencil"), (map_ops.partition_map, "partition_map"),
-                    (mandel_ops.mandelbrot, "mandelbrot")]:
+                    (mandel_ops.mandelbrot, "mandelbrot"),
+                    (flash_ops.flash_attention, "flash_attention")]:
         assert op.cuda_library == lib
         assert (_build.CSRC / f"{lib}.cu").is_file()
 
@@ -159,7 +161,8 @@ def test_torch_cpu_tensor_takes_plain_version_and_counts_no_launch():
     torch.testing.assert_close(stencil_ops.stencil(x), stencil_ref(x), rtol=0, atol=0)
     torch.testing.assert_close(map_ops.partition_map(x), partition_map_ref(x), rtol=0, atol=0)
     mandel_ops.mandelbrot(torch.tensor([8, 8], dtype=torch.int32))
-    assert launch_counts() == {"mandelbrot": 0, "partition_map": 0, "stencil": 0}
+    assert launch_counts() == {"flash_attention": 0, "mandelbrot": 0, "partition_map": 0,
+                               "stencil": 0}
 
 
 @pytest.mark.parametrize("impl", ["pallas", "fast", ""])
