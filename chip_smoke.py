@@ -24,6 +24,11 @@ with ``Dim3`` geometry, ``enqueue_read``):
         (``impl="ref"``), held against the kernel run (last-position logits
         within ``SERVE_LOGIT_TOL``, identical greedy tokens up to near-ties
         of the plain run), and with the params in bf16, timed.
+  serve_ssm  Mamba2-130M at full width and depth the same way: prompts of
+        1000 and 4000 tokens, 32 greedy steps decoded from the prefill's own
+        cache (the recurrent state and conv window).  Every layer's prefill
+        scan runs the ssd_scan kernel (24 layers x 2 prefills = 48
+        launches); the plain run scans with ``ssd_chunked``.
 
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
@@ -62,10 +67,12 @@ from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref  # noqa: E402
 from repro_torch.kernels.partition_map import kernel as map_kernel  # noqa: E402
 from repro_torch.kernels.partition_map.ref import partition_map_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
@@ -86,9 +93,10 @@ FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
 
 SERVE_ARCH = "olmo-1b"
 SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (1000, 2000), 32
-# f32 kernel run against the plain-attention run: both sum in f32, in other
-# orders, through 16 layers; the last-position logits are of order 1 and
-# moved by about 1e-5 on an H100.
+SSM_ARCH, SSM_PROMPTS = "mamba2-130m", (1000, 4000)
+# f32 kernel run against the plain run: both sum in f32, in other orders,
+# through 16 (OLMo-1B) or 24 (Mamba2-130M) layers; the last-position logits
+# of both moved by about 1e-5 on an H100.
 SERVE_LOGIT_TOL = 2e-4
 # A request stops being compared where the plain run's top-2 logit gap is
 # below this: the two runs may then pick either token.
@@ -99,6 +107,9 @@ GQA_SHAPE = (1, 2048, 36, 4, 128)  # StarCoder2-7B's heads: B, S, H, K, D
 # The f32 kernel against its plain version: the reference's tolerance
 # (tests/test_kernels.py).  bf16 is held per element to ``bf16_bound``.
 FLASH_F32_TOL = 2e-4
+# ssd_scan against ssd_chunked and the sequential recurrence: the
+# reference's tolerance (tests/test_kernels.py); all sum in f32.
+SSD_TOL = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -174,9 +185,10 @@ def top2_gap(logits: "torch.Tensor") -> "torch.Tensor":
 
 def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, impl: str,
                 t_submit: float) -> dict:
-    """One group of requests, run as a task of ``stream``: prefill, its KV
-    written into a cache of prompt + ``new_tokens`` slots, then
-    ``new_tokens`` greedy decode steps.  Returns the greedy tokens (B,
+    """One group of requests, run as a task of ``stream``: prefill, then
+    ``new_tokens`` greedy decode steps from its cache (dense: the KV
+    written into a cache of prompt + ``new_tokens`` slots; ssm: the
+    prefill's recurrent cache itself).  Returns the greedy tokens (B,
     1 + new_tokens), each pick's top-2 gap, the last-position prefill
     logits, the times, and whether the work ran on the stream's CUDA
     stream.  Its three parts are the profiler ranges ``SERVE_SPANS``; each
@@ -196,10 +208,13 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         toks, gaps = [tok.cpu()], [top2_gap(logits[:, -1])]
         t_first = time.perf_counter()
-        cache = get_model(cfg).init_cache(cfg, B, S + new_tokens, dtype=kv["k"].dtype,
-                                          device=dev.torch_device)
-        cache["k"][:, :, :S] = kv["k"]
-        cache["v"][:, :, :S] = kv["v"]
+        if cfg.family == "dense":
+            cache = get_model(cfg).init_cache(cfg, B, S + new_tokens, dtype=kv["k"].dtype,
+                                              device=dev.torch_device)
+            cache["k"][:, :, :S] = kv["k"]
+            cache["v"][:, :, :S] = kv["v"]
+        else:
+            cache = kv
         del kv
         sync()
     t2 = time.perf_counter()
@@ -335,17 +350,27 @@ def serve_times(g: dict) -> dict:
     return {k: g[k] for k in ("prefill_s", "ttft_s", "decode_ms_per_step", "decode_tokens_per_s")}
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
+    """Serve ``arch`` at full width and depth: the f32 kernel run (the main
+    path, after a warm-up), each group alone, the plain run (``impl="ref"``)
+    it is held against, and a bf16 run.  ``kernel`` is the kernel the
+    prefill must launch once per layer and group."""
     # f32 products in full f32 (the card's default, stated and set): the
-    # plain attention and the model's matmuls then round as the kernel does.
+    # plain versions and the model's matmuls and convs then round as the
+    # kernels do.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(SERVE_ARCH)
-    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
-    params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device, dtype=torch.float32)
+    cfg = get_config(arch)
+    m = get_model(cfg)
+
+    def init(dtype):  # the same seeded draws, rounded to dtype
+        gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+        return m.init(cfg, generator=gen, device=dev.torch_device, dtype=dtype)
+
+    params = init(torch.float32)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
-               for s in SERVE_PROMPTS]
+               for s in prompt_lens]
     streams = [dev.create_stream() for _ in prompts]  # reused: the allocator pools per stream
 
     def run(p, impl, new=SERVE_NEW):
@@ -353,51 +378,52 @@ def phase_serve(dev) -> dict:
         reset_launch_counts()
         out = serve_flow(dev, cfg, p, prompts, streams, new, impl)
         dev.synchronize()
-        return out, launch_counts()["flash_attention"]
+        return out, launch_counts()[kernel]
 
+    name = f"{arch} {kernel}"
     want_launches = cfg.num_layers * len(prompts)
     run(params, "auto", 2)  # warm-up: cuBLAS handles, the streams' memory pools
     f32, n_f32 = run(params, "auto")  # the main path
-    require(n_f32 == want_launches, f"serve: flash_attention launched {n_f32} times, "
-                                    f"not {want_launches}")
-    require(all(g["on_stream"] for g in f32), "serve: a group's CUDA work left its stream")
+    require(n_f32 == want_launches, f"{name}: launched {n_f32} times, not {want_launches}")
+    require(all(g["on_stream"] for g in f32), f"{arch}: a group's CUDA work left its stream")
     # Each group once more on its own, to see what running both at once costs.
     alone = [serve_flow(dev, cfg, params, [p], [s], SERVE_NEW)[0]
              for p, s in zip(prompts, streams)]
     plain, n_plain = run(params, "ref")
-    require(n_plain == 0, f"serve: the plain run launched the flash kernel {n_plain} times")
+    require(n_plain == 0, f"{name}: the plain run launched the kernel {n_plain} times")
     groups = []
-    for S, g, w, a in zip(SERVE_PROMPTS, f32, plain, alone):
-        require(g["tokens"].shape == (SERVE_BATCH, SERVE_NEW + 1), "serve: wrong token shape")
+    for S, g, w, a in zip(prompt_lens, f32, plain, alone):
+        require(g["tokens"].shape == (SERVE_BATCH, SERVE_NEW + 1), f"{arch}: wrong token shape")
         require(g["logits_last"].shape == (SERVE_BATCH, cfg.vocab_size)
-                and bool(np.isfinite(g["logits_last"]).all()), "serve: bad prefill logits")
+                and bool(np.isfinite(g["logits_last"]).all()), f"{arch}: bad prefill logits")
         require(bool(((g["tokens"] >= 0) & (g["tokens"] < cfg.vocab_size)).all()),
-                "serve: token out of the vocabulary")
+                f"{arch}: token out of the vocabulary")
         err = float(np.abs(g["logits_last"] - w["logits_last"]).max())
-        require(err <= SERVE_LOGIT_TOL, f"serve S={S}: prefill logits differ from the plain "
-                                        f"attention's by {err} > {SERVE_LOGIT_TOL}")
+        require(err <= SERVE_LOGIT_TOL, f"{arch} S={S}: prefill logits differ from the plain "
+                                        f"run's by {err} > {SERVE_LOGIT_TOL}")
         differ, cuts = greedy_cuts(g["tokens"], w["tokens"], w["gaps"])
-        require(differ == 0, f"serve S={S}: {differ} request(s) decode other greedy tokens "
-                             "than with the plain attention")
-        require(np.array_equal(a["tokens"], g["tokens"]), f"serve S={S}: alone, other tokens")
+        require(differ == 0, f"{arch} S={S}: {differ} request(s) decode other greedy tokens "
+                             "than in the plain run")
+        require(np.array_equal(a["tokens"], g["tokens"]), f"{arch} S={S}: alone, other tokens")
         groups.append({"prompt": S, "batch": SERVE_BATCH, "f32": serve_times(g),
-                       "f32_group_alone": serve_times(a), "plain_attention_f32": serve_times(w),
+                       "f32_group_alone": serve_times(a), "plain_f32": serve_times(w),
                        "max_abs_logit_err_vs_plain": err, "near_tie_cuts": cuts,
                        "min_gap_plain": float(w["gaps"].min())})
 
-    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    params = init(torch.bfloat16)
     run(params, "auto", 2)
     bf16, n_bf16 = run(params, "auto")
-    require(n_bf16 == want_launches, f"serve bf16: flash_attention launched {n_bf16} times")
+    require(n_bf16 == want_launches, f"{name} bf16: launched {n_bf16} times")
     for row, g, w in zip(groups, bf16, f32):
-        require(bool(np.isfinite(g["logits_last"]).all()), "serve bf16: non-finite logits")
+        require(bool(np.isfinite(g["logits_last"]).all()), f"{arch} bf16: non-finite logits")
         row["bf16"] = serve_times(g)
         row["bf16_tokens_equal_f32"] = int((g["tokens"] == w["tokens"]).sum())
         row["tokens"] = int(w["tokens"].size)
     del params
     return {"arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
-            "new_tokens": SERVE_NEW, "groups": groups,
-            "flash_launches": {"f32": n_f32, "plain": n_plain, "bf16": n_bf16}}
+            "d_model": cfg.d_model, "new_tokens": SERVE_NEW, "groups": groups,
+            "launches": {"kernel": kernel, "f32": n_f32, "plain": n_plain, "bf16": n_bf16}}
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +554,69 @@ def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict
                  causal=True, flops=flops, flop_peak=peak, limit=limit, **extra)
 
 
+def ssd_flops(Bz: int, H: int, S: int, P: int, N: int, chunk: int) -> int:
+    """Flops of the chunked SSD form at chunk length ``chunk`` (the last
+    chunk ragged): a row and chunk of length l take (N + P) l (l + 1) for
+    C.B^T over j <= i and att.x, and 4 l N P for the incoming state's
+    output and the state update."""
+    ls = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    return Bz * H * sum((N + P) * l * (l + 1) + 4 * l * N * P for l in ls)
+
+
+def ssd_least_flops(Bz: int, H: int, S: int, P: int, N: int) -> int:
+    """The least flops that give the same y and final state: the chunked
+    count falls with the chunk length (the quadratic part costs (N + P)
+    (l + 1) a token, the state part 4 N P whatever l), so it is least at
+    l = 1, the 4 N P a token that every form pays, plus 2 (N + P)."""
+    return ssd_flops(Bz, H, S, P, N, 1)
+
+
+def check_ssd(cfg, launches: int, device) -> dict:
+    """ssd_scan at the serve shape (the longer prompt) on inputs like the
+    model's: x, B and C strided views of one xBC tensor, the init's dt
+    range and A = -(1..H).  y and the final state against ``ssd_chunked``,
+    and against the sequential recurrence at the shorter prompt (a ragged
+    last sub-chunk).  The bound counts ``ssd_least_flops``."""
+    s = cfg.ssm
+    H, P, G, N, di = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state, s.d_inner(cfg.d_model)
+    Bz, S = SERVE_BATCH, max(SSM_PROMPTS)
+    rng = np.random.default_rng(7)
+    xbc = torch.from_numpy(rng.standard_normal((Bz, S, di + 2 * G * N), dtype=np.float32)).to(device)
+    x = xbc[..., :di].reshape(Bz, S, H, P)
+    B = xbc[..., di:di + G * N].reshape(Bz, S, G, N)
+    C = xbc[..., di + G * N:].reshape(Bz, S, G, N)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (Bz, S, H)))
+                          .astype(np.float32)).to(device)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    run = lambda: ssd_kernel.ssd_scan(x, dt, A, B, C)  # noqa: E731
+    plain = lambda: ssd_chunked(x, dt, A, B, C, s.chunk)  # noqa: E731
+    (y, state), (y_want, state_want) = run(), plain()
+    err_y = float((y - y_want).abs().max())
+    err_state = float((state - state_want).abs().max())
+    S1 = min(SSM_PROMPTS)
+    y1, state1 = ssd_kernel.ssd_scan(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1])
+    y1_seq, state1_seq = ssd_ops.ssd(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1], impl="ref",
+                                     return_state=True)
+    err_seq = float((y1 - y1_seq).abs().max())
+    err_seq_state = float((state1 - state1_seq).abs().max())
+    for what, err in (("y", err_y), ("final state", err_state), ("y vs sequential", err_seq),
+                      ("final state vs sequential", err_seq_state)):
+        require(err <= SSD_TOL, f"ssd_scan {what} differs from its plain version by {err}")
+    flops = ssd_least_flops(Bz, H, S, P, N)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * B.numel() + state.numel())
+    return entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:64", launches,
+                 max(err_y, err_state, err_seq, err_seq_state),
+                 cuda_ms(run, 10), cuda_ms(plain, 3), bound(nbytes, flops), None,
+                 shape={"Bz": Bz, "S": S, "H": H, "G": G, "N": N, "P": P, "chunk": s.chunk},
+                 flops=flops, flops_at_model_chunk=ssd_flops(Bz, H, S, P, N, s.chunk),
+                 bytes=nbytes, flop_peak="f32 67 TFLOP/s",
+                 max_abs_err_y=err_y, max_abs_err_state=err_state,
+                 max_abs_err_vs_sequential={"S": S1, "y": err_seq, "state": err_seq_state},
+                 limit={"max_abs": SSD_TOL},
+                 library="none: no single PyTorch call computes the SSD scan")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's main path needs a card",
@@ -568,21 +657,24 @@ def main() -> int:
     print("fig5: " + json.dumps(fig5), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
 
-    t0 = time.perf_counter()
-    serve = phase_serve(dev)
-    serve["seconds"] = time.perf_counter() - t0
-    for g in serve["groups"]:
-        print(f"serve S={g['prompt']}: near-tie cuts {g['near_tie_cuts']} of {g['batch']} "
-              f"requests; bf16 greedy tokens equal to f32: {g['bf16_tokens_equal_f32']} of {g['tokens']}",
-              flush=True)
-    print("serve: " + json.dumps(serve), flush=True)
+    serves = {}
+    for phase, arch, prompt_lens, kernel in (("serve", SERVE_ARCH, SERVE_PROMPTS, "flash_attention"),
+                                             ("serve_ssm", SSM_ARCH, SSM_PROMPTS, "ssd_scan")):
+        t0 = time.perf_counter()
+        serve = serves[phase] = phase_serve(dev, arch, prompt_lens, kernel)
+        serve["seconds"] = time.perf_counter() - t0
+        for g in serve["groups"]:
+            print(f"{phase} S={g['prompt']}: near-tie cuts {g['near_tie_cuts']} of {g['batch']} "
+                  f"requests; bf16 greedy tokens equal to f32: {g['bf16_tokens_equal_f32']} of "
+                  f"{g['tokens']}", flush=True)
+        print(f"{phase}: " + json.dumps(serve), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
                check_partition_map(x4, launches["partition_map"]),
                check_mandelbrot(dev.torch_device, main_image, launches["mandelbrot"])]
-    n_flash = serve["flash_launches"]
+    n_flash = serves["serve"]["launches"]
     cfg = get_config(SERVE_ARCH)
     serve_shape = (SERVE_BATCH, max(SERVE_PROMPTS), cfg.num_heads, cfg.num_kv_heads, cfg.hd)
     # The GQA shape is not on the serve path: its check rides in the bf16
@@ -593,7 +685,9 @@ def main() -> int:
     kernels += [check_flash("flash_attention", serve_shape, torch.float32, n_flash["f32"],
                             dev.torch_device),
                 check_flash("flash_attention_bf16", serve_shape, torch.bfloat16, n_flash["bf16"],
-                            dev.torch_device, gqa_check=gqa)]
+                            dev.torch_device, gqa_check=gqa),
+                check_ssd(get_config(SSM_ARCH), serves["serve_ssm"]["launches"]["f32"],
+                          dev.torch_device)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` over the configs the port runs.
 
-The port carries the dense decoder configs only.  The reference's other
-archs are known by name and raise ``KeyError`` naming the ROADMAP item
-that brings their family to the port.
+The port carries the dense decoder configs and mamba2-130m (ssm family).
+The reference's other archs are known by name and raise ``KeyError``
+naming the ROADMAP item that brings their family to the port.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 # The reference's other archs, with the ROADMAP.md item that ports them.
@@ -22,7 +23,6 @@ _WAITING = {
     "starcoder2-7b": "Queue 1 item 7 (gelu_mlp with biases; its configs come with the zoo)",
     "phi3.5-moe-42b-a6.6b": "Queue 1 item 7 (moe family)",
     "qwen2-moe-a2.7b": "Queue 1 item 7 (moe family)",
-    "mamba2-130m": "Queue 1 item 7 (ssm family, the next slice, with ssd_scan)",
     "hymba-1.5b": "Queue 1 item 7 (hybrid family)",
     "whisper-tiny": "Queue 1 item 7 (encdec family)",
 }

@@ -29,6 +29,54 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def ninit(shape, *, generator: "torch.Generator", device, dtype=F32,
+          scale: "Optional[float]" = None):
+    """Truncated normal on [-2, 2] times ``scale`` (None: 1/sqrt(fan-in),
+    fan-in = shape[-2]), drawn in f32 from ``generator``, as the
+    reference's ``ninit``."""
+    t = torch.empty(shape, dtype=F32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale if scale is not None else 1.0 / math.sqrt(shape[-2])).to(dtype)
+
+
+def init_leaf(leaf, *, generator: "torch.Generator", device, dtype=F32):
+    """A (shape, fill) leaf: fill is "ones", "zeros", or ``ninit``'s scale."""
+    shape, fill = leaf
+    if fill in ("ones", "zeros"):
+        return torch.full(shape, 1.0 if fill == "ones" else 0.0, dtype=dtype, device=device)
+    return ninit(shape, generator=generator, device=device, dtype=dtype, scale=fill)
+
+
+def embed_layout(cfg):
+    """The embedding's (shape, fill) leaves: the table at 0.02, and an
+    untied unembedding at fan-in scale."""
+    emb = {"table": ((cfg.vocab_size, cfg.d_model), 0.02)}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = ((cfg.d_model, cfg.vocab_size), None)
+    return emb
+
+
+def norm_layout(cfg, lead=()):
+    """The norm's (shape, fill) leaves, with leading dims ``lead``."""
+    d = (*lead, cfg.d_model)
+    if cfg.norm_type in ("rmsnorm", "layernorm_nobias"):
+        return {"scale": (d, "ones")}
+    if cfg.norm_type == "layernorm":
+        return {"scale": (d, "ones"), "bias": (d, "zeros")}
+    return {}  # nonparam
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

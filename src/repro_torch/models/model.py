@@ -11,7 +11,7 @@ from __future__ import annotations
 from types import ModuleType
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer
 
 __all__ = ["get_model"]
 
@@ -19,5 +19,7 @@ __all__ = ["get_model"]
 def get_model(cfg: ArchConfig) -> ModuleType:
     if cfg.family == "dense":
         return transformer
+    if cfg.family == "ssm":
+        return ssm_lm
     raise NotImplementedError(
         f"model family '{cfg.family}' ({cfg.name}) is not ported yet: ROADMAP.md Queue 1 item 7")

@@ -9,21 +9,14 @@ rest of the model zoo (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.layers import tree_map
 
 _ZOO = "ROADMAP.md Queue 1 item 7"
-
-
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _refuse_unported(cfg) -> None:
@@ -40,18 +33,8 @@ def _refuse_unported(cfg) -> None:
 # params
 # ---------------------------------------------------------------------------
 
-def _norm_layout(cfg, lead=()):
-    d = (*lead, cfg.d_model)
-    if cfg.norm_type in ("rmsnorm", "layernorm_nobias"):
-        return {"scale": (d, "ones")}
-    if cfg.norm_type == "layernorm":
-        return {"scale": (d, "ones"), "bias": (d, "zeros")}
-    return {}  # nonparam
-
-
 def _layout(cfg):
-    """Nested dict of (shape, fill) leaves; fill is "ones", "zeros", or the
-    scale of a truncated normal (None: 1/sqrt(fan-in), fan-in = shape[-2])."""
+    """Nested dict of (shape, fill) leaves, as ``layers.init_leaf`` takes them."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     f, n = cfg.d_ff, cfg.num_layers
     attn = {"wq": ((n, d, H * hd), None), "wk": ((n, d, K * hd), None),
@@ -70,14 +53,11 @@ def _layout(cfg):
         mlp = {"wi": ((n, d, f), None), "wo": ((n, f, d), None)}
         if cfg.mlp_bias:
             mlp.update({"bi": ((n, f), "zeros"), "bo": ((n, d), "zeros")})
-    emb = {"table": ((cfg.vocab_size, d), 0.02)}
-    if not cfg.tie_embeddings:
-        emb["unembed"] = ((d, cfg.vocab_size), None)
     return {
-        "embed": emb,
-        "layers": {"ln1": _norm_layout(cfg, (n,)), "attn": attn, "ln2": _norm_layout(cfg, (n,)),
+        "embed": L.embed_layout(cfg),
+        "layers": {"ln1": L.norm_layout(cfg, (n,)), "attn": attn, "ln2": L.norm_layout(cfg, (n,)),
                    "mlp": mlp},
-        "final_norm": _norm_layout(cfg),
+        "final_norm": L.norm_layout(cfg),
     }
 
 
@@ -91,19 +71,8 @@ def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     the reference's ``ninit``; embeddings at 0.02; norm scales 1, biases 0.
     Drawn from ``generator`` (on ``device``) leaf by leaf in a fixed order."""
     _refuse_unported(cfg)
-
-    def make(leaf):
-        shape, fill = leaf
-        if fill == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
-        if fill == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
-        t = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        scale = fill if fill is not None else 1.0 / math.sqrt(shape[-2])
-        return t.mul_(scale).to(dtype)
-
-    return tree_map(make, _layout(cfg))
+    return tree_map(lambda leaf: L.init_leaf(leaf, generator=generator, device=device,
+                                             dtype=dtype), _layout(cfg))
 
 
 def _layer(params, i: int):

@@ -1,9 +1,10 @@
-"""Serving steps: prefill (forward + KV cache) and greedy decode.
+"""Serving steps: prefill (forward + decode cache) and greedy decode.
 
 The counterparts of ``src/repro/serving/serve_step.py``'s ``make_prefill``
-and ``make_serve_step``, with the params closed over.  On a CUDA device the
-prefill's attention runs the hand-written flash kernel; the decode step's
-one-query attention against the cache is plain PyTorch.
+and ``make_serve_step``, with the params closed over, for the dense and
+ssm families.  On a CUDA device the dense prefill's attention runs the
+hand-written flash kernel and the ssm prefill's scans run the ``ssd_scan``
+kernel; the decode steps are plain PyTorch.
 """
 from __future__ import annotations
 
@@ -29,14 +30,19 @@ def make_serve_step(cfg, params):
 
 
 def make_prefill(cfg, params, *, q_block: int = 512, impl: str = "auto"):
-    """Returns ``prefill(batch) -> (logits_last, kv)``: logits (B, 1, V) f32
-    of the last position and kv {'k', 'v'}: (L, B, S, K, hd).  ``impl="ref"``
-    keeps attention on the plain path."""
+    """Returns ``prefill(batch) -> (logits_last, cache)``: logits (B, 1, V)
+    f32 of the last position and the prompt's cache.  Dense: kv {'k', 'v'}:
+    (L, B, S, K, hd), to be copied into a decode cache of S + new slots.
+    ssm: the decode cache itself, {'state', 'conv'} (the real state the
+    prompt leaves, not the reference ``forward``'s zeros).  ``impl="ref"``
+    keeps attention or the scan on the plain path; ``q_block`` is the
+    dense plain attention's query block."""
     m = get_model(cfg)
+    kw = {"q_block": q_block} if cfg.family == "dense" else {}
 
     def prefill(batch):
-        logits, _aux, kv = m.forward(cfg, params, batch, q_block=q_block, return_kv=True,
-                                     last_only=True, impl=impl)
-        return logits, kv
+        logits, _aux, cache = m.forward(cfg, params, batch, return_kv=True, last_only=True,
+                                        impl=impl, **kw)
+        return logits, cache
 
     return prefill

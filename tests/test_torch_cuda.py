@@ -23,8 +23,12 @@ from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.stencil import ops as stencil_ops
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.stencil.ref import stencil_ref
 from repro_torch.models import get_model
+from repro_torch.models.ssm import ssd_chunked
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # About 0.1 s of device time on an H100: long enough that work queued
@@ -236,3 +240,131 @@ def test_torch_cuda_dense_prefill_runs_the_kernel(arch):
     assert launch_counts()["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(kv["k"], kv_ref["k"], rtol=1e-4, atol=1e-4)
+
+
+# (Bz, S, H, G, P, N): the reference's cases (tests/test_kernels.py:175, G
+# rows as H heads with their own B/C), ragged S (no multiple of the
+# kernel's 32-token sub-chunks nor of 256), N 4 / P 8, grouped B/C, and
+# one mamba2-130m layer at the serve shape.
+SSD_CASES = [
+    (1, 64, 2, 2, 16, 8),
+    (1, 128, 4, 4, 32, 16),
+    (1, 256, 1, 1, 64, 128),
+    (2, 1000, 4, 2, 8, 16),
+    (1, 77, 3, 3, 8, 4),
+    (2, 333, 6, 1, 128, 256),
+    (4, 4000, 24, 1, 64, 128),
+]
+
+
+def _ssd_inputs(Bz, S, H, G, P, N, seed=0):
+    """The reference test's distributions, in model layout, on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bz, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bz, S, H), dtype=np.float32))) * 0.1
+    A = -np.exp(rng.standard_normal(H, dtype=np.float32) * 0.3)
+    B, C = (rng.standard_normal((Bz, S, G, N), dtype=np.float32) * 0.5 for _ in range(2))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda() for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_torch_cuda_ssd_scan_matches_plain(case):
+    """y and the final state against the chunked plain version at the
+    model's chunk 256 and, up to S 1000, y against the sequential
+    recurrence: 2e-3, the reference's tolerance (both sum in f32, in other
+    orders and chunkings)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    Bz, S, H, G, P, N = case
+    x, dt, A, B, C = _ssd_inputs(*case)
+    y, state = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    assert y.shape == (Bz, S, H, P) and state.shape == (Bz, H, N, P)
+    y_want, state_want = ssd_chunked(x, dt, A, B, C, 256)
+    torch.testing.assert_close(y, y_want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(state, state_want, rtol=2e-3, atol=2e-3)
+    if S <= 1000:
+        y_seq, state_seq = ssd_ops.ssd(x, dt, A, B, C, impl="ref", return_state=True)
+        torch.testing.assert_close(y, y_seq, rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(state, state_seq, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_takes_strided_views_and_groups():
+    """x, B and C as views of one (Bz, S, H*P + 2*G*N) tensor, as the model
+    slices them out of the conv output, with G = 2 groups over H = 6
+    heads: the same result as contiguous copies, bit for bit, and as the
+    plain version with the groups expanded."""
+    _need_cuda()
+    Bz, S, H, G, P, N = 2, 300, 6, 2, 64, 32
+    x, dt, A, B, C = _ssd_inputs(Bz, S, H, G, P, N, seed=3)
+    xbc = torch.cat([x.reshape(Bz, S, -1), B.reshape(Bz, S, -1), C.reshape(Bz, S, -1)], dim=-1)
+    xv = xbc[..., :H * P].reshape(Bz, S, H, P)
+    Bv = xbc[..., H * P:H * P + G * N].reshape(Bz, S, G, N)
+    Cv = xbc[..., H * P + G * N:].reshape(Bz, S, G, N)
+    dtv = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not (xv.is_contiguous() or Bv.is_contiguous() or dtv.is_contiguous())
+    y, state = ssd_kernel.ssd_scan(xv, dtv, A, Bv, Cv)
+    y_c, state_c = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    torch.testing.assert_close(y, y_c, rtol=0, atol=0)
+    torch.testing.assert_close(state, state_c, rtol=0, atol=0)
+    R = H // G
+    y_want, _ = ssd_chunked(x, dt, A, B.repeat_interleave(R, dim=2),
+                            C.repeat_interleave(R, dim=2), 64)
+    torch.testing.assert_close(y, y_want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_refuses_what_it_does_not_take():
+    _need_cuda()
+    reset_launch_counts()
+    x, dt, A, B, C = _ssd_inputs(1, 64, 4, 2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_ops.ssd(*(t.cpu() for t in (x, dt, A, B, C)), impl="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ssd_kernel.ssd_scan(x.bfloat16(), dt, A, B, C)
+    with pytest.raises(ValueError, match="N=512"):
+        ssd_kernel.ssd_scan(x, dt, A, *_ssd_inputs(1, 64, 4, 2, 16, 512)[3:])
+    with pytest.raises(ValueError, match="P=256"):
+        ssd_kernel.ssd_scan(*_ssd_inputs(1, 64, 4, 2, 256, 8)[:1], dt, A, B, C)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ssd_kernel.ssd_scan(x, dt, A, B[:, :, :1].expand(1, 64, 3, 8), C[:, :, :1].expand(1, 64, 3, 8))
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        ssd_kernel.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C)
+    assert launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_op_launches_the_kernel():
+    _need_cuda()
+    reset_launch_counts()
+    x, dt, A, B, C = _ssd_inputs(2, 100, 4, 1, 16, 16)
+    D = torch.rand(4, device="cuda")
+    got = ssd_ops.ssd(x, dt, A, B, C, D)
+    assert launch_counts()["ssd_scan"] == 1
+    plain = ssd_ops.ssd(x, dt, A, B, C, D, impl="ref")
+    assert launch_counts()["ssd_scan"] == 1
+    torch.testing.assert_close(got, plain, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssm_prefill_runs_the_kernel():
+    """On the card the mamba2 prefill's scans go through the kernel, once
+    per layer, and the logits and the decode cache agree with the plain
+    run (``ssd_chunked``) within 1e-4 (f32, TF32 off)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke(get_config("mamba2-130m"))
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70)))
+    tokens = tokens.to("cuda")
+    reset_launch_counts()
+    got, _, cache = m.forward(cfg, params, {"tokens": tokens}, return_kv=True)
+    assert launch_counts()["ssd_scan"] == cfg.num_layers
+    want, _, cache_ref = m.forward(cfg, params, {"tokens": tokens}, return_kv=True, impl="ref")
+    assert launch_counts()["ssd_scan"] == cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for name in ("state", "conv"):
+        torch.testing.assert_close(cache[name], cache_ref[name], rtol=1e-4, atol=1e-4)

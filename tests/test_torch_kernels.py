@@ -28,6 +28,7 @@ from repro_torch.kernels.mandelbrot import ops as mandel_ops
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref, pixel_step
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.stencil import kernel as stencil_kernel
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.stencil.ref import stencil_ref
@@ -57,7 +58,7 @@ def test_torch_all_kernels_keeps_reference_order():
     from repro.kernels import all_kernels as ref_all_kernels
 
     ks = all_kernels()
-    for name in ("stencil", "partition_map", "mandelbrot", "flash_attention"):
+    for name in ("stencil", "partition_map", "mandelbrot", "flash_attention", "ssd"):
         assert name in ks and callable(ks[name]), name
     ported = [k for k in ref_all_kernels() if k in ks]
     assert ported == list(ks)  # same names, in the reference's package order
@@ -67,7 +68,7 @@ def test_torch_all_kernels_keeps_reference_order():
 def test_torch_ops_name_their_cuda_library():
     for op, lib in [(stencil_ops.stencil, "stencil"), (map_ops.partition_map, "partition_map"),
                     (mandel_ops.mandelbrot, "mandelbrot"),
-                    (flash_ops.flash_attention, "flash_attention")]:
+                    (flash_ops.flash_attention, "flash_attention"), (ssd_ops.ssd, "ssd_scan")]:
         assert op.cuda_library == lib
         assert (_build.CSRC / f"{lib}.cu").is_file()
 
@@ -162,7 +163,7 @@ def test_torch_cpu_tensor_takes_plain_version_and_counts_no_launch():
     torch.testing.assert_close(map_ops.partition_map(x), partition_map_ref(x), rtol=0, atol=0)
     mandel_ops.mandelbrot(torch.tensor([8, 8], dtype=torch.int32))
     assert launch_counts() == {"flash_attention": 0, "mandelbrot": 0, "partition_map": 0,
-                               "stencil": 0}
+                               "ssd_scan": 0, "stencil": 0}
 
 
 @pytest.mark.parametrize("impl", ["pallas", "fast", ""])

@@ -58,6 +58,7 @@ def test_torch_package_imports_without_jax():
         sys.modules["jax"] = None  # any import of jax now raises
         import repro_torch.core, repro_torch.kernels
         import repro_torch.configs, repro_torch.models.convert, repro_torch.serving.serve_step
+        import repro_torch.models.ssm_lm, repro_torch.kernels.ssd_scan.ops
         from repro_torch.kernels import all_kernels
         all_kernels()
         assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), "imports repro"

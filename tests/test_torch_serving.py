@@ -2,13 +2,17 @@
 CPU device at smoke size and held against the JAX package's serving steps.
 
 Two groups of requests (prompts of 12 and 20 tokens, 2 requests each), each
-one future on its own port ``Stream``: ``make_prefill``, its KV written into
-an ``init_cache`` of prompt + 6 slots, then 6 greedy ``make_serve_step``
-calls.  The JAX side runs ``repro.serving.serve_step``'s ``make_prefill``
-and ``make_serve_step`` on the same tokens and the same weights (the JAX
-init carried across with ``params_from_numpy``).  The prefill logits agree
-within 1e-4 (f32 on both sides, summed in other orders) and the greedy
-tokens are identical.
+one future on its own port ``Stream``: ``make_prefill``, then 6 greedy
+``make_serve_step`` calls from its cache (dense: the KV written into an
+``init_cache`` of prompt + 6 slots; mamba2: the prefill's recurrent
+cache).  The JAX side runs, on the same tokens and the same weights (the
+JAX init carried across with ``params_from_numpy``),
+``repro.serving.serve_step``'s ``make_prefill`` and ``make_serve_step``
+for the dense archs, and for mamba2 the package's own greedy oracle
+(``tests/test_paged_models.py``): ``paged_prefill``, then ``decode_step``
+from its state, since the reference ``make_prefill`` hands mamba2 a zero
+cache.  The prefill logits agree within 1e-4 (f32 on both sides, summed
+in other orders) and the greedy tokens are identical.
 """
 import importlib.util
 import os
@@ -47,12 +51,17 @@ def device():
 
 
 def _jax_serve(cfg, params, prompt):
-    """Prefill, cache of prompt + NEW slots, NEW greedy steps, in JAX."""
+    """Prefill, its decode cache, NEW greedy steps, in JAX."""
     B, S = prompt.shape
-    logits, kv = jax_make_prefill(cfg)(params, {"tokens": jnp.asarray(prompt)})
     m = jax_get_model(cfg)
-    cache = m.init_cache(cfg, B, S + NEW, dtype=jnp.float32)
-    cache = {n: cache[n].at[:, :, :S].set(kv[n]) for n in ("k", "v")}
+    if cfg.family == "ssm":  # the real prompt state, layer-major
+        _k, _v, state, last = m.paged_prefill(cfg, params, jnp.asarray(prompt))
+        logits = last[:, None]
+        cache = {n: jnp.moveaxis(state[n], 0, 1) for n in ("state", "conv")}
+    else:
+        logits, kv = jax_make_prefill(cfg)(params, {"tokens": jnp.asarray(prompt)})
+        cache = m.init_cache(cfg, B, S + NEW, dtype=jnp.float32)
+        cache = {n: cache[n].at[:, :, :S].set(kv[n]) for n in ("k", "v")}
     step = jax.jit(jax_make_serve_step(cfg))
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     toks = [tok]
@@ -62,7 +71,7 @@ def _jax_serve(cfg, params, prompt):
     return np.asarray(logits[:, -1]), np.concatenate([np.asarray(t) for t in toks], axis=1)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-67b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-67b", "mamba2-130m"])
 def test_torch_serve_flow_matches_reference(smoke, device, arch):
     jc = jcfg.smoke(jcfg.get_config(arch))
     tc = tcfg.smoke(tcfg.get_config(arch))
@@ -73,7 +82,7 @@ def test_torch_serve_flow_matches_reference(smoke, device, arch):
     streams = [device.create_stream() for _ in prompts]
     reset_launch_counts()
     got = smoke.serve_flow(device, tc, tparams, prompts, streams, NEW)
-    assert launch_counts()["flash_attention"] == 0  # CPU tensors: plain attention
+    assert launch_counts()["flash_attention"] == launch_counts()["ssd_scan"] == 0  # CPU: plain
     for g, prompt in zip(got, prompts):
         want_logits, want_tokens = _jax_serve(jc, jparams, prompt)
         assert g["on_stream"] and g["tokens"].shape == (BATCH, NEW + 1)
