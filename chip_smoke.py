@@ -29,11 +29,21 @@ with ``Dim3`` geometry, ``enqueue_read``):
         cache (the recurrent state and conv window).  Every layer's prefill
         scan runs the ssd_scan kernel (24 layers x 2 prefills = 48
         launches); the plain run scans with ``ssd_chunked``.
+  serve_paged  the serve phase's model, f32 weights and 8 requests through
+        one ``PagedServeEngine.from_config`` (pages of 16 tokens, a pool
+        that holds every request), 33 tokens each: both prefill groups, then
+        every resident request in the same exact-row decode steps, each
+        layer's attention through the paged_attention kernel (16 launches a
+        step).  Then again with ``impl="ref"`` (the gather path); the
+        tokens of both are held against the serve phase's plain run.
+  serve_paged_ssm  Mamba2-130M the same way (the recurrent state rides per
+        sequence; no paged_attention launch).
 
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
-0 just before each main-path run (the three fig phases; each serve run) and
-read just after; a kernel the run did not launch fails it.  Then each
+0 just before each main-path run (the three fig phases; each serve and
+paged serve run) and read just after; a kernel the run did not launch fails
+it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
 path's shapes and timed beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
@@ -65,6 +75,9 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: 
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as paged_kernel  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import bf16_bound as paged_bf16_bound  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.partition_map import kernel as map_kernel  # noqa: E402
 from repro_torch.kernels.partition_map.ref import partition_map_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
@@ -73,6 +86,7 @@ from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.serving import LanePolicy, PagedServeEngine  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
@@ -94,6 +108,7 @@ FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
 SERVE_ARCH = "olmo-1b"
 SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (1000, 2000), 32
 SSM_ARCH, SSM_PROMPTS = "mamba2-130m", (1000, 4000)
+PAGED_WARMUP = 16  # tokens of the paged engines' warm-up request
 # f32 kernel run against the plain run: both sum in f32, in other orders,
 # through 16 (OLMo-1B) or 24 (Mamba2-130M) layers; the last-position logits
 # of both moved by about 1e-5 on an H100.
@@ -110,6 +125,9 @@ FLASH_F32_TOL = 2e-4
 # ssd_scan against ssd_chunked and the sequential recurrence: the
 # reference's tolerance (tests/test_kernels.py); all sum in f32.
 SSD_TOL = 2e-3
+# paged_attention against its plain version in f32: the reference's
+# tolerance (tests/test_paged.py); both sum in f32, in other orders.
+PAGED_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -423,7 +441,114 @@ def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
     del params
     return {"arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
             "d_model": cfg.d_model, "new_tokens": SERVE_NEW, "groups": groups,
-            "launches": {"kernel": kernel, "f32": n_f32, "plain": n_plain, "bf16": n_bf16}}
+            "launches": {"kernel": kernel, "f32": n_f32, "plain": n_plain, "bf16": n_bf16},
+            # the plain f32 run, one row per request, for the paged phases
+            "_plain": {"tokens": np.concatenate([w["tokens"] for w in plain]),
+                       "gaps": np.concatenate([w["gaps"] for w in plain])}}
+
+
+def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_seq_len: int,
+                    new_tokens: int) -> dict:
+    """One ``PagedServeEngine.from_config`` engine: a warm-up request, then
+    every row of ``prompts`` submitted at once, ``new_tokens`` each (the
+    prefill's token and ``new_tokens - 1`` decode steps).  The launch
+    counters are set to 0 just before the measured requests and read just
+    after.  Returns the tokens (one row per request), the engine's metrics,
+    the launches and the wall time."""
+    B = prompts[0].shape[0]
+    policy = LanePolicy(max_batch=B, max_delay_s=0.004,  # the serve phase's groups
+                        token_budget=B * max(p.shape[1] for p in prompts))
+    eng = PagedServeEngine.from_config(cfg, params=params, devices=[dev], max_seq_len=max_seq_len,
+                                       pool_pages=pool_pages, impl=impl, prefill=policy,
+                                       name=f"smoke-{cfg.name}-{impl}")
+    try:
+        eng.submit(prompts[0][0, :PAGED_WARMUP], 2).get(timeout=600)  # cuBLAS, the stream's pool
+        eng.drain()
+        eng.reset_metrics()
+        dev.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [eng.submit(row, new_tokens) for p in prompts for row in p]
+        tokens = np.stack([f.get(timeout=900) for f in futs])
+        eng.drain()
+        dev.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        metrics = eng.metrics()
+    finally:
+        eng.close()
+    return {"tokens": tokens, "metrics": metrics, "launches": launches, "wall_s": wall}
+
+
+def paged_times(run: dict) -> dict:
+    m = run["metrics"]
+    return {"wall_s": run["wall_s"], "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+            "step_ms_p50": m["token_latency_p50_s"] * 1e3,
+            "step_ms_p99": m["token_latency_p99_s"] * 1e3,
+            "decode_tokens_per_s": m["decode_rows"] / max(m["decode_s"], 1e-9),
+            "decode_steps": m["decode_steps"], "prefill_batches": m["prefill_batches"]}
+
+
+def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
+    """Serve ``arch`` at full width and depth through ``PagedServeEngine``:
+    the serve phase's prompts and seeded f32 weights, ``SERVE_NEW + 1``
+    tokens each, every request resident at once (the pool holds them all),
+    all decoding in the same exact-row steps.  The kernel run (the main
+    path) and the plain run (``impl="ref"``: plain prefill attention or
+    scan, the gather path in decode) are held against the serve phase's
+    plain tokens ``plain`` and against each other, near-ties counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch)
+    m = get_model(cfg)
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)  # the serve phase's draws
+    params = m.init(cfg, generator=gen, device=dev.torch_device, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in prompt_lens]
+    spec = m.paged_spec(cfg)
+    # page 0, every request's pages at its longest, and the one page of
+    # headroom admission asks for: no request waits for pages
+    pool_pages = 2 + sum(SERVE_BATCH * spec.pages_for(s + SERVE_NEW) for s in prompt_lens)
+    max_seq_len = 1 << (max(prompt_lens) + SERVE_NEW).bit_length()
+    runs = {impl: paged_serve_run(dev, cfg, params, prompts, impl, pool_pages, max_seq_len,
+                                  SERVE_NEW + 1)
+            for impl in ("auto", "ref")}
+    del params
+    got, ref = runs["auto"], runs["ref"]
+    steps = got["metrics"]["decode_steps"]
+    prefill_kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
+    launches = {impl: {k: r["launches"][k] for k in ("paged_attention", prefill_kernel)}
+                for impl, r in runs.items()}
+    want_paged = cfg.num_layers * steps if cfg.family == "dense" else 0
+    require(launches["auto"]["paged_attention"] == want_paged,
+            f"{arch} paged: paged_attention launched {launches['auto']['paged_attention']} times, "
+            f"not {want_paged} ({cfg.num_layers} layers x {steps} decode steps)")
+    require(launches["auto"][prefill_kernel] == cfg.num_layers * got["metrics"]["prefill_batches"],
+            f"{arch} paged: {prefill_kernel} launched {launches['auto'][prefill_kernel]} times")
+    require(all(n == 0 for n in launches["ref"].values()),
+            f"{arch} paged: the plain run launched a kernel: {launches['ref']}")
+    n_req = SERVE_BATCH * len(prompt_lens)
+    out = {"arch": cfg.name, "prompts": list(prompt_lens), "requests": n_req,
+           "new_tokens": SERVE_NEW + 1, "pool_pages": pool_pages, "page_size": spec.page_size,
+           "max_seq_len": max_seq_len, "launches": launches}
+    for impl, r in runs.items():
+        toks, mt = r["tokens"], r["metrics"]
+        require(toks.shape == (n_req, SERVE_NEW + 1), f"{arch} paged {impl}: tokens {toks.shape}")
+        require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{arch} paged {impl}: token out of the vocabulary")
+        require(mt["requests_completed"] == n_req and mt["requests_failed"] == 0,
+                f"{arch} paged {impl}: {mt['requests_completed']} of {n_req} requests completed")
+        require(mt["kv"][dev.key]["used_pages"] == 0, f"{arch} paged {impl}: pages not returned")
+        differ, cuts = greedy_cuts(toks, plain["tokens"], plain["gaps"])
+        require(differ == 0, f"{arch} paged {impl}: {differ} request(s) decode other greedy tokens "
+                             "than the serve phase's plain run")
+        out[impl] = {**paged_times(r), "near_tie_cuts_vs_serve_plain": cuts}
+    differ, cuts = greedy_cuts(got["tokens"], ref["tokens"], plain["gaps"])
+    require(differ == 0, f"{arch} paged: {differ} request(s) decode other tokens than the plain "
+                         "paged run")
+    out["near_tie_cuts_kernel_vs_plain"] = cuts
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -617,6 +742,111 @@ def check_ssd(cfg, launches: int, device) -> dict:
                  library="none: no single PyTorch call computes the SSD scan")
 
 
+def paged_bytes(q: "torch.Tensor", k_pages: "torch.Tensor", page_table: "torch.Tensor",
+                lengths: "torch.Tensor") -> int:
+    """Bytes paged attention must move for these lengths: the K and V rows
+    of each valid token once per layer (whole pages past a row's length and
+    the masked tail of its last page are not read), q read and o written
+    once, and the table entries and lengths it reads.  q (B, H, D) or
+    (L, B, H, D); pages (N, P, K, D) or (L, N, P, K, D)."""
+    P, K, D = k_pages.shape[-3:]
+    layers = q.shape[0] if q.dim() == 4 else 1
+    n = lengths.long().clamp(0, page_table.shape[1] * P)
+    kv = 2 * layers * int(n.sum()) * K * D * k_pages.element_size()
+    table = 4 * int(((n + P - 1) // P).sum()) + 4 * lengths.numel()
+    return kv + 2 * q.numel() * q.element_size() + table
+
+
+def paged_flops(q: "torch.Tensor", lengths: "torch.Tensor", max_tokens: int) -> int:
+    """4 D flops per (query head, valid token): q.k and p.v, per layer."""
+    D = q.shape[-1]
+    rows = q.numel() // (D * lengths.numel())  # heads x layers
+    return 4 * D * rows * int(lengths.long().clamp(0, max_tokens).sum())
+
+
+def paged_inputs(B: int, H: int, K: int, D: int, P: int, M: int, lengths, device,
+                 dtype=torch.float32, layers: "int | None" = None, seed: int = 7):
+    """A pool like the reference test's, made on the card: pages in order
+    from 1 cover each row's length, and page 0, the unreferenced pages and
+    the tail of each last page hold +1e6 (k) / -1e6 (v), so a masking fault
+    is a blow-up.  ``layers`` folds L layers under one table."""
+    N = 1 + sum(-(-n // P) for n in lengths) + 2
+    tbl = np.zeros((B, M), np.int32)
+    valid = np.zeros((N, P), bool)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // P)):
+            tbl[b, j] = nxt
+            valid[nxt, :min(P, n - j * P)] = True
+            nxt += 1
+    lead = () if layers is None else (layers,)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *shape: torch.randn(*lead, *shape, generator=gen, device=device)  # noqa: E731
+    keep = torch.from_numpy(valid).to(device)[:, :, None, None]
+    kp = randn(N, P, K, D).masked_fill_(~keep, 1e6).to(dtype)
+    vp = randn(N, P, K, D).masked_fill_(~keep, -1e6).to(dtype)
+    q = randn(B, H, D).to(dtype)
+    return (q, kp, vp, torch.from_numpy(tbl).to(device),
+            torch.tensor(lengths, dtype=torch.int32).to(device))
+
+
+def check_paged(launches: int, device) -> dict:
+    """paged_attention at the serve decode shape (OLMo-1B: B 8, H = K = 16,
+    D 128, P 16, lengths 4 x 1000 and 4 x 2000, table width 128) in f32
+    against the plain gather version; a bf16 GQA check at StarCoder2-7B's
+    heads, per element within ``paged_attention.ref.bf16_bound``; the
+    16-layer fold against 16 single-layer launches, bit for bit.  The bound
+    counts ``paged_bytes``; the library time is SDPA over a cache gathered
+    beforehand (the gather excluded)."""
+    B, H, K, D, P, M = SERVE_BATCH * 2, 16, 16, 128, 16, 128
+    lengths = [1000] * SERVE_BATCH + [2000] * SERVE_BATCH
+    q, kp, vp, tbl, lens = paged_inputs(B, H, K, D, P, M, lengths, device)
+    run = lambda: paged_kernel.paged_attention(q, kp, vp, tbl, lens)  # noqa: E731
+    plain = lambda: paged_attention_ref(q, kp, vp, tbl, lens)  # noqa: E731
+    got, want = run(), plain()
+    err = float((got - want).abs().max())
+    require(bool(got.isfinite().all()), "paged_attention: non-finite output")
+    require(err <= PAGED_TOL, f"paged_attention differs from its plain version by {err}")
+
+    Lf = get_config(SERVE_ARCH).num_layers
+    fq, fk, fv, ftbl, flens = paged_inputs(B, H, K, D, P, M, lengths, device, layers=Lf)
+    folded = paged_kernel.paged_attention_layers(fq, fk, fv, ftbl, flens)
+    fold_equal = all(torch.equal(folded[i], paged_kernel.paged_attention(fq[i], fk[i], fv[i],
+                                                                         ftbl, flens))
+                     for i in range(Lf))
+    require(fold_equal, "paged_attention: the fold differs from per-layer launches")
+    fold_ms = cuda_ms(lambda: paged_kernel.paged_attention_layers(fq, fk, fv, ftbl, flens), 5)
+    fold_bound = bound(paged_bytes(fq, fk, ftbl, flens), paged_flops(fq, flens, M * P))
+    del fq, fk, fv, folded
+
+    GB, GH, GK = 4, 36, 4  # StarCoder2-7B's heads
+    glens = [1000, 2000, 1000, 2000]
+    gq, gk, gv, gtbl, glen = paged_inputs(GB, GH, GK, D, P, M, glens, device, torch.bfloat16)
+    gwant = paged_attention_ref(gq, gk, gv, gtbl, glen)
+    gdiff = (paged_kernel.paged_attention(gq, gk, gv, gtbl, glen).float() - gwant.float()).abs()
+    ratio = float((gdiff / paged_bf16_bound(gq, gk, gv, gtbl, glen, gwant)).max())
+    require(ratio <= 1, f"paged_attention bf16 GQA differs by {ratio} of its bf16 bound")
+
+    S = M * P
+    kc = kp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
+    vc = vp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
+    mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+    nbytes, flops = paged_bytes(q, kp, tbl, lens), paged_flops(q, lens, S)
+    return entry("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "src/repro/kernels/paged_attention/kernel.py:84", launches, err,
+                 cuda_ms(run, 20), cuda_ms(plain, 5), bound(nbytes, flops), cuda_ms(sdpa, 20),
+                 shape={"B": B, "H": H, "K": K, "D": D, "P": P, "M": M, "lengths": lengths},
+                 dtype="float32", bytes=nbytes, flops=flops, limit={"max_abs": PAGED_TOL},
+                 library="SDPA over the cache gathered beforehand (gather excluded)",
+                 fold={"layers": Lf, "bit_equal": fold_equal, "ms": fold_ms,
+                       "bound_ms": fold_bound[0], "bound_by": fold_bound[1]},
+                 gqa_bf16={"B": GB, "H": GH, "K": GK, "lengths": glens,
+                           "max_err_over_bound": ratio,
+                           "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's main path needs a card",
@@ -667,7 +897,14 @@ def main() -> int:
             print(f"{phase} S={g['prompt']}: near-tie cuts {g['near_tie_cuts']} of {g['batch']} "
                   f"requests; bf16 greedy tokens equal to f32: {g['bf16_tokens_equal_f32']} of "
                   f"{g['tokens']}", flush=True)
-        print(f"{phase}: " + json.dumps(serve), flush=True)
+        print(f"{phase}: " + json.dumps({k: v for k, v in serve.items() if k != "_plain"}),
+              flush=True)
+    for phase, base, arch, prompt_lens in (("serve_paged", "serve", SERVE_ARCH, SERVE_PROMPTS),
+                                           ("serve_paged_ssm", "serve_ssm", SSM_ARCH, SSM_PROMPTS)):
+        t0 = time.perf_counter()
+        paged = serves[phase] = phase_serve_paged(dev, arch, prompt_lens, serves[base].pop("_plain"))
+        paged["seconds"] = time.perf_counter() - t0
+        print(f"{phase}: " + json.dumps(paged), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
@@ -687,7 +924,9 @@ def main() -> int:
                 check_flash("flash_attention_bf16", serve_shape, torch.bfloat16, n_flash["bf16"],
                             dev.torch_device, gqa_check=gqa),
                 check_ssd(get_config(SSM_ARCH), serves["serve_ssm"]["launches"]["f32"],
-                          dev.torch_device)]
+                          dev.torch_device),
+                check_paged(serves["serve_paged"]["launches"]["auto"]["paged_attention"],
+                            dev.torch_device)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import importlib
 
-_PACKAGES = ("flash_attention", "mandelbrot", "partition_map", "ssd_scan", "stencil")
+_PACKAGES = ("flash_attention", "mandelbrot", "paged_attention", "partition_map", "ssd_scan",
+             "stencil")
 
 
 def all_kernels() -> "dict[str, callable]":

@@ -14,6 +14,10 @@ Conventions
   (``repro_torch.kernels.flash_attention``).  Every other case, and every
   CPU tensor, computes the plain math of the reference, chunked over query
   blocks of ``q_block`` (exact: each block sees all keys).
+* ``paged_decode_attend`` sends a CUDA tensor through the hand-written
+  paged-attention kernel (``repro_torch.kernels.paged_attention``); a CPU
+  tensor, or ``impl="ref"``, gathers the pages into a contiguous cache and
+  runs the plain ``attention``, as the reference always does.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -152,16 +157,21 @@ def apply_rope(x, cos, sin):
 def _block_attend(q, k, v, qpos, kpos, *, causal, valid_len=None):
     """q: (B, Sq, K, R, D); k/v: (B, Skv, K, D); qpos: (Sq,); kpos: (Skv,).
 
-    Returns (B, Sq, K, R, D).  Scores and softmax in f32; ``valid_len`` is a
-    scalar (one cache fill level for the whole batch)."""
+    Returns (B, Sq, K, R, D).  Scores and softmax in f32.  ``valid_len`` may
+    be a scalar (one cache fill level for the whole batch) or a (B,) tensor
+    (ragged paged decode: each row attends over its own prefix)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqkrd,bskd->bkrqs", q.float(), k.float()) * scale
     mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos[None, :] <= qpos[:, None]
-    if valid_len is not None:
-        mask &= kpos[None, :] < valid_len
-    s = s.masked_fill(~mask, NEG_INF)
+    if valid_len is not None and getattr(valid_len, "ndim", 0) == 1:
+        mask_b = mask[None] & (kpos[None, None, :] < valid_len[:, None, None])  # (B, Sq, Skv)
+        s = s.masked_fill(~mask_b[:, None, None], NEG_INF)
+    else:
+        if valid_len is not None:
+            mask &= kpos[None, :] < valid_len
+        s = s.masked_fill(~mask, NEG_INF)
     w = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkrqs,bskd->bqkrd", w, v)
 
@@ -174,14 +184,15 @@ def attention(
     causal: bool = True,
     q_offset: int = 0,
     q_block: "Optional[int]" = None,
-    valid_len: "Optional[int]" = None,
+    valid_len=None,
     impl: str = "auto",
 ):
     """GQA attention. q: (B, Sq, H, D); k/v: (B, Skv, K, D); H % K == 0.
 
     ``q_block``: the plain path takes queries in blocks of this size, so
     the peak score tensor is (B, H, q_block, Skv).  ``valid_len``: number
-    of valid cache slots (decode).  ``impl``: ``auto`` sends the prefill
+    of valid cache slots (decode), a scalar or a (B,) tensor of per-row
+    prefixes (paged decode).  ``impl``: ``auto`` sends the prefill
     case on a CUDA tensor through the flash kernel; ``ref`` keeps every
     case on the plain path.  Sliding windows and logit softcaps come with
     the archs that use them (ROADMAP.md Queue 1 item 7)."""
@@ -280,3 +291,54 @@ def decode_attend(cfg, q, ck, cv, pos: int):
     K, D); slots past ``pos`` are masked.  Plain math: the flash kernel's
     causal mask counts query positions from 0."""
     return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# paged KV helpers: the model side of the paging contract
+# ---------------------------------------------------------------------------
+
+def page_scatter(kp, vp, k_new, v_new, tables, positions):
+    """Scatter one decode-step token per row into a page slab, IN PLACE
+    (an index_put on the slab's device; the reference returns new slabs).
+
+    kp/vp: (N, P, K, D) slabs of ONE layer (views of a folded slab write
+    through); k_new/v_new: (B, 1, K, D); tables: (B, M) page tables;
+    positions: (B,), the token's slot, i.e. the row's current length
+    (token ``t`` lives at ``pages[table[b, t // P], t % P]``).  Returns
+    (kp, vp)."""
+    P = kp.shape[1]
+    pos = positions.long()
+    page = tables.gather(1, (pos // P)[:, None])[:, 0].long()
+    slot = pos % P
+    kp.index_put_((page, slot), k_new[:, 0].to(kp.dtype))
+    vp.index_put_((page, slot), v_new[:, 0].to(vp.dtype))
+    return kp, vp
+
+
+def page_gather(pages, tables):
+    """(N, P, K, D) slab + (B, M) table -> (B, M*P, K, D) contiguous cache,
+    slot ``t`` holding token ``t`` of the row (stale slots past the length
+    included: they are masked downstream)."""
+    _, P, K, D = pages.shape
+    B, M = tables.shape
+    return pages[tables.long()].reshape(B, M * P, K, D)
+
+
+def paged_decode_attend(q, kp, vp, tables, lengths, *, impl: str = "auto"):
+    """One-token GQA attention against paged KV.
+
+    q: (B, 1, H, D); kp/vp: (N, P, K, D); tables: (B, M) int32; lengths:
+    (B,) int32, the tokens already resident EXCLUDING the one scattered
+    this step, so rows attend over ``lengths + 1`` slots.  A CUDA tensor
+    goes through the paged-attention kernel (q cast to the slab's dtype and
+    back); a CPU tensor, or ``impl="ref"``, through ``page_gather`` and the
+    plain ``attention``, bit-equal to the padded ``decode_attend`` when the
+    oracle's cache is ``tables.shape[1] * P`` wide."""
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"impl={impl!r}: use auto or ref")
+    if impl == "auto" and q.is_cuda:
+        o = paged_attention(q[:, 0].to(kp.dtype), kp, vp, tables, lengths + 1)
+        return o[:, None].to(q.dtype)
+    kc = page_gather(kp, tables)
+    vc = page_gather(vp, tables)
+    return attention(q, kc, vc, causal=False, valid_len=lengths + 1, impl="ref")

@@ -3,9 +3,10 @@
 
 Params keep the JAX tree's names and shapes, layer params stacked with a
 leading L axis; ``forward``/``decode_step`` walk the layers in a Python
-loop where the reference scans.  The paged-serving contract
-(``paged_spec``/``paged_prefill``/``paged_decode_step``), ``loss_fn`` and
-the hybrid family come with later slices (ROADMAP.md Queue 1 item 7).
+loop where the reference scans.  The paged serving contract
+(``paged_spec``/``paged_prefill``/``paged_decode_step``) is the
+reference's; ``loss_fn`` and the hybrid family come with later slices
+(ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -106,3 +107,43 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         x = x + y
     x = L.apply_norm(cfg, x, params["final_norm"])
     return L.unembed(cfg, params["embed"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# paged serving contract
+# ---------------------------------------------------------------------------
+
+def paged_spec(cfg):
+    """Attention-free: a minimal 1x1 KV geometry keeps the engine's page
+    machinery uniform while the real memory, the recurrent state, rides as
+    per-sequence resident state whose bytes the sequence's AGAS record
+    carries."""
+    from repro_torch.serving.paged import PageSpec
+
+    return PageSpec(layers=1, page_size=0, kv_heads=1, head_dim=1, dtype=torch.float32)
+
+
+def paged_prefill(cfg, params, tokens, extras=None, *, impl: str = "auto"):
+    """tokens: (B, T) -> (k, v, state, last_logits).
+
+    k/v are zero dummies (nothing attends over them); ``state`` is the
+    batch-leading {'state': (B, L, H, N, P), 'conv': (B, L, d_conv - 1, C)}
+    cache the prompt leaves (the prefill's real cache), which the decode
+    step threads."""
+    logits, _, cache = forward(cfg, params, {"tokens": tokens}, return_kv=True, last_only=True,
+                               impl=impl)
+    B, T = tokens.shape
+    k = torch.zeros((B, 1, T, 1, 1), dtype=torch.float32, device=tokens.device)
+    state = {n: cache[n].movedim(0, 1) for n in ("state", "conv")}
+    return k, k, state, logits[:, -1]
+
+
+def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, tables, lengths,
+                      *, impl: str = "auto"):
+    """Pages pass through untouched; the recurrent state (stacked rows,
+    batch-leading) advances one token, in place.  Position-free math, so
+    ragged rows batch freely; ``impl`` is unused (decode is plain)."""
+    cache = {n: state[n].movedim(0, 1) for n in ("state", "conv")}
+    logits, cache = decode_step(cfg, params, cache, tokens.reshape(-1, 1), 0)
+    state = {n: cache[n].movedim(0, 1) for n in ("state", "conv")}
+    return k_pages, v_pages, state, logits[:, 0]

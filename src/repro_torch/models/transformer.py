@@ -2,8 +2,11 @@
 transformer.py`` on PyTorch).
 
 Params keep the JAX tree's names and shapes: layer params are stacked
-with a leading L axis, and ``forward``/``decode_step`` walk the layers in
-a Python loop where the reference scans.  MoE blocks, sliding windows,
+with a leading L axis, and ``forward``/``decode_step``/``paged_decode_step``
+walk the layers in a Python loop where the reference scans.  The paged
+serving contract (``paged_spec``/``paged_prefill``/``paged_decode_step``)
+is the reference's; its decode attends through the paged-attention kernel
+on a CUDA tensor.  MoE blocks, sliding windows,
 logit softcaps, the vision stub and M-RoPE are refused: they come with the
 rest of the model zoo (ROADMAP.md Queue 1 item 7).
 """
@@ -168,3 +171,60 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         x = x + L.mlp(cfg, lp["mlp"], h)
     x = L.apply_norm(cfg, x, params["final_norm"])
     return L.unembed(cfg, params["embed"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# paged serving contract
+# ---------------------------------------------------------------------------
+
+def paged_spec(cfg):
+    """Multi-layer KV folded into ONE page geometry: layer is the leading
+    slab dim, so a sequence's pages for every layer share one table.  The
+    slabs are f32, as the reference fixes them."""
+    from repro_torch.serving.paged import PageSpec
+
+    return PageSpec(layers=cfg.num_layers, page_size=0, kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.hd, dtype=torch.float32)
+
+
+def paged_prefill(cfg, params, tokens, extras=None, *, impl: str = "auto"):
+    """tokens: (B, T) int -> (k, v, state, last_logits).
+
+    k/v: (B, L, T, K, hd) views of ``forward(..., return_kv=True)``'s KV,
+    ready for ``PagedKVCache.append``; state: None (attention only);
+    last_logits: (B, V) f32 for the sampling stage."""
+    batch = {"tokens": tokens}
+    if extras:
+        batch.update(extras)
+    logits, _, kv = forward(cfg, params, batch, return_kv=True, last_only=True, impl=impl)
+    return kv["k"].movedim(0, 1), kv["v"].movedim(0, 1), None, logits[:, -1]
+
+
+def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, tables, lengths,
+                      *, impl: str = "auto"):
+    """One ragged decode step straight against the page pool.
+
+    k_pages/v_pages: (L, N, P, K, hd) slabs, updated IN PLACE; tokens: (B,)
+    last tokens; positions == lengths: (B,) int32, each row's write slot
+    and its tokens already resident; tables: (B, M) int32.  Returns
+    (k_pages, v_pages, state, logits (B, V)).  Per-row math is
+    ``decode_step``'s: the new token is scattered at ``positions`` and each
+    row attends over ``lengths + 1`` slots, through the paged-attention
+    kernel on a CUDA tensor (``impl="ref"``: the gather path)."""
+    _refuse_unported(cfg)
+    x = L.embed(cfg, params["embed"], tokens.reshape(-1, 1))
+    cos, sin = _rope(cfg, positions[:, None])
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = L.apply_norm(cfg, x, lp["ln1"])
+        q, k, v = L.qkv_proj(cfg, lp["attn"], h)
+        if cos is not None:
+            q = L.apply_rope(q, cos, sin)
+            k = L.apply_rope(k, cos, sin)
+        kp, vp = L.page_scatter(k_pages[i], v_pages[i], k, v, tables, positions)
+        o = L.paged_decode_attend(q, kp, vp, tables, lengths, impl=impl)
+        x = x + L.out_proj(cfg, lp["attn"], o)
+        h = L.apply_norm(cfg, x, lp["ln2"])
+        x = x + L.mlp(cfg, lp["mlp"], h)
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    return k_pages, v_pages, state, L.unembed(cfg, params["embed"], x)[:, 0]

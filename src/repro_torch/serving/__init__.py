@@ -1,1 +1,30 @@
-"""Serving on PyTorch: prefill and greedy decode steps."""
+"""Serving on PyTorch: prefill and greedy decode steps, and the paged-KV
+prefill/decode-disaggregated ``PagedServeEngine`` (one device)."""
+from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
+from repro_torch.serving.paged import (
+    OutOfPages,
+    PagedKVCache,
+    PagedServeEngine,
+    PagePool,
+    PageSpec,
+    SamplingParams,
+    SeqPages,
+    sample_token,
+)
+from repro_torch.serving.serve_step import make_prefill, make_serve_step
+
+__all__ = [
+    "QueueFull",
+    "EngineClosed",
+    "LanePolicy",
+    "PageSpec",
+    "PagePool",
+    "PagedKVCache",
+    "PagedServeEngine",
+    "SamplingParams",
+    "SeqPages",
+    "OutOfPages",
+    "sample_token",
+    "make_prefill",
+    "make_serve_step",
+]

@@ -1,0 +1,980 @@
+"""Paged KV cache + prefill/decode disaggregation on PyTorch, one device
+(``src/repro/serving/paged.py``).
+
+* ``PagePool`` — two slab ``Buffer``s (k and v) of shape ``(layers,
+  num_pages, page_size, kv_heads, head_dim)`` plus a free list.  Page 0 is
+  *reserved* as the padding target: page-table slots past a sequence's
+  tail hold it, and no live sequence ever owns it.  The slabs re-register
+  under AGAS kind ``"pool"`` at 0 bytes (capacity is not pressure); every
+  sequence is a ``SeqPages`` record of kind ``"buffer"`` whose ``nbytes``
+  are its pages plus its resident state.
+
+* ``PagedKVCache`` — the sequence lifecycle (``new_seq`` / ``append`` /
+  ``ensure_slot`` / ``note_decoded`` / ``free_seq``) and ``table`` (page
+  tables + lengths in the kernel's layout).  ``append`` writes a prompt's
+  KV from device tensors with one on-device index copy per slab (the
+  reference moves it to the host and back).
+
+* ``PagedServeEngine`` — a prefill lane (prompts batched by token budget,
+  first token sampled on the host) and a decode lane that steps every
+  resident sequence in ONE exact-row step at mixed lengths: the page
+  table, not the batch shape, encodes length.  Logits come back to the
+  host for ``sample_token``; each sequence's resident state (SSM state,
+  conv window) stays a device tensor.  Both lanes launch on one CUDA stream
+  of the engine, so a decode step is ordered after the page write of every
+  sequence it steps.  ``from_config(cfg)`` wires any ported family through
+  ``repro_torch.models.model.paged_surface``.
+
+Sampling is host-side and bit-reproducible: token ``position`` of request
+``request_id`` draws from ``np.random.default_rng([seed, request_id,
+position])`` (greedy argmax when ``temperature <= 0``).
+
+Not ported yet, and refused where asked for: placement by a scheduler, a
+cache over several devices, ``spill``/``ensure_resident``, ``defrag``,
+``migrate``, rebalancing and the cross-locality ``export_seq``/
+``import_seq``/``paged_worker_*`` (ROADMAP.md Queue 1 items 6 and 10);
+the ``"legacy"`` two-callable contract (with the fig9 port, Queue 1 item
+4).  Eager PyTorch compiles nothing per row count, so decode steps exact
+rows and ``padded_rows`` stays 0; warm-shape padding comes back with graph
+capture (Queue 1 item 5).
+
+Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
+default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes, default 32 MiB),
+``REPRO_PREFILL_TOKEN_BUDGET`` (prefill lane batch bound, default 2048),
+``REPRO_DECODE_DEADLINE_S`` (decode lane arrival wait, default 1 ms).
+"""
+from __future__ import annotations
+
+import concurrent.futures as _cf
+import contextlib
+import os
+import threading
+import time
+import weakref
+from dataclasses import dataclass
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import agas
+from repro_torch.core.buffer import torch_dtype
+from repro_torch.core.futures import Future, Promise
+from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
+
+__all__ = [
+    "PageSpec",
+    "PagePool",
+    "PagedKVCache",
+    "PagedServeEngine",
+    "SamplingParams",
+    "SeqPages",
+    "OutOfPages",
+    "sample_token",
+]
+
+_SCHEDULER = "ROADMAP.md Queue 1 item 6"
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _now() -> float:
+    return time.monotonic()
+
+
+def _leaves(tree) -> "list":
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _to_device(arr: np.ndarray, device: "torch.device") -> "torch.Tensor":
+    """One host array on ``device``: from pinned memory, asynchronously on
+    the current stream, for a CUDA device (never a pageable copy)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class OutOfPages(RuntimeError):
+    """The pool has fewer free pages than the allocation needs."""
+
+
+@dataclass(frozen=True)
+class PageSpec:
+    """Geometry of one KV page: ``page_size`` tokens × ``kv_heads`` ×
+    ``head_dim`` per layer, k and v both.  Pass ``page_size=0`` to take
+    ``REPRO_PAGE_SIZE`` (default 16).  ``dtype`` is a torch dtype (a numpy
+    dtype is converted)."""
+
+    layers: int
+    page_size: int
+    kv_heads: int
+    head_dim: int
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if not self.page_size:
+            object.__setattr__(self, "page_size", _env_int("REPRO_PAGE_SIZE", 16))
+        object.__setattr__(self, "dtype", torch_dtype(self.dtype))
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one page pins across both slabs (k + v, all layers)."""
+        return (2 * self.layers * self.page_size * self.kv_heads * self.head_dim
+                * self.dtype.itemsize)
+
+    def pages_for(self, tokens: int) -> int:
+        return max(0, -(-int(tokens) // self.page_size))
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling knobs.
+
+    ``temperature <= 0`` means greedy argmax (the default, and the
+    parity-oracle mode).  ``top_k``/``top_p`` filter the distribution
+    after temperature scaling: keep the ``top_k`` highest-probability
+    tokens (0 = unlimited), then the smallest prefix of the descending
+    distribution whose cumulative probability reaches ``top_p``.
+    ``seed`` keys the per-request PRNG stream."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+
+
+def sample_token(logits, params: "SamplingParams | None",
+                 request_id: int, position: int) -> int:
+    """Sample ONE token from a ``(V,)`` logits row, bit-reproducibly.
+
+    The PRNG is seeded ``[seed, request_id, position]`` — a pure
+    function of the request's identity and the token's position, so the
+    same request emits the same tokens whether it shared its decode
+    batch with 0 or 63 neighbours and whether the fleet had 1 or 8
+    devices.  Math is float64 on host: no accelerator, dtype or fusion
+    variance can leak into the draw."""
+    logits = np.asarray(logits, np.float64).reshape(-1)
+    if params is None or params.temperature <= 0.0:
+        return int(np.argmax(logits))
+    x = logits / float(params.temperature)
+    order = np.argsort(-x, kind="stable")  # stable: ties break by token id
+    xs = x[order]
+    keep = xs.size
+    if params.top_k and params.top_k > 0:
+        keep = min(keep, int(params.top_k))
+    xs = xs[:keep]
+    probs = np.exp(xs - xs.max())
+    probs /= probs.sum()
+    if params.top_p < 1.0:
+        cum = np.cumsum(probs)
+        # smallest prefix reaching top_p (always >= 1 token)
+        cut = int(np.searchsorted(cum, params.top_p, side="left")) + 1
+        probs = probs[:cut]
+        probs /= probs.sum()
+    rng = np.random.default_rng(
+        [int(params.seed), int(request_id), int(position)])
+    u = rng.random()
+    idx = int(np.searchsorted(np.cumsum(probs), u, side="right"))
+    idx = min(idx, probs.size - 1)
+    return int(order[idx])
+
+
+# Consecutive empty decode steps (nothing fits in the pool) tolerated
+# before the lane declares the working set unservable and fails the
+# stalled batch.  At the 2ms stall backoff this is ~1s of zero progress.
+_MAX_DECODE_STALLS = 500
+
+
+class PagePool:
+    """One device's page pool: two slab Buffers + a free list.
+
+    The free list and the slab bookkeeping change under ``lock``.  The
+    slabs themselves are written in place on the device (the prefill lane's
+    ``write_tokens``, the decode step's scatter), always to pages that one
+    sequence owns."""
+
+    def __init__(self, device, spec: PageSpec, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("PagePool needs >= 2 pages (page 0 is reserved)")
+        self.device = device
+        self.spec = spec
+        self.num_pages = int(num_pages)
+        shape = (spec.layers, self.num_pages, spec.page_size, spec.kv_heads, spec.head_dim)
+        self.k_slab = device.create_buffer(shape, spec.dtype).get()
+        self.v_slab = device.create_buffer(shape, spec.dtype).get()
+        for b in (self.k_slab, self.v_slab):
+            self._repin(b)
+        self.lock = threading.RLock()
+        self._free: "list[int]" = list(range(self.num_pages - 1, 0, -1))
+
+    @staticmethod
+    def _repin(buf) -> None:
+        """Move a slab's AGAS record to kind ``"pool"`` at 0 bytes: usage
+        is accounted per sequence (``SeqPages``), capacity is not
+        pressure."""
+        agas.registry.unregister(buf.gid)
+        if buf._finalizer is not None:
+            buf._finalizer.detach()
+        buf.gid = agas.registry.register(buf, agas.Placement(buf.device.key, 0), kind="pool",
+                                         nbytes=0)
+        buf._finalizer = weakref.finalize(buf, agas.registry.unregister, buf.gid)
+
+    # -- allocation ----------------------------------------------------------
+
+    def alloc(self, n: int) -> "list[int]":
+        with self.lock:
+            if n > len(self._free):
+                raise OutOfPages(
+                    f"{self.device.key}: need {n} page(s), {len(self._free)} free "
+                    f"of {self.num_pages - 1}"
+                )
+            return [self._free.pop() for _ in range(n)]
+
+    def free(self, pages: "Sequence[int]") -> None:
+        with self.lock:
+            for p in pages:
+                if not 0 < p < self.num_pages:
+                    raise ValueError(f"page {p} is not an allocatable page of this pool")
+                if p in self._free:
+                    raise ValueError(f"double free of page {p} on {self.device.key}")
+                self._free.append(p)
+
+    @property
+    def num_free(self) -> int:
+        with self.lock:
+            return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - self.num_free
+
+    # -- slab views ----------------------------------------------------------
+
+    def arrays(self) -> "tuple[torch.Tensor, torch.Tensor]":
+        """The (k, v) slabs, ordered after their last writer on the current
+        stream."""
+        with self.lock:
+            return self.k_slab.array(), self.v_slab.array()
+
+    def mark_written(self) -> None:
+        """Note an in-place write of both slabs on the current stream."""
+        with self.lock:
+            self.k_slab._mark_written()
+            self.v_slab._mark_written()
+
+    def write_tokens(self, pages: "Sequence[int]", k, v) -> None:
+        """Write T tokens of k/v ``(L, T, Kh, D)`` into ``pages`` (token t
+        at slot t % P of page ``pages[t // P]``) with one index copy per
+        slab on the slab's device, and zero the last page past token T."""
+        ks, vs = self.arrays()
+        L, N, P, Kh, D = ks.shape
+        T = k.shape[1]
+        pages = np.asarray(pages, np.int64)
+        t = np.arange(T)
+        tail = np.arange(T, len(pages) * P)
+        idx = _to_device(np.concatenate([pages[t // P] * P + t % P, pages[tail // P] * P + tail % P]),
+                         ks.device)
+        for slab, x in ((ks, k), (vs, v)):
+            flat = slab.view(L, N * P, Kh, D)
+            flat.index_copy_(1, idx[:T], x.to(device=slab.device, dtype=slab.dtype))
+            if len(tail):
+                flat.index_fill_(1, idx[T:], 0)
+        self.mark_written()
+
+    def __repr__(self) -> str:
+        return (f"PagePool({self.device.key}: {self.used_pages}/"
+                f"{self.num_pages - 1} pages used)")
+
+
+class SeqPages:
+    """One sequence's pages: the AGAS-visible unit of KV residency.
+
+    Registered kind ``"buffer"`` with ``nbytes`` = pages × page bytes plus
+    the resident state's bytes (re-declared on every change), exposing
+    ``gid``/``device``/``nbytes`` as the reference's does."""
+
+    def __init__(self, pool: PagePool, seq_id: int):
+        self.pool = pool
+        self.seq_id = seq_id
+        self.pages: "list[int]" = []
+        self.length = 0
+        # Resident state: a nested dict of device tensors (SSM state, conv
+        # window) whose bytes fold into ``nbytes``.
+        self.state: Any = None
+        self._state_bytes = 0
+        self._lock = threading.RLock()
+        self.gid = agas.registry.register(self, agas.Placement(pool.device.key, 0),
+                                          kind="buffer", nbytes=0)
+        self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
+
+    @property
+    def device(self):
+        return self.pool.device
+
+    @property
+    def nbytes(self) -> int:
+        """Device-resident bytes: pages plus the resident state."""
+        return len(self.pages) * self.pool.spec.page_bytes + self._state_bytes
+
+    def set_state(self, state) -> None:
+        """Attach/replace the sequence's resident state and re-declare its
+        bytes through AGAS."""
+        with self._lock:
+            self.state = state
+            self._state_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+            self._account()
+
+    def _account(self) -> None:
+        try:
+            agas.registry.update_nbytes(self.gid, self.nbytes)
+        except KeyError:  # freed under a racing finalizer
+            pass
+
+    def __repr__(self) -> str:
+        return (f"SeqPages(#{self.seq_id}: {self.length} tok / "
+                f"{len(self.pages)} pages @ {self.pool.device.key})")
+
+
+class PagedKVCache:
+    """Paged KV allocator: one ``PagePool`` per device (the engine takes
+    one) plus the sequence lifecycle.  ``devices=None`` takes the first
+    CUDA device."""
+
+    def __init__(self, spec: PageSpec, devices: "Sequence | None" = None,
+                 pool_pages: "int | None" = None,
+                 pool_bytes: "int | None" = None):
+        if devices is None:
+            from repro_torch.core.device import get_all_devices
+
+            devices = get_all_devices().get()[:1]
+            if not devices:
+                raise RuntimeError("PagedKVCache: no CUDA device; pass devices=[...] "
+                                   "(a CPU device: get_all_devices(platform='cpu'))")
+        if pool_pages is None:
+            if pool_bytes is None:
+                pool_bytes = _env_int("REPRO_PAGE_POOL_BYTES", 32 << 20)
+            pool_pages = max(2, pool_bytes // spec.page_bytes)
+        self.spec = spec
+        self.pools: "dict[str, PagePool]" = {
+            d.key: PagePool(d, spec, pool_pages) for d in devices
+        }
+        self._seq_lock = threading.Lock()
+        self._next_seq = 0
+        self._seqs: "dict[int, SeqPages]" = {}
+
+    def pool_of(self, device) -> PagePool:
+        try:
+            return self.pools[device.key]
+        except KeyError:
+            raise KeyError(f"no page pool on {device.key}") from None
+
+    # -- sequence lifecycle --------------------------------------------------
+
+    def new_seq(self, device) -> SeqPages:
+        pool = self.pool_of(device)
+        with self._seq_lock:
+            sid = self._next_seq
+            self._next_seq += 1
+            seq = self._seqs[sid] = SeqPages(pool, sid)
+        return seq
+
+    def append(self, seq: SeqPages, k, v) -> None:
+        """Page ``T`` new tokens in: k/v are ``(L, T, Kh, D)`` tensors
+        (ideally already on the pool's device: one index copy per slab).
+        A partial tail page is zero-padded (masked by ``length`` at
+        attention time)."""
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        with seq._lock:
+            if seq.length % self.spec.page_size:
+                raise ValueError(
+                    "append must start on a page boundary (decode steps append "
+                    "token-at-a-time inside decode_fn, not through append)"
+                )
+            pages = seq.pool.alloc(self.spec.pages_for(k.shape[1]))
+            seq.pool.write_tokens(pages, k, v)
+            seq.pages.extend(pages)
+            seq.length += k.shape[1]
+            seq._account()
+
+    def ensure_slot(self, seq: SeqPages) -> None:
+        """Grow the sequence by one page when the next decoded token has
+        no slot (length sits on a page boundary)."""
+        with seq._lock:
+            if len(seq.pages) * self.spec.page_size < seq.length + 1:
+                seq.pages.extend(seq.pool.alloc(1))
+                seq._account()
+
+    def note_decoded(self, seq: SeqPages) -> None:
+        """One token was scattered into the sequence's tail slot by
+        ``decode_fn``; the bookkeeping catches up here."""
+        with seq._lock:
+            seq.length += 1
+
+    def free_seq(self, seq: SeqPages) -> None:
+        with seq._lock:
+            if seq.pages:
+                seq.pool.free(seq.pages)
+            seq.pages = []
+            seq.state = None
+            seq._state_bytes = 0
+            seq.length = 0
+            if seq._finalizer is not None:
+                seq._finalizer.detach()
+                seq._finalizer = None
+            agas.registry.unregister(seq.gid)
+        with self._seq_lock:
+            self._seqs.pop(seq.seq_id, None)
+
+    # -- layout for the kernel -----------------------------------------------
+
+    def table(self, seqs: "Sequence[SeqPages]", max_pages: int):
+        """(page_table (B, max_pages) int32, lengths (B,) int32) numpy
+        arrays in the ``paged_attention`` layout: padding slots hold the
+        reserved page 0."""
+        B = len(seqs)
+        tbl = np.zeros((B, max_pages), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, s in enumerate(seqs):
+            n = len(s.pages)
+            if n > max_pages:
+                raise ValueError(
+                    f"sequence #{s.seq_id} has {n} pages, table width is {max_pages}"
+                )
+            tbl[i, :n] = s.pages
+            lens[i] = s.length
+        return tbl, lens
+
+    def stats(self) -> dict:
+        out = {}
+        for key, pool in self.pools.items():
+            out[key] = {
+                "used_pages": pool.used_pages,
+                "free_pages": pool.num_free,
+                "resident_bytes": agas.registry.resident_bytes(key),
+            }
+        return out
+
+
+class _PagedRequest:
+    __slots__ = ("tokens", "max_new", "promise", "arrived", "seq", "out",
+                 "first_token_s", "handed_off", "rid", "sampling")
+
+    def __init__(self, tokens, max_new, promise, arrived, rid=0, sampling=None):
+        self.tokens = tokens
+        self.max_new = max_new
+        self.promise = promise
+        self.arrived = arrived
+        # ``rid`` keys the sampling PRNG stream, ``sampling`` is a
+        # SamplingParams (None = greedy).
+        self.rid = rid
+        self.sampling = sampling
+        self.seq: "SeqPages | None" = None
+        self.out: "list[int]" = []
+        self.first_token_s: "float | None" = None
+        # True once prefill is done with the request — settled or admitted
+        # to the decode lane: a prefill-batch failure fails only the
+        # requests prefill still owns.
+        self.handed_off = False
+
+
+class PagedServeEngine:
+    """Prefill/decode-disaggregated serving over a one-device
+    ``PagedKVCache``.
+
+    ``submit(prompt, max_new_tokens)`` returns a future of the generated
+    token ids (np.int32).  The prefill lane batches equal-length prompts
+    by token budget and pages their KV in; the decode lane steps every
+    resident sequence in exact-row batches.  Model contract (``"zoo"``):
+
+    ``prefill_fn(tokens, extras)``
+        ``(B, T)`` int32 device tensor, ``extras`` None ``-> (k, v, state,
+        last_logits)``
+        with k/v ``(B, L, T', K, D)``, ``state`` a batch-leading nested
+        dict of per-sequence residue or None, ``last_logits`` ``(B, V)``.
+    ``decode_fn(k_pages, v_pages, state, tokens, positions, tables, lengths)``
+        ``-> (k_pages, v_pages, state, logits)``: one ragged step over the
+        pool's slabs (updated in place) and the batch's stacked state.
+    """
+
+    def __init__(self, kv: PagedKVCache, prefill_fn: Callable, decode_fn: Callable,
+                 *, max_seq_len: int, scheduler=None,
+                 prefill: "LanePolicy | None" = None,
+                 decode: "LanePolicy | None" = None,
+                 max_queue: int = 512, contract: str = "zoo",
+                 name: str = "paged"):
+        if contract == "legacy":
+            raise NotImplementedError(
+                "the legacy two-callable contract comes with the fig9 port "
+                "(ROADMAP.md Queue 1 item 4); use contract='zoo'")
+        if contract != "zoo":
+            raise ValueError(f"contract must be 'zoo' (or the unported 'legacy'), got {contract!r}")
+        if scheduler is not None:
+            raise NotImplementedError(f"placement by a scheduler is not ported yet ({_SCHEDULER})")
+        if len(kv.pools) != 1:
+            raise NotImplementedError(
+                f"a cache over {len(kv.pools)} devices needs the scheduler's placement, spill "
+                f"and rebalancing, not ported yet ({_SCHEDULER}); give PagedKVCache one device")
+        self.kv = kv
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.contract = contract
+        self.name = name
+        self.pool = next(iter(kv.pools.values()))
+        self.device = self.pool.device
+        # One CUDA stream for both lanes: a decode step is ordered after
+        # the page writes of every sequence it steps, and after the frees
+        # that handed a page to a new owner.
+        self._stream = torch.cuda.Stream(self.device.torch_device) if self.device.is_cuda else None
+        self._next_rid = 0
+        self.max_seq_len = int(max_seq_len)
+        self.max_pages = kv.spec.pages_for(self.max_seq_len)
+        self.max_queue = int(max_queue)
+        self.prefill_policy = prefill if prefill is not None else LanePolicy(
+            max_batch=8, max_delay_s=0.004,
+            token_budget=_env_int("REPRO_PREFILL_TOKEN_BUDGET", 2048))
+        self.decode_policy = decode if decode is not None else LanePolicy(
+            max_batch=64,
+            max_delay_s=float(os.environ.get("REPRO_DECODE_DEADLINE_S", 0.001)))
+
+        self._cv = threading.Condition()
+        self._queue: "list[_PagedRequest]" = []
+        # Requests popped from the queue but not yet admitted/settled, so
+        # drain() does not see an idle engine while a prefill is in flight.
+        self._inflight = 0
+        self._closed = False
+
+        # Metrics.
+        self._m_lock = threading.Lock()
+        self._started_at = _now()
+        self._submitted = 0
+        self._completed = 0
+        self._failed = 0
+        self._prefill_batches = 0
+        self._prefill_tokens = 0
+        self._prefill_rows = 0
+        self._decode_steps = 0
+        self._decode_rows = 0
+        self._decode_s = 0.0
+        self._token_lat: "list[float]" = []
+        self._seq_lat: "list[float]" = []
+        self._ttft: "list[float]" = []
+
+        self._lane = _DecodeLane(self)
+        self._prefill_thread = threading.Thread(
+            target=self._prefill_loop, name=f"paged:{name}:prefill", daemon=True)
+        self._prefill_thread.start()
+
+    # -- construction from the model zoo -------------------------------------
+
+    @classmethod
+    def from_config(cls, cfg, *, devices=None, params=None, seed: int = 0,
+                    max_seq_len: "int | None" = None,
+                    pool_pages: "int | None" = None,
+                    pool_bytes: "int | None" = None, impl: str = "auto",
+                    **kw) -> "PagedServeEngine":
+        """Wire a ported family (``repro_torch.configs``) into a paged
+        engine: one ``PageSpec`` from ``paged_spec``, the prefill and the
+        decode step from ``paged_prefill``/``paged_decode_step`` with the
+        params closed over.  ``params`` defaults to ``init`` drawn from a
+        generator seeded with ``seed`` on the pool's device.  ``impl``
+        goes to both: ``"ref"`` keeps attention (or the scan) on the plain
+        path, prefill and decode."""
+        from repro_torch.models.model import get_model, paged_surface
+
+        spec_fn, prefill_fn, decode_fn = paged_surface(cfg)
+        spec = spec_fn(cfg)
+        kv = PagedKVCache(spec, devices=devices, pool_pages=pool_pages, pool_bytes=pool_bytes)
+        if params is None:
+            dev = next(iter(kv.pools.values())).device.torch_device
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            params = get_model(cfg).init(cfg, generator=gen, device=dev)
+        if max_seq_len is None:
+            max_seq_len = 16 * spec.page_size
+
+        def pre(tokens, extras):
+            return prefill_fn(cfg, params, tokens, extras, impl=impl)
+
+        def dec(ks, vs, state, tokens, positions, tables, lengths):
+            return decode_fn(cfg, params, ks, vs, state, tokens, positions, tables, lengths,
+                             impl=impl)
+
+        kw.setdefault("name", f"paged-{cfg.name}")
+        return cls(kv, pre, dec, max_seq_len=int(max_seq_len), contract="zoo", **kw)
+
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int, *,
+               sampling: "SamplingParams | None" = None,
+               request_id: "int | None" = None) -> Future:
+        """Queue one request.  ``sampling`` selects the host-side sampler
+        (None = greedy); ``request_id`` keys the sampling PRNG stream
+        (default: submission order).  Modality inputs (the reference's
+        ``extras``) come with the families that take them (ROADMAP.md Queue
+        1 item 7)."""
+        tokens = np.asarray(prompt, np.int32).reshape(-1)
+        if tokens.size == 0:
+            raise ValueError("empty prompt")
+        total = tokens.size + int(max_new_tokens)
+        if total > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({tokens.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_seq_len ({self.max_seq_len})")
+        promise: Promise = Promise(name=f"{self.name}:seq")
+        with self._m_lock:
+            rid = self._next_rid if request_id is None else int(request_id)
+            self._next_rid += 1
+        req = _PagedRequest(tokens, int(max_new_tokens), promise, _now(),
+                            rid=rid, sampling=sampling)
+        with self._cv:
+            if self._closed:
+                raise EngineClosed(f"engine {self.name!r} is closed")
+            if len(self._queue) >= self.max_queue:
+                raise QueueFull(
+                    f"engine {self.name!r} admission queue is full "
+                    f"({self.max_queue}) — backpressure: shed or retry")
+            self._queue.append(req)
+            self._cv.notify_all()
+        with self._m_lock:
+            self._submitted += 1
+        return promise.get_future()
+
+    def reset_metrics(self) -> None:
+        """Zero the counters and latency lists (resident pages are
+        untouched), e.g. after a warm-up pass."""
+        with self._m_lock:
+            self._started_at = _now()
+            self._submitted = self._completed = self._failed = 0
+            self._prefill_batches = self._prefill_tokens = self._prefill_rows = 0
+            self._decode_steps = self._decode_rows = 0
+            self._decode_s = 0.0
+            self._token_lat.clear()
+            self._seq_lat.clear()
+            self._ttft.clear()
+
+    def __enter__(self) -> "PagedServeEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._prefill_thread.join(timeout=60)
+        self._lane.close()
+
+    def drain(self) -> None:
+        """Block until every submitted sequence has finished: nothing
+        queued, nothing mid-prefill, nothing active on the decode lane."""
+        while True:
+            with self._cv:
+                queued = len(self._queue) + self._inflight
+            if not queued and not self._lane.active_count():
+                return
+            time.sleep(0.002)
+
+    # -- prefill lane (throughput: token-budget batching) --------------------
+
+    def _prefill_loop(self) -> None:
+        pol = self.prefill_policy
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if not self._queue:
+                    return
+                head = self._queue[0]
+                # `x if x is not None else d`, never `x or d`: an explicit
+                # 0.0 deadline / 0 budget is a real policy (dispatch now).
+                delay = pol.max_delay_s if pol.max_delay_s is not None else 0.004
+                deadline = head.arrived + delay
+                T = head.tokens.size
+                budget = pol.token_budget if pol.token_budget is not None else 1 << 30
+                budget_rows = max(1, budget // max(T, 1))
+                cap = min(pol.max_batch if pol.max_batch is not None else 8, budget_rows)
+                while (not self._closed and _now() < deadline
+                       and sum(1 for r in self._queue if r.tokens.size == T) < cap):
+                    self._cv.wait(timeout=max(deadline - _now(), 0.0005))
+                group, kept = [], []
+                for r in self._queue:
+                    if r.tokens.size == T and len(group) < cap:
+                        group.append(r)
+                    else:
+                        kept.append(r)
+                self._queue[:] = kept
+                self._inflight += len(group)
+            if group:
+                try:
+                    self._run_prefill(group)
+                except Exception as e:  # noqa: BLE001 - the lane must not die; the futures get it
+                    for r in group:
+                        if r.handed_off:
+                            continue
+                        self._finish(r, e)
+                        self._prefill_done(r)
+
+    def _run_prefill(self, group: "list[_PagedRequest]") -> None:
+        dev = self.device.torch_device
+        with self._on_stream():
+            tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
+            k, v, state, logits = self.prefill_fn(tokens, None)
+            logits = logits.float().cpu().numpy()
+            # First token samples host-side at position 0 of each
+            # request's own PRNG stream — batch composition cannot leak.
+            nxt = [sample_token(logits[i], r.sampling, r.rid, 0) for i, r in enumerate(group)]
+            done = _now()
+            with self._m_lock:
+                self._prefill_batches += 1
+                self._prefill_tokens += tokens.numel()
+                self._prefill_rows += len(group)
+            need = self.kv.spec.pages_for(k.shape[2]) + 1
+            for i, req in enumerate(group):
+                if self.pool.num_free < need:
+                    raise OutOfPages(f"{self.device.key}: a prompt of {k.shape[2]} tokens needs "
+                                     f"{need} free page(s), {self.pool.num_free} free; spilling "
+                                     f"sequences is not ported yet ({_SCHEDULER})")
+                req.seq = self.kv.new_seq(self.device)
+                # k[i]: (L, T', Kh, D) — the whole prompt pages in as one write.
+                self.kv.append(req.seq, k[i], v[i])
+                if state is not None:
+                    req.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
+                req.out.append(nxt[i])
+                req.first_token_s = done - req.arrived
+                if req.max_new <= 1:
+                    self._finish(req)
+                else:
+                    self._lane.admit(req)
+                self._prefill_done(req)
+
+    def _prefill_done(self, req: "_PagedRequest") -> None:
+        """Prefill is done with this request (admitted or settled): mark it
+        so a later batch failure cannot settle it twice, and release its
+        in-flight slot for ``drain``."""
+        req.handed_off = True
+        with self._cv:
+            self._inflight -= 1
+
+    # -- completion ----------------------------------------------------------
+
+    def _finish(self, req: "_PagedRequest", exc: "BaseException | None" = None) -> None:
+        if req.seq is not None:
+            self.kv.free_seq(req.seq)
+            req.seq = None
+        # An already-settled promise is absorbed, not raised: a lane thread
+        # dying here would hang every other active sequence's future.
+        if exc is not None:
+            try:
+                req.promise.set_exception(exc)
+            except _cf.InvalidStateError:
+                return
+            with self._m_lock:
+                self._failed += 1
+            return
+        try:
+            req.promise.set_value(np.asarray(req.out, np.int32))
+        except _cf.InvalidStateError:
+            return
+        with self._m_lock:
+            self._completed += 1
+            self._seq_lat.append(_now() - req.arrived)
+            if req.first_token_s is not None:
+                self._ttft.append(req.first_token_s)
+
+    # -- metrics -------------------------------------------------------------
+
+    @staticmethod
+    def _pct(xs: "list[float]", q: float) -> float:
+        if not xs:
+            return 0.0
+        xs = sorted(xs)
+        return xs[int(q * (len(xs) - 1))]
+
+    def metrics(self) -> dict:
+        with self._m_lock:
+            rows = self._prefill_rows + self._decode_rows
+            m = {
+                "requests_submitted": self._submitted,
+                "requests_completed": self._completed,
+                "requests_failed": self._failed,
+                "prefill_batches": self._prefill_batches,
+                "prefill_tokens": self._prefill_tokens,
+                "decode_steps": self._decode_steps,
+                "decode_rows": self._decode_rows,
+                "decode_s": self._decode_s,
+                "rows": rows,
+                "padded_rows": 0,  # exact-row decode (see the module docstring)
+                "padding_waste": 0.0,
+                "token_latency_p50_s": self._pct(self._token_lat, 0.50),
+                "token_latency_p99_s": self._pct(self._token_lat, 0.99),
+                "ttft_p50_s": self._pct(self._ttft, 0.50),
+                "ttft_p99_s": self._pct(self._ttft, 0.99),
+                "seq_latency_p99_s": self._pct(self._seq_lat, 0.99),
+            }
+        elapsed = max(_now() - self._started_at, 1e-9)
+        m["elapsed_s"] = elapsed
+        m["seqs_per_s"] = m["requests_completed"] / elapsed
+        m["kv"] = self.kv.stats()
+        m["active"] = self._lane.active_count()
+        return m
+
+    def __repr__(self) -> str:
+        return (f"PagedServeEngine({self.name}: {self._completed}/"
+                f"{self._submitted} sequences)")
+
+
+class _DecodeLane:
+    """The decode lane: continuous exact-row batched stepping.
+
+    The lane thread owns the resident sequences.  Each iteration: fold in
+    arrivals (deadline-bounded wait only when idle), take up to
+    ``max_batch`` sequences, grow tails by a page where needed, run ONE
+    ``decode_fn`` step over the pool's slabs, sample on the host, and
+    retire finished sequences.  Mixed-length sequences share the step at
+    their true lengths.  Tokens, lengths (= positions) and tables go to
+    the device as one pinned copy per step."""
+
+    def __init__(self, engine: PagedServeEngine):
+        self.engine = engine
+        self._cv = threading.Condition()
+        self._inbox: "list[_PagedRequest]" = []
+        self._active: "list[_PagedRequest]" = []
+        self._closed = False
+        self._stalls = 0  # consecutive steps where nothing fit in the pool
+        self._thread = threading.Thread(
+            target=self._loop, name=f"paged:{engine.name}:decode", daemon=True)
+        self._thread.start()
+
+    def admit(self, req: "_PagedRequest") -> None:
+        with self._cv:
+            self._inbox.append(req)
+            self._cv.notify_all()
+
+    def active_count(self) -> int:
+        with self._cv:
+            return len(self._inbox) + len(self._active)
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=60)
+
+    def _loop(self) -> None:
+        eng = self.engine
+        pol = eng.decode_policy
+        while True:
+            with self._cv:
+                if not self._active and not self._inbox:
+                    if self._closed:
+                        return
+                    self._cv.wait(timeout=0.05)
+                    continue
+                if not self._active and self._inbox:
+                    # Idle lane: give the batch one deadline window to fill.
+                    delay = pol.max_delay_s if pol.max_delay_s is not None else 0.001
+                    deadline = _now() + delay
+                    while not self._closed and _now() < deadline:
+                        self._cv.wait(timeout=max(deadline - _now(), 0.0005))
+                self._active.extend(self._inbox)
+                self._inbox.clear()
+                cap = pol.max_batch if pol.max_batch is not None else 64
+                batch = self._active[:cap]
+            try:
+                self._step(batch)
+            except Exception as e:  # noqa: BLE001 - fail the batch (its futures get it), not the lane
+                with self._cv:
+                    for r in batch:
+                        if r in self._active:
+                            self._active.remove(r)
+                for r in batch:
+                    eng._finish(r, e)
+
+    def _step(self, batch: "list[_PagedRequest]") -> None:
+        eng = self.engine
+        kv = eng.kv
+        t0 = _now()
+        # A sequence whose next token has no page and no free page to take
+        # waits (it stays active) until finishing sequences free pages.
+        ready = []
+        for r in batch:
+            try:
+                kv.ensure_slot(r.seq)
+            except OutOfPages:
+                continue
+            ready.append(r)
+        if not ready:
+            self._stalls += 1
+            if self._stalls > _MAX_DECODE_STALLS:
+                raise OutOfPages(
+                    f"{eng.device.key}: {len(batch)} sequence(s) stalled "
+                    f"{self._stalls} consecutive steps waiting for pages — "
+                    "the pool cannot hold this working set")
+            time.sleep(0.002)  # wait for a finisher to free pages
+            return
+        self._stalls = 0
+        batch = ready
+        B = len(batch)
+        tbl, lens = kv.table([r.seq for r in batch], eng.max_pages)
+        tokens = np.asarray([r.out[-1] for r in batch], np.int32)
+        rows = [r.seq.state for r in batch]
+        with eng._on_stream():
+            step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
+                                 eng.device.torch_device)
+            tok_d, lens_d, tbl_d = step_in[:B], step_in[B:2 * B], step_in[2 * B:].view(B, -1)
+            state = None
+            if rows[0] is not None:
+                state = _tree_map(lambda *xs: torch.stack(xs), *rows)
+            ks, vs = eng.pool.arrays()
+            _, _, state, logits = eng.decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
+            eng.pool.mark_written()
+            logits = logits.float().cpu().numpy()
+        done: "list[_PagedRequest]" = []
+        for i, r in enumerate(batch):
+            # Position = tokens already emitted (prefill's token was
+            # position 0): identity-keyed, batch-independent.
+            nxt = sample_token(logits[i], r.sampling, r.rid, len(r.out))
+            if state is not None:
+                r.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
+            kv.note_decoded(r.seq)
+            r.out.append(nxt)
+            if len(r.out) >= r.max_new:
+                done.append(r)
+        step_s = _now() - t0
+        with eng._m_lock:
+            eng._decode_steps += 1
+            eng._decode_rows += B
+            eng._decode_s += step_s
+            eng._token_lat.extend([step_s] * B)
+        with self._cv:
+            for r in done:
+                self._active.remove(r)
+            # Rotate survivors to the tail so an active set larger than
+            # max_batch round-robins instead of starving the overflow.
+            if len(self._active) > B - len(done):
+                for r in batch:
+                    if r in self._active:
+                        self._active.remove(r)
+                        self._active.append(r)
+        for r in done:
+            eng._finish(r)

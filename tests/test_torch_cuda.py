@@ -20,6 +20,10 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import bf16_bound as paged_bf16_bound
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.stencil import ops as stencil_ops
@@ -28,7 +32,9 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.stencil.ref import stencil_ref
 from repro_torch.models import get_model
+from repro_torch.models import layers as model_layers
 from repro_torch.models.ssm import ssd_chunked
+from repro_torch.serving import PagedKVCache, PagedServeEngine, PageSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # About 0.1 s of device time on an H100: long enough that work queued
@@ -368,3 +374,202 @@ def test_torch_cuda_ssm_prefill_runs_the_kernel():
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     for name in ("state", "conv"):
         torch.testing.assert_close(cache[name], cache_ref[name], rtol=1e-4, atol=1e-4)
+
+
+# (B, H, K, D, P, M, lengths): the reference's cases (tests/test_paged.py:
+# 74-119, D 4 and 8, P 2-8), a length-0 row, the zoo's D 64 with GQA, and
+# the serve decode shape (OLMo-1B: H = K = 16, D 128, P 16, table width 128).
+PAGED_CASES = [
+    (4, 4, 2, 8, 4, 6, [3, 4, 7, 24]),
+    (3, 4, 2, 8, 4, 5, [1, 6, 20]),
+    (2, 2, 1, 4, 2, 3, [5, 6]),
+    (3, 4, 2, 4, 8, 3, [24, 0, 9]),
+    (2, 8, 2, 64, 16, 8, [100, 37]),
+    (2, 36, 4, 128, 16, 16, [250, 129]),
+    (8, 16, 16, 128, 16, 128, [1000] * 4 + [2000] * 4),
+]
+
+
+def _paged_inputs(B, H, K, D, P, M, lengths, dtype="float32", seed=0):
+    """The reference's pool, on the card: pages in order from 1, page 0,
+    unreferenced pages and the tails past each length holding +-1e6 (bf16:
+    NaN in the tails, which the kernel never reads)."""
+    rng = np.random.default_rng(seed)
+    N = 1 + sum(-(-n // P) for n in lengths) + 2
+    garbage = 1e6 if dtype == "float32" else np.nan
+    kp = np.full((N, P, K, D), garbage, np.float32)
+    vp = np.full((N, P, K, D), -garbage, np.float32)
+    tbl = np.zeros((B, M), np.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // P)):
+            tbl[b, j] = nxt
+            valid = min(P, n - j * P)
+            kp[nxt, :valid] = rng.standard_normal((valid, K, D))
+            vp[nxt, :valid] = rng.standard_normal((valid, K, D))
+            nxt += 1
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    td = DTYPES[dtype]
+    return (torch.from_numpy(q).to("cuda", td), torch.from_numpy(kp).to("cuda", td),
+            torch.from_numpy(vp).to("cuda", td), torch.from_numpy(tbl).cuda(),
+            torch.from_numpy(np.asarray(lengths, np.int32)).cuda())
+
+
+def _paged_plain(q, kp, vp, tbl, lens):
+    """The plain version, with the garbage out of the gathered rows
+    (masked slots weigh exactly 0, but 0 * NaN is NaN) and length-0 rows
+    set to the kernel's 0 (the plain softmax spreads them over masked
+    slots)."""
+    clean = lambda t: torch.nan_to_num(t, nan=0.0)  # noqa: E731
+    want = paged_attention_ref(q, clean(kp), clean(vp), tbl, lens)
+    return want.masked_fill((lens == 0)[:, None, None], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_paged_attention_matches_plain(case, dtype):
+    _need_cuda()
+    q, kp, vp, tbl, lens = _paged_inputs(*case, dtype=dtype)
+    got = paged_kernel.paged_attention(q, kp, vp, tbl, lens)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype and bool(got.isfinite().all())
+    want = _paged_plain(q, kp, vp, tbl, lens)
+    if dtype == "float32":  # both sum in f32, in other orders
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:  # per element, within paged_attention.ref.bf16_bound
+        clean = lambda t: torch.nan_to_num(t, nan=0.0)  # noqa: E731
+        bound = paged_bf16_bound(q, clean(kp), clean(vp), tbl, lens, want)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_takes_strided_q_and_pages():
+    _need_cuda()
+    q, kp, vp, tbl, lens = _paged_inputs(3, 8, 2, 64, 16, 4, [5, 33, 64])
+    wide = torch.zeros(3, 1, 8, 2 * 64, device="cuda")
+    wide[:, 0, :, :64] = q  # a (B, 1, H, D) projection's view, head stride 128
+    slab_k, slab_v = torch.stack([kp, kp * 0]), torch.stack([vp * 0, vp])  # folded slabs
+    got = paged_kernel.paged_attention(wide[:, 0, :, :64], slab_k[0], slab_v[1], tbl, lens)
+    torch.testing.assert_close(got, paged_kernel.paged_attention(q, kp, vp, tbl, lens),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_fold_is_bit_equal_to_per_layer_launches():
+    _need_cuda()
+    layers = [_paged_inputs(8, 16, 16, 128, 16, 128, [1000] * 4 + [2000] * 4, seed=s)
+              for s in range(3)]
+    tbl, lens = layers[0][3], layers[0][4]
+    q, kp, vp = (torch.stack([x[i] for x in layers]) for i in range(3))
+    reset_launch_counts()
+    folded = paged_ops.paged_attention_layers(q, kp, vp, tbl, lens)
+    assert launch_counts()["paged_attention"] == 1  # one launch for all layers
+    for i in range(3):
+        assert torch.equal(folded[i], paged_ops.paged_attention(q[i], kp[i], vp[i], tbl, lens))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_refuses_what_it_does_not_take():
+    _need_cuda()
+    reset_launch_counts()
+    q, kp, vp, tbl, lens = _paged_inputs(2, 4, 2, 8, 4, 3, [5, 9])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_ops.paged_attention(q.cpu(), kp.cpu(), vp.cpu(), tbl.cpu(), lens.cpu(), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_kernel.paged_attention(q, kp, vp, tbl.cpu(), lens)
+    with pytest.raises(TypeError, match="int32"):
+        paged_kernel.paged_attention(q, kp, vp, tbl.long(), lens)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        paged_kernel.paged_attention(q.half(), kp.half(), vp.half(), tbl, lens)
+    with pytest.raises(ValueError, match="not a multiple"):
+        paged_kernel.paged_attention(q[:, :3], kp, vp, tbl, lens)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        paged_kernel.paged_attention(q.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :4],
+                                     kp[..., :4], vp[..., :4], tbl, lens)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_kernel.paged_attention(*_paged_inputs(1, 2, 2, 300, 4, 2, [3])[:3], tbl[:1], lens[:1])
+    assert launch_counts()["paged_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_op_launches_the_kernel():
+    _need_cuda()
+    reset_launch_counts()
+    args = _paged_inputs(3, 4, 2, 8, 4, 5, [1, 6, 20])
+    got = paged_ops.paged_attention(*args)
+    assert launch_counts()["paged_attention"] == 1
+    plain = paged_ops.paged_attention(*args, impl="ref")
+    assert launch_counts()["paged_attention"] == 1
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_decode_step_launches_once_per_layer():
+    """On the card the dense paged decode step attends through the kernel,
+    once per layer, and agrees with the gather path within 1e-4."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config("olmo-1b"))
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spec = m.paged_spec(cfg)
+    rng = np.random.default_rng(1)
+    shape = (spec.layers, 9, spec.page_size, spec.kv_heads, spec.head_dim)
+    kp = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    vp = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    tbl = torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([32, 20], dtype=torch.int32, device="cuda")  # a boundary, inside a page
+    tok = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
+    reset_launch_counts()
+    k1, v1, _, got = m.paged_decode_step(cfg, params, kp.clone(), vp.clone(), None, tok, lens,
+                                         tbl, lens)
+    assert launch_counts()["paged_attention"] == cfg.num_layers
+    k2, v2, _, want = m.paged_decode_step(cfg, params, kp.clone(), vp.clone(), None, tok, lens,
+                                          tbl, lens, impl="ref")
+    assert launch_counts()["paged_attention"] == cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(k1, k2, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_engine_decodes_after_the_page_write():
+    """The decode lane's first step reads pages the prefill lane wrote while
+    that write was still held back on the device: a page write delayed by
+    about 0.1 s of ``torch.cuda._sleep`` is seen all the same."""
+    _need_cuda()
+    dev = get_all_devices(1, 0).get()[0]
+    kv = PagedKVCache(PageSpec(1, 4, 1, 4), devices=[dev], pool_pages=16)
+    V = 64
+
+    def prefill_fn(tokens, extras):  # v of every token = the prompt's first token
+        B, T = tokens.shape
+        c = tokens[:, :1].float()
+        v = c[:, None, :, None, None].expand(B, 1, T, 1, 4).contiguous()
+        return torch.zeros_like(v), v, None, torch.nn.functional.one_hot(tokens[:, 0].long(), V).float()
+
+    def decode_fn(ks, vs, state, tokens, positions, tables, lengths):
+        B = tokens.shape[0]
+        c = tokens.float()[:, None, None, None].expand(B, 1, 1, 4)
+        kp, vp = model_layers.page_scatter(ks[0], vs[0], torch.zeros_like(c), c, tables, positions)
+        o = model_layers.paged_decode_attend(torch.zeros(B, 1, 1, 4, device="cuda"), kp, vp, tables,
+                                             lengths)  # uniform weights: the mean of v
+        return ks, vs, state, torch.nn.functional.one_hot(o[:, 0, 0, 0].round().long(), V).float()
+
+    eng = PagedServeEngine(kv, prefill_fn, decode_fn, max_seq_len=16, name="t-order")
+    write = eng.pool.write_tokens
+
+    def slow_write(pages, k, v):
+        torch.cuda._sleep(SLEEP_CYCLES)  # hold the write back on the engine's stream
+        write(pages, k, v)
+
+    eng.pool.write_tokens = slow_write
+    reset_launch_counts()
+    try:
+        futs = [eng.submit(np.full(6, c, np.int32), 4) for c in (11, 29)]
+        got = [list(f.get(timeout=120)) for f in futs]
+    finally:
+        eng.close()
+    assert got == [[11] * 4, [29] * 4]  # stale pages would give another mean
+    assert launch_counts()["paged_attention"] == eng.metrics()["decode_steps"]

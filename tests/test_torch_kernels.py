@@ -26,6 +26,7 @@ from repro_torch.kernels import _build, _launch, all_kernels, launch_counts, res
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref, pixel_step
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -58,7 +59,8 @@ def test_torch_all_kernels_keeps_reference_order():
     from repro.kernels import all_kernels as ref_all_kernels
 
     ks = all_kernels()
-    for name in ("stencil", "partition_map", "mandelbrot", "flash_attention", "ssd"):
+    for name in ("stencil", "partition_map", "mandelbrot", "flash_attention", "ssd",
+                 "paged_attention", "paged_attention_layers"):
         assert name in ks and callable(ks[name]), name
     ported = [k for k in ref_all_kernels() if k in ks]
     assert ported == list(ks)  # same names, in the reference's package order
@@ -68,7 +70,9 @@ def test_torch_all_kernels_keeps_reference_order():
 def test_torch_ops_name_their_cuda_library():
     for op, lib in [(stencil_ops.stencil, "stencil"), (map_ops.partition_map, "partition_map"),
                     (mandel_ops.mandelbrot, "mandelbrot"),
-                    (flash_ops.flash_attention, "flash_attention"), (ssd_ops.ssd, "ssd_scan")]:
+                    (flash_ops.flash_attention, "flash_attention"), (ssd_ops.ssd, "ssd_scan"),
+                    (paged_ops.paged_attention, "paged_attention"),
+                    (paged_ops.paged_attention_layers, "paged_attention")]:
         assert op.cuda_library == lib
         assert (_build.CSRC / f"{lib}.cu").is_file()
 
@@ -162,8 +166,8 @@ def test_torch_cpu_tensor_takes_plain_version_and_counts_no_launch():
     torch.testing.assert_close(stencil_ops.stencil(x), stencil_ref(x), rtol=0, atol=0)
     torch.testing.assert_close(map_ops.partition_map(x), partition_map_ref(x), rtol=0, atol=0)
     mandel_ops.mandelbrot(torch.tensor([8, 8], dtype=torch.int32))
-    assert launch_counts() == {"flash_attention": 0, "mandelbrot": 0, "partition_map": 0,
-                               "ssd_scan": 0, "stencil": 0}
+    assert launch_counts() == {"flash_attention": 0, "mandelbrot": 0, "paged_attention": 0,
+                               "partition_map": 0, "ssd_scan": 0, "stencil": 0}
 
 
 @pytest.mark.parametrize("impl", ["pallas", "fast", ""])

@@ -1,0 +1,127 @@
+"""Where a batched paged decode step's time goes in the PyTorch port, on one
+CUDA card.
+
+    python3 tools/profile_torch_serve_paged.py [--arch olmo-1b] [--steps 16]
+
+Sets up ``chip_smoke.py``'s ``serve_paged`` requests (the serve phase's 8
+prompts and seeded f32 weights, TF32 off) in one
+``PagedServeEngine.from_config`` engine: each group of 4 prefilled in one
+call of the engine's prefill and paged in with ``PagedKVCache.append``.
+Then it drives the decode lane's own step over all 8 resident requests on
+the calling thread, so that ``torch.profiler`` never runs beside the
+engine's lane threads: a few steps to warm up, ``--steps`` timed on the
+host, ``--steps`` under the profiler (device activity only).  Prints one
+JSON line: host ms per step, the device ms and launches per step, the
+kernels that take most of it, and the device idle share (1 - device ms per
+step / host ms per step).  ``--arch mamba2-130m`` profiles the
+``serve_paged_ssm`` requests instead.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Promise, get_all_devices  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serving import PagedServeEngine  # noqa: E402
+from repro_torch.serving.paged import _PagedRequest  # noqa: E402
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_serve_paged: needs a CUDA device", file=sys.stderr)
+        return 1
+    smoke = load_smoke()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = get_all_devices(1, 0).get()[0]
+    cfg = get_config(args.arch)
+    m = get_model(cfg)
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+    params = m.init(cfg, generator=gen, device=dev.torch_device)
+    lens = smoke.SERVE_PROMPTS if cfg.family == "dense" else smoke.SSM_PROMPTS
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(smoke.SERVE_BATCH, s), dtype=np.int32)
+               for s in lens]
+    spec = m.paged_spec(cfg)
+    steps = 4 + 2 * args.steps
+    eng = PagedServeEngine.from_config(
+        cfg, params=params, devices=[dev], max_seq_len=1 << (max(lens) + steps + 1).bit_length(),
+        pool_pages=2 + sum(smoke.SERVE_BATCH * spec.pages_for(s + steps) for s in lens),
+        name="profile")
+    try:
+        reqs = []
+        with eng._on_stream():
+            for p in prompts:  # one prefill call per group, as the engine's prefill lane
+                k, v, state, logits = eng.prefill_fn(torch.from_numpy(p).to(dev.torch_device),
+                                                     None)
+                for i, row in enumerate(p):
+                    r = _PagedRequest(row, steps + 2, Promise(), time.monotonic(), rid=len(reqs))
+                    r.seq = eng.kv.new_seq(dev)
+                    eng.kv.append(r.seq, k[i], v[i])
+                    if state is not None:
+                        r.seq.set_state({n: t[i] for n, t in state.items()})
+                    r.out.append(int(torch.argmax(logits[i])))
+                    reqs.append(r)
+                del k, v, state
+        for _ in range(4):  # warm-up, the profiler's first start included
+            with profile(activities=[ProfilerActivity.CUDA]):
+                eng._lane._step(reqs)
+        host_ms = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            eng._lane._step(reqs)  # ends with the logits on the host
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.steps):
+                eng._lane._step(reqs)
+            torch.cuda.synchronize()
+    finally:
+        eng.close()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = Counter()
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values()) / args.steps
+    step_ms = statistics.median(host_ms)
+    print(json.dumps({"arch": cfg.name, "rows": len(reqs), "prompts": list(lens),
+                      "host_ms_per_step_median": step_ms, "host_ms_per_step": host_ms,
+                      "device_ms_per_step": device_ms,
+                      "launches_per_step": len(device) / args.steps,
+                      "device_idle_share": 1 - device_ms / step_ms,
+                      "top_ms_per_step": [[k[:60], t / args.steps]
+                                          for k, t in by_name.most_common(8)]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
