@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -92,10 +93,12 @@ from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
-# f32 FLOP/s outside the tensor cores, dense bf16 FLOP/s of the tensor cores.
+# f32 FLOP/s outside the tensor cores, dense bf16 and TF32 FLOP/s of the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 
 FIG3_N, FIG3_INPUTS = 1 << 26, 4
 FIG4_N, FIG4_PARTS = 1 << 28, 4
@@ -649,6 +652,45 @@ def attention_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:
     return B * H * int(np.minimum(np.arange(1, Sq + 1), Skv).sum())
 
 
+def flash_bound(nbytes: float, flops: float, dtype) -> "tuple[float, str, str]":
+    """The least time for flash attention's work at its dtype's accuracy:
+    (ms, "bytes" or "operations", the rate that bounds the operations).
+    bf16 runs on the tensor cores; f32 takes the faster of the CUDA cores
+    and 3xTF32 on the tensor cores, 3 tf32 products for each f32 one."""
+    if dtype == torch.bfloat16:
+        rate, peak = BF16_FLOP_PER_S, "bf16 tensor cores 989 TFLOP/s"
+    else:  # 495 / 3 = 165 TFLOP/s, above the CUDA cores' 67
+        rate, peak = TF32_FLOP_PER_S / 3, "f32 as 3xTF32: 3 tf32 products at 495 TFLOP/s"
+    return (*bound(nbytes, flops, rate), peak)
+
+
+def ptxas_usage(log: str, function: str) -> "dict | None":
+    """Registers and spill bytes that ``-Xptxas -v`` reported in ``log``
+    for the first entry function whose mangled name holds ``function``."""
+    for part in log.split("Compiling entry function")[1:]:
+        if function in part.splitlines()[0]:
+            return {key: int(m.group(1)) for key, pat in (
+                ("registers", r"Used (\d+) registers"),
+                ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads")) for m in [re.search(pat, part)] if m}
+    return None
+
+
+def flash_ptxas(dtype, D: int) -> dict:
+    """``ptxas_usage`` of the flash kernel instantiated for ``dtype`` and
+    ``D``, read from this run's build log; every instantiation of it must
+    be free of spills."""
+    log = _build._target("flash_attention").with_suffix(".log").read_text()
+    spills = {f: u for f in re.findall(r"entry function '(\w*flash_fwd\w*)'", log)
+              for u in [ptxas_usage(log, f)] if u.get("spill_stores") or u.get("spill_loads")}
+    require(not spills, f"flash_attention spills registers: {spills}")
+    usage = ptxas_usage(log, ("flash_fwdIf" if dtype == torch.float32
+                              else "flash_fwdI13__nv_bfloat16") + f"Li{D}E")
+    require(usage is not None and "registers" in usage, "flash_attention: no ptxas line for "
+                                                        f"{dtype} D={D} in the build log")
+    return usage
+
+
 def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict:
     B, S, H, K, D = shape
     rng = np.random.default_rng(7)
@@ -670,13 +712,14 @@ def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
     flops = 4 * D * attention_pairs(B, H, S, S, True)
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q, k, v, o once each
-    rate, peak = ((F32_FLOP_PER_S, "f32 67 TFLOP/s") if dtype == torch.float32
-                  else (BF16_FLOP_PER_S, "bf16 tensor cores 989 TFLOP/s"))
+    *bound_pair, peak = flash_bound(nbytes, flops, dtype)
+    ms, library_ms = cuda_ms(run, 10), cuda_ms(sdpa, 10)
     return entry(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention/kernel.py:73", launches, err,
-                 cuda_ms(run, 10), cuda_ms(plain, 3), bound(nbytes, flops, rate), cuda_ms(sdpa, 10),
+                 ms, cuda_ms(plain, 3), bound_pair, library_ms,
                  shape={"B": B, "S": S, "H": H, "K": K, "D": D}, dtype=str(dtype).split(".")[-1],
-                 causal=True, flops=flops, flop_peak=peak, limit=limit, **extra)
+                 causal=True, flops=flops, flop_peak=peak, tflops=flops / ms / 1e9,
+                 x_library=ms / library_ms, ptxas=flash_ptxas(dtype, D), limit=limit, **extra)
 
 
 def ssd_flops(Bz: int, H: int, S: int, P: int, N: int, chunk: int) -> int:

@@ -10,8 +10,9 @@ once, one ``nvcc`` process each, all started together (``load_all``).
 Flags: ``-O3`` and no ``--use_fast_math``: partition_map needs the
 precise ``sinf``/``cosf`` for |x| in the hundreds, mandelbrot rounds
 every operation on its own (``__fmul_rn``/``__fadd_rn``) to match the
-plain PyTorch version bit for bit, and flash_attention's and
-paged_attention's softmax and ssd_scan's decays use the precise ``expf``.
+plain PyTorch version bit for bit, paged_attention's softmax and
+ssd_scan's decays use the precise ``expf``, and flash_attention's softmax
+the precise ``exp2f``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0, with CUDA's message for the code.

@@ -4,9 +4,10 @@ Replaces ``src/repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``.
 The kernel is ``csrc/flash_attention.cu`` (see its header for the bound and
 the design); this wrapper checks the inputs, allocates the output and
 launches on the current CUDA stream.  It takes the model layout
-(B, S, H, D) with any strides whose last one is 1, so the q/k/v views that
-come out of the projections go in without a copy.  ``launches`` counts the
-launches made.
+(B, S, H, D) with any strides whose last one is 1 (and, for the kernel's
+16-byte copies, a base address and other strides in whole 16-byte units),
+so the q/k/v views that come out of the projections go in without a copy.
+``launches`` counts the launches made.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
          + [ctypes.c_int, ctypes.c_void_p])
-_GRID_YZ_MAX = 65535  # H and B are the grid's y and z extents
+# The grid is 1-D: one block per (query tile of 64 or more rows, head, batch).
+_GRID_X_MAX = 2**31 - 1
+_ALIGN = 16  # bytes of one cp.async copy
 
 
 def _check(q, k, v) -> None:
@@ -53,8 +56,18 @@ def _check(q, k, v) -> None:
     K = k.shape[2]
     if K < 1 or H % K:
         raise ValueError(f"flash_attention: {H} query heads are not a multiple of {K} kv heads")
-    if min(B, Sq, k.shape[1]) < 1 or max(B, H) > _GRID_YZ_MAX:
+    if min(B, Sq, k.shape[1]) < 1 or -(-Sq // 64) * H * B > _GRID_X_MAX:
         raise ValueError(f"flash_attention: B={B}, Sq={Sq}, Skv={k.shape[1]}, H={H} out of range")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # The kernel loads rows by 16-byte cp.async: the base and every
+        # stride it steps by (those of dimensions longer than 1) must be
+        # whole multiples of 16 bytes.
+        steps = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % _ALIGN or any(s * t.element_size() % _ALIGN for s in steps):
+            raise ValueError(f"flash_attention: {name} must start on a {_ALIGN}-byte boundary "
+                             f"with strides of whole {_ALIGN}-byte units, got address "
+                             f"{t.data_ptr():#x}, strides {t.stride()} of {t.element_size()}-byte "
+                             "elements")
 
 
 def flash_attention(q: "torch.Tensor", k: "torch.Tensor", v: "torch.Tensor", *,

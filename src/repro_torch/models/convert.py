@@ -15,10 +15,10 @@ from repro_torch.models.model import get_model
 __all__ = ["params_from_numpy"]
 
 
-def params_from_numpy(cfg, tree, *, device="cpu", dtype=torch.float32):
+def params_from_numpy(cfg, tree, *, device="cuda", dtype=torch.float32):
     """Nested dict of numpy arrays (the JAX tree's names and shapes) ->
-    the same tree of ``dtype`` tensors on ``device``.  bf16 arrays widen to
-    f32 exactly on the way."""
+    the same tree of ``dtype`` tensors on ``device``, the card unless the
+    caller asks for another.  bf16 arrays widen to f32 exactly on the way."""
     want = get_model(cfg).param_shapes(cfg)
 
     def conv(want_node, node, path):

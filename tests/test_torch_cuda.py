@@ -33,6 +33,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.stencil.ref import stencil_ref
 from repro_torch.models import get_model
 from repro_torch.models import layers as model_layers
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.serving import PagedKVCache, PagedServeEngine, PageSpec
 
@@ -131,7 +132,7 @@ def test_torch_cuda_create_buffer_from_pinned_resolves_after_its_copy():
 
 
 # (B, Sq, Skv, H, K, D): the reference's cases (tests/test_kernels.py:115),
-# then ragged lengths that are no multiple of the kernel's 64-row tiles,
+# then ragged lengths that are no multiple of the kernel's tiles,
 # causal with Sq != Skv, and the serving head dim 128.
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64),
@@ -173,13 +174,7 @@ def test_torch_cuda_flash_attention_matches_plain(case, causal, dtype):
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     q, k, v = _qkv(*case, dtype)
-    got = flash_kernel.flash_attention(q, k, v, causal=causal)
-    want = flash_attention_ref(q, k, v, causal=causal)
-    assert got.shape == want.shape and got.dtype == q.dtype
-    if dtype == "float32":
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    else:
-        _assert_within_bf16_bound(got, want, q, k, v, causal)
+    _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=causal), q, k, v, causal)
 
 
 @pytest.mark.cuda
@@ -225,6 +220,146 @@ def test_torch_cuda_flash_attention_op_launches_the_kernel():
     plain = flash_ops.flash_attention(q, k, v, causal=True, impl="ref")
     assert launch_counts()["flash_attention"] == 1
     _assert_within_bf16_bound(got, plain, q, k, v, True)
+
+
+def _assert_flash_close(got, q, k, v, causal):
+    """Against the plain version: 2e-4 in f32, ``bf16_bound`` in bf16."""
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == q.dtype and got.is_contiguous()
+    assert bool(got.isfinite().all())
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        _assert_within_bf16_bound(got, want, q, k, v, causal)
+
+
+# Lengths on both sides of the kernel's tile edges: 16-row mma tiles,
+# 32-row warps, 16- and 32-row kv tiles, 128-row query tiles, and the
+# serve prompt.
+FLASH_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 2000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", FLASH_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_tile_edges(S, causal, dtype):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(1, S, S, 4, 2, 128, dtype, seed=S)
+    _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=causal), q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(100, 300), (1, 77), (300, 100), (129, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_cross_lengths(Sq, Skv, causal, dtype):
+    """Skv > Sq and Skv < Sq; causal keeps kpos <= qpos, both from 0."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(2, Sq, Skv, 4, 1, 64, dtype, seed=Sq + Skv)
+    _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=causal), q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_head_dims(D, dtype):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(2, 200, 200, 4, 2, D, dtype, seed=D)
+    for causal in (True, False):
+        _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=causal), q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_gqa_nine_heads_a_group(dtype):
+    """StarCoder2-7B's 36 query heads on 4 kv heads: R = 9."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(1, 300, 300, 36, 4, 128, dtype, seed=9)
+    for causal in (True, False):
+        _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=causal), q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_more_heads_than_one_wave(dtype):
+    """B x H = 320 (batch, head) pairs of 2 query tiles each: more blocks
+    than 132 SMs hold at once."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(8, 130, 130, 40, 8, 64, dtype, seed=8)
+    _assert_flash_close(flash_kernel.flash_attention(q, k, v, causal=True), q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 100, True), (77, 100, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_reads_no_row_past_the_lengths(Sq, Skv, causal, dtype):
+    """q, k and v as views ``big[:, :S]`` of tensors holding NaN in every
+    row past S: the kernel zero-fills those rows of its tiles without
+    reading them, so the output is finite and equal to the contiguous run."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(2, Sq, Skv, 4, 2, 64, dtype, seed=5)
+    views = []
+    for x in (q, k, v):
+        big = torch.full((x.shape[0], x.shape[1] + 37, *x.shape[2:]), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        big[:, :x.shape[1]] = x
+        views.append(big[:, :x.shape[1]])
+    got = flash_kernel.flash_attention(*views, causal=causal)
+    _assert_flash_close(got, q, k, v, causal)
+    torch.testing.assert_close(got, flash_kernel.flash_attention(q, k, v, causal=causal),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_refuses_unaligned_views(dtype):
+    """The kernel copies 16 bytes at a time: a base one element off, or a
+    row stride that is no whole number of 16 bytes, raises before any
+    launch."""
+    _need_cuda()
+    reset_launch_counts()
+    q, k, v = _qkv(1, 64, 64, 4, 2, 64, dtype)
+    wide = torch.zeros(1, 64, 4, 65, dtype=q.dtype, device="cuda")
+    off_by_one = wide[..., 1:]  # base one element past a 16-byte boundary
+    short_rows = wide[..., :64]  # aligned base, head stride of 65 elements
+    for bad in (off_by_one, short_rows):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_kernel.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_ops.flash_attention(q, bad[:, :, :2], v)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_kernel.flash_attention(q, k, bad[:, :, :2])
+    assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_flash_attention_is_deterministic(dtype):
+    """Each output element is summed by one thread in a fixed order: two
+    launches on the same inputs are bit-equal."""
+    _need_cuda()
+    q, k, v = _qkv(2, 300, 300, 8, 2, 128, dtype, seed=3)
+    first = flash_kernel.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(flash_kernel.flash_attention(q, k, v, causal=True), first,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_params_from_numpy_defaults_to_the_card():
+    _need_cuda()
+    cfg = smoke(get_config("olmo-1b"))
+    shapes = get_model(cfg).param_shapes(cfg)
+    tree = model_layers.tree_map(lambda shape: np.ones(shape, np.float32), shapes)
+    leaves = []
+    model_layers.tree_map(leaves.append, params_from_numpy(cfg, tree))
+    assert leaves and all(t.is_cuda and t.dtype == torch.float32 for t in leaves)
 
 
 @pytest.mark.cuda

@@ -11,8 +11,11 @@ The card's tighter bf16 limit, ``bf16_bound`` (about 2**-7 of each
 output's scale, per element), is held against the Pallas kernel too.
 Ragged lengths, which the Pallas kernel does not take (``ops.py:15`` falls
 back to the oracle there), are held against the JAX oracle.  The CUDA
-kernel itself runs only on the card, in ``tests/test_torch_cuda.py``.
+kernel itself runs only on the card, in ``tests/test_torch_cuda.py``; its
+f32 arithmetic, 3xTF32 on the tensor cores, is modelled here by
+``flash_attention_tf32`` and held to the same 2e-4.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +30,8 @@ from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (bf16_bound, flash_attention_ref,
+                                                    flash_attention_tf32, split_tf32)
 
 
 def _inputs(B, Sq, Skv, H, K, D, seed):
@@ -132,3 +136,79 @@ def test_torch_flash_attention_op_refuses_unknown_impl_and_cpu_kernel():
         ops.flash_attention(q, q, q, impl="pallas")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.flash_attention(q, q, q, impl="cuda")  # never a silent CPU fallback
+
+
+def test_torch_split_tf32_rounds_to_nearest_ties_away():
+    """hi keeps 10 mantissa bits, rounded to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``): off ties it is JAX's ``reduce_precision``
+    to tf32; lo is x - hi rounded the same way, and hi + lo is x within
+    2**-21 of |x|."""
+    x = np.random.default_rng(11).standard_normal(1 << 14).astype(np.float32)
+    x = np.concatenate([(x * 10.0 ** np.random.default_rng(12).integers(-20, 20, x.size))
+                        .astype(np.float32),
+                        np.float32([1 + 2**-11, -(1 + 2**-11), 3 + 2**-10, 1 + 2**-11 - 2**-23])])
+    hi, lo = (t.numpy() for t in split_tf32(torch.from_numpy(x)))
+    assert not ((hi.view(np.int32) | lo.view(np.int32)) & 0x1FFF).any()  # tf32 values
+    ties = (x.view(np.int32) & 0x1FFF) == 0x1000
+    even = np.asarray(jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=10))
+    np.testing.assert_array_equal(hi[~ties], even[~ties])
+    # a tie lies half a tf32 ulp from both neighbours: it goes to the larger magnitude
+    down = (x[ties].view(np.int32) & ~0x1FFF).view(np.float32)
+    np.testing.assert_array_equal(np.abs(hi[ties] - x[ties]), np.abs(x[ties] - down))
+    assert (np.abs(hi[ties]) > np.abs(x[ties])).all() and (np.sign(hi[ties]) == np.sign(x[ties])).all()
+    assert hi[-4] == np.float32(1 + 2**-10) and hi[-3] == -np.float32(1 + 2**-10)
+    assert hi[-1] == 1.0
+    np.testing.assert_array_less(np.abs(x.astype(np.float64) - hi - lo),
+                                 2.0**-21 * np.abs(x.astype(np.float64)) + 1e-45)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,bq,bk", [
+    (1, 128, 128, 4, 4, 64, 64, 64),     # MHA
+    (2, 256, 256, 8, 2, 32, 128, 64),    # GQA R=4
+    (1, 128, 256, 4, 1, 64, 64, 128),    # MQA, cross Skv>Sq
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_torch_flash_attention_3xtf32_matches_pallas(B, Sq, Skv, H, K, D, bq, bk, causal):
+    """The f32 kernel's arithmetic (both products in 3xTF32) meets the
+    reference's 2e-4 against the Pallas kernel and the JAX oracle."""
+    q, k, v = _inputs(B, Sq, Skv, H, K, D, seed=3)
+    want = np.asarray(jax_flash_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=causal))
+    got = _port(flash_attention_tf32, q, k, v, causal)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    if not (causal and Sq != Skv):  # the Pallas kernel takes causal only square here
+        np.testing.assert_allclose(got, _pallas(q, k, v, causal, bq, bk), rtol=2e-4, atol=2e-4)
+
+
+def test_torch_flash_attention_plain_tf32_misses_the_f32_tolerance():
+    """At D 128 and S 1000 3xTF32 stays within 2e-4 of the JAX oracle and
+    plain TF32 (hi*hi only) does not: about 1e-3 off."""
+    q, k, v = _inputs(1, 1000, 1000, 2, 2, 128, seed=4)
+    want = np.asarray(jax_flash_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=True))
+    err3 = np.abs(_port(flash_attention_tf32, q, k, v, True) - want).max()
+    err1 = np.abs(_port(lambda *a, **kw: flash_attention_tf32(*a, **kw, passes=1), q, k, v, True)
+                  - want).max()
+    assert err3 <= 2e-4 < err1, (err3, err1)
+    with pytest.raises(ValueError, match="passes=2"):
+        flash_attention_tf32(*(torch.from_numpy(a) for a in (q, k, v)), passes=2)
+
+
+def test_torch_flash_sweep_rewrites_only_the_tile_constants():
+    """``tools/sweep_torch_flash.py`` builds variants of the kernel source
+    with other ``Tiles`` constants; every default variant names real fields
+    and leaves the rest of the source as it is."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "sweep_torch_flash.py"
+    spec = importlib.util.spec_from_file_location("sweep_torch_flash", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    src = sweep.SOURCE.read_text()
+    assert sweep.variant_source(src, {}) == src
+    for tiles in sweep.VARIANTS.values():
+        out = sweep.variant_source(src, tiles)
+        assert len(out.splitlines()) == len(src.splitlines())
+    out = sweep.variant_source(src, {"bf16": {"BK": 64}})
+    assert "struct Tiles<__nv_bfloat16> {\n  static constexpr int BQ = 128, BK = 64," in out
+    assert out.count("BK = 64") == src.count("BK = 64") + 1
+    with pytest.raises(ValueError, match="no tile field"):
+        sweep.variant_source(src, {"f32": {"WARPS": 4}})

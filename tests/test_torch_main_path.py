@@ -104,6 +104,51 @@ def test_torch_smoke_bound_picks_the_larger_time(smoke):
     assert by == "operations" and t == pytest.approx(1.0)
 
 
+def test_torch_smoke_flash_bound_counts_f32_as_3xtf32(smoke):
+    """At the serve shape (B 4, S 2000, H = K = 16, D 128, causal) f32 is
+    bounded by 3 tf32 products per f32 one at 495 TFLOP/s, 0.397 ms, not by
+    the CUDA cores' 0.979 ms; bf16 by the 989 TFLOP/s tensor cores."""
+    flops = 4 * 128 * smoke.attention_pairs(4, 16, 2000, 2000, True)
+    assert flops == 65_568_768_000
+    t, by, peak = smoke.flash_bound(4 * 2 * 2 * 16_384_000, flops, torch.float32)
+    assert by == "operations" and "3xTF32" in peak
+    assert t == pytest.approx(3 * flops / 495e12 * 1e3) and 0.397 < t < 0.3975
+    t, by, _ = smoke.flash_bound(2 * 2 * 2 * 16_384_000, flops, torch.bfloat16)
+    assert by == "operations" and t == pytest.approx(flops / 989e12 * 1e3)
+    t, by, _ = smoke.flash_bound(3.35e9, 1.0, torch.float32)
+    assert by == "bytes" and t == pytest.approx(1.0)
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19flash_fwdIfLi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19flash_fwdIfLi128EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 193 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19flash_fwdI13__nv_bfloat16Li128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19flash_fwdI13__nv_bfloat16Li128EEEvNS_6ParamsE
+    64 bytes stack frame, 56 bytes spill stores, 52 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 64 bytes cumulative stack size
+"""
+
+
+def test_torch_smoke_reads_registers_and_spills_from_the_build_log(smoke, monkeypatch, tmp_path):
+    assert smoke.ptxas_usage(PTXAS_LOG, "flash_fwdIfLi128E") == {
+        "registers": 193, "spill_stores": 0, "spill_loads": 0}
+    assert smoke.ptxas_usage(PTXAS_LOG, "flash_fwdI13__nv_bfloat16Li128E") == {
+        "registers": 128, "spill_stores": 56, "spill_loads": 52}
+    assert smoke.ptxas_usage(PTXAS_LOG, "flash_fwdIfLi64E") is None
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    log = smoke._build._target("flash_attention").with_suffix(".log")
+    log.write_text(PTXAS_LOG.split("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19"
+                                   "flash_fwdI13")[0])
+    assert smoke.flash_ptxas(torch.float32, 128)["registers"] == 193
+    with pytest.raises(smoke.SmokeFailure, match="no ptxas line"):
+        smoke.flash_ptxas(torch.float32, 64)
+    log.write_text(PTXAS_LOG)  # one instantiation spills: the check fails
+    with pytest.raises(smoke.SmokeFailure, match="spills"):
+        smoke.flash_ptxas(torch.float32, 128)
+
+
 def test_torch_smoke_mandelbrot_flops_count_this_images_work(smoke):
     # two live pixels (64 iterations each), two escaped after 1 and 2:
     # 8 flops per iteration, 3 per escape test, 2 per row and per column

@@ -33,7 +33,7 @@ def _pair(arch):
     jc = jcfg.smoke(jcfg.get_config(arch))
     tc = tcfg.smoke(tcfg.get_config(arch))
     jparams = jax_get_model(jc).init(jc, jax.random.key(0))
-    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams), device="cpu")
     return jc, tc, jparams, tparams
 
 
@@ -110,9 +110,9 @@ def test_torch_convert_refuses_a_wrong_tree():
     tree = jax.tree.map(np.asarray, jax_get_model(jc).init(jc, jax.random.key(0)))
     bad = dict(tree, embed={"table": tree["embed"]["table"][:, :8]})
     with pytest.raises(ValueError, match="expected shape"):
-        params_from_numpy(tc, bad)
+        params_from_numpy(tc, bad, device="cpu")
     with pytest.raises(KeyError, match="expected keys"):
-        params_from_numpy(tc, dict(tree, extra={}))
+        params_from_numpy(tc, dict(tree, extra={}), device="cpu")
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "geglu", "gelu_mlp"])

@@ -53,7 +53,7 @@ def _pair(arch):
     jc = jcfg.smoke(jcfg.get_config(arch))
     tc = tcfg.smoke(tcfg.get_config(arch))
     jparams = jax_get_model(jc).init(jc, jax.random.key(0))
-    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams), device="cpu")
     return jc, tc, jparams, tparams
 
 

@@ -76,7 +76,7 @@ def test_torch_serve_flow_matches_reference(smoke, device, arch):
     jc = jcfg.smoke(jcfg.get_config(arch))
     tc = tcfg.smoke(tcfg.get_config(arch))
     jparams = jax_get_model(jc).init(jc, jax.random.key(0))
-    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tc.vocab_size, size=(BATCH, s), dtype=np.int32) for s in PROMPTS]
     streams = [device.create_stream() for _ in prompts]

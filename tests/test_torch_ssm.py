@@ -35,7 +35,7 @@ def pair():
     jc = jcfg.smoke(jcfg.get_config("mamba2-130m"))
     tc = tcfg.smoke(tcfg.get_config("mamba2-130m"))
     jparams = jax_get_model(jc).init(jc, jax.random.key(0))
-    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tc, jax.tree.map(np.asarray, jparams), device="cpu")
     return jc, tc, jparams, tparams
 
 
