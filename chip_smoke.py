@@ -28,7 +28,8 @@ with ``Dim3`` geometry, ``enqueue_read``):
         1000 and 4000 tokens, 32 greedy steps decoded from the prefill's own
         cache (the recurrent state and conv window).  Every layer's prefill
         scan runs the ssd_scan kernel (24 layers x 2 prefills = 48
-        launches); the plain run scans with ``ssd_chunked``.
+        calls, 3 kernel launches each); the plain run scans with
+        ``ssd_chunked``.
   serve_paged  the serve phase's model, f32 weights and 8 requests through
         one ``PagedServeEngine.from_config`` (pages of 16 tokens, a pool
         that holds every request), 33 tokens each: both prefill groups, then
@@ -83,6 +84,7 @@ from repro_torch.kernels.partition_map import kernel as map_kernel  # noqa: E402
 from repro_torch.kernels.partition_map.ref import partition_map_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_three_pass  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -401,10 +403,15 @@ def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
         dev.synchronize()
         return out, launch_counts()[kernel]
 
+    def kernels_launched(n_calls: int) -> int:
+        # CUDA kernels the last run's calls launched: ssd_scan makes three a call
+        return ssd_kernel.kernel_launches if kernel == "ssd_scan" else n_calls
+
     name = f"{arch} {kernel}"
     want_launches = cfg.num_layers * len(prompts)
     run(params, "auto", 2)  # warm-up: cuBLAS handles, the streams' memory pools
     f32, n_f32 = run(params, "auto")  # the main path
+    n_f32_kernels = kernels_launched(n_f32)
     require(n_f32 == want_launches, f"{name}: launched {n_f32} times, not {want_launches}")
     require(all(g["on_stream"] for g in f32), f"{arch}: a group's CUDA work left its stream")
     # Each group once more on its own, to see what running both at once costs.
@@ -444,7 +451,8 @@ def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
     del params
     return {"arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
             "d_model": cfg.d_model, "new_tokens": SERVE_NEW, "groups": groups,
-            "launches": {"kernel": kernel, "f32": n_f32, "plain": n_plain, "bf16": n_bf16},
+            "launches": {"kernel": kernel, "f32": n_f32, "f32_kernels": n_f32_kernels,
+                         "plain": n_plain, "bf16": n_bf16},
             # the plain f32 run, one row per request, for the paged phases
             "_plain": {"tokens": np.concatenate([w["tokens"] for w in plain]),
                        "gaps": np.concatenate([w["gaps"] for w in plain])}}
@@ -676,19 +684,49 @@ def ptxas_usage(log: str, function: str) -> "dict | None":
     return None
 
 
+def build_log(name: str) -> str:
+    """This run's ``nvcc`` log of ``csrc/<name>.cu``."""
+    return _build._target(name).with_suffix(".log").read_text()
+
+
+def ptxas_no_spill(log: str, name: str, pattern: str, required: bool = True) -> dict:
+    """``ptxas_usage`` of every entry function in ``log``, the build log of
+    ``name``, whose mangled name holds ``pattern``; with ``required``,
+    every one of them must be free of spills."""
+    usage = {f: ptxas_usage(log, f)
+             for f in re.findall(r"entry function '(\w*%s\w*)'" % pattern, log)}
+    spills = {f: u for f, u in usage.items() if u.get("spill_stores") or u.get("spill_loads")}
+    require(not (required and spills), f"{name} spills registers: {spills}")
+    return usage
+
+
 def flash_ptxas(dtype, D: int) -> dict:
     """``ptxas_usage`` of the flash kernel instantiated for ``dtype`` and
-    ``D``, read from this run's build log; every instantiation of it must
-    be free of spills."""
-    log = _build._target("flash_attention").with_suffix(".log").read_text()
-    spills = {f: u for f in re.findall(r"entry function '(\w*flash_fwd\w*)'", log)
-              for u in [ptxas_usage(log, f)] if u.get("spill_stores") or u.get("spill_loads")}
-    require(not spills, f"flash_attention spills registers: {spills}")
-    usage = ptxas_usage(log, ("flash_fwdIf" if dtype == torch.float32
-                              else "flash_fwdI13__nv_bfloat16") + f"Li{D}E")
-    require(usage is not None and "registers" in usage, "flash_attention: no ptxas line for "
-                                                        f"{dtype} D={D} in the build log")
-    return usage
+    ``D``; no instantiation of it may spill."""
+    want = ("flash_fwdIf" if dtype == torch.float32 else "flash_fwdI13__nv_bfloat16") + f"Li{D}E"
+    usage = ptxas_no_spill(build_log("flash_attention"), "flash_attention", "flash_fwd")
+    found = [u for f, u in usage.items() if want in f]
+    require(bool(found) and "registers" in found[0], "flash_attention: no ptxas line for "
+                                                     f"{dtype} D={D} in the build log")
+    return found[0]
+
+
+SSD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_outputs")
+
+
+def ssd_ptxas(log: "str | None" = None, required: bool = True) -> dict:
+    """Registers and spills of the three ssd_scan kernels, by name and
+    instantiation (``ssd_chunk_outputs<1>``: P <= 64, ``<2>``: P <= 128),
+    read from ``log`` (by default this run's build log); with
+    ``required``, each kernel has a line and none spills."""
+    out = {}
+    log = build_log("ssd_scan") if log is None else log
+    for f, u in ptxas_no_spill(log, "ssd_scan", "ssd_", required).items():
+        m = re.search(r"\d+(ssd_[a-z_]+)(?:ILi(\d+)E)?", f)
+        out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = u
+    require(not required or all(any(k.split("<")[0] == n for k in out) for n in SSD_KERNELS),
+            f"ssd_scan: no ptxas line for each of {SSD_KERNELS} in the build log: {sorted(out)}")
+    return out
 
 
 def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict:
@@ -739,12 +777,30 @@ def ssd_least_flops(Bz: int, H: int, S: int, P: int, N: int) -> int:
     return ssd_flops(Bz, H, S, P, N, 1)
 
 
-def check_ssd(cfg, launches: int, device) -> dict:
-    """ssd_scan at the serve shape (the longer prompt) on inputs like the
+SSD_TC_CHUNK = 16  # the shortest chunk that fills the 16 rows of an m16n8k8 tile
+
+
+def ssd_bound(nbytes: float, Bz: int, H: int, S: int, P: int, N: int
+              ) -> "tuple[float, str, str, int]":
+    """The least time for the SSD scan's work at f32 accuracy, bounded as
+    flash f32 is: (ms, "bytes" or "operations", the rate, the flops it
+    counts).  The faster of two routes: the CUDA cores at 67 TFLOP/s on
+    ``ssd_least_flops`` (chunk 1), and 3xTF32 on the tensor cores at
+    495 / 3 TFLOP/s on the chunked count at ``SSD_TC_CHUNK``, the least
+    count of a chunk the tensor cores take (it grows with the chunk)."""
+    routes = []
+    for flops, rate, peak in (
+            (ssd_least_flops(Bz, H, S, P, N), F32_FLOP_PER_S, "f32 CUDA cores 67 TFLOP/s, chunk 1"),
+            (ssd_flops(Bz, H, S, P, N, SSD_TC_CHUNK), TF32_FLOP_PER_S / 3,
+             f"f32 as 3xTF32: 3 tf32 products at 495 TFLOP/s, chunk {SSD_TC_CHUNK}")):
+        routes.append((*bound(nbytes, flops, rate), peak, flops))
+    return min(routes, key=lambda r: r[0])
+
+
+def ssd_inputs(cfg, device) -> "list[torch.Tensor]":
+    """x, dt, A, B, C at the serve shape (the longer prompt) like the
     model's: x, B and C strided views of one xBC tensor, the init's dt
-    range and A = -(1..H).  y and the final state against ``ssd_chunked``,
-    and against the sequential recurrence at the shorter prompt (a ragged
-    last sub-chunk).  The bound counts ``ssd_least_flops``."""
+    range and A = -(1..H), from a seed."""
     s = cfg.ssm
     H, P, G, N, di = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state, s.d_inner(cfg.d_model)
     Bz, S = SERVE_BATCH, max(SSM_PROMPTS)
@@ -756,11 +812,32 @@ def check_ssd(cfg, launches: int, device) -> dict:
     dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (Bz, S, H)))
                           .astype(np.float32)).to(device)
     A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    return [x, dt, A, B, C]
+
+
+def check_ssd(cfg, launches: int, kernel_launches: int, device) -> dict:
+    """ssd_scan at the serve shape on ``ssd_inputs``.  y and the final
+    state against ``ssd_chunked`` and against ``ssd_three_pass`` at the
+    kernel's own chunk length, and against the sequential recurrence at the
+    shorter prompt (a ragged last chunk).  ``launches`` and
+    ``kernel_launches`` are the main path's calls and the CUDA kernels they
+    launched, three a call.  The bound is ``ssd_bound``'s."""
+    s = cfg.ssm
+    x, dt, A, B, C = ssd_inputs(cfg, device)
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2:]
+    require(kernel_launches == len(SSD_KERNELS) * launches,
+            f"ssd_scan: {launches} calls launched {kernel_launches} kernels, "
+            f"not {len(SSD_KERNELS)} each")
+    chunk = ssd_kernel.chunk_length()
     run = lambda: ssd_kernel.ssd_scan(x, dt, A, B, C)  # noqa: E731
     plain = lambda: ssd_chunked(x, dt, A, B, C, s.chunk)  # noqa: E731
     (y, state), (y_want, state_want) = run(), plain()
     err_y = float((y - y_want).abs().max())
     err_state = float((state - state_want).abs().max())
+    y3, state3 = ssd_three_pass(x, dt, A, B, C, chunk)
+    err_three = max(float((y - y3).abs().max()), float((state - state3).abs().max()))
+    del y3, state3
     S1 = min(SSM_PROMPTS)
     y1, state1 = ssd_kernel.ssd_scan(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1])
     y1_seq, state1_seq = ssd_ops.ssd(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1], impl="ref",
@@ -768,18 +845,25 @@ def check_ssd(cfg, launches: int, device) -> dict:
     err_seq = float((y1 - y1_seq).abs().max())
     err_seq_state = float((state1 - state1_seq).abs().max())
     for what, err in (("y", err_y), ("final state", err_state), ("y vs sequential", err_seq),
-                      ("final state vs sequential", err_seq_state)):
+                      ("final state vs sequential", err_seq_state),
+                      (f"vs ssd_three_pass at chunk {chunk}", err_three)):
         require(err <= SSD_TOL, f"ssd_scan {what} differs from its plain version by {err}")
-    flops = ssd_least_flops(Bz, H, S, P, N)
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * B.numel() + state.numel())
+    t_bound, by, peak, flops = ssd_bound(nbytes, Bz, H, S, P, N)
     return entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:64", launches,
                  max(err_y, err_state, err_seq, err_seq_state),
-                 cuda_ms(run, 10), cuda_ms(plain, 3), bound(nbytes, flops), None,
+                 cuda_ms(run, 10), cuda_ms(plain, 3), (t_bound, by), None,
                  shape={"Bz": Bz, "S": S, "H": H, "G": G, "N": N, "P": P, "chunk": s.chunk},
-                 flops=flops, flops_at_model_chunk=ssd_flops(Bz, H, S, P, N, s.chunk),
-                 bytes=nbytes, flop_peak="f32 67 TFLOP/s",
-                 max_abs_err_y=err_y, max_abs_err_state=err_state,
+                 kernel_chunk=chunk, kernel_launches=kernel_launches,
+                 kernel_launches_per_call=kernel_launches / launches,
+                 workspace_bytes=ssd_kernel.workspace_bytes(Bz, S, H, N, P), ptxas=ssd_ptxas(),
+                 flops=flops, flop_peak=peak,
+                 flops_least=ssd_least_flops(Bz, H, S, P, N),
+                 flops_at_model_chunk=ssd_flops(Bz, H, S, P, N, s.chunk),
+                 flops_at_kernel_chunk=ssd_flops(Bz, H, S, P, N, chunk),
+                 bytes=nbytes, max_abs_err_y=err_y, max_abs_err_state=err_state,
+                 max_abs_err_vs_three_pass=err_three,
                  max_abs_err_vs_sequential={"S": S1, "y": err_seq, "state": err_seq_state},
                  limit={"max_abs": SSD_TOL},
                  library="none: no single PyTorch call computes the SSD scan")
@@ -967,7 +1051,7 @@ def main() -> int:
                 check_flash("flash_attention_bf16", serve_shape, torch.bfloat16, n_flash["bf16"],
                             dev.torch_device, gqa_check=gqa),
                 check_ssd(get_config(SSM_ARCH), serves["serve_ssm"]["launches"]["f32"],
-                          dev.torch_device),
+                          serves["serve_ssm"]["launches"]["f32_kernels"], dev.torch_device),
                 check_paged(serves["serve_paged"]["launches"]["auto"]["paged_attention"],
                             dev.torch_device)]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,8 +31,13 @@ def launch_counts() -> "dict[str, int]":
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches``, and its ``kernel_launches``
+    where one call launches several kernels."""
     for pkg in _PACKAGES:
-        importlib.import_module(f"repro_torch.kernels.{pkg}.kernel").launches = 0
+        mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
+        mod.launches = 0
+        if hasattr(mod, "kernel_launches"):
+            mod.kernel_launches = 0
 
 
 __all__ = ["all_kernels", "launch_counts", "reset_launch_counts"]

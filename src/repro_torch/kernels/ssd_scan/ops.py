@@ -14,13 +14,15 @@ def ssd(x, dt, A, B, C, D=None, *, chunk: int = 64, impl: str = "auto",
     kernel for CUDA tensors (or raises) and takes the plain sequential
     ``ssd_ref`` only for CPU tensors.  Any S goes to the kernel, which
     masks the ragged tail itself.  ``chunk`` is the reference op's Pallas
-    chunk length; only its default is taken, since the kernel walks
-    sub-chunks of its own length and the plain version is sequential."""
+    chunk length; only its default is taken, since the kernel's chunk
+    length is fixed when it is built (``csrc/ssd_scan.cu``) and the plain
+    version is sequential."""
     if impl not in ("auto", "cuda", "ref"):
         raise ValueError(f"impl={impl!r}: use auto, cuda or ref")
     if chunk != 64:
-        raise ValueError(f"chunk={chunk}: the kernel walks its own 32-token sub-chunks "
-                         "and the plain version is sequential; leave chunk at 64")
+        raise ValueError(f"chunk={chunk}: the kernel's chunk length is fixed in "
+                         "csrc/ssd_scan.cu and the plain version is sequential; "
+                         "leave chunk at 64")
     if impl == "ref" or (impl == "auto" and not x.is_cuda):
         Bz, S, H, P = x.shape
         R = H // B.shape[2]

@@ -29,7 +29,7 @@ from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_three_pass
 from repro_torch.kernels.stencil.ref import stencil_ref
 from repro_torch.models import get_model
 from repro_torch.models import layers as model_layers
@@ -428,6 +428,86 @@ def test_torch_cuda_ssd_scan_matches_plain(case):
         y_seq, state_seq = ssd_ops.ssd(x, dt, A, B, C, impl="ref", return_state=True)
         torch.testing.assert_close(y, y_seq, rtol=2e-3, atol=2e-3)
         torch.testing.assert_close(state, state_seq, rtol=2e-3, atol=2e-3)
+
+
+def _check_ssd_structure(monkeypatch, x, dt, A, B, C):
+    """The kernel against its own decomposition in plain PyTorch at its
+    own chunk length, and against the chunked plain version at the
+    model's chunk 256: 2e-3, the reference's tolerance (all sum in f32, in
+    other orders).  Both results finite."""
+    # the plain versions in full f32, for this test only
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    y, state = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    assert bool(y.isfinite().all()) and bool(state.isfinite().all())
+    for y_want, state_want in (ssd_three_pass(x, dt, A, B, C, ssd_kernel.chunk_length()),
+                               ssd_chunked(x, dt, A, B, C, 256)):
+        torch.testing.assert_close(y, y_want, rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(state, state_want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("at", ["1", "l-1", "l", "l+1"])
+def test_torch_cuda_ssd_scan_at_chunk_edges(at, monkeypatch):
+    """S on either side of the kernel's chunk length l (read from the
+    library, so the cases follow the build), two groups over four heads at
+    the serve head size: the ragged chunk is masked in the kernel."""
+    _need_cuda()
+    l = ssd_kernel.chunk_length()
+    S = {"1": 1, "l-1": l - 1, "l": l, "l+1": l + 1}[at]
+    _check_ssd_structure(monkeypatch, *_ssd_inputs(2, S, 4, 2, 64, 128, seed=5))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_strong_decay(monkeypatch):
+    """dt * A = -2.4 a token over two chunks and a ragged third: cum falls
+    below -150 within a chunk, where exp(-cum) is inf in f32."""
+    _need_cuda()
+    l = ssd_kernel.chunk_length()
+    x, _, _, B, C = _ssd_inputs(2, 2 * l + 5, 4, 1, 64, 128, seed=6)
+    dt = torch.full(x.shape[:3], 0.1, device="cuda")
+    A = torch.full((4,), -24.0, device="cuda")
+    _check_ssd_structure(monkeypatch, x, dt, A, B, C)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_takes_unaligned_views_and_odd_widths(monkeypatch):
+    """P 6 and N 5, and x, B and C as views 4 bytes past a 16-byte
+    boundary: the kernel takes its 4-byte copies and masks the padded
+    columns."""
+    _need_cuda()
+    Bz, S, H, G, P, N = 2, 150, 4, 2, 6, 5
+    x, dt, A, B, C = _ssd_inputs(Bz, S, H, G, P, N, seed=7)
+    flat = torch.cat([x.reshape(Bz, S, -1), B.reshape(Bz, S, -1), C.reshape(Bz, S, -1)], dim=-1)
+    buf = torch.zeros(Bz, S, flat.shape[-1] + 1, device="cuda")
+    buf[..., 1:] = flat
+    xv = buf[..., 1:1 + H * P].reshape(Bz, S, H, P)
+    Bv = buf[..., 1 + H * P:1 + H * P + G * N].reshape(Bz, S, G, N)
+    Cv = buf[..., 1 + H * P + G * N:].reshape(Bz, S, G, N)
+    assert xv.data_ptr() % 16 != 0
+    _check_ssd_structure(monkeypatch, xv, dt, A, Bv, Cv)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_counts_its_three_kernels():
+    """One call counts one in ``launches`` and the three kernels the C
+    entry reports in ``kernel_launches``."""
+    _need_cuda()
+    x, dt, A, B, C = _ssd_inputs(1, 100, 4, 2, 16, 16, seed=9)
+    calls, kernels = ssd_kernel.launches, ssd_kernel.kernel_launches
+    ssd_kernel.ssd_scan(x, dt, A, B, C)
+    assert (ssd_kernel.launches - calls, ssd_kernel.kernel_launches - kernels) == (1, 3)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_ssd_scan_repeats_bit_for_bit():
+    """Two calls in a row on one stream give the same bits: the workspace
+    carries nothing from one call to the next, and no sum is atomic."""
+    _need_cuda()
+    x, dt, A, B, C = _ssd_inputs(2, 700, 8, 2, 64, 128, seed=8)
+    y1, state1 = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    y2, state2 = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(state1, state2)
 
 
 @pytest.mark.cuda

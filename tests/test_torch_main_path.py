@@ -149,6 +149,75 @@ def test_torch_smoke_reads_registers_and_spills_from_the_build_log(smoke, monkey
         smoke.flash_ptxas(torch.float32, 128)
 
 
+# The ssd_scan part of a real build log (nvcc 12.8, sm_90a).
+SSD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17717ssd_chunk_outputsILi1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17717ssd_chunk_outputsILi1EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 1 barriers
+ptxas info    : Compile time = 132.688 ms
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17717ssd_chunk_outputsILi2EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17717ssd_chunk_outputsILi2EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 123 registers, used 1 barriers
+ptxas info    : Compile time = 166.003 ms
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17714ssd_state_passENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17714ssd_state_passENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers
+ptxas info    : Compile time = 83.225 ms
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17716ssd_chunk_statesENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_2dfcb17716ssd_chunk_statesENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Compile time = 268.440 ms
+"""
+
+
+def test_torch_smoke_reads_the_three_ssd_kernels_from_the_build_log(smoke, monkeypatch,
+                                                                    tmp_path):
+    """Each of the three ssd kernels, by name and instantiation; a spill in
+    any of them fails the check, and so does a kernel with no line."""
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    log = smoke._build._target("ssd_scan").with_suffix(".log")
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text(SSD_PTXAS_LOG)
+    assert smoke.ssd_ptxas() == {
+        "ssd_chunk_outputs<1>": {"registers": 79, "spill_stores": 0, "spill_loads": 0},
+        "ssd_chunk_outputs<2>": {"registers": 123, "spill_stores": 0, "spill_loads": 0},
+        "ssd_state_pass": {"registers": 128, "spill_stores": 0, "spill_loads": 0},
+        "ssd_chunk_states": {"registers": 127, "spill_stores": 0, "spill_loads": 0}}
+    entries = SSD_PTXAS_LOG.split("ptxas info    : Compiling")
+    spilled = entries[:2] + [entries[2].replace("0 bytes spill stores, 0 bytes spill loads",
+                                                "8 bytes spill stores, 8 bytes spill loads")]
+    log.write_text("ptxas info    : Compiling".join(spilled + entries[3:]))
+    with pytest.raises(smoke.SmokeFailure, match="spills"):
+        smoke.ssd_ptxas()
+    got = smoke.ssd_ptxas(required=False)
+    assert got["ssd_chunk_outputs<2>"] == {"registers": 123, "spill_stores": 8, "spill_loads": 8}
+    log.write_text("ptxas info    : Compiling".join(entries[:4]))  # no ssd_chunk_states
+    with pytest.raises(smoke.SmokeFailure, match="no ptxas line"):
+        smoke.ssd_ptxas()
+    # a log given as text is read the same way
+    assert smoke.ssd_ptxas(SSD_PTXAS_LOG)["ssd_chunk_states"]["registers"] == 127
+
+
+def test_torch_smoke_ssd_bound_takes_the_faster_f32_route(smoke):
+    """At the serve shape (Bz 4, S 4000, H 24, P 64, N 128) 3xTF32 at
+    165 TFLOP/s on the chunked count at chunk 16 (13.84 GFLOP, 0.0839 ms)
+    beats the CUDA cores at 67 TFLOP/s on the count at chunk 1 (12.73
+    GFLOP, 0.190 ms); a tiny head with a long sequence is bound by bytes."""
+    nbytes = 217_673_824
+    t, by, peak, flops = smoke.ssd_bound(nbytes, 4, 24, 4000, 64, 128)
+    assert flops == smoke.ssd_flops(4, 24, 4000, 64, 128, 16) == 13_836_288_000
+    assert by == "operations" and "3xTF32" in peak
+    assert t == pytest.approx(3 * flops / 495e12 * 1e3) and 0.0838 < t < 0.0839
+    assert smoke.ssd_least_flops(4, 24, 4000, 64, 128) / 67e12 * 1e3 > t
+    t, by, _, _ = smoke.ssd_bound(3.35e9, 1, 1, 16, 1, 1)
+    assert by == "bytes" and t == pytest.approx(1.0)
+    # the chunk-16 count is the least of the chunks the tensor cores take
+    assert all(smoke.ssd_flops(4, 24, 4000, 64, 128, l) >= flops for l in (16, 17, 32, 64, 128))
+
+
 def test_torch_smoke_mandelbrot_flops_count_this_images_work(smoke):
     # two live pixels (64 iterations each), two escaped after 1 and 2:
     # 8 flops per iteration, 3 per escape test, 2 per row and per column

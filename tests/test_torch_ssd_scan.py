@@ -6,9 +6,11 @@ sequential oracle ``ssd_ref``, its Pallas kernel ``ssd_scan``
 port's ``ssd_ref`` and ``ssd_chunked``.  Tolerances: the reference's own
 (``tests/test_kernels.py``), 2e-3 at its cases and 5e-3 for its property
 sweep; 1e-5 between the two ``ssd_chunked`` (the same f32 operations,
-summed in other orders).  The CUDA kernel runs only on the card
-(``tests/test_torch_cuda.py``); here its wrapper's refusals are checked,
-each before any build is attempted.
+summed in other orders).  The kernel's three-pass decomposition in plain
+PyTorch, ``ssd_three_pass``, is held to the Pallas kernel at 1e-5 where
+the chunks are whole and to ``ssd_ref`` at 2e-3 elsewhere.  The CUDA
+kernel runs only on the card (``tests/test_torch_cuda.py``); here its
+wrapper's refusals are checked, each before any build is attempted.
 """
 import importlib.util
 import os
@@ -29,7 +31,7 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_three_pass
 from repro_torch.models.ssm import ssd_chunked
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -105,6 +107,69 @@ def test_torch_ssd_chunked_matches_reference(Bz, S, H, G, P, N, chunk):
     assert tuple(y.shape) == (Bz, S, H, P) and tuple(state.shape) == (Bz, H, N, P)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(state.numpy(), np.asarray(jstate), rtol=1e-5, atol=1e-5)
+
+
+def _rows_of(x, dt, A, B, C):
+    """Model layout -> the reference kernel's rows (Bz*H, S, .), groups
+    expanded over their heads."""
+    Bz, S, H, P = x.shape
+    R = H // B.shape[2]
+    rows = lambda t: np.ascontiguousarray(  # noqa: E731
+        t.transpose(0, 2, 1, 3).reshape(Bz * H, S, -1))
+    return (rows(x), np.ascontiguousarray(dt.transpose(0, 2, 1).reshape(Bz * H, S)),
+            np.tile(A, Bz), rows(np.repeat(B, R, axis=2)), rows(np.repeat(C, R, axis=2)))
+
+
+def _check_three_pass(arrs, chunk):
+    """y against the Pallas kernel at ``chunk`` (interpret mode) at 1e-5
+    where S is whole chunks (the same chunking, the same f32 operations),
+    else against the sequential ``ssd_ref`` at 2e-3, the reference's
+    tolerance; the final state against the JAX model's ``ssd_chunked`` at
+    the same chunk, 1e-5.  Both must be finite."""
+    Bz, S, H, P = arrs[0].shape
+    N = arrs[3].shape[3]
+    y, state = ssd_three_pass(*(torch.from_numpy(a) for a in arrs), chunk)
+    assert y.dtype == state.dtype == torch.float32
+    assert tuple(y.shape) == (Bz, S, H, P) and tuple(state.shape) == (Bz, H, N, P)
+    assert bool(y.isfinite().all()) and bool(state.isfinite().all())
+    rows = [jnp.asarray(a) for a in _rows_of(*arrs)]
+    y_rows = y.numpy().transpose(0, 2, 1, 3).reshape(Bz * H, S, P)
+    if S % chunk == 0:
+        want = np.asarray(pallas_ssd_scan(*rows, chunk=chunk, interpret=True))
+        np.testing.assert_allclose(y_rows, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(y_rows, np.asarray(jax_ssd_ref(*rows)), rtol=2e-3, atol=2e-3)
+    _, jstate = jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("at", ["1", "l-1", "l", "l+1", "3l+5"])
+def test_torch_ssd_three_pass_at_chunk_edges(at, chunk):
+    S = {"1": 1, "l-1": chunk - 1, "l": chunk, "l+1": chunk + 1, "3l+5": 3 * chunk + 5}[at]
+    _check_three_pass(_model_layout(2, S, 3, 1, 8, 16, seed=17), chunk)
+
+
+@pytest.mark.parametrize("Bz,S,H,G,P,N,chunk", [
+    (2, 150, 4, 2, 8, 16, 64),    # two groups over four heads, ragged
+    (1, 256, 6, 3, 16, 8, 128),   # three groups over six heads, whole chunks
+])
+def test_torch_ssd_three_pass_reads_groups(Bz, S, H, G, P, N, chunk):
+    _check_three_pass(_model_layout(Bz, S, H, G, P, N, seed=19), chunk)
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 64), (263, 128)])
+def test_torch_ssd_three_pass_strong_decay(S, chunk):
+    """dt * A = -2.4 a token: cum reaches -153 (l 64) or -307 (l 128)
+    within a chunk, where exp(-cum) is inf in f32.  y and the state stay
+    finite and within tolerance."""
+    Bz, H, G, P, N = 1, 2, 1, 8, 8
+    x, _, _, B, C = _model_layout(Bz, S, H, G, P, N, seed=23)
+    dt = np.full((Bz, S, H), 0.1, np.float32)
+    A = np.full(H, -24.0, np.float32)
+    with np.errstate(over="ignore"):  # exp(-cum) at the chunk's end overflows
+        assert np.isinf(np.exp(np.float32(2.4 * min(S, chunk))))
+    _check_three_pass([x, dt, A, B, C], chunk)
 
 
 def test_torch_ssd_op_takes_the_plain_path_on_cpu():
