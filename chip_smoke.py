@@ -484,7 +484,7 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
         eng.drain()
         dev.synchronize()
         wall = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = {**launch_counts(), "paged_attention_kernels": paged_kernel.kernel_launches}
         metrics = eng.metrics()
     finally:
         eng.close()
@@ -532,9 +532,12 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     launches = {impl: {k: r["launches"][k] for k in ("paged_attention", prefill_kernel)}
                 for impl, r in runs.items()}
     want_paged = cfg.num_layers * steps if cfg.family == "dense" else 0
-    require(launches["auto"]["paged_attention"] == want_paged,
-            f"{arch} paged: paged_attention launched {launches['auto']['paged_attention']} times, "
-            f"not {want_paged} ({cfg.num_layers} layers x {steps} decode steps)")
+    # one CUDA kernel a call, as the C entry counts its launches
+    kernels = launches["auto"]["paged_attention_kernels"] = got["launches"]["paged_attention_kernels"]
+    require(launches["auto"]["paged_attention"] == want_paged == kernels,
+            f"{arch} paged: paged_attention launched {launches['auto']['paged_attention']} times "
+            f"and {kernels} CUDA kernels, not {want_paged} each ({cfg.num_layers} layers x "
+            f"{steps} decode steps)")
     require(launches["auto"][prefill_kernel] == cfg.num_layers * got["metrics"]["prefill_batches"],
             f"{arch} paged: {prefill_kernel} launched {launches['auto'][prefill_kernel]} times")
     require(all(n == 0 for n in launches["ref"].values()),
@@ -729,6 +732,21 @@ def ssd_ptxas(log: "str | None" = None, required: bool = True) -> dict:
     return out
 
 
+def paged_ptxas(log: "str | None" = None) -> dict:
+    """Registers and spills of every paged_attention instantiation, by
+    dtype, load width W and chunks a lane NPL (``f32 W4 NPL1``: the
+    vector loads at D <= 128), read from ``log`` (by default this run's
+    build log); none may spill, and the log must hold them."""
+    log = build_log("paged_attention") if log is None else log
+    out = {}
+    for f, u in ptxas_no_spill(log, "paged_attention", "paged_").items():
+        m = re.search(r"paged_decodeI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", f)
+        require(m is not None and "registers" in u, f"paged_attention: unread ptxas entry {f}")
+        out[f"{'f32' if m.group(1) == 'f' else 'bf16'} W{m.group(2)} NPL{m.group(3)}"] = u
+    require(len(out) >= 12, f"paged_attention: {len(out)} instantiations in the build log, not 12")
+    return out
+
+
 def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict:
     B, S, H, K, D = shape
     rng = np.random.default_rng(7)
@@ -917,14 +935,43 @@ def paged_inputs(B: int, H: int, K: int, D: int, P: int, M: int, lengths, device
             torch.tensor(lengths, dtype=torch.int32).to(device))
 
 
+def paged_case(B: int, H: int, K: int, D: int, P: int, M: int, lengths, device, dtype,
+               reps: int = 20) -> dict:
+    """One timed paged_attention call beside its bound: the kernel against
+    the plain version (f32: the largest difference; bf16: the largest
+    difference over ``paged_attention.ref.bf16_bound``), and the blocks of
+    its grid and of each cluster as the C entry recorded its launch."""
+    q, kp, vp, tbl, lens = paged_inputs(B, H, K, D, P, M, lengths, device, dtype)
+    got, want = paged_kernel.paged_attention(q, kp, vp, tbl, lens), paged_attention_ref(q, kp, vp,
+                                                                                       tbl, lens)
+    launched = {"blocks": paged_kernel.last_blocks, "cluster": paged_kernel.last_cluster}
+    require(bool(got.isfinite().all()), f"paged_attention {dtype} B={B}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    out = {"B": B, "H": H, "K": K, "lengths": lengths, "dtype": str(dtype).split(".")[-1]}
+    if dtype == torch.float32:
+        out["max_abs_err"] = float(diff.max())
+        require(out["max_abs_err"] <= PAGED_TOL,
+                f"paged_attention B={B} differs from its plain version by {out['max_abs_err']}")
+    else:
+        tol = paged_bf16_bound(q, kp, vp, tbl, lens, want)
+        out["max_err_over_bound"] = float((diff / tol).max())
+        require(out["max_err_over_bound"] <= 1, f"paged_attention bf16 H={H} K={K} differs by "
+                                                f"{out['max_err_over_bound']} of its bf16 bound")
+    t, by = bound(paged_bytes(q, kp, tbl, lens), paged_flops(q, lens, M * P))
+    ms = cuda_ms(lambda: paged_kernel.paged_attention(q, kp, vp, tbl, lens), reps)
+    return {**out, "ms": ms, "bound_ms": t, "bound_by": by, "x_bound": ms / t, **launched}
+
+
 def check_paged(launches: int, device) -> dict:
     """paged_attention at the serve decode shape (OLMo-1B: B 8, H = K = 16,
     D 128, P 16, lengths 4 x 1000 and 4 x 2000, table width 128) in f32
-    against the plain gather version; a bf16 GQA check at StarCoder2-7B's
-    heads, per element within ``paged_attention.ref.bf16_bound``; the
-    16-layer fold against 16 single-layer launches, bit for bit.  The bound
-    counts ``paged_bytes``; the library time is SDPA over a cache gathered
-    beforehand (the gather excluded)."""
+    against the plain gather version; the same in bf16, a bf16 GQA check
+    at StarCoder2-7B's heads, per element within
+    ``paged_attention.ref.bf16_bound``, and B 1 with one 2000-token row
+    (the grid at small batch), each timed beside its bound; the 16-layer
+    fold against 16 single-layer launches, bit for bit; no spill in any
+    instantiation.  The bound counts ``paged_bytes``; the library time is
+    SDPA over a cache gathered beforehand (the gather excluded)."""
     B, H, K, D, P, M = SERVE_BATCH * 2, 16, 16, 128, 16, 128
     lengths = [1000] * SERVE_BATCH + [2000] * SERVE_BATCH
     q, kp, vp, tbl, lens = paged_inputs(B, H, K, D, P, M, lengths, device)
@@ -934,10 +981,19 @@ def check_paged(launches: int, device) -> dict:
     err = float((got - want).abs().max())
     require(bool(got.isfinite().all()), "paged_attention: non-finite output")
     require(err <= PAGED_TOL, f"paged_attention differs from its plain version by {err}")
+    require(paged_kernel.last_load_width == 4, "paged_attention: the serve shape did not take "
+                                               "the vector loads")
+    splits = paged_kernel.splits()
+    launched = {"splits": splits, "cluster": paged_kernel.last_cluster,
+                "blocks": paged_kernel.last_blocks}
+    require(launched["cluster"] == splits and launched["blocks"] == splits * K * B,
+            f"paged_attention launched {launched['blocks']} blocks in clusters of "
+            f"{launched['cluster']}, not {splits * K * B} in clusters of {splits}")
 
     Lf = get_config(SERVE_ARCH).num_layers
     fq, fk, fv, ftbl, flens = paged_inputs(B, H, K, D, P, M, lengths, device, layers=Lf)
     folded = paged_kernel.paged_attention_layers(fq, fk, fv, ftbl, flens)
+    fold_blocks = paged_kernel.last_blocks
     fold_equal = all(torch.equal(folded[i], paged_kernel.paged_attention(fq[i], fk[i], fv[i],
                                                                          ftbl, flens))
                      for i in range(Lf))
@@ -948,11 +1004,9 @@ def check_paged(launches: int, device) -> dict:
 
     GB, GH, GK = 4, 36, 4  # StarCoder2-7B's heads
     glens = [1000, 2000, 1000, 2000]
-    gq, gk, gv, gtbl, glen = paged_inputs(GB, GH, GK, D, P, M, glens, device, torch.bfloat16)
-    gwant = paged_attention_ref(gq, gk, gv, gtbl, glen)
-    gdiff = (paged_kernel.paged_attention(gq, gk, gv, gtbl, glen).float() - gwant.float()).abs()
-    ratio = float((gdiff / paged_bf16_bound(gq, gk, gv, gtbl, glen, gwant)).max())
-    require(ratio <= 1, f"paged_attention bf16 GQA differs by {ratio} of its bf16 bound")
+    gqa = paged_case(GB, GH, GK, D, P, M, glens, device, torch.bfloat16)
+    bf16 = paged_case(B, H, K, D, P, M, lengths, device, torch.bfloat16)
+    row = paged_case(1, H, K, D, P, M, [2000], device, torch.float32)
 
     S = M * P
     kc = kp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
@@ -967,11 +1021,11 @@ def check_paged(launches: int, device) -> dict:
                  shape={"B": B, "H": H, "K": K, "D": D, "P": P, "M": M, "lengths": lengths},
                  dtype="float32", bytes=nbytes, flops=flops, limit={"max_abs": PAGED_TOL},
                  library="SDPA over the cache gathered beforehand (gather excluded)",
-                 fold={"layers": Lf, "bit_equal": fold_equal, "ms": fold_ms,
+                 **launched, ptxas=paged_ptxas(),
+                 fold={"layers": Lf, "bit_equal": fold_equal, "ms": fold_ms, "blocks": fold_blocks,
                        "bound_ms": fold_bound[0], "bound_by": fold_bound[1]},
-                 gqa_bf16={"B": GB, "H": GH, "K": GK, "lengths": glens,
-                           "max_err_over_bound": ratio,
-                           "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
+                 bf16=bf16, b1_row=row,
+                 gqa_bf16={**gqa, "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
 
 
 def main() -> int:

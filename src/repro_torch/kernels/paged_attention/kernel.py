@@ -3,11 +3,17 @@
 Replaces ``src/repro/kernels/paged_attention/kernel.py:paged_attention_bhd``
 and the per-layer loop of its ``ops.paged_attention_layers``.  The kernel
 is ``csrc/paged_attention.cu`` (see its header for the bound and the
-design); this wrapper checks the inputs, allocates the output and launches
-on the current CUDA stream.  q and the pages may have any strides whose
-last one is 1, so the query view of a (B, 1, H, D) projection and one
-layer of a folded slab go in without a copy.  ``launches`` counts the
-launches made.
+design: split-K over a row's pages, merged inside a thread-block cluster);
+this wrapper checks the inputs, allocates the output and launches on the
+current CUDA stream.  q and the pages may have any strides whose last one
+is 1, so the query view of a (B, 1, H, D) projection and one layer of a
+folded slab go in without a copy; the C entry takes the kernel's vector
+instantiation where the bases and strides allow it, else its scalar one.
+``launches`` counts the calls made and ``kernel_launches`` the CUDA
+kernels they launched as the C entry reports them (one a call).  Of the
+last call, as the C entry recorded its launch: ``last_load_width``, the
+elements a lane loaded at once (4: vector, 1: scalar); ``last_blocks``,
+the blocks of its grid; ``last_cluster``, the blocks of each cluster.
 """
 from __future__ import annotations
 
@@ -18,12 +24,16 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+kernel_launches = 0
+last_load_width = 0
+last_blocks = 0
+last_cluster = 0
 
 MAX_D = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
          + [ctypes.c_void_p])
-_GRID_YZ_MAX = 65535  # B and L are the grid's y and z extents
+_GRID_YZ_MAX = 65535  # B and L are the grid's y and z extents (x: splits x kv heads)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths) -> None:
@@ -69,12 +79,31 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                              f"got strides {t.stride()}")
 
 
-def _launch(q, k_pages, v_pages, page_table, lengths) -> "torch.Tensor":
-    global launches
-    _check(q, k_pages, v_pages, page_table, lengths)
+def _lib() -> "ctypes.CDLL":
     lib = _build.load("paged_attention")
+    if lib.paged_attention_blocks.restype is not ctypes.c_longlong:
+        for fn in (lib.paged_attention_launched, lib.paged_attention_load_width,
+                   lib.paged_attention_splits, lib.paged_attention_cluster):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+        for dtype in _SUFFIX.values():
+            fn = getattr(lib, f"paged_attention_{dtype}")
+            fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+        lib.paged_attention_blocks.argtypes = []
+        lib.paged_attention_blocks.restype = ctypes.c_longlong
+    return lib
+
+
+def splits() -> int:
+    """The blocks each (kv head, row, layer) is split over, a constant of
+    the kernel's source.  Builds the library if it is not built yet."""
+    return _lib().paged_attention_splits()
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths) -> "torch.Tensor":
+    global launches, kernel_launches, last_load_width, last_blocks, last_cluster
+    _check(q, k_pages, v_pages, page_table, lengths)
+    lib = _lib()
     fn = getattr(lib, f"paged_attention_{_SUFFIX[q.dtype]}")
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
     L, B, H, D = q.shape
     _, _, P, K, _ = k_pages.shape
     o = torch.empty((L, B, H, D), dtype=q.dtype, device=q.device)
@@ -85,7 +114,12 @@ def _launch(q, k_pages, v_pages, page_table, lengths) -> "torch.Tensor":
                  q.stride(0), q.stride(1), q.stride(2), *k_pages.stride()[:4],
                  *v_pages.stride()[:4], page_table.stride(0), lengths.stride(0), stream)
     _build.check(lib, err, "paged_attention")
+    launched = lib.paged_attention_launched()  # before `+=`: see ssd_scan's wrapper
     launches += 1
+    kernel_launches += launched
+    last_load_width = lib.paged_attention_load_width()
+    last_blocks = lib.paged_attention_blocks()
+    last_cluster = lib.paged_attention_cluster()
     return o
 
 

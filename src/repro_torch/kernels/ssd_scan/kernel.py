@@ -110,7 +110,10 @@ def ssd_scan(x: "torch.Tensor", dt: "torch.Tensor", A: "torch.Tensor", B: "torch
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
             A.stride(0), B.stride(0), B.stride(1), B.stride(2), C.stride(0), C.stride(1),
             C.stride(2), work.data_ptr(), stream)
-        kernel_launches += lib.ssd_scan_f32_launched()
+        launched = lib.ssd_scan_f32_launched()
     _build.check(lib, err, "ssd_scan")
+    # the library call comes first: a ctypes call inside `+=` lets another
+    # thread's call in between the read and the write, and its count is lost
+    kernel_launches += launched
     launches += 1
     return y, state

@@ -7,6 +7,7 @@ file imports no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import ctypes
+import threading
 
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import bf16_bound as paged_bf16_bound
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref, paged_attention_split_ref
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
 from repro_torch.kernels.stencil import ops as stencil_ops
@@ -499,6 +500,31 @@ def test_torch_cuda_ssd_scan_counts_its_three_kernels():
 
 
 @pytest.mark.cuda
+def test_torch_cuda_kernel_counts_lose_nothing_across_threads():
+    """Calls from two threads at once, as the serve phases make them from
+    two lanes, are all counted: in ``launches`` and in the kernels the C
+    entries report."""
+    _need_cuda()
+    ssd_args = _ssd_inputs(1, 100, 4, 2, 16, 16, seed=9)
+    paged_args = _paged_inputs(*PAGED_CASES[2])
+    reset_launch_counts()
+    calls = 200
+
+    def work():
+        for _ in range(calls):
+            ssd_kernel.ssd_scan(*ssd_args)
+            paged_kernel.paged_attention(*paged_args)
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert (ssd_kernel.launches, ssd_kernel.kernel_launches) == (2 * calls, 6 * calls)
+    assert (paged_kernel.launches, paged_kernel.kernel_launches) == (2 * calls, 2 * calls)
+
+
+@pytest.mark.cuda
 def test_torch_cuda_ssd_scan_repeats_bit_for_bit():
     """Two calls in a row on one stream give the same bits: the workspace
     carries nothing from one call to the next, and no sum is atomic."""
@@ -683,6 +709,130 @@ def test_torch_cuda_paged_attention_fold_is_bit_equal_to_per_layer_launches():
     assert launch_counts()["paged_attention"] == 1  # one launch for all layers
     for i in range(3):
         assert torch.equal(folded[i], paged_ops.paged_attention(q[i], kp[i], vp[i], tbl, lens))
+
+
+# The split-K tiling's edges (8 splits a row): rows of fewer pages than
+# splits, lengths at multiples of splits x P (and one past), one long row
+# (M 512, 8,000 tokens), and GQA R 9 at the serve page size with a
+# length-0 and a length-1 row.
+PAGED_SPLIT_CASES = [
+    (4, 8, 2, 64, 16, 8, [1, 16, 17, 100]),
+    (4, 16, 16, 128, 16, 64, [128, 256, 1024, 129]),
+    (1, 16, 16, 128, 16, 512, [8000]),
+    (4, 36, 4, 128, 16, 128, [1000, 2000, 1, 0]),
+]
+
+
+def _assert_paged_close(got, want, q, kp, vp, tbl, lens):
+    """f32 within 1e-5; bf16 per element within ``bf16_bound`` (on the
+    pages with their NaN garbage cleaned)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        clean = lambda t: torch.nan_to_num(t, nan=0.0)  # noqa: E731
+        bound = paged_bf16_bound(q, clean(kp), clean(vp), tbl, lens, want)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_paged_attention_split_edges(case, dtype):
+    """The kernel against the split decomposition in plain PyTorch (which
+    takes the NaN tails as they are) and against the plain gather
+    version; a length-0 row gives exactly 0."""
+    _need_cuda()
+    q, kp, vp, tbl, lens = _paged_inputs(*case, dtype=dtype, seed=len(case[-1]))
+    got = paged_kernel.paged_attention(q, kp, vp, tbl, lens)
+    torch.cuda.synchronize()
+    assert paged_kernel.last_load_width == 4  # contiguous pages: the vector instantiation
+    assert bool(got.isfinite().all())
+    _assert_paged_close(got, paged_attention_split_ref(q, kp, vp, tbl, lens), q, kp, vp, tbl, lens)
+    _assert_paged_close(got, _paged_plain(q, kp, vp, tbl, lens), q, kp, vp, tbl, lens)
+    assert not bool(got[lens == 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_paged_attention_repeats_bit_for_bit(dtype):
+    """No atomics and a fixed merge order: two calls are equal bit for bit
+    (the serve shape, and GQA R 9)."""
+    _need_cuda()
+    for case in (PAGED_CASES[-1], PAGED_SPLIT_CASES[-1]):
+        args = _paged_inputs(*case, dtype=dtype)
+        first = paged_kernel.paged_attention(*args)
+        assert torch.equal(first, paged_kernel.paged_attention(*args))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_fold_bit_equal_at_split_boundaries():
+    _need_cuda()
+    lengths = [128, 256, 127, 129, 1024, 0]  # multiples of 8 x 16 tokens and one off
+    layers = [_paged_inputs(6, 8, 4, 128, 16, 64, lengths, seed=s) for s in range(3)]
+    tbl, lens = layers[0][3], layers[0][4]
+    q, kp, vp = (torch.stack([x[i] for x in layers]) for i in range(3))
+    folded = paged_kernel.paged_attention_layers(q, kp, vp, tbl, lens)
+    for i in range(3):
+        assert torch.equal(folded[i], paged_kernel.paged_attention(q[i], kp[i], vp[i], tbl, lens))
+        torch.testing.assert_close(folded[i], paged_attention_split_ref(q[i], kp[i], vp[i], tbl,
+                                                                        lens),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_paged_attention_scalar_instantiation(dtype):
+    """Views the vector loads cannot take go through the kernel's scalar
+    instantiation: a base one element off, an odd head dim, odd strides;
+    each agrees with the plain version, and an aligned copy of the same
+    data takes the vector one."""
+    _need_cuda()
+    q, kp, vp, tbl, lens = _paged_inputs(3, 8, 2, 64, 16, 40, [5, 300, 129], dtype=dtype)
+    clean = lambda t: torch.nan_to_num(t, nan=0.0)  # noqa: E731
+    want = _paged_plain(q, kp, vp, tbl, lens)
+
+    def shifted(t):  # the same values at a base one element past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    off = paged_kernel.paged_attention(shifted(q), shifted(kp), shifted(vp), tbl, lens)
+    assert paged_kernel.last_load_width == 1
+    _assert_paged_close(off, want, q, kp, vp, tbl, lens)
+    wide = torch.zeros(*kp.shape[:-1], 67, dtype=kp.dtype, device="cuda")  # row stride 67
+    wide_v = wide.clone()
+    wide[..., :64], wide_v[..., :64] = kp, vp
+    odd = paged_kernel.paged_attention(q, wide[..., :64], wide_v[..., :64], tbl, lens)
+    assert paged_kernel.last_load_width == 1
+    _assert_paged_close(odd, want, q, kp, vp, tbl, lens)
+    # D 33: no 4-element chunks
+    q3, k3, v3, t3, l3 = _paged_inputs(2, 4, 2, 33, 4, 12, [45, 7], dtype=dtype)
+    got3 = paged_kernel.paged_attention(q3, k3, v3, t3, l3)
+    assert paged_kernel.last_load_width == 1
+    _assert_paged_close(got3, _paged_plain(q3, k3, v3, t3, l3), q3, k3, v3, t3, l3)
+    paged_kernel.paged_attention(q.contiguous(), clean(kp).contiguous(), vp, tbl, lens)
+    assert paged_kernel.last_load_width == 4
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_attention_one_kernel_a_call():
+    """Each call launches one CUDA kernel, as the C entry reports: the
+    cluster merge needs no second pass.  The grid it recorded holds
+    splits x kv heads x rows x layers blocks, in clusters of the splits."""
+    _need_cuda()
+    reset_launch_counts()
+    args = _paged_inputs(*PAGED_CASES[-1])
+    for _ in range(3):
+        paged_kernel.paged_attention(*args)
+    assert (paged_kernel.last_blocks, paged_kernel.last_cluster) == (1024, 8)
+    q, kp, vp, tbl, lens = args
+    paged_kernel.paged_attention_layers(torch.stack([q, q]), torch.stack([kp, kp]),
+                                        torch.stack([vp, vp]), tbl, lens)
+    assert paged_kernel.launches == paged_kernel.kernel_launches == 4
+    assert (paged_kernel.last_blocks, paged_kernel.last_cluster) == (2048, 8)
+    assert paged_kernel.splits() == 8
 
 
 @pytest.mark.cuda

@@ -223,3 +223,46 @@ def test_torch_smoke_mandelbrot_flops_count_this_images_work(smoke):
     # 8 flops per iteration, 3 per escape test, 2 per row and per column
     counts = torch.tensor([[64, 1], [2, 64]], dtype=torch.int32)
     assert smoke.mandelbrot_flops(counts, 64) == 8 * 131 + 3 * 2 + 2 * (2 + 2)
+
+
+# One paged_attention entry of a real build log (nvcc 12, sm_90a), for
+# the dtype ("f" or "13__nv_bfloat16"), load width and chunks a lane.
+PAGED_PTXAS_ENTRY = (
+    "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__caccf2de_18_paged_attention_cu_"
+    "104c41dd12paged_decodeI{t}Li{w}ELi{n}EEEvNS_6ParamsE' for 'sm_90a'\n"
+    "    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
+    "ptxas info    : Used {r} registers, used 1 barriers, 16512 bytes smem\n")
+PAGED_INSTANCES = [(t, w, n) for t in ("13__nv_bfloat16", "f")
+                   for w, n in ((1, 8), (1, 4), (1, 2), (1, 1), (4, 2), (4, 1))]
+
+
+def _paged_log(spill_at=None, drop=0):
+    return "".join(PAGED_PTXAS_ENTRY.format(t=t, w=w, n=n, r=60 + i, s=8 if i == spill_at else 0)
+                   for i, (t, w, n) in enumerate(PAGED_INSTANCES[drop:]))
+
+
+def test_torch_smoke_reads_every_paged_instantiation_from_the_build_log(smoke):
+    """Each of the 12 paged_attention instantiations by dtype, load width
+    and chunks a lane; a spill in any of them, or a missing one, fails."""
+    got = smoke.paged_ptxas(_paged_log())
+    assert len(got) == 12
+    assert got["f32 W4 NPL1"] == {"registers": 71, "spill_stores": 0, "spill_loads": 0}
+    assert got["bf16 W1 NPL8"]["registers"] == 60
+    with pytest.raises(smoke.SmokeFailure, match="spills"):
+        smoke.paged_ptxas(_paged_log(spill_at=3))
+    with pytest.raises(smoke.SmokeFailure, match="instantiations"):
+        smoke.paged_ptxas(_paged_log(drop=1))
+
+
+def test_torch_smoke_paged_bytes_count_each_kv_row_once_per_kv_head(smoke, device):
+    """The bound's bytes at the serve shape: the K and V rows of 12,000
+    valid tokens for 16 kv heads of D 128 in f32, q and o, 752 table
+    entries and 8 lengths; GQA heads share their kv head's rows."""
+    lengths = [1000] * 4 + [2000] * 4
+    q, kp, vp, tbl, lens = smoke.paged_inputs(8, 16, 16, 128, 16, 128, lengths, device.torch_device)
+    assert smoke.paged_bytes(q, kp, tbl, lens) == 196_742_112
+    assert smoke.paged_flops(q, lens, 128 * 16) == 4 * 128 * 16 * 12_000
+    g = smoke.paged_inputs(4, 36, 4, 128, 16, 128, [1000, 2000] * 2, device.torch_device,
+                           torch.bfloat16)
+    assert smoke.paged_bytes(g[0], g[1], g[3], g[4]) == (2 * 6000 * 4 * 128 * 2 + 2 * 4 * 36 * 128 * 2
+                                                         + 4 * 376 + 4 * 4)

@@ -10,6 +10,10 @@ fold (``paged_attention_layers``) equals per-layer calls bit for bit, as
 in the reference.  The CUDA kernel itself runs only on the card
 (``tests/test_torch_cuda.py``); here a CPU tensor takes the plain version
 and the wrapper's refusals build nothing.
+
+``paged_attention_split_ref``, the kernel's split-K decomposition in plain
+PyTorch, is held here against the same JAX functions at the same
+tolerances, over the edges of its page split.
 """
 import numpy as np
 import pytest
@@ -28,7 +32,8 @@ from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (bf16_bound, paged_attention_ref,
+                                                    paged_attention_split_ref, split_bounds)
 from repro_torch.models.model import paged_surface
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -230,3 +235,116 @@ def test_torch_paged_wrapper_refuses_cpu_tensors_before_building(monkeypatch):
         paged_kernel.paged_attention_layers(*[t[None] if i < 3 else t
                                               for i, t in enumerate(_good())])
     assert paged_kernel.launches == before
+
+
+# (B, H, K, D, P, M, lengths): length 0 and 1; rows of fewer pages than
+# splits; lengths ending on a page boundary (4, 36) and on a split
+# boundary (32 = 8 splits of one page, 64 of two); uneven last splits
+# (9, 11 and 18 pages over 8 splits); GQA R = 9; D 4 with P 2.
+SPLIT_CASES = [
+    (3, 4, 2, 8, 4, 6, [0, 1, 24]),
+    (3, 4, 2, 8, 4, 4, [5, 9, 13]),
+    (4, 4, 2, 8, 4, 16, [4, 32, 36, 64]),
+    (3, 2, 1, 8, 4, 18, [33, 44, 70]),
+    (2, 36, 4, 8, 4, 8, [20, 31]),
+    (2, 2, 1, 4, 2, 12, [23, 7]),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_torch_paged_split_ref_matches_jax_ref_and_pallas_kernel(case):
+    B, H, K, D, P, M, lengths = case
+    q, kp, vp, tbl, lens = _random_paged(np.random.default_rng(7 + sum(lengths)), B, H, K, D, P,
+                                         M, lengths)
+    got = paged_attention_split_ref(*_t(q, kp, vp, tbl, lens)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged_bhd(q, kp, vp, tbl, lens, interpret=True)), **TOL)
+    # The JAX oracle spreads a length-0 row over its masked slots; the
+    # Pallas kernel and the split gives 0 there.
+    live = lens > 0
+    np.testing.assert_allclose(got[live], np.asarray(jax_paged_ref(q, kp, vp, tbl, lens))[live],
+                               **TOL)
+    np.testing.assert_array_equal(got[~live], 0)
+    np.testing.assert_allclose(got[live], _port(q, kp, vp, tbl, lens)[live], **TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_torch_paged_split_ref_agrees_across_split_counts(splits):
+    """The split count moves only the rounding: 1, 3 and 8 splits agree
+    with the plain gather version, rows past the table width included."""
+    q, kp, vp, tbl, lens = _random_paged(np.random.default_rng(splits), 3, 4, 2, 8, 4, 5,
+                                         [3, 17, 20])
+    tq, tk, tv, tt, tl = _t(q, kp, vp, tbl, lens)
+    want = paged_attention_ref(tq, tk, tv, tt, tl)
+    torch.testing.assert_close(paged_attention_split_ref(tq, tk, tv, tt, tl, splits), want,
+                               **TOL)
+    over = torch.tensor([3, 17, 99], dtype=torch.int32)  # clamped to M * P = 20
+    torch.testing.assert_close(paged_attention_split_ref(tq, tk, tv, tt, over, splits), want,
+                               **TOL)
+
+
+def test_torch_paged_split_bounds_cut_pages_as_the_kernel():
+    lo, hi = split_bounds(torch.tensor([1000, 2000, 0, 1, 17, 5000]), 16, 128)
+    assert lo.shape == hi.shape == (8, 6)
+    # 1000 tokens: 63 pages, 8 a split, the last split 7 pages ending at 1000
+    assert lo[:, 0].tolist() == [0, 128, 256, 384, 512, 640, 768, 896]
+    assert hi[:, 0].tolist() == [128, 256, 384, 512, 640, 768, 896, 1000]
+    assert hi[:, 1].tolist() == [256 * (s + 1) for s in range(7)] + [2000]
+    assert lo[:, 2].tolist() == hi[:, 2].tolist() == [0] * 8  # length 0: every split empty
+    assert hi[:, 3].tolist() == [1] * 8 and lo[1:, 3].tolist() == [1] * 7  # one token, split 0
+    assert hi[:, 4].tolist() == [16] + [17] * 7 and lo[2:, 4].tolist() == [17] * 6
+    assert hi[-1, 5] == 2048  # clamped to the table's M * P
+    # the splits tile [0, n) in rank order
+    for b in range(6):
+        assert lo[0, b] == 0 and torch.equal(lo[1:, b], hi[:-1, b])
+
+
+@settings(max_examples=6, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), page=st.sampled_from([2, 4, 8]),
+       splits=st.sampled_from([1, 2, 3, 8]))
+def test_torch_paged_split_ref_property_ragged(seed, page, splits):
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 4))
+    K = int(rng.integers(1, 3))
+    H = K * int(rng.integers(1, 3))
+    M = int(rng.integers(1, 6))
+    lengths = [int(rng.integers(1, M * page + 1)) for _ in range(B)]
+    q, kp, vp, tbl, lens = _random_paged(rng, B, H, K, 4, page, M, lengths)
+    got = paged_attention_split_ref(*_t(q, kp, vp, tbl, lens), splits=splits).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged_bhd(q, kp, vp, tbl, lens, interpret=True)), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jax_paged_ref(q, kp, vp, tbl, lens)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_torch_paged_split_ref_fold_equals_per_layer_calls():
+    rng = np.random.default_rng(8)
+    q, kp, vp, tbl, lens = _random_layered(rng, 3, 3, 4, 2, 8, 4, 12, [8, 32, 45])
+    got = paged_attention_split_ref(*_t(q, kp, vp, tbl, lens))
+    assert got.shape == (3, 3, 4, 8)
+    for i in range(3):
+        assert torch.equal(got[i], paged_attention_split_ref(*_t(q[i], kp[i], vp[i], tbl, lens)))
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(
+            jax_paged_ref(q[i], kp[i], vp[i], tbl, lens)), **TOL)
+
+
+def test_torch_paged_split_ref_bf16_within_the_bound_and_blind_to_nan_tails():
+    """bf16 pages whose tails, padding pages and unreferenced pages hold
+    NaN: the split version never lets them meet a weight, and it lies
+    within ``bf16_bound`` of the plain version on the cleaned pages (GQA
+    R 9, rows across split boundaries)."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, tbl, lens = _random_paged(rng, 3, 36, 4, 16, 4, 20, [32, 75, 1])
+    tq, tk, tv, tt, tl = _t(q, kp, vp, tbl, lens)
+    junk = tk.abs() > 1e5
+    kb, vb = tk.masked_fill(junk, 0).bfloat16(), tv.masked_fill(junk, 0).bfloat16()
+    want = paged_attention_ref(tq.bfloat16(), kb, vb, tt, tl)
+    got = paged_attention_split_ref(tq.bfloat16(), kb.masked_fill(junk, float("nan")),
+                                    vb.masked_fill(junk, float("nan")), tt, tl)
+    assert got.dtype == torch.bfloat16 and bool(got.isfinite().all())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bf16_bound(tq.bfloat16(), kb, vb, tt, tl, want)).all())
+    # and within bf16 rounding of the f32 JAX reference
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(jax_paged_ref(q, kp, vp, tbl, lens)),
+                               rtol=3e-2, atol=3e-2)

@@ -12,8 +12,9 @@ the calling thread, so that ``torch.profiler`` never runs beside the
 engine's lane threads: a few steps to warm up, ``--steps`` timed on the
 host, ``--steps`` under the profiler (device activity only).  Prints one
 JSON line: host ms per step, the device ms and launches per step, the
-kernels that take most of it, and the device idle share (1 - device ms per
-step / host ms per step).  ``--arch mamba2-130m`` profiles the
+kernels that take most of it, the device idle share (1 - device ms per
+step / host ms per step), and the paged_attention kernel's device ms a
+step and its share of the device time.  ``--arch mamba2-130m`` profiles the
 ``serve_paged_ssm`` requests instead.
 """
 from __future__ import annotations
@@ -112,12 +113,15 @@ def main() -> int:
     for e in device:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(by_name.values()) / args.steps
+    paged_ms = sum(t for k, t in by_name.items() if "paged_decode" in k) / args.steps
     step_ms = statistics.median(host_ms)
     print(json.dumps({"arch": cfg.name, "rows": len(reqs), "prompts": list(lens),
                       "host_ms_per_step_median": step_ms, "host_ms_per_step": host_ms,
                       "device_ms_per_step": device_ms,
                       "launches_per_step": len(device) / args.steps,
                       "device_idle_share": 1 - device_ms / step_ms,
+                      "paged_attention_ms_per_step": paged_ms,
+                      "paged_attention_share": paged_ms / device_ms,
                       "top_ms_per_step": [[k[:60], t / args.steps]
                                           for k, t in by_name.most_common(8)]}), flush=True)
     return 0
