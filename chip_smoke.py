@@ -101,6 +101,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
+# FP32 operations a second when none fuses into an FMA: 132 SMs x 128 FP32
+# lanes x the 1.98 GHz boost clock.  The 67 TFLOP/s peak counts an FMA as
+# two flops; an operation rounded on its own (mandelbrot's, to stay
+# bit-equal to its plain version) takes a lane's slot for one flop.
+F32_SLOTS_PER_S = 132 * 128 * 1.98e9
 
 FIG3_N, FIG3_INPUTS = 1 << 26, 4
 FIG4_N, FIG4_PARTS = 1 << 28, 4
@@ -639,21 +644,75 @@ def mandelbrot_flops(counts: "torch.Tensor", max_iter: int) -> int:
     return 8 * int(c.sum()) + 3 * int((c < max_iter).sum()) + 2 * (h + w)
 
 
+def mandelbrot_simt(counts: "torch.Tensor", rounds: "torch.Tensor") -> float:
+    """SIMT efficiency of a launch on this image: its live iterations over
+    32 lanes x the most any lane of each warp round runs.  ``rounds`` holds
+    each pixel's warp round, as ``mandel_kernel.warp_rounds`` reads it from
+    the kernel's library: a warp runs its pixels of a round until its
+    slowest escapes, and the rest of its lanes idle."""
+    c = counts.reshape(-1).to(torch.int64)
+    _, key = torch.unique(rounds.reshape(-1), return_inverse=True)
+    most = torch.zeros(int(key.max()) + 1, dtype=torch.int64, device=c.device)
+    most.scatter_reduce_(0, key, c, "amax", include_self=False)
+    return int(c.sum()) / max(32 * int(most.sum()), 1)
+
+
+def sass(library: "str | Path") -> str:
+    """The SASS of a built ``library`` (``cuobjdump`` of the CUDA toolkit
+    whose ``nvcc`` built it)."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool) if tool.exists() else "cuobjdump", "-sass", str(library)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+
+
+def sass_instructions(text: str) -> "list[tuple[int, str, str]]":
+    """(address, opcode, operands) of each instruction ``cuobjdump -sass``
+    printed, the predicate dropped (``@!P0 BRA 0x13b0`` -> ``BRA``)."""
+    line = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);"
+    return [(int(m.group(1), 16), m.group(2), m.group(3).strip())
+            for m in re.finditer(line, text)]
+
+
+def sass_count(text: str, opcode: str) -> int:
+    """Instructions whose opcode, without its modifiers, is ``opcode``."""
+    return sum(op.split(".")[0] == opcode for _, op, _ in sass_instructions(text))
+
+
+def mandelbrot_ptxas(log: "str | None" = None) -> dict:
+    """Registers and spills of the mandelbrot kernel, read from ``log`` (by
+    default this run's build log); it must be there and must not spill."""
+    usage = ptxas_no_spill(build_log("mandelbrot") if log is None else log, "mandelbrot",
+                           "mandelbrot_kernel")
+    require(len(usage) == 1 and "registers" in next(iter(usage.values()), {}),
+            f"mandelbrot: no ptxas line for the kernel in the build log: {usage}")
+    return next(iter(usage.values()))
+
+
 def check_mandelbrot(dev, main_image: np.ndarray, launches: int) -> dict:
     blk = MANDEL_BLOCK.as_tuple()
     h = w = FIG5_SIZE
     run = lambda: mandel_kernel.mandelbrot(h, w, FIG5_ITERS, device=dev, block=blk)  # noqa: E731
     got = run()
+    gx, gy, bx, by = mandel_kernel.last_geometry  # as the wrapper launched it
+    rounds = mandel_kernel.warp_rounds(h, w, device=dev, block=(bx, by), grid=(gx, gy))
     want = mandelbrot_ref(h, w, FIG5_ITERS, device=dev)
     differing = int((got != want).sum())
     require(differing == 0, f"mandelbrot: {differing} pixels differ from the plain version")
     require(np.array_equal(got.cpu().numpy(), main_image), "mandelbrot: main path image differs")
+    # Each operation is rounded on its own; an FFMA would be a contraction.
+    code = sass(_build._target("mandelbrot"))
+    ffma = sass_count(code, "FFMA")
+    require(ffma == 0 and sass_count(code, "FMUL") > 0, f"mandelbrot: {ffma} FFMA in the SASS")
     flops = mandelbrot_flops(got, FIG5_ITERS)
     return entry("mandelbrot", "src/repro_torch/kernels/csrc/mandelbrot.cu",
                  "src/repro/kernels/mandelbrot/kernel.py:44", launches,
                  float((got - want).abs().max()), cuda_ms(run, 10),
                  cuda_ms(lambda: mandelbrot_ref(h, w, FIG5_ITERS, device=dev), 2),
-                 bound(4 * h * w, flops), None, differing_pixels=differing, flops=flops)
+                 bound(4 * h * w, flops), None, differing_pixels=differing, flops=flops,
+                 bound_unfused_ms=flops / F32_SLOTS_PER_S * 1e3,
+                 simt_efficiency=mandelbrot_simt(got, rounds),
+                 grid=[gx, gy], block=[bx, by], block_steps=list(mandel_kernel.block_steps()),
+                 sass_ffma=ffma, ptxas=mandelbrot_ptxas())
 
 
 def attention_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:

@@ -19,8 +19,9 @@ from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref
+from repro_torch.kernels.mandelbrot import kernel as mandel_kernel
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
-from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref
+from repro_torch.kernels.mandelbrot.ref import mandelbrot_blocked_ref, mandelbrot_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import bf16_bound as paged_bf16_bound
@@ -86,6 +87,90 @@ def test_torch_cuda_mandelbrot_bit_equal_to_plain(h, w, it):
     # and equal to the plain version on the CPU, which the CPU tests hold
     # bit-equal to the JAX package at the reference's sizes
     np.testing.assert_array_equal(got.cpu().numpy(), mandelbrot_ref(h, w, it).numpy())
+
+
+# The kernel's warm-up and block lengths (K0 and K of csrc/mandelbrot.cu):
+# max_iter ends inside the warm-up, one short of a block, one past it, in
+# a tail of single steps, on and off a whole number of blocks.
+MANDEL_K0, MANDEL_K = 8, 8
+MANDEL_ITERS = sorted({0, 1, MANDEL_K - 1, MANDEL_K + 1, 36, 64, 100})
+
+
+@pytest.mark.cuda
+def test_torch_cuda_mandelbrot_library_reports_its_block_steps():
+    _need_cuda()
+    assert mandel_kernel.block_steps() == (MANDEL_K0, MANDEL_K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(100, 300), (1, 4096)])
+@pytest.mark.parametrize("it", MANDEL_ITERS)
+def test_torch_cuda_mandelbrot_max_iter_edges(h, w, it):
+    _need_cuda()
+    got = mandel_kernel.mandelbrot(h, w, it, device="cuda")
+    torch.testing.assert_close(got, mandelbrot_ref(h, w, it, device="cuda"), rtol=0, atol=0)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), mandelbrot_blocked_ref(h, w, it, MANDEL_K0, MANDEL_K).numpy())
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(1, 1), (1024, 1), (8, 32), (32, 8)])
+@pytest.mark.parametrize("grid", [None, (1, 1), (3, 2)])
+def test_torch_cuda_mandelbrot_honours_the_callers_geometry(block, grid):
+    """Any block, tiled into 8 x 4 warps or not, and grids far smaller than
+    the image (the grid-stride loop covers it) give the plain version's
+    image."""
+    _need_cuda()
+    want = mandelbrot_ref(100, 300, 64, device="cuda")
+    got = mandel_kernel.mandelbrot(100, 300, 64, device="cuda", block=block, grid=grid)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert mandel_kernel.last_geometry == mandel_kernel.geometry(100, 300, block, grid,
+                                                                 sms=_sms())
+    if grid is not None:
+        assert mandel_kernel.last_geometry[:2] == grid
+
+
+def _ids(shape, rule) -> "torch.Tensor":
+    rows, cols = torch.meshgrid(torch.arange(shape[0]), torch.arange(shape[1]), indexing="ij")
+    return rule(rows, cols).to(torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block,grid,rule", [
+    # a block of whole 8 x 4 tiles: each warp takes one tile
+    ((8, 32), (32, 8), (1, 1), lambda r, c: (r // 4 * 4 + c // 8) << 32),
+    ((8, 32), (8, 32), (4, 1), lambda r, c: (c // 8 * 8 + r // 4) << 32),
+    # else 32 threads in order along the block's rows
+    ((8, 32), (32, 2), (1, 4), lambda r, c: (r // 2 * 2 + r % 2) << 32),
+    # rows 8-15 are each thread's second pass of the grid-stride loop
+    ((16, 32), (32, 8), (1, 1), lambda r, c: (r % 8 // 4 * 4 + c // 8) << 32 | r // 8),
+    # one thread: a pass for each pixel
+    ((4, 4), (1, 1), (1, 1), lambda r, c: r * 4 + c),
+])
+def test_torch_cuda_mandelbrot_library_reports_its_warp_rounds(shape, block, grid, rule):
+    _need_cuda()
+    got = mandel_kernel.warp_rounds(*shape, device="cuda", block=block, grid=grid)
+    torch.testing.assert_close(got.cpu(), _ids(shape, rule), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_mandelbrot_repeats_bit_for_bit_one_launch_a_call():
+    _need_cuda()
+    reset_launch_counts()
+    first = mandel_kernel.mandelbrot(512, 768, 64, device="cuda")
+    assert launch_counts()["mandelbrot"] == 1
+    second = mandel_kernel.mandelbrot(512, 768, 64, device="cuda")
+    assert launch_counts()["mandelbrot"] == 2
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+    torch.testing.assert_close(first, mandelbrot_ref(512, 768, 64, device="cuda"),
+                               rtol=0, atol=0)
+    # reading the warp rounds launches no mandelbrot kernel
+    mandel_kernel.warp_rounds(512, 768, device="cuda")
+    assert launch_counts()["mandelbrot"] == 2
 
 
 @pytest.mark.cuda

@@ -24,8 +24,9 @@ from repro.kernels.stencil.kernel import stencil as pallas_stencil
 from repro.kernels.stencil.ref import stencil_ref as jax_stencil_ref
 from repro_torch.kernels import _build, _launch, all_kernels, launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mandelbrot import kernel as mandel_kernel
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
-from repro_torch.kernels.mandelbrot.ref import mandelbrot_ref, pixel_step
+from repro_torch.kernels.mandelbrot.ref import mandelbrot_blocked_ref, mandelbrot_ref, pixel_step
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.partition_map import ops as map_ops
 from repro_torch.kernels.partition_map.ref import partition_map_ref
@@ -130,12 +131,135 @@ def test_torch_partition_map_is_one():
 # ---------------------------------------------------------------------------
 
 
+# The CUDA kernel's warm-up and block lengths (K0 and K of
+# csrc/mandelbrot.cu; a card test holds the built library to them).
+MANDEL_K0, MANDEL_K = 8, 8
+
+
 @pytest.mark.parametrize("h,w,blk", [(64, 64, (32, 32)), (128, 256, (64, 128))])
 def test_torch_mandelbrot_bit_equal_to_pallas_and_oracle(h, w, blk):
     got = mandelbrot_ref(h, w, 32).numpy()
     np.testing.assert_array_equal(
         got, np.asarray(pallas_mandelbrot(height=h, width=w, max_iter=32, block=blk, interpret=True)))
     np.testing.assert_array_equal(got, np.asarray(jax_mandelbrot_ref(h, w, 32)))
+    # the kernel's decomposition gives the same counts
+    np.testing.assert_array_equal(
+        mandelbrot_blocked_ref(h, w, 32, MANDEL_K0, MANDEL_K).numpy(), got)
+
+
+# max_iter ends at 0, inside the warm-up, one short of a block, one past
+# it, in a tail of single steps (36 = 8 + 3 x 8 + 4), on and off a whole
+# number of blocks; 37 x 53 is a multiple of neither the warp tile nor any
+# block.
+MANDEL_EDGES = sorted({0, 1, MANDEL_K - 1, MANDEL_K + 1, 36})
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (128, 256), (37, 53)])
+@pytest.mark.parametrize("max_iter", sorted({*MANDEL_EDGES, 64, 100}))
+def test_torch_mandelbrot_blocked_ref_bit_equal_to_plain(h, w, max_iter):
+    got = mandelbrot_blocked_ref(h, w, max_iter, MANDEL_K0, MANDEL_K)
+    np.testing.assert_array_equal(got.numpy(), mandelbrot_ref(h, w, max_iter).numpy())
+
+
+@pytest.mark.parametrize("h,w,blk", [(64, 64, (32, 32)), (128, 256, (64, 128))])
+@pytest.mark.parametrize("max_iter", MANDEL_EDGES)
+def test_torch_mandelbrot_blocked_ref_bit_equal_to_pallas(h, w, blk, max_iter):
+    want = np.asarray(pallas_mandelbrot(height=h, width=w, max_iter=max_iter, block=blk,
+                                        interpret=True))
+    np.testing.assert_array_equal(
+        mandelbrot_blocked_ref(h, w, max_iter, MANDEL_K0, MANDEL_K).numpy(), want)
+
+
+def _fma(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
+    """a * b + c rounded once to f32 (the f32 product is exact in f64)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _orbit_count(cr: np.float32, ci: np.float32, max_iter: int, fused: bool = False) -> int:
+    """One pixel's count, each operation rounded to f32 on its own, or
+    with ``fused`` zi's update 2 zr x zi + ci one FMA."""
+    f = np.float32
+    zr = zi = f(0)
+    for n in range(max_iter):
+        zr2, zi2 = f(zr * zr), f(zi * zi)
+        if not f(zr2 + zi2) <= 4:
+            return n
+        two_zr = f(f(2) * zr)
+        zr, zi = f(f(zr2 - zi2) + cr), _fma(two_zr, zi, ci) if fused else f(f(two_zr * zi) + ci)
+    return max_iter
+
+
+# At 64 and 100 iterations the Pallas kernel in interpret mode differs
+# from the plain version at a few pixels: XLA's CPU compiler fuses each
+# pixel coordinate x0 + col * dx, and zi's update 2 zr x zi + ci, into one
+# FMA.  Every such pixel has a fused coordinate that differs from the
+# separately rounded one, and the orbit with those FMAs gives Pallas's
+# count; rounded per operation, the decomposition's.  E.g. (64, 64), 64
+# iterations, pixel (19, 49): cr 0.3333335 rounded per operation,
+# 0.33333337 fused; counts 41 and 43.
+@pytest.mark.parametrize("h,w,blk", [(64, 64, (32, 32)), (128, 256, (64, 128))])
+@pytest.mark.parametrize("max_iter", [64, 100])
+def test_torch_mandelbrot_pallas_differs_only_by_fused_coordinates(h, w, blk, max_iter):
+    got = mandelbrot_blocked_ref(h, w, max_iter, MANDEL_K0, MANDEL_K).numpy()
+    pallas = np.asarray(pallas_mandelbrot(height=h, width=w, max_iter=max_iter, block=blk,
+                                          interpret=True))
+    dx, dy = pixel_step(-2.0, 1.0, w), pixel_step(-1.5, 1.5, h)
+    differ = np.argwhere(got != pallas)
+    assert 0 < len(differ) < 32
+    f = np.float32
+    for row, col in differ:
+        cr, ci = f(f(-2.0) + f(f(col) * dx)), f(f(-1.5) + f(f(row) * dy))
+        cr_fused, ci_fused = _fma(f(col), dx, f(-2.0)), _fma(f(row), dy, f(-1.5))
+        assert (cr, ci) != (cr_fused, ci_fused), (row, col)
+        assert _orbit_count(cr, ci, max_iter) == got[row, col], (row, col)
+        assert _orbit_count(cr_fused, ci_fused, max_iter, fused=True) == pallas[row, col], \
+            (row, col)
+
+
+@pytest.mark.parametrize("K0,K", [(0, 1), (0, 4), (3, 5), (8, 16), (70, 8)])
+def test_torch_mandelbrot_blocked_ref_takes_any_split(K0, K):
+    """Warm-ups and blocks of other lengths, longer than max_iter among
+    them, count the same as the plain version."""
+    for max_iter in (0, 5, 64):
+        np.testing.assert_array_equal(mandelbrot_blocked_ref(37, 53, max_iter, K0, K).numpy(),
+                                      mandelbrot_ref(37, 53, max_iter).numpy())
+
+
+def test_torch_mandelbrot_blocked_ref_escapes_inside_a_block():
+    """The image has pixels that escape at every step of a block after the
+    warm-up, so the kept sums' first failing step is exercised."""
+    counts = mandelbrot_ref(128, 256, 64)
+    assert set(range(MANDEL_K0, MANDEL_K0 + MANDEL_K)) <= set(counts.unique().tolist())
+
+
+@pytest.mark.parametrize("h,w,block,grid,want", [
+    # the default grid: 8 columns x 4 rows of pixels a thread, at least
+    # 4 blocks for each of the H100's 132 SMs
+    (4096, 4096, (32, 8), None, (16, 128, 32, 8)),
+    # fewer pixels a thread where 8 x 4 would leave fewer blocks: 2 x 2
+    (1024, 1024, (32, 8), None, (16, 64, 32, 8)),
+    # one pixel a thread, and still fewer blocks than 4 an SM
+    (100, 300, None, None, (10, 13, 32, 8)),
+    (1, 4096, (1024, 1), None, (4, 1, 1024, 1)),
+    # a caller's grid and block are taken as they are
+    (4096, 4096, (8, 32), (3, 2), (3, 2, 8, 32)),
+    (100, 300, (1, 1), (1, 1), (1, 1, 1, 1)),
+])
+def test_torch_mandelbrot_geometry(h, w, block, grid, want):
+    assert mandel_kernel.geometry(h, w, block, grid, sms=132) == want
+
+
+def test_torch_mandelbrot_geometry_keeps_a_few_blocks_an_sm():
+    # 8 x 4 pixels a thread give 2,048 blocks: enough for 132 SMs, not 600;
+    # 4 x 4 give 4,096
+    assert mandel_kernel.geometry(4096, 4096, (32, 8), sms=600) == (32, 128, 32, 8)
+
+
+@pytest.mark.parametrize("block,grid", [((0, 1), None), ((1024, 2), None), (None, (0, 1)),
+                                        (None, (1, 65536))])
+def test_torch_mandelbrot_geometry_refuses_bad_dims(block, grid):
+    with pytest.raises(ValueError):
+        mandel_kernel.geometry(64, 64, block, grid, sms=132)
 
 
 def test_torch_mandelbrot_interior_hits_max_iter():

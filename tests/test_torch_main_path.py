@@ -225,6 +225,215 @@ def test_torch_smoke_mandelbrot_flops_count_this_images_work(smoke):
     assert smoke.mandelbrot_flops(counts, 64) == 8 * 131 + 3 * 2 + 2 * (2 + 2)
 
 
+def test_torch_smoke_mandelbrot_unfused_bound_takes_one_slot_a_flop(smoke):
+    """fig5's image (4096^2, 64 iterations) needs 2,021,463,495 flops.  At
+    67 TFLOP/s, which counts an FMA as two, that is 0.030171 ms; with every
+    operation rounded on its own each takes one of 132 x 128 FP32 lanes'
+    slots a cycle at 1.98 GHz: 0.060425 ms."""
+    flops = 2_021_463_495
+    assert smoke.F32_SLOTS_PER_S == 132 * 128 * 1.98e9
+    assert smoke.bound(4 * 4096 * 4096, flops) == (pytest.approx(0.030171, abs=1e-6), "operations")
+    assert flops / smoke.F32_SLOTS_PER_S * 1e3 == pytest.approx(0.060425, abs=1e-6)
+
+
+def _ids(shape, rule) -> "torch.Tensor":
+    rows, cols = torch.meshgrid(torch.arange(shape[0]), torch.arange(shape[1]), indexing="ij")
+    return rule(rows, cols).to(torch.int64)
+
+
+@pytest.mark.parametrize("rule,slow,want", [
+    # 8 x 4 pixel tiles a warp: one tile holds both slow pixels
+    (lambda r, c: r // 4 * 4 + c // 8, [(0, 0), (1, 0)], 272 / (32 * 16)),
+    # 32 pixels of a row a warp: the slow pixels are in two warps
+    (lambda r, c: r, [(0, 0), (1, 0)], 272 / (32 * 24)),
+    # a round of one pixel: one lane of 32 works
+    (lambda r, c: r * 32 + c, [(0, 0)], 1 / 32),
+])
+def test_torch_smoke_mandelbrot_simt_counts_each_warps_slowest_lane(smoke, rule, slow, want):
+    counts = torch.ones((8, 32), dtype=torch.int32)
+    for r, c in slow:
+        counts[r, c] = 9
+    assert smoke.mandelbrot_simt(counts, _ids((8, 32), rule)) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("shape,block,grid,rule", [
+    # 32 threads a warp, in order along the block's rows
+    ((8, 32), (32, 8), (1, 1), lambda r, c: r << 32),
+    ((8, 32), (16, 2), (2, 4), lambda r, c: ((r // 2 % 4) * 2 + c // 16) << 32),
+    # rows 8-15 are the block's second pass of the grid-stride loop
+    ((16, 32), (32, 8), (1, 1), lambda r, c: r % 8 << 32 | r // 8),
+    # one thread: each pixel is a pass of its own
+    ((4, 4), (1, 1), (1, 1), lambda r, c: r * 4 + c),
+])
+def test_torch_profile_tool_models_row_order_rounds(profile_tool, shape, block, grid, rule):
+    got = profile_tool.row_order_rounds(*shape, grid, block)
+    assert torch.equal(got, _ids(shape, rule))
+
+
+# A real build log of csrc/mandelbrot.cu (nvcc 12.8, sm_90a).
+MANDEL_PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__f80b0f0f_13_mandelbrot_cu_611324e917mandelbrot_kernelEPiiiiffff' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__f80b0f0f_13_mandelbrot_cu_611324e917mandelbrot_kernelEPiiiiffff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+ptxas info    : Compile time = 22.945 ms
+"""
+
+
+def test_torch_smoke_reads_the_mandelbrot_kernel_from_the_build_log(smoke):
+    assert smoke.mandelbrot_ptxas(MANDEL_PTXAS_LOG) == {
+        "registers": 30, "spill_stores": 0, "spill_loads": 0}
+    with pytest.raises(smoke.SmokeFailure, match="spills"):
+        smoke.mandelbrot_ptxas(MANDEL_PTXAS_LOG.replace("0 bytes spill stores", "8 bytes spill stores"))
+    with pytest.raises(smoke.SmokeFailure, match="no ptxas line"):
+        smoke.mandelbrot_ptxas("ptxas info    : 0 bytes gmem\n")
+
+
+# The pixel loop of a real SASS dump (cuobjdump -sass, nvcc 12.8, sm_90a)
+# of an earlier csrc/mandelbrot.cu: one thread a pixel, the escape test
+# and a branch in every step.  Trailing encodings dropped.
+PIXEL_LOOP_SASS = """\
+        /*0690*/                   LDC R5, c[0x0][0x21c] ;
+        /*06a0*/                   BSSY B0, 0x990 ;
+        /*06b0*/                   ISETP.GE.AND P0, PT, R2, R5, PT ;
+        /*06c0*/               @P0 BRA 0x980 ;
+        /*06d0*/                   SHF.R.S32.HI R4, RZ, 0x1f, R9 ;
+        /*06e0*/                   ULDC UR8, c[0x0][0x230] ;
+        /*06f0*/                   I2FP.F32.S32 R0, R9 ;
+        /*0700*/                   IMAD.MOV.U32 R8, RZ, RZ, R2 ;
+        /*0710*/                   IMAD R6, R4, R5.reuse, RZ ;
+        /*0720*/                   IMAD.WIDE.U32 R4, R9, R5, RZ ;
+        /*0730*/                   FMUL R0, R0, UR8 ;
+        /*0740*/                   ULDC UR8, c[0x0][0x228] ;
+        /*0750*/                   IMAD R7, R9, UR5, R6 ;
+        /*0760*/                   FADD R17, R0, UR8 ;
+        /*0770*/                   IADD3 R15, R5, R7, RZ ;
+        /*0780*/                   I2FP.F32.S32 R0, R8 ;
+        /*0790*/                   ULDC UR8, c[0x0][0x22c] ;
+        /*07a0*/                   ULDC UR9, c[0x0][0x224] ;
+        /*07b0*/                   BSSY B1, 0x8e0 ;
+        /*07c0*/                   CS2R R6, SRZ ;
+        /*07d0*/                   FMUL R0, R0, UR8 ;
+        /*07e0*/                   IMAD.MOV.U32 R13, RZ, RZ, RZ ;
+        /*07f0*/                   FADD R19, R0, UR9 ;
+        /*0800*/                   FMUL R0, R6, R6 ;
+        /*0810*/                   FMUL R21, R7, R7 ;
+        /*0820*/                   FADD R10, R0, R21 ;
+        /*0830*/                   FSETP.GTU.AND P0, PT, R10, 4, PT ;
+        /*0840*/               @P0 BRA 0x8d0 ;
+        /*0850*/                   VIADD R13, R13, 0x1 ;
+        /*0860*/                   FMUL R7, R7, 2 ;
+        /*0870*/                   FADD R0, -R0, R21 ;
+        /*0880*/                   ISETP.GE.AND P0, PT, R13, UR10, PT ;
+        /*0890*/                   FMUL R6, R7, R6 ;
+        /*08a0*/                   FADD R7, R19, R0 ;
+        /*08b0*/                   FADD R6, R17, R6 ;
+        /*08c0*/              @!P0 BRA 0x800 ;
+        /*08d0*/                   BSYNC B1 ;
+        /*08e0*/                   IADD3 R0, P0, R8, R4, RZ ;
+        /*08f0*/                   ULDC.64 UR8, c[0x0][0x210] ;
+        /*0900*/                   LEA.HI.X.SX32 R7, R8, R15, 0x1, P0 ;
+        /*0910*/                   LEA R6, P0, R0.reuse, UR8, 0x2 ;
+        /*0920*/                   ULDC UR8, c[0x0][0x21c] ;
+        /*0930*/                   IADD3 R8, R11, R8, RZ ;
+        /*0940*/                   LEA.HI.X R7, R0, UR9, R7, 0x2, P0 ;
+        /*0950*/                   ISETP.GE.AND P0, PT, R8, UR8, PT ;
+        /*0960*/                   STG.E desc[UR6][R6.64], R13 ;
+        /*0970*/              @!P0 BRA 0x780 ;
+        /*0980*/                   BSYNC B0 ;
+        /*0990*/                   VIADD R9, R9, UR4 ;
+        /*09a0*/                   ULDC UR8, c[0x0][0x218] ;
+        /*09b0*/                   ISETP.GE.AND P0, PT, R9, UR8, PT ;
+        /*09c0*/              @!P0 BRA 0x690 ;
+"""
+
+
+def test_torch_smoke_reads_opcodes_from_the_sass(smoke):
+    ins = smoke.sass_instructions(PIXEL_LOOP_SASS)
+    assert len(ins) == 52 and ins[0] == (0x690, "LDC", "R5, c[0x0][0x21c]")
+    assert ins[3] == (0x6c0, "BRA", "0x980")  # the predicate is dropped
+    assert smoke.sass_count(PIXEL_LOOP_SASS, "FMUL") == 6
+    assert smoke.sass_count(PIXEL_LOOP_SASS, "FADD") == 6
+    assert smoke.sass_count(PIXEL_LOOP_SASS, "FFMA") == 0
+    fused = PIXEL_LOOP_SASS.replace("FMUL R6, R7, R6", "FFMA R6, R7, R6, R17")
+    assert smoke.sass_count(fused, "FFMA") == 1
+
+
+@pytest.fixture(scope="module")
+def profile_tool():
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_mandelbrot", os.path.join(ROOT, "tools", "profile_torch_mandelbrot.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sass(lines: "list[str]") -> str:
+    """Instructions in cuobjdump's layout, 16 bytes apart from 0."""
+    return "".join(f"        /*{16 * i:04x}*/                   {ln} ;\n"
+                   for i, ln in enumerate(lines))
+
+
+STEP = ["FMUL R1, R2, R2", "FMUL R3, R4, R4", "FADD R5, R1, R3", "FMUL R6, R2, 2",
+        "FMUL R6, R6, R4", "FADD R4, R6, R7", "FADD R1, R1, -R3", "FADD R2, R1, R8"]
+
+
+def test_torch_profile_tool_accounts_the_one_step_loop(profile_tool, smoke):
+    """The pixel loop above: 13 instructions a step (8 FP32 operations, the
+    test, its branch, the counter, its compare and the loop's branch) and
+    19 of the pixel's own outside it."""
+    acc = profile_tool.sass_accounting(smoke.sass_instructions(PIXEL_LOOP_SASS))
+    assert acc == {"step": 13.0, "block": 13, "block_steps": 1, "warm_up_step": 0.0,
+                   "warm_up_tests": 0, "escape": 0, "pixel": 19.0}
+
+
+def test_torch_profile_tool_accounts_warm_up_blocks_and_escape(profile_tool, smoke):
+    """A constructed kernel in the layout of the redesigned one: a pixel
+    loop (0x00-0xf0 with the row loop around it) holding a warm-up of two
+    tested steps, a loop of two-step blocks and an escape path."""
+    lines = (["I2FP.F32.S32 R0, R9", "FMUL R0, R0, UR8", "BSSY B1, 0x{end}"]
+             + (STEP + ["FSETP.GTU.AND P0, PT, R5, 4, PT", "@P0 BRA 0x{end}"]) * 2
+             + STEP * 2 + ["FSETP.LE.AND P0, PT, R5, 4, PT", "@!P0 BRA 0x{esc}",
+                           "IADD3 R13, R13, 0x8, RZ", "ISETP.GT.AND P0, PT, R13, R10, PT",
+                           "@!P0 BRA 0x{blk}"]
+             + ["SEL R12, R12, 0x1, !P1", "IADD3 R14, R12, R13, RZ", "BSYNC B1",
+                "STG.E desc[UR6][R12.64], R14", "@!P0 BRA 0x0", "@!P1 BRA 0x0"])
+    blk = 3 + 2 * 10
+    esc = blk + 16 + 5
+    end = esc + 2
+    text = _sass([ln.format(end=f"{16 * end:x}", esc=f"{16 * esc:x}", blk=f"{16 * blk:x}")
+                  for ln in lines])
+    acc = profile_tool.sass_accounting(smoke.sass_instructions(text))
+    # the block: 2 steps of 8, one test (folded), its branch, counter, compare, branch
+    assert acc["block"] == 21 and acc["block_steps"] == 2 and acc["step"] == 10.5
+    # warm-up: from the first test to the block loop, 2 tests
+    assert acc["warm_up_tests"] == 2 and acc["warm_up_step"] == (blk - 11) / 2
+    assert acc["escape"] == 2
+    # the pixel loop's own: 29 outside the block loop, less the escape and the warm-up's
+    assert acc["pixel"] == (len(lines) - 1) - 21 - 2 - acc["warm_up_step"] * 2
+
+
+def test_torch_profile_tool_takes_one_function_of_the_sass(profile_tool):
+    text = ("\t\tFunction : _ZN4anon18warp_rounds_kernelEPxii\n" + _sass(["EXIT"])
+            + "\t\tFunction : _ZN4anon17mandelbrot_kernelEPiiiiffff\n" + _sass(STEP + ["EXIT"]))
+    part = profile_tool.function_sass(text, "mandelbrot_kernel")
+    assert "FMUL R1, R2, R2" in part and "warp_rounds" not in part
+    with pytest.raises(RuntimeError, match="0 functions"):
+        profile_tool.function_sass(text, "stencil_kernel")
+
+
+def test_torch_profile_tool_predicts_from_trips_and_pixels(profile_tool):
+    acc = {"step": 9.0, "warm_up_step": 11.0, "warm_up_tests": 7, "pixel": 20.0}
+    counts = torch.tensor([[64, 3]])
+    # warm-up trips min(64, 8) + 3 = 11 at 11 slots, 56 more at 9, 2 pixels at 20
+    slots = 11 * 11.0 + 56 * 9.0 + 2 * 20.0
+    got = profile_tool.predicted_ms(acc, counts, 8, 0.5, 132, 1980.0)
+    assert got == pytest.approx(slots / (0.5 * 128 * 132 * 1980e6) * 1e3)
+    # no warm-up: every trip at the step's slots
+    got = profile_tool.predicted_ms({**acc, "warm_up_tests": 0}, counts, 0, 0.5, 132, 1980.0)
+    assert got == pytest.approx((67 * 9.0 + 40.0) / (0.5 * 128 * 132 * 1980e6) * 1e3)
+
+
 # One paged_attention entry of a real build log (nvcc 12, sm_90a), for
 # the dtype ("f" or "13__nv_bfloat16"), load width and chunks a lane.
 PAGED_PTXAS_ENTRY = (
