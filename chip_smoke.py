@@ -33,18 +33,29 @@ with ``Dim3`` geometry, ``enqueue_read``):
   serve_paged  the serve phase's model, f32 weights and 8 requests through
         one ``PagedServeEngine.from_config`` (pages of 16 tokens, a pool
         that holds every request), 33 tokens each: both prefill groups, then
-        every resident request in the same exact-row decode steps, each
+        every resident request in the same decode steps (CUDA graphs), each
         layer's attention through the paged_attention kernel (16 launches a
         step).  Then again with ``impl="ref"`` (the gather path); the
         tokens of both are held against the serve phase's plain run.
   serve_paged_ssm  Mamba2-130M the same way (the recurrent state rides per
         sequence; no paged_attention launch).
+  graph the chain of ``examples/graph_replay.py`` with the port's kernels,
+        stencil -> partition_map -> an elementwise shift at fig3's 2**26
+        f32: eager through ``Program.run``, then ``Device.capture`` ->
+        ``instantiate`` (one CUDA graph) -> 100 ``replay(feeds=...)`` with
+        fresh inputs, each bit-equal to the eager chain on the same input;
+        then a two-chain plan joined by an add (a graph of two branches).
+
+Both paged phases decode on CUDA graphs, one per warm row count: every
+decode step is a replay except the first at each count.  A graph's kernels
+run on the device without passing the wrappers, so the paged launch check
+counts the kernels each graph recorded at capture times its replays.
 
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
-paged serve run) and read just after; a kernel the run did not launch fails
-it.  Then each
+paged serve run; the graph phase) and read just after; a kernel the run did
+not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
 path's shapes and timed beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
@@ -85,7 +96,9 @@ from repro_torch.kernels.partition_map.ref import partition_map_ref  # noqa: E40
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_three_pass  # noqa: E402
+from repro_torch.kernels.partition_map import ops as map_ops  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
+from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -114,6 +127,9 @@ STENCIL_BLOCK = Dim3(256)
 MAP_BLOCK = Dim3(256)
 MANDEL_BLOCK = Dim3(32, 8)
 FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
+
+GRAPH_N, GRAPH_REPLAYS, GRAPH_TIMED = FIG3_N, 100, 20
+GRAPH_KERNELS = ("stencil", "partition_map")
 
 SERVE_ARCH = "olmo-1b"
 SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (1000, 2000), 32
@@ -498,18 +514,45 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
 
 def paged_times(run: dict) -> dict:
     m = run["metrics"]
+    d = m["decode"]
     return {"wall_s": run["wall_s"], "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
             "step_ms_p50": m["token_latency_p50_s"] * 1e3,
             "step_ms_p99": m["token_latency_p99_s"] * 1e3,
             "decode_tokens_per_s": m["decode_rows"] / max(m["decode_s"], 1e-9),
-            "decode_steps": m["decode_steps"], "prefill_batches": m["prefill_batches"]}
+            "decode_steps": m["decode_steps"], "prefill_batches": m["prefill_batches"],
+            "warm_counts": d["warm_counts"], "graphs_captured": d["graphs_captured"],
+            "padded_rows": m["padded_rows"], "eager_steps": d["eager_steps"],
+            "replayed_steps": d["replayed_steps"], "capture_s": d["capture_s"]}
+
+
+def graph_steps_check(name: str, m: dict) -> None:
+    """Every decode step of a measured run is a replay of a CUDA graph
+    except the first at each warm count, which ran eagerly and was then
+    captured."""
+    d = m["decode"]
+    require(d["eager_steps"] + d["replayed_steps"] == m["decode_steps"]
+            and d["eager_steps"] == d["graphs_captured"] <= len(d["warm_counts"])
+            and d["replayed_steps"] > 0,
+            f"{name}: {d['eager_steps']} eager and {d['replayed_steps']} replayed steps, "
+            f"{d['graphs_captured']} graphs captured, of {m['decode_steps']} decode steps at "
+            f"warm counts {d['warm_counts']}")
+
+
+def paged_device_launches(run: dict, kernel: str, counted: int) -> int:
+    """Kernels of ``kernel`` that ran on the device in a paged run:
+    ``counted`` (the wrapper's or the C entry's count, which a capture
+    adds to without running anything), less the launches captured into
+    graphs, plus those the graphs ran (recorded at capture x replays)."""
+    d = run["metrics"]["decode"]
+    return (counted - d["captured_launches"].get(kernel, 0)
+            + d["replayed_launches"].get(kernel, 0))
 
 
 def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     """Serve ``arch`` at full width and depth through ``PagedServeEngine``:
     the serve phase's prompts and seeded f32 weights, ``SERVE_NEW + 1``
     tokens each, every request resident at once (the pool holds them all),
-    all decoding in the same exact-row steps.  The kernel run (the main
+    all decoding in the same steps.  The kernel run (the main
     path) and the plain run (``impl="ref"``: plain prefill attention or
     scan, the gather path in decode) are held against the serve phase's
     plain tokens ``plain`` and against each other, near-ties counted."""
@@ -536,13 +579,28 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     prefill_kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
     launches = {impl: {k: r["launches"][k] for k in ("paged_attention", prefill_kernel)}
                 for impl, r in runs.items()}
+    for impl, r in runs.items():
+        if dev.is_cuda:  # graphs are captured on a CUDA device only
+            graph_steps_check(f"{arch} paged {impl}", r["metrics"])
     want_paged = cfg.num_layers * steps if cfg.family == "dense" else 0
-    # one CUDA kernel a call, as the C entry counts its launches
-    kernels = launches["auto"]["paged_attention_kernels"] = got["launches"]["paged_attention_kernels"]
-    require(launches["auto"]["paged_attention"] == want_paged == kernels,
-            f"{arch} paged: paged_attention launched {launches['auto']['paged_attention']} times "
-            f"and {kernels} CUDA kernels, not {want_paged} each ({cfg.num_layers} layers x "
-            f"{steps} decode steps)")
+    # Under replay a graph's kernels pass no wrapper: the kernels that ran
+    # are the counted ones less those captured, plus those replayed (each
+    # graph's recorded launches x its replays).  One CUDA kernel a call, as
+    # the C entry counts its launches.
+    d = got["metrics"]["decode"]
+    per_graph = cfg.num_layers if cfg.family == "dense" else 0
+    require(d["captured_launches"].get("paged_attention", 0) == per_graph * d["graphs_captured"]
+            and d["replayed_launches"].get("paged_attention", 0) == per_graph * d["replayed_steps"],
+            f"{arch} paged: graphs recorded {d['captured_launches']} and replayed "
+            f"{d['replayed_launches']} paged_attention launches, not {per_graph} a step")
+    on_device = paged_device_launches(got, "paged_attention", launches["auto"]["paged_attention"])
+    kernels = paged_device_launches(got, "paged_attention", got["launches"]["paged_attention_kernels"])
+    launches["auto"].update(paged_attention_on_device=on_device, paged_attention_kernels=kernels,
+                            paged_attention_captured=d["captured_launches"].get("paged_attention", 0),
+                            paged_attention_replayed=d["replayed_launches"].get("paged_attention", 0))
+    require(on_device == want_paged == kernels,
+            f"{arch} paged: paged_attention launched {on_device} times and {kernels} CUDA kernels "
+            f"on the device, not {want_paged} each ({cfg.num_layers} layers x {steps} decode steps)")
     require(launches["auto"][prefill_kernel] == cfg.num_layers * got["metrics"]["prefill_batches"],
             f"{arch} paged: {prefill_kernel} launched {launches['auto'][prefill_kernel]} times")
     require(all(n == 0 for n in launches["ref"].values()),
@@ -568,6 +626,159 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
                          "paged run")
     out["near_tie_cuts_kernel_vs_plain"] = cuts
     return out
+
+
+# ---------------------------------------------------------------------------
+# graph capture: the chain of examples/graph_replay.py on CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def graph_program(dev):
+    """The chain's kernels: the stencil and partition_map kernels, an
+    elementwise shift and, for the two-chain plan, an add."""
+    return dev.create_program({"stencil": stencil_ops.stencil, "partition_map": map_ops.partition_map,
+                               "shift": lambda x: x + 1.0, "add": lambda x, y: x + y},
+                              name="graph").get()
+
+
+def graph_chain(prog, src, a, b, c, sync: str = "ready"):
+    """stencil -> partition_map -> shift, ``src`` to ``c``; eager it returns
+    the last launch's future, under a capture its node."""
+    prog.run([src], "stencil", block=STENCIL_BLOCK, out=[a], sync=sync)
+    prog.run([a], "partition_map", block=MAP_BLOCK, out=[b], sync=sync)
+    return prog.run([b], "shift", out=[c], sync=sync)
+
+
+def events_ms(dev, steps) -> float:
+    """Device ms a step: CUDA events on the device's default stream around
+    ``steps`` (callables returning a future resolved once their work is
+    enqueued), run back to back, over their number."""
+    dev.synchronize()
+    cs = dev.default_stream.cuda_stream
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(cs)
+    futs = [step() for step in steps]
+    for f in futs:
+        f.get()
+    end.record(cs)
+    end.synchronize()
+    return start.elapsed_time(end) / len(steps)
+
+
+def instantiate_as(g, mode: str):
+    """``g.instantiate()`` with ``REPRO_SEGMENT_COMPILE=mode``."""
+    old = os.environ.get("REPRO_SEGMENT_COMPILE")
+    os.environ["REPRO_SEGMENT_COMPILE"] = mode
+    try:
+        return g.instantiate()
+    finally:
+        if old is None:
+            del os.environ["REPRO_SEGMENT_COMPILE"]
+        else:
+            os.environ["REPRO_SEGMENT_COMPILE"] = old
+
+
+def phase_graph(dev) -> dict:
+    """Eager chain against its captured graph: 100 replays with fresh
+    inputs, each bit-equal to the eager chain on the same input; the first
+    result unchanged by the later replays; graph-internal buffers refused;
+    the executor the CUDA graph (``REPRO_SEGMENT_COMPILE=fused``: at this
+    size the bind-time calibration, whose choice is printed beside one at a
+    host-bound size, may prefer the eager launches).  Then the host us and
+    device ms a step, eager against replay, and a two-chain plan (two
+    branches of one graph) against its eager chains."""
+    n = GRAPH_N
+    prog = graph_program(dev)
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+    fresh = lambda: torch.randn(n, generator=gen, device=dev.torch_device)  # noqa: E731
+    src, a, b, c, gsrc, ga, gb, gc = (dev.create_buffer(n, np.float32).get() for _ in range(8))
+
+    def eager(x, sync="ready"):
+        src.enqueue_write(0, x)
+        return graph_chain(prog, src, a, b, c, sync)
+
+    def eager_value(x):
+        eager(x).get()
+        return c.array()
+
+    def captured(mode: str, size: int = n):
+        """The chain captured at ``size`` and instantiated with
+        ``REPRO_SEGMENT_COMPILE=mode``: (exe, its write node)."""
+        bufs = [dev.create_buffer(size, np.float32).get() for _ in range(4)] if size != n else \
+            (gsrc, ga, gb, gc)
+        with dev.capture("chain") as g:
+            node = bufs[0].enqueue_write(0, torch.zeros(size, device=dev.torch_device))
+            graph_chain(prog, *bufs)
+        return instantiate_as(g, mode), node
+
+    # What the bind-time calibration chooses for this chain, here and at a
+    # host-bound size; the checks below hold the CUDA graph itself.
+    calibrated = {str(size): sorted({seg.exec_mode for seg in captured("auto", size)[0]._segments})
+                  for size in (n, 1 << 14)}
+    t0 = time.perf_counter()
+    exe, w = captured("fused")
+    instantiate_s = time.perf_counter() - t0
+    modes = sorted({seg.exec_mode for seg in exe._segments})
+    require(modes == ["fused"] and exe._cuda is not None, f"graph: executor {modes}, {exe!r}")
+    require(exe.recorded_launches == {k: 1 for k in GRAPH_KERNELS},
+            f"graph: the capture recorded {exe.recorded_launches}")
+    first = first_copy = None
+    for i in range(GRAPH_REPLAYS):
+        x = fresh()
+        exe.replay(feeds={w: x}).get()
+        got = gc.array()
+        if first is None:
+            first, first_copy = got, got.clone()
+        require(torch.equal(got, eager_value(x)), f"graph: replay {i} differs from the eager chain")
+    require(torch.equal(first, first_copy), "graph: a later replay changed the first result")
+    for name, buf in (("write-fed", gsrc), ("intermediate", ga), ("intermediate", gb)):
+        try:
+            buf.enqueue_read().get()
+        except RuntimeError as e:
+            require("donated" in str(e), f"graph: {name} buffer read failed otherwise: {e}")
+        else:
+            raise SmokeFailure(f"graph: a graph-internal ({name}) buffer's read did not raise")
+
+    xs = [fresh() for _ in range(GRAPH_TIMED)]
+    host_us = {"eager": [], "replay": []}
+    for _ in range(2):  # eager, replay, replay, eager
+        for kind in (("eager", "replay"), ("replay", "eager"))[_]:
+            t0 = time.perf_counter()
+            for x in xs:
+                (eager(x) if kind == "eager" else exe.replay(feeds={w: x})).get()
+            host_us[kind].append((time.perf_counter() - t0) / len(xs) * 1e6)
+    device_ms = None
+    if dev.is_cuda:
+        device_ms = {"eager": events_ms(dev, [lambda x=x: eager(x, "dispatch") for x in xs]),
+                     "replay": events_ms(dev, [lambda x=x: exe.replay(feeds={w: x}, sync="dispatch")
+                                               for x in xs])}
+
+    # Two chains joined by an add: three segments, one event edge, one graph.
+    a2, b2, ma, mb, out2 = (dev.create_buffer(n, np.float32).get() for _ in range(5))
+    with dev.capture("two-chains") as g2:
+        wa, wb = a2.enqueue_write(0, fresh()), b2.enqueue_write(0, fresh())
+        prog.run([a2], "stencil", block=STENCIL_BLOCK, out=[ma])
+        prog.run([b2], "partition_map", block=MAP_BLOCK, out=[mb])
+        prog.run([ma, mb], "add", out=[out2])
+    exe2 = instantiate_as(g2, "fused")
+    require(exe2._fanout and len(exe2._segments) == 3 and exe2._event_edges
+            and exe2._cuda is not None and {s.exec_mode for s in exe2._segments} == {"fused"},
+            f"graph: the two-chain plan is {exe2!r}")
+    for i in range(5):
+        xa, xb = fresh(), fresh()
+        exe2.replay(feeds={wa: xa, wb: xb}).get()
+        want = stencil_ops.stencil(xa, block=STENCIL_BLOCK.as_tuple()) + \
+            map_ops.partition_map(xb, block=MAP_BLOCK.as_tuple())
+        require(torch.equal(out2.array(), want), f"graph: two-chain replay {i} differs from eager")
+    dev.synchronize()
+    return {"n": n, "replays_checked": GRAPH_REPLAYS, "exec": repr(exe), "two_chains": repr(exe2),
+            "calibrated_exec_mode_by_n": calibrated,
+            "instantiate_s": instantiate_s, "recorded_launches": exe.recorded_launches,
+            "graph_replays": exe.graph_replays + exe2.graph_replays,
+            "host_us_per_step": host_us, "device_ms_per_step": device_ms,
+            "_replayed": {k: exe.recorded_launches.get(k, 0) * exe.graph_replays
+                          + exe2.recorded_launches.get(k, 0) * exe2.graph_replays
+                          for k in GRAPH_KERNELS}}
 
 
 # ---------------------------------------------------------------------------
@@ -1127,6 +1338,18 @@ def main() -> int:
     print("fig5: " + json.dumps(fig5), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
 
+    dev.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    graph = phase_graph(dev)
+    graph["seconds"] = time.perf_counter() - t0
+    graph_replayed = graph.pop("_replayed")
+    graph["launches"] = {"host": {k: launch_counts()[k] for k in GRAPH_KERNELS},
+                         "replayed": graph_replayed}
+    require(all(graph["launches"]["host"][k] > 0 and graph_replayed[k] >= GRAPH_REPLAYS
+                for k in GRAPH_KERNELS), f"graph: a kernel was not launched: {graph['launches']}")
+    print("graph: " + json.dumps(graph), flush=True)
+
     serves = {}
     for phase, arch, prompt_lens, kernel in (("serve", SERVE_ARCH, SERVE_PROMPTS, "flash_attention"),
                                              ("serve_ssm", SSM_ARCH, SSM_PROMPTS, "ssd_scan")):
@@ -1144,6 +1367,15 @@ def main() -> int:
         t0 = time.perf_counter()
         paged = serves[phase] = phase_serve_paged(dev, arch, prompt_lens, serves[base].pop("_plain"))
         paged["seconds"] = time.perf_counter() - t0
+        for impl in ("auto", "ref"):
+            r = paged[impl]
+            print(f"{phase} {impl}: warm counts {r['warm_counts']}, {r['graphs_captured']} graphs "
+                  f"captured in {r['capture_s']:.3f} s, padded_rows {r['padded_rows']}, decode steps "
+                  f"{r['eager_steps']} eager / {r['replayed_steps']} replayed; step p50/p99 "
+                  f"{r['step_ms_p50']:.3f} / "
+                  f"{r['step_ms_p99']:.3f} ms, TTFT p50/p99 {r['ttft_p50_s']:.4f} / "
+                  f"{r['ttft_p99_s']:.4f} s, {r['decode_tokens_per_s']:.1f} decode tokens/s",
+                  flush=True)
         print(f"{phase}: " + json.dumps(paged), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
@@ -1167,6 +1399,11 @@ def main() -> int:
                           serves["serve_ssm"]["launches"]["f32_kernels"], dev.torch_device),
                 check_paged(serves["serve_paged"]["launches"]["auto"]["paged_attention"],
                             dev.torch_device)]
+    kernels[-1]["launches_on_device"] = serves["serve_paged"]["launches"]["auto"][
+        "paged_attention_on_device"]
+    for k in kernels[:2]:  # the graph phase's: launched by the host, run by replays
+        k["graph_phase_launches"] = {part: graph["launches"][part][k["name"]]
+                                     for part in ("host", "replayed")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

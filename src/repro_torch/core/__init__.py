@@ -19,6 +19,15 @@ Streams map onto ``torch.cuda.Stream``s and events onto
     s1.enqueue_write(a, 0, host_a); prog.launch([a], "k", out=[ra], stream=s1)
     s2.enqueue_write(b, 0, host_b); prog.launch([b], "k", out=[rb], stream=s2)
     s2.wait_event(s1.record())
+
+A captured graph is a ``torch.cuda.CUDAGraph``:
+
+    with dev.capture("step") as g:
+        w = buf.enqueue_write(0, host_data)
+        prog.run([buf], "stencil", out=[out])
+        r = out.enqueue_read()
+    exe = g.instantiate()
+    result = exe.replay(feeds={w: new_data}).get()[r]
 """
 from repro_torch.core.agas import GID, HOST_KEY, Placement, Registry, locality_of, registry, set_locality_id
 from repro_torch.core.buffer import Buffer
@@ -46,6 +55,7 @@ from repro_torch.core.futures import (
     when_all,
     when_any,
 )
+from repro_torch.core.graph import GraphExec, GraphResult, TaskGraph, capture, current_graph
 from repro_torch.core.program import Dim3, Program
 from repro_torch.core.stream import Event, Stream
 
@@ -84,4 +94,9 @@ __all__ = [
     "when_any",
     "Dim3",
     "Program",
+    "TaskGraph",
+    "GraphExec",
+    "GraphResult",
+    "capture",
+    "current_graph",
 ]

@@ -22,6 +22,12 @@ contents (on the device, the host never blocks).  ``record_stream`` keeps
 the caching allocator from handing the memory out again while another
 stream may still use it (``Buffer._use``).
 
+Graph capture (``repro_torch.core.graph``): inside a ``capture()`` region
+``enqueue_write`` and ``enqueue_read`` record full-buffer graph nodes and
+return them instead of futures, and ``enqueue_read_sync`` is refused.  A
+graph-internal buffer is invalidated by a replay: its reads raise until a
+full-buffer write gives it storage again.
+
 Transfers: a write from a pinned CPU tensor is asynchronous
 (``non_blocking=True`` on the caller's stream); a pageable source, such as
 an ``np.ndarray``, makes the copy synchronous.  A read copies into pinned
@@ -120,6 +126,9 @@ class Buffer:
         self._sync_lock = threading.Lock()
         self._alloc_stream = None
         self._freed: bool = False
+        # True once a graph replay consumed the value (graph-internal
+        # buffer): reads raise until the next full-buffer write.
+        self._donated: bool = False
         self._free_future: "Future | None" = None
         self.gid: agas.GID = 0
         self._finalizer: "weakref.finalize | None" = None
@@ -206,6 +215,7 @@ class Buffer:
         """Rebind the buffer to ``t``, allocated and written on the current
         stream (up to ``ev`` if given); returns the writer event."""
         self._tensor = t
+        self._donated = False
         self._alloc_stream = torch.cuda.current_stream(t.device) if t.is_cuda else None
         return self._mark_written(ev)
 
@@ -222,7 +232,18 @@ class Buffer:
     def _live(self) -> "torch.Tensor":
         if self._freed:
             raise RuntimeError(f"Buffer gid={self.gid} was freed; its storage is released.")
+        if self._donated:
+            raise RuntimeError(
+                f"Buffer gid={self.gid} was donated to a graph replay; its contents are "
+                "gone (graph-internal). Write to it before reading again.")
         return self._tensor
+
+    def _invalidate(self) -> None:
+        """Mark the value as consumed by a graph replay (graph-internal)."""
+        self._tensor = None
+        self._donated = True
+        with self._sync_lock:
+            self._last_write, self._reads = None, {}
 
     # -- async transfer surface ----------------------------------------------
 
@@ -231,7 +252,11 @@ class Buffer:
         """Asynchronously copy host ``data`` (``np.ndarray`` or tensor) into
         the buffer at ``offset`` (elements, flat view).
         ``cudaMemcpyAsync(HostToDevice)`` analogue; ``stream`` scopes the
-        ordering, ``None`` means the device's default stream."""
+        ordering, ``None`` means the device's default stream.  Inside a
+        ``capture()`` region the write is recorded (full-buffer only) and
+        the graph node is returned instead of a future."""
+        from repro_torch.core.graph import current_graph
+
         data_len = data.numel() if isinstance(data, torch.Tensor) else int(np.size(data))
         _check_window(
             self.size, offset, count if count is not None else data_len,
@@ -242,11 +267,18 @@ class Buffer:
                 f"enqueue_write count={count} exceeds the {data_len} element(s) "
                 "of data supplied"
             )
+        g = current_graph()
+        if g is not None:
+            return g.write(self, data, offset=offset, count=count)
 
         def _write():
             src = _host_tensor(data).reshape(-1)
             if count is not None:
                 src = src[:count]
+            if self._donated and offset == 0 and src.numel() == self.size:
+                # A full write gives a graph-internal buffer storage again.
+                self._set_tensor(torch.empty(self.shape, dtype=self.dtype,
+                                             device=self.device.torch_device))
             dst = self._use(write=True).view(-1)[offset: offset + src.numel()]
             pinned = src.device.type == "cpu" and src.is_pinned()
             dst.copy_(src, non_blocking=pinned and dst.is_cuda)
@@ -260,9 +292,16 @@ class Buffer:
         """Asynchronously copy device data to the host; future of
         ``np.ndarray`` (a CPU tensor for bfloat16).
         ``cudaMemcpyAsync(DeviceToHost)`` into pinned memory; the future
-        resolves at the event recorded after the copy."""
+        resolves at the event recorded after the copy.  Inside a
+        ``capture()`` region the read is recorded as a fetch node
+        (full-buffer only) and the node is returned."""
+        from repro_torch.core.graph import current_graph
+
         n = self.size - offset if count is None else count
         _check_window(self.size, offset, n, "enqueue_read")
+        g = current_graph()
+        if g is not None:
+            return g.read(self, offset=offset, count=count)
         full = offset == 0 and n == self.size
 
         def _read():
@@ -282,6 +321,14 @@ class Buffer:
         return _settle(q.submit(_read), _to_host_value, name=f"read:gid{self.gid}")
 
     def enqueue_read_sync(self, offset: int = 0, count: "int | None" = None, stream=None):
+        from repro_torch.core.graph import current_graph
+
+        if current_graph() is not None:
+            raise RuntimeError(
+                "enqueue_read_sync inside a graph-capture region: the value "
+                "does not exist until replay. Use enqueue_read() to record a "
+                "fetch node and index the replay's GraphResult with it."
+            )
         return self.enqueue_read(offset, count, stream=stream).get()
 
     def copy_to(self, target_device) -> Future:

@@ -12,6 +12,8 @@ A ``Device`` wraps one ``torch.device`` and exposes HPXCL's surface:
     each a host lane plus a ``torch.cuda.Stream``
   * ``synchronize``    — drain ALL the device's lanes and the compile
     queue, then every CUDA stream
+  * ``capture``        — a graph-capture region (``repro_torch.core.graph``);
+    ``_replay_lane(chain)`` is the lane of a captured plan's chain
 
 ``get_all_devices(major, minor)`` mirrors the paper's Listing 1: it returns
 a *future* of the CUDA devices whose compute capability is at least
@@ -50,6 +52,7 @@ class Device:
         # keeps its own queue so building a kernel overlaps transfers.
         self._dispatcher: LaneDispatcher = rt.dispatcher(f"ops:{self.key}")
         self._streams: "list[Stream]" = []
+        self._replay_streams: "dict[int, Stream]" = {}
         self._stream_lock = threading.Lock()
         default_cs = torch.cuda.default_stream(self.torch_device) if self.is_cuda else None
         self._default_stream = self._new_stream("default", default_cs)
@@ -114,6 +117,25 @@ class Device:
         with self._stream_lock:
             return list(self._streams)
 
+    def _replay_lane(self, chain: int):
+        """Lane of captured-graph chain ``chain`` (DESIGN.md §11): chain 0
+        rides the default stream; higher chains get dedicated, memoized
+        replay streams, so the chains of any plan map to lanes without
+        growing a lane per ``GraphExec``."""
+        if chain == 0:
+            return self.ops_queue
+        with self._stream_lock:
+            s = self._replay_streams.get(chain)
+            if s is None:
+                # 'replay.' keys cannot collide with _new_stream's
+                # '{idx}.{label}' keys (idx is always an integer).
+                lane = self._dispatcher.lane(f"replay.{chain}")
+                cs = torch.cuda.Stream(self.torch_device) if self.is_cuda else None
+                s = Stream(self, lane, name=f"{self.key}/replay{chain}", cuda_stream=cs)
+                self._streams.append(s)
+                self._replay_streams[chain] = s
+        return s.lane
+
     # -- scheduler signals --------------------------------------------------
 
     def load(self) -> QueueLoad:
@@ -154,6 +176,22 @@ class Device:
         from repro_torch.core.program import Program
 
         return self.compile_queue.submit(lambda: Program.from_file(self, path))
+
+    # -- graph capture (CUDA Graphs) -----------------------------------------
+
+    def capture(self, name: str = "captured"):
+        """Begin a graph-capture region on this thread (DESIGN.md §8):
+
+            with dev.capture("step") as g:
+                buf.enqueue_write(0, host)
+                prog.run([buf], "k", out=[out])
+                r = out.enqueue_read()
+            exe = g.instantiate()          # warm-up, then one CUDA graph
+            result = exe.replay().get()    # result[r] is the np.ndarray
+        """
+        from repro_torch.core.graph import capture as _capture
+
+        return _capture(name)
 
     # -- synchronization ----------------------------------------------------
 

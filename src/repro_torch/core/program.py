@@ -18,6 +18,9 @@ kernel wrapper allocates a fresh output tensor, and each ``out`` buffer is
 rebound to it.  So a launch whose ``out`` is its own input (the stencil
 of fig 3) never races on the input it still reads.
 
+Graph capture: inside a ``capture()`` region ``run`` records a launch node
+instead (``repro_torch.core.graph``).
+
 Percolation: ``run`` executes where the program's device is; argument
 buffers living on other devices are first copied there (futures, never
 blocking the caller).
@@ -176,7 +179,17 @@ class Program:
         resolves once the launch is enqueued on the CUDA stream.
         ``stream`` scopes the submission order; ``None`` means the
         device's default stream.
+
+        Inside a ``repro_torch.core.graph.capture()`` region the launch is
+        *recorded*, not executed: the return value is then the graph node,
+        and execution happens at ``replay()`` (capture ignores ``stream``:
+        ``instantiate`` assigns chains to branches itself).
         """
+        from repro_torch.core.graph import current_graph
+
+        g = current_graph()
+        if g is not None:
+            return g.run(self, args, name, grid=grid, block=block, out=out)
         home = self.device
         queue = home.ops_queue if stream is None else stream._lane_for(home)
 

@@ -19,6 +19,7 @@ Concept mapping:
     ``torch.cuda.Stream.wait_event`` on the device)
   * ``cudaStreamSynchronize`` -> ``Stream.synchronize``
   * default stream            -> ``Device.default_stream``
+  * ``cudaGraphLaunch(exec, s)`` -> ``Stream.replay``
 
 Ordering guarantees:
 
@@ -191,6 +192,16 @@ class Stream:
     ) -> Future:
         """``program.run`` ordered by this stream."""
         return program.run(args, kernel, grid=grid, block=block, out=out, sync=sync, stream=self)
+
+    def replay(self, exe, feeds: "dict | None" = None, sync: str = "ready") -> Future:
+        """Replay an instantiated single-segment ``GraphExec`` on THIS
+        stream (``cudaGraphLaunch(exec, stream)``): staging, the graph and
+        the commit run FIFO with this stream's other work.  Equivalent to
+        ``exe.replay(feeds, sync, stream=self)``; the replay's future is
+        noted as a stream completion, so a later ``record()`` covers it."""
+        fut = exe.replay(feeds=feeds, sync=sync, stream=self)
+        self._note_completion(fut)
+        return fut
 
     # -- events ----------------------------------------------------------------
 

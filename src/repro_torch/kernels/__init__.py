@@ -3,10 +3,17 @@ its ctypes wrapper (``kernel.py``), a plain PyTorch version (``ref.py``)
 and the ``impl=`` dispatch with its ``KERNELS`` registry (``ops.py``).
 ``all_kernels()`` aggregates every package's registry lazily, in the
 reference package's order, so importing ``repro_torch.kernels`` stays
-cheap and builds nothing."""
+cheap and builds nothing.
+
+Each wrapper counts its launches in its module's ``launches``
+(``launch_counts``) and tells ``note_launch``, which tallies them for the
+calling thread inside a ``tally_launches()`` block: a CUDA-graph capture
+learns there which kernels every replay of the graph runs."""
 from __future__ import annotations
 
+import contextlib
 import importlib
+import threading
 
 _PACKAGES = ("flash_attention", "mandelbrot", "paged_attention", "partition_map", "ssd_scan",
              "stencil")
@@ -40,4 +47,28 @@ def reset_launch_counts() -> None:
             mod.kernel_launches = 0
 
 
-__all__ = ["all_kernels", "launch_counts", "reset_launch_counts"]
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """``{package: launches}`` made by the kernel wrappers on THIS thread
+    inside the block (other threads' launches are not counted)."""
+    prev = getattr(_tally, "counts", None)
+    counts: "dict[str, int]" = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
+
+
+def note_launch(package: str) -> None:
+    """Called by a wrapper where it launches its kernel."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[package] = counts.get(package, 0) + 1
+
+
+__all__ = ["all_kernels", "launch_counts", "note_launch", "reset_launch_counts",
+           "tally_launches"]

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, note_launch
 
 launches = 0
 
@@ -90,4 +90,5 @@ def flash_attention(q: "torch.Tensor", k: "torch.Tensor", v: "torch.Tensor", *,
                  v.stride(0), v.stride(1), v.stride(2), int(causal), stream)
     _build.check(lib, err, "flash_attention")
     launches += 1
+    note_launch("flash_attention")
     return o

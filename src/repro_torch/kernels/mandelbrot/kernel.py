@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, note_launch
 from repro_torch.kernels._launch import dim
 from repro_torch.kernels.mandelbrot.ref import X_RANGE, Y_RANGE, pixel_step
 
@@ -122,5 +122,6 @@ def mandelbrot(height: int, width: int, max_iter: int = 64, *, device,
         )
     _build.check(lib, err, "mandelbrot")
     launches += 1
+    note_launch("mandelbrot")
     last_geometry = (gx, gy, bx, by)
     return out

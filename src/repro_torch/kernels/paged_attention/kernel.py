@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, note_launch
 
 launches = 0
 kernel_launches = 0
@@ -116,6 +116,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths) -> "torch.Tensor":
     _build.check(lib, err, "paged_attention")
     launched = lib.paged_attention_launched()  # before `+=`: see ssd_scan's wrapper
     launches += 1
+    note_launch("paged_attention")
     kernel_launches += launched
     last_load_width = lib.paged_attention_load_width()
     last_blocks = lib.paged_attention_blocks()

@@ -10,6 +10,7 @@ from repro_torch.serving.paged import (
     SamplingParams,
     SeqPages,
     sample_token,
+    warm_rows,
 )
 from repro_torch.serving.serve_step import make_prefill, make_serve_step
 
@@ -25,6 +26,7 @@ __all__ = [
     "SeqPages",
     "OutOfPages",
     "sample_token",
+    "warm_rows",
     "make_prefill",
     "make_serve_step",
 ]

@@ -17,13 +17,26 @@
 
 * ``PagedServeEngine`` — a prefill lane (prompts batched by token budget,
   first token sampled on the host) and a decode lane that steps every
-  resident sequence in ONE exact-row step at mixed lengths: the page
-  table, not the batch shape, encodes length.  Logits come back to the
-  host for ``sample_token``; each sequence's resident state (SSM state,
-  conv window) stays a device tensor.  Both lanes launch on one CUDA stream
-  of the engine, so a decode step is ordered after the page write of every
+  resident sequence in ONE step at mixed lengths: the page table, not the
+  batch shape, encodes length.  Logits come back to the host for
+  ``sample_token``; each sequence's resident state (SSM state, conv
+  window) stays a device tensor.  Both lanes launch on one CUDA stream of
+  the engine, so a decode step is ordered after the page write of every
   sequence it steps.  ``from_config(cfg)`` wires any ported family through
   ``repro_torch.models.model.paged_surface``.
+
+* Warm row counts, as the reference's: the decode lane pads a batch to
+  the nearest row count it has already run (``warm_rows``: at most 2x the
+  real rows, else the exact count, which becomes warm), duplicating the
+  last row and discarding the pad rows' outputs; ``decode_shapes`` seeds
+  the warm set.  On a CUDA device each warm count has ONE CUDA graph of
+  ``decode_fn`` (``_StepGraphs``): the first step at a count runs eagerly
+  and is then captured, every later step at that count is one pinned H2D
+  of tokens, lengths and tables into the count's static tensors, the
+  per-row states stacked into a static state, and one graph launch.  The
+  prefill lane keeps running while a graph is captured.  There is no
+  switch to turn the graphs off on the card: the reference's jit is not
+  optional either.
 
 Sampling is host-side and bit-reproducible: token ``position`` of request
 ``request_id`` draws from ``np.random.default_rng([seed, request_id,
@@ -34,9 +47,7 @@ cache over several devices, ``spill``/``ensure_resident``, ``defrag``,
 ``migrate``, rebalancing and the cross-locality ``export_seq``/
 ``import_seq``/``paged_worker_*`` (ROADMAP.md Queue 1 items 6 and 10);
 the ``"legacy"`` two-callable contract (with the fig9 port, Queue 1 item
-4).  Eager PyTorch compiles nothing per row count, so decode steps exact
-rows and ``padded_rows`` stays 0; warm-shape padding comes back with graph
-capture (Queue 1 item 5).
+4).
 
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
 default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes, default 32 MiB),
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import concurrent.futures as _cf
 import contextlib
+from collections import Counter
 import os
 import threading
 import time
@@ -60,6 +72,7 @@ import torch
 from repro_torch.core import agas
 from repro_torch.core.buffer import torch_dtype
 from repro_torch.core.futures import Future, Promise
+from repro_torch.kernels import tally_launches
 from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
 
 __all__ = [
@@ -71,6 +84,7 @@ __all__ = [
     "SeqPages",
     "OutOfPages",
     "sample_token",
+    "warm_rows",
 ]
 
 _SCHEDULER = "ROADMAP.md Queue 1 item 6"
@@ -108,6 +122,16 @@ def _to_device(arr: np.ndarray, device: "torch.device") -> "torch.Tensor":
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def warm_rows(rows: int, warm) -> int:
+    """The row count a decode step of ``rows`` real rows runs at, given the
+    ``warm`` counts already run (``src/repro/serving/paged.py:1338-1342``):
+    the smallest warm count >= ``rows`` when it pads by no more than the
+    real rows (at most 2x), else ``rows`` itself.  The caller adds the
+    result to ``warm``."""
+    cand = min((w for w in warm if w >= rows), default=None)
+    return cand if cand is not None and cand - rows <= rows else rows
 
 
 class OutOfPages(RuntimeError):
@@ -500,7 +524,8 @@ class PagedServeEngine:
     ``submit(prompt, max_new_tokens)`` returns a future of the generated
     token ids (np.int32).  The prefill lane batches equal-length prompts
     by token budget and pages their KV in; the decode lane steps every
-    resident sequence in exact-row batches.  Model contract (``"zoo"``):
+    resident sequence in batches padded to warm row counts.  Model
+    contract (``"zoo"``):
 
     ``prefill_fn(tokens, extras)``
         ``(B, T)`` int32 device tensor, ``extras`` None ``-> (k, v, state,
@@ -510,13 +535,21 @@ class PagedServeEngine:
     ``decode_fn(k_pages, v_pages, state, tokens, positions, tables, lengths)``
         ``-> (k_pages, v_pages, state, logits)``: one ragged step over the
         pool's slabs (updated in place) and the batch's stacked state.
+        On a CUDA device it is captured into a CUDA graph per warm row
+        count, so it must not synchronise with the host.
+
+    ``decode_shapes`` seeds the decode lane's warm row counts (see
+    ``warm_rows``): a closed palette makes the set of captured step graphs
+    deterministic, at the cost of padding off-palette batches.
     """
 
     def __init__(self, kv: PagedKVCache, prefill_fn: Callable, decode_fn: Callable,
                  *, max_seq_len: int, scheduler=None,
                  prefill: "LanePolicy | None" = None,
                  decode: "LanePolicy | None" = None,
-                 max_queue: int = 512, contract: str = "zoo",
+                 max_queue: int = 512,
+                 decode_shapes: "Sequence[int] | None" = None,
+                 contract: str = "zoo",
                  name: str = "paged"):
         if contract == "legacy":
             raise NotImplementedError(
@@ -534,6 +567,9 @@ class PagedServeEngine:
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
         self.contract = contract
+        self.decode_shapes = (
+            tuple(sorted({int(s) for s in decode_shapes if int(s) > 0}))
+            if decode_shapes is not None else ())
         self.name = name
         self.pool = next(iter(kv.pools.values()))
         self.device = self.pool.device
@@ -570,6 +606,7 @@ class PagedServeEngine:
         self._prefill_rows = 0
         self._decode_steps = 0
         self._decode_rows = 0
+        self._decode_padded = 0
         self._decode_s = 0.0
         self._token_lat: "list[float]" = []
         self._seq_lat: "list[float]" = []
@@ -665,8 +702,11 @@ class PagedServeEngine:
             self._started_at = _now()
             self._submitted = self._completed = self._failed = 0
             self._prefill_batches = self._prefill_tokens = self._prefill_rows = 0
-            self._decode_steps = self._decode_rows = 0
+            self._decode_steps = self._decode_rows = self._decode_padded = 0
             self._decode_s = 0.0
+            self._lane.stats.clear()
+            for c in self._lane.launches.values():
+                c.clear()
             self._token_lat.clear()
             self._seq_lat.clear()
             self._ttft.clear()
@@ -823,13 +863,14 @@ class PagedServeEngine:
                 "decode_rows": self._decode_rows,
                 "decode_s": self._decode_s,
                 "rows": rows,
-                "padded_rows": 0,  # exact-row decode (see the module docstring)
-                "padding_waste": 0.0,
+                "padded_rows": self._decode_padded,
+                "padding_waste": (self._decode_padded / rows) if rows else 0.0,
                 "token_latency_p50_s": self._pct(self._token_lat, 0.50),
                 "token_latency_p99_s": self._pct(self._token_lat, 0.99),
                 "ttft_p50_s": self._pct(self._ttft, 0.50),
                 "ttft_p99_s": self._pct(self._ttft, 0.99),
                 "seq_latency_p99_s": self._pct(self._seq_lat, 0.99),
+                "decode": self._lane.graph_metrics(),
             }
         elapsed = max(_now() - self._started_at, 1e-9)
         m["elapsed_s"] = elapsed
@@ -844,23 +885,35 @@ class PagedServeEngine:
 
 
 class _DecodeLane:
-    """The decode lane: continuous exact-row batched stepping.
+    """The decode lane: continuous batched stepping at warm row counts.
 
     The lane thread owns the resident sequences.  Each iteration: fold in
     arrivals (deadline-bounded wait only when idle), take up to
-    ``max_batch`` sequences, grow tails by a page where needed, run ONE
-    ``decode_fn`` step over the pool's slabs, sample on the host, and
-    retire finished sequences.  Mixed-length sequences share the step at
-    their true lengths.  Tokens, lengths (= positions) and tables go to
-    the device as one pinned copy per step."""
+    ``max_batch`` sequences, grow tails by a page where needed, pad the
+    batch to a warm row count (``warm_rows``; pad rows duplicate the last
+    row — its scatter rewrites the same slot with the same value — and
+    their outputs are discarded), run ONE step of ``decode_fn`` over the
+    pool's slabs, sample on the host, and retire finished sequences.
+    Mixed-length sequences share the step at their true lengths.  On a
+    CUDA device the step at each warm count is a CUDA graph
+    (``_StepGraphs``); on the CPU it runs eagerly, its tokens, lengths and
+    tables going to the device as one copy a step."""
 
     def __init__(self, engine: PagedServeEngine):
         self.engine = engine
         self._cv = threading.Condition()
+        self._warm: "set[int]" = set(engine.decode_shapes)
         self._inbox: "list[_PagedRequest]" = []
         self._active: "list[_PagedRequest]" = []
         self._closed = False
         self._stalls = 0  # consecutive steps where nothing fit in the pool
+        # Since the engine's last reset_metrics, under its _m_lock: steps
+        # (eager_steps, replayed_steps, graphs_captured, capture_s: the
+        # seconds captures took) and, by kernel package, the launches
+        # captured into graphs and replayed from them.
+        self.stats: Counter = Counter()
+        self.launches = {"captured": Counter(), "replayed": Counter()}
+        self._graphs = _StepGraphs(self) if engine.device.is_cuda else None
         self._thread = threading.Thread(
             target=self._loop, name=f"paged:{engine.name}:decode", daemon=True)
         self._thread.start()
@@ -873,6 +926,20 @@ class _DecodeLane:
     def active_count(self) -> int:
         with self._cv:
             return len(self._inbox) + len(self._active)
+
+    def graph_metrics(self) -> dict:
+        """The decode counters (the caller holds the engine's _m_lock)."""
+        return {"warm_counts": sorted(self._warm),
+                **{k: self.stats[k] for k in ("eager_steps", "replayed_steps", "graphs_captured",
+                                              "capture_s")},
+                "captured_launches": dict(self.launches["captured"]),
+                "replayed_launches": dict(self.launches["replayed"])}
+
+    def _tally(self, counts: dict, launches: "tuple[str, dict] | None" = None) -> None:
+        with self.engine._m_lock:
+            self.stats.update(counts)
+            if launches is not None:
+                self.launches[launches[0]].update(launches[1])
 
     def close(self) -> None:
         with self._cv:
@@ -911,11 +978,23 @@ class _DecodeLane:
                     eng._finish(r, e)
 
     def _step(self, batch: "list[_PagedRequest]") -> None:
+        t0 = _now()
+        prep = self._prepare(batch)
+        if prep is None:
+            return
+        batch, inputs = prep
+        with self.engine._on_stream():
+            run = self._graphs.step if self._graphs is not None else self._eager
+            logits, state = run(*inputs)
+        self._advance(batch, inputs[0], logits, state, t0)
+
+    def _prepare(self, batch: "list[_PagedRequest]"):
+        """Grow tails by a page where needed and build the step's host
+        inputs at a warm row count: ``(ready batch, (rows, tokens,
+        lengths, tables, states))``, or None when nothing fits in the pool
+        (the batch then waits for finishers to free pages)."""
         eng = self.engine
         kv = eng.kv
-        t0 = _now()
-        # A sequence whose next token has no page and no free page to take
-        # waits (it stays active) until finishing sequences free pages.
         ready = []
         for r in batch:
             try:
@@ -931,24 +1010,44 @@ class _DecodeLane:
                     f"{self._stalls} consecutive steps waiting for pages — "
                     "the pool cannot hold this working set")
             time.sleep(0.002)  # wait for a finisher to free pages
-            return
+            return None
         self._stalls = 0
-        batch = ready
+        B = len(ready)
+        W = warm_rows(B, self._warm)
+        self._warm.add(W)
+        tbl, lens = kv.table([r.seq for r in ready], eng.max_pages)
+        tokens = np.asarray([r.out[-1] for r in ready], np.int32)
+        rows = [r.seq.state for r in ready]
+        pad = W - B
+        if pad:
+            tbl = np.concatenate([tbl, np.repeat(tbl[-1:], pad, axis=0)])
+            lens = np.concatenate([lens, np.repeat(lens[-1:], pad)])
+            tokens = np.concatenate([tokens, np.repeat(tokens[-1:], pad)])
+            rows = rows + [rows[-1]] * pad
+        return ready, (W, tokens, lens, tbl, rows)
+
+    def _eager(self, W: int, tokens, lens, tbl, rows):
+        """One eager step of ``decode_fn`` at ``W`` rows on the current
+        stream -> (host logits (W, V), stacked state or None)."""
+        eng = self.engine
+        self._tally({"eager_steps": 1})
+        step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
+                             eng.device.torch_device)
+        tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
+        state = None
+        if rows[0] is not None:
+            state = _tree_map(lambda *xs: torch.stack(xs), *rows)
+        ks, vs = eng.pool.arrays()
+        _, _, state, logits = eng.decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
+        eng.pool.mark_written()
+        return logits.float().cpu().numpy(), state
+
+    def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state, t0: float) -> None:
+        """Sample each real row's token, hand back its state, retire the
+        finished sequences and count the step."""
+        eng = self.engine
+        kv = eng.kv
         B = len(batch)
-        tbl, lens = kv.table([r.seq for r in batch], eng.max_pages)
-        tokens = np.asarray([r.out[-1] for r in batch], np.int32)
-        rows = [r.seq.state for r in batch]
-        with eng._on_stream():
-            step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
-                                 eng.device.torch_device)
-            tok_d, lens_d, tbl_d = step_in[:B], step_in[B:2 * B], step_in[2 * B:].view(B, -1)
-            state = None
-            if rows[0] is not None:
-                state = _tree_map(lambda *xs: torch.stack(xs), *rows)
-            ks, vs = eng.pool.arrays()
-            _, _, state, logits = eng.decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
-            eng.pool.mark_written()
-            logits = logits.float().cpu().numpy()
         done: "list[_PagedRequest]" = []
         for i, r in enumerate(batch):
             # Position = tokens already emitted (prefill's token was
@@ -964,6 +1063,7 @@ class _DecodeLane:
         with eng._m_lock:
             eng._decode_steps += 1
             eng._decode_rows += B
+            eng._decode_padded += W - B
             eng._decode_s += step_s
             eng._token_lat.extend([step_s] * B)
         with self._cv:
@@ -978,3 +1078,124 @@ class _DecodeLane:
                         self._active.append(r)
         for r in done:
             eng._finish(r)
+
+
+class _CountGraph:
+    """One warm row count's step graph and its static tensors: a pinned
+    staging tensor and its device twin (tokens, lengths, tables), the
+    stacked state, the graph and its outputs, and the launches its capture
+    recorded."""
+
+    def __init__(self, W: int, max_pages: int, device: "torch.device"):
+        self.W = W
+        n = 2 * W + W * max_pages
+        self.stage = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        self.stage_np = self.stage.numpy()
+        self.static = torch.empty(n, dtype=torch.int32, device=device)
+        self.tok, self.lens = self.static[:W], self.static[W:2 * W]
+        self.tbl = self.static[2 * W:].view(W, max_pages)
+        self.copied: "torch.cuda.Event | None" = None  # end of the last H2D from stage
+        self.state = None
+        self.graph: "torch.cuda.CUDAGraph | None" = None
+        self.outs = None
+        self.recorded: "dict[str, int]" = {}
+
+    def load(self, tokens, lens, tbl, rows):
+        """Stage this step's inputs into the static tensors on the current
+        stream; returns the static state (None without one)."""
+        if self.copied is not None:
+            self.copied.synchronize()  # the last copy out of stage has ended
+        W = self.W
+        self.stage_np[:W] = tokens
+        self.stage_np[W:2 * W] = lens
+        self.stage_np[2 * W:] = tbl.reshape(-1)
+        self.static.copy_(self.stage, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        if rows[0] is None:
+            return None
+        if self.state is None:
+            self.state = _tree_map(lambda *xs: torch.stack(xs), *rows)
+        else:
+            _tree_map(lambda dst, *xs: torch.stack(xs, out=dst), self.state, *rows)
+        return self.state
+
+
+class _StepGraphs:
+    """The decode lane's CUDA graphs: one per warm row count, all in one
+    memory pool, each captured against the pool's slabs by address.
+
+    The first step at a count runs ``decode_fn`` eagerly on the count's
+    static tensors and uses its result; the step is then captured on a
+    side stream (capture executes nothing) joined to the engine stream by
+    events, in ``thread_local`` mode, so the prefill lane's thread keeps
+    launching meanwhile.  Every later step at that count replays the graph
+    on the engine stream.  If a slab's tensor was rebound since the
+    captures, every graph is dropped and recaptured: a stale graph never
+    replays.  Outputs are read out of the graph's memory (logits to the
+    host, the state cloned) before the next step.  The graphs of all counts
+    share the pool; replays are serial on one stream and each one's
+    outputs are consumed before the next, so no replay sees another's
+    outputs overwritten."""
+
+    def __init__(self, lane: _DecodeLane):
+        self.lane = lane
+        self.engine = engine = lane.engine
+        self._counts: "dict[int, _CountGraph]" = {}
+        self._pool = None
+        self._slabs: "tuple[int, int] | None" = None
+        # High priority: the port's other streams come from PyTorch's
+        # normal-priority pool, so no other thread's work lands on it.
+        self._cap = torch.cuda.Stream(engine.device.torch_device, priority=-1)
+
+    def step(self, W: int, tokens, lens, tbl, rows):
+        """One step at ``W`` rows on the engine stream -> (host logits
+        (W, V), the stacked state cloned out of the graph, or None)."""
+        eng = self.engine
+        ks, vs = eng.pool.arrays()
+        if self._slabs is not None and self._slabs != (ks.data_ptr(), vs.data_ptr()):
+            self._counts, self._pool, self._slabs = {}, None, None  # stale: drop every graph
+        c = self._counts.get(W)
+        if c is None:
+            c = self._counts[W] = _CountGraph(W, tbl.shape[1], eng.device.torch_device)
+        state = c.load(tokens, lens, tbl, rows)
+        if c.graph is None:
+            self.lane._tally({"eager_steps": 1})
+            out = eng.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
+        else:
+            c.graph.replay()
+            self.lane._tally({"replayed_steps": 1}, ("replayed", c.recorded))
+            out = c.outs
+        eng.pool.mark_written()
+        _, _, out_state, logits = out
+        host = logits.float().cpu().numpy()
+        if out_state is not None:
+            out_state = _tree_map(lambda t: t.clone(), out_state)
+        if c.graph is None:
+            self._capture(c, ks, vs, state)
+        return host, out_state
+
+    def _capture(self, c: _CountGraph, ks, vs, state) -> None:
+        eng = self.engine
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        cur = torch.cuda.current_stream(eng.device.torch_device)
+        self._cap.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._cap), tally_launches() as recorded:
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                out = eng.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already invalid; the first error is the one to raise
+                raise
+            graph.capture_end()
+        cur.wait_stream(self._cap)
+        c.graph, c.outs, c.recorded = graph, out, dict(recorded)
+        self._slabs = (ks.data_ptr(), vs.data_ptr())
+        self.lane._tally({"graphs_captured": 1, "capture_s": time.perf_counter() - t0},
+                         ("captured", c.recorded))

@@ -2,7 +2,8 @@
 
 These tests need a CUDA device and ``nvcc`` (the hand-written kernels have
 no CPU mode): they carry the ``cuda`` marker and skip without a card.  The
-file imports no JAX, so it also runs where only PyTorch is installed:
+file imports no JAX, so it also runs where only PyTorch is installed
+(graph capture and the paged decode lane's CUDA graphs included):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke
-from repro_torch.core import get_all_devices
+from repro_torch.core import Promise, get_all_devices
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -38,6 +39,7 @@ from repro_torch.models import layers as model_layers
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.serving import PagedKVCache, PagedServeEngine, PageSpec
+from repro_torch.serving.paged import _PagedRequest
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # About 0.1 s of device time on an H100: long enough that work queued
@@ -1022,4 +1024,253 @@ def test_torch_cuda_paged_engine_decodes_after_the_page_write():
     finally:
         eng.close()
     assert got == [[11] * 4, [29] * 4]  # stale pages would give another mean
-    assert launch_counts()["paged_attention"] == eng.metrics()["decode_steps"]
+    # Steps replay CUDA graphs: the kernels that ran are the counted launches
+    # less those captured into graphs, plus those the replays ran.
+    m = eng.metrics()
+    ran = (launch_counts()["paged_attention"] - m["decode"]["captured_launches"]["paged_attention"]
+           + m["decode"]["replayed_launches"].get("paged_attention", 0))
+    assert ran == m["decode_steps"]
+
+
+# ---------------------------------------------------------------------------
+# graph capture on torch.cuda.CUDAGraph
+# ---------------------------------------------------------------------------
+
+
+def _graph_chain(n):
+    dev = get_all_devices(1, 0).get()[0]
+    prog = dev.create_program({"stencil": stencil_ops.stencil, "partition_map": map_ops.partition_map,
+                               "shift": lambda x: x + 1.0, "add": lambda x, y: x + y},
+                              name="graph-card").get()
+    src, a, b, c = (dev.create_buffer(n, np.float32).get() for _ in range(4))
+
+    def chain(s, x, y, z):
+        prog.run([s], "stencil", block=(256, 1, 1), out=[x])
+        prog.run([x], "partition_map", block=(256, 1, 1), out=[y])
+        return prog.run([y], "shift", out=[z])
+
+    def eager(x):
+        src.enqueue_write(0, x)
+        chain(src, a, b, c).get()
+        return c.array().clone()
+
+    return dev, prog, chain, eager
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_replay_bit_equal_to_eager_with_new_feeds():
+    """stencil -> partition_map -> shift captured into ONE CUDA graph: every
+    replay with a fresh input is bit-equal to the eager chain, the first
+    result survives later replays, graph-internal buffers raise, and the
+    capture recorded one launch of each kernel."""
+    _need_cuda()
+    n = 1 << 20
+    dev, prog, chain, eager = _graph_chain(n)
+    gsrc, ga, gb, gc = (dev.create_buffer(n, np.float32).get() for _ in range(4))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with dev.capture("card") as g:
+        w = gsrc.enqueue_write(0, torch.randn(n, generator=gen, device="cuda"))
+        chain(gsrc, ga, gb, gc)
+        r = gc.enqueue_read()
+    exe = g.instantiate()
+    assert exe._cuda is not None and {s.exec_mode for s in exe._segments} == {"fused"}, repr(exe)
+    assert exe.recorded_launches == {"stencil": 1, "partition_map": 1}
+    reset_launch_counts()
+    first = None
+    for _ in range(6):
+        x = torch.randn(n, generator=gen, device="cuda")
+        res = exe.replay(feeds={w: x}).get()
+        got = gc.array()
+        want = eager(x)
+        assert torch.equal(got, want)
+        assert np.array_equal(res[r], want.cpu().numpy())
+        if first is None:
+            first, held = got, got.clone()
+    assert torch.equal(first, held)
+    assert launch_counts()["stencil"] == 6  # the eager chains only: replays pass no wrapper
+    for buf in (gsrc, ga, gb):
+        with pytest.raises(RuntimeError, match="donated"):
+            buf.enqueue_read().get()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_two_chains_are_branches_of_one_graph():
+    _need_cuda()
+    n = 1 << 18
+    dev, prog, _, _ = _graph_chain(n)
+    a, b, ma, mb, out = (dev.create_buffer(n, np.float32).get() for _ in range(5))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with dev.capture("branches") as g:
+        wa = a.enqueue_write(0, torch.randn(n, generator=gen, device="cuda"))
+        wb = b.enqueue_write(0, torch.randn(n, generator=gen, device="cuda"))
+        prog.run([a], "stencil", out=[ma])
+        prog.run([b], "partition_map", out=[mb])
+        prog.run([ma, mb], "add", out=[out])
+    exe = g.instantiate()
+    assert exe._fanout and exe._event_edges and exe._cuda is not None, repr(exe)
+    for _ in range(3):
+        xa, xb = (torch.randn(n, generator=gen, device="cuda") for _ in range(2))
+        exe.replay(feeds={wa: xa, wb: xb}).get()
+        assert torch.equal(out.array(), stencil_ops.stencil(xa) + map_ops.partition_map(xb))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_capture_while_another_thread_launches():
+    """A capture (thread_local mode) taken while another thread keeps
+    launching and allocating on its own stream: the capture succeeds, the
+    other thread's work stays out of the graph, both results are right."""
+    _need_cuda()
+    n = 1 << 20
+    dev, prog, chain, eager = _graph_chain(n)
+    gsrc, ga, gb, gc = (dev.create_buffer(n, np.float32).get() for _ in range(4))
+    x = torch.randn(n, device="cuda")
+    stop, errors, done = threading.Event(), [], [0]
+
+    def busy():
+        s = torch.cuda.Stream()
+        y = torch.randn(n, device="cuda")
+        try:
+            with torch.cuda.stream(s):
+                while not stop.is_set():
+                    z = stencil_ops.stencil(y)  # allocates, launches
+                    if not torch.allclose(z, stencil_ref(y), rtol=1e-6, atol=1e-6):
+                        errors.append("stencil differs")
+                    done[0] += 1
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        for _ in range(3):
+            with dev.capture("busy") as g:
+                w = gsrc.enqueue_write(0, x)
+                chain(gsrc, ga, gb, gc)
+            exe = g.instantiate()
+            exe.replay(feeds={w: x}).get()
+            assert torch.equal(gc.array(), eager(x))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors and done[0] > 0
+
+
+def _resident(eng, prompts):
+    """Requests prefilled and paged in as the prefill lane does, never
+    admitted: the test steps the decode lane itself."""
+    reqs = []
+    with eng._on_stream():
+        for rid, p in enumerate(prompts):
+            k, v, state, logits = eng.prefill_fn(torch.from_numpy(p)[None].cuda(), None)
+            r = _PagedRequest(p, 1000, Promise(), 0.0, rid=rid)
+            r.seq = eng.kv.new_seq(eng.device)
+            eng.kv.append(r.seq, k[0], v[0])
+            if state is not None:
+                r.seq.set_state({n: t[0] for n, t in state.items()})
+            r.out.append(int(torch.argmax(logits[0])))
+            reqs.append(r)
+    return reqs
+
+
+def _eager_step(eng, reqs):
+    lane = eng._lane
+    prep = lane._prepare(reqs)
+    with eng._on_stream():
+        logits, state = lane._eager(*prep[1])
+    lane._advance(prep[0], prep[1][0], logits, state, 0.0)
+
+
+def _paged_pair(arch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config(arch))
+    params = get_model(cfg).init(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+    dev = get_all_devices(1, 0).get()[0]
+    engs = [PagedServeEngine.from_config(cfg, params=params, devices=[dev], max_seq_len=64,
+                                         decode_shapes=(1, 2, 4), name=f"t-graph-{arch}-{i}")
+            for i in range(2)]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=s).astype(np.int32) for s in (5, 14, 17, 9)]
+    return cfg, engs, prompts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_torch_cuda_paged_graph_tokens_equal_eager_decode(arch):
+    """The decode lane's CUDA graphs at 3 warm counts (1, 2, 4; 3 rows pad
+    to 4) give the tokens and states of eager ``decode_fn`` steps on the same
+    inputs; the first step at each count is eager, every later one a
+    replay; each graph recorded one paged_attention launch a layer."""
+    _need_cuda()
+    cfg, (geng, eeng), prompts = _paged_pair(arch)
+    rows = (1, 2, 3, 4, 1, 2, 3, 4, 4, 2)
+    try:
+        greqs, ereqs = _resident(geng, prompts), _resident(eeng, prompts)
+        for b in rows:
+            geng._lane._step(greqs[:b])
+            _eager_step(eeng, ereqs[:b])
+        d = geng.metrics()["decode"]
+    finally:
+        geng.close()
+        eeng.close()
+    assert [r.out for r in greqs] == [r.out for r in ereqs]
+    for g, e in zip(greqs, ereqs):
+        if g.seq.state is not None:
+            for n in g.seq.state:
+                assert torch.equal(g.seq.state[n], e.seq.state[n])
+    assert d["warm_counts"] == [1, 2, 4] and d["graphs_captured"] == 3
+    assert d["eager_steps"] == 3 and d["replayed_steps"] == len(rows) - 3
+    per = cfg.num_layers if cfg.family == "dense" else 0
+    assert d["captured_launches"].get("paged_attention", 0) == 3 * per
+    assert d["replayed_launches"].get("paged_attention", 0) == (len(rows) - 3) * per
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_graph_recaptured_after_slab_rebind():
+    """A slab tensor rebound between steps: the lane drops every graph and
+    recaptures, never replaying one captured against the old address."""
+    _need_cuda()
+    cfg, (geng, eeng), prompts = _paged_pair("olmo-1b")
+    try:
+        greqs, ereqs = _resident(geng, prompts[:2]), _resident(eeng, prompts[:2])
+        for i in range(6):
+            if i == 3:
+                with geng._on_stream():
+                    geng.pool.k_slab._set_tensor(geng.pool.k_slab.array().clone())
+            geng._lane._step(greqs)
+            _eager_step(eeng, ereqs)
+        d = geng.metrics()["decode"]
+    finally:
+        geng.close()
+        eeng.close()
+    assert [r.out for r in greqs] == [r.out for r in ereqs]
+    assert d["graphs_captured"] == 2 and d["eager_steps"] == 2 and d["replayed_steps"] == 4
+
+
+@pytest.mark.cuda
+def test_torch_cuda_paged_graph_kernel_count_matches_profiler():
+    """The smoke's launch rule: the paged_attention kernels a graph recorded
+    at capture, times its replays, are the paged kernels a profiler trace of
+    those replays shows on the device."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, (geng, eeng), prompts = _paged_pair("olmo-1b")
+    eeng.close()
+    try:
+        reqs = _resident(geng, prompts)
+        geng._lane._step(reqs)  # eager at 4, then captured
+        with profile(activities=[ProfilerActivity.CUDA]):
+            geng._lane._step(reqs)  # the profiler's first start, outside the window
+        before = dict(geng.metrics()["decode"]["replayed_launches"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                geng._lane._step(reqs)
+            torch.cuda.synchronize()
+        after = geng.metrics()["decode"]["replayed_launches"]
+    finally:
+        geng.close()
+    seen = sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "paged_decode" in e.name)
+    assert after["paged_attention"] - before["paged_attention"] == 3 * cfg.num_layers == seen

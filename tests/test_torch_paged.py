@@ -38,6 +38,7 @@ from repro_torch.serving import (
     QueueFull,
     SamplingParams,
     sample_token,
+    warm_rows,
 )
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -196,6 +197,20 @@ def _toy_engine(device, prefill_fn=None, **kw):
 
     return PagedServeEngine(kv, prefill_fn or (lambda t, e: None), decode_fn, max_seq_len=16,
                             name="t-guard", **kw)
+
+
+@pytest.mark.parametrize("warm,rows,want", [
+    (set(), 3, 3),          # nothing warm: exact
+    ({4}, 3, 4),            # the nearest warm count above
+    ({4, 8}, 5, 8),         # 3 pad rows for 5 real ones
+    ({8}, 4, 8),            # exactly 2x: taken
+    ({8}, 3, 3),            # over 2x: exact instead
+    ({2, 8}, 1, 2),
+    ({1, 3, 6}, 7, 7),      # a new high-water mark
+    ({6}, 6, 6),
+])
+def test_torch_warm_rows_rule(warm, rows, want):
+    assert warm_rows(rows, warm) == want
 
 
 def test_torch_engine_submit_refusals(device):

@@ -7,6 +7,10 @@ the JAX package on the CPU.
   ``params_from_numpy``) and the same pools: prefill KV, state and logits,
   then one ragged decode step's logits, slabs and state, within 1e-4 (f32
   on both sides, summed in other orders).
+* The decode lane's warm row counts, stepped by hand on both engines over
+  a sequence of batch sizes (with and without a ``decode_shapes``
+  palette): the same padding step by step, the same warm set, the same
+  tokens; pad rows change no real row's tokens, pages or state.
 * ``PagedServeEngine.from_config`` on the CPU device: greedy tokens over
   prompts of 5, 14 and 17 tokens (a partial page, a boundary crossed
   mid-decode, one crossed at prefill; page 16, a table of 3 pages, 6
@@ -24,15 +28,19 @@ import pytest
 import torch
 
 import repro.configs as jcfg
+from repro.core.futures import Promise as JaxPromise
 from repro.models.model import get_model as jax_get_model
+from repro.serving.paged import PagedServeEngine as JaxPagedServeEngine
+from repro.serving.paged import _PagedRequest as JaxPagedRequest
 from repro.models.model import paged_surface as jax_paged_surface
 from repro_torch import configs as tcfg
-from repro_torch.core import get_all_devices
+from repro_torch.core import Promise, get_all_devices
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import paged_surface
 from repro_torch.serving import PagedServeEngine
+from repro_torch.serving.paged import _PagedRequest
 
 ARCHS = ["olmo-1b", "stablelm-1.6b", "mamba2-130m"]
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -181,7 +189,10 @@ def test_torch_paged_engine_greedy_tokens_bit_identical(arch, device):
         eng.close()
     for p, w, g in zip(prompts, want, got):
         assert g == w, f"{arch} T={len(p)}: paged {g} != padded oracle {w}"
-    assert m["requests_completed"] == 3 and m["padded_rows"] == 0
+    # Batches pad to warm row counts (the reference's rule): at most the
+    # real rows a step, and the tokens above are those of the unpadded oracle.
+    assert m["requests_completed"] == 3 and 0 <= m["padded_rows"] <= m["decode_rows"]
+    assert m["padding_waste"] == m["padded_rows"] / m["rows"]
     assert m["decode_rows"] == 3 * (MAX_NEW - 1)
     assert m["kv"][device.key]["used_pages"] == 0  # every page back
     assert sum(launch_counts().values()) == 0  # CPU tensors: the plain versions
@@ -297,3 +308,132 @@ def test_torch_smoke_paged_bytes_and_inputs(smoke):
     assert fq.shape == (2, 3, 4, 8) and fk.shape == (2, 9, 4, 2, 8)
     assert smoke.paged_bytes(fq, fk, tbl, lens) == 2 * 21 * 2 * 2 * 8 * 4 + 2 * 2 * 3 * 4 * 8 * 4 + 4 * 6 + 4 * 3
     assert smoke.paged_flops(fq, lens, 16) == 2 * 4 * 8 * 4 * 21
+
+
+# ---------------------------------------------------------------------------
+# warm row counts: the decode lane stepped by hand on both engines
+# ---------------------------------------------------------------------------
+
+
+def _resident(eng, prompts, jax_side: bool):
+    """Requests prefilled and paged in as each engine's prefill lane does
+    (one prompt a call), never admitted: the test steps the lane itself."""
+    reqs = []
+    for rid, p in enumerate(prompts):
+        if jax_side:
+            k, v, state, logits = eng.prefill_fn(jnp.asarray(p)[None], None)
+            r = JaxPagedRequest(p, 1000, JaxPromise(), 0.0, rid=rid)
+            r.seq = eng.kv.new_seq(next(iter(eng.kv.pools.values())).device)
+            eng.kv.append(r.seq, np.asarray(k[0]), np.asarray(v[0]))
+            if state is not None:
+                r.seq.set_state(jax.tree.map(lambda a: np.asarray(a)[0], state))
+            r.out.append(int(np.argmax(np.asarray(logits)[0])))
+        else:
+            k, v, state, logits = eng.prefill_fn(torch.from_numpy(p)[None], None)
+            r = _PagedRequest(p, 1000, Promise(), 0.0, rid=rid)
+            r.seq = eng.kv.new_seq(eng.device)
+            eng.kv.append(r.seq, k[0], v[0])
+            if state is not None:
+                r.seq.set_state({n: t[0] for n, t in state.items()})
+            r.out.append(int(torch.argmax(logits[0])))
+        reqs.append(r)
+    return reqs
+
+
+def _step_by_hand(eng, reqs, rows, jax_side: bool):
+    """Step the decode lane over ``reqs[:b]`` for each b of ``rows``;
+    returns the rows each step padded and the lane's warm set."""
+    lane = eng._lane_for(next(iter(eng.kv.pools.values())).device) if jax_side else eng._lane
+    pads = []
+    for b in rows:
+        before = eng.metrics()["padded_rows"]
+        lane._step(reqs[:b])
+        pads.append(eng.metrics()["padded_rows"] - before)
+    return pads, set(lane._warm)
+
+
+def _slab_rows(eng, reqs, jax_side: bool):
+    """Each request's resident K/V tokens (L, length, K, D) and its state."""
+    pool = next(iter(eng.kv.pools.values()))
+    ks, vs = pool.arrays()
+    ks, vs = (np.asarray(x) if jax_side else x.numpy() for x in (ks, vs))
+    P = eng.kv.spec.page_size
+    out = []
+    for r in reqs:
+        t = np.arange(r.seq.length)
+        pages = np.asarray(r.seq.pages)[t // P]
+        state = r.seq.state
+        if state is not None:
+            state = {n: np.asarray(x) if jax_side else x.numpy() for n, x in state.items()}
+        out.append((ks[:, pages, t % P], vs[:, pages, t % P], state))
+    return out, ks[:, 0], vs[:, 0]
+
+
+def _engines(arch, device, shapes, port_shapes=None):
+    jc, tc, jparams, tparams = _pair(arch)
+    jeng = JaxPagedServeEngine.from_config(jc, params=jparams, max_seq_len=MAX_SEQ,
+                                           decode_shapes=shapes, name=f"t-warm-jax-{arch}")
+    teng = PagedServeEngine.from_config(tc, params=tparams, devices=[device], max_seq_len=MAX_SEQ,
+                                        decode_shapes=shapes if port_shapes is None else port_shapes,
+                                        name=f"t-warm-{arch}")
+    return jc, tc, jeng, teng
+
+
+@pytest.mark.parametrize("shapes", [None, (2, 4, 8)])
+def test_torch_warm_rows_follow_the_reference_lane(device, shapes):
+    """Over one sequence of batch sizes (the 2x cap taken and refused, a
+    shrinking tail, a new high-water mark), the port's lane pads every step
+    as the reference's does, ends with the same warm set and decodes the
+    same tokens."""
+    rows = (3, 1, 2, 6, 4, 5, 2, 1, 7, 3)
+    jc, tc, jeng, teng = _engines("olmo-1b", device, shapes)
+    try:
+        rng = np.random.default_rng(17)
+        prompts = [rng.integers(1, tc.vocab_size, size=n).astype(np.int32)
+                   for n in (5, 9, 14, 16, 17, 3, 11)]
+        jreqs, treqs = _resident(jeng, prompts, True), _resident(teng, prompts, False)
+        jpads, jwarm = _step_by_hand(jeng, jreqs, rows, True)
+        tpads, twarm = _step_by_hand(teng, treqs, rows, False)
+        m = teng.metrics()
+    finally:
+        jeng.close()
+        teng.close()
+    assert tpads == jpads and twarm == jwarm
+    assert sum(tpads) > 0 and m["padded_rows"] == sum(tpads)
+    assert m["decode"]["warm_counts"] == sorted(twarm)
+    assert m["decode"]["eager_steps"] == len(rows) and m["decode"]["graphs_captured"] == 0  # CPU
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_torch_decode_shapes_pad_rows_change_no_real_row(device, arch):
+    """``decode_shapes=(2, 4, 8)`` with 3 live requests: 3 rows run at 4,
+    1 at 2.  Tokens identical to the reference engine's with the same
+    palette and to the port's exact-row run; each real row's pages and
+    state as the reference's (within TOL) and as the exact-row run's;
+    the reserved page 0 never written."""
+    rows = (3, 3, 1, 2, 3, 3)
+    _, tc, jeng, teng = _engines(arch, device, (2, 4, 8))
+    exact = PagedServeEngine.from_config(tc, params=_pair(arch)[3], devices=[device],
+                                         max_seq_len=MAX_SEQ, decode_shapes=(3, 1, 2),
+                                         name=f"t-exact-{arch}")
+    try:
+        prompts = _prompts(tc)
+        got = {}
+        for key, eng, jax_side in (("jax", jeng, True), ("port", teng, False),
+                                   ("exact", exact, False)):
+            reqs = _resident(eng, prompts, jax_side)
+            pads, _ = _step_by_hand(eng, reqs, rows, jax_side)
+            got[key] = (pads, [r.out for r in reqs], _slab_rows(eng, reqs, jax_side))
+    finally:
+        for eng in (jeng, teng, exact):
+            eng.close()
+    assert got["port"][0] == got["jax"][0] == [1, 1, 1, 0, 1, 1]
+    assert got["exact"][0] == [0] * len(rows)
+    assert got["port"][1] == got["jax"][1] == got["exact"][1]
+    (prows, pk0, pv0), (jrows, _, _), (erows, _, _) = (got[k][2] for k in ("port", "jax", "exact"))
+    assert not pk0.any() and not pv0.any()  # page 0: the padding target, never written
+    for (pk, pv, ps), (jk, jv, js), (ek, ev, es) in zip(prows, jrows, erows):
+        for a, b, c in [(pk, jk, ek), (pv, jv, ev)] + [(ps[n], js[n], es[n]) for n in (ps or {})]:
+            np.testing.assert_allclose(a, b, **TOL)
+            np.testing.assert_allclose(a, c, rtol=1e-6, atol=1e-6)

@@ -1,5 +1,6 @@
 """Where a batched paged decode step's time goes in the PyTorch port, on one
-CUDA card.
+CUDA card: the step replayed as a CUDA graph against the same step run
+eagerly.
 
     python3 tools/profile_torch_serve_paged.py [--arch olmo-1b] [--steps 16]
 
@@ -7,14 +8,27 @@ Sets up ``chip_smoke.py``'s ``serve_paged`` requests (the serve phase's 8
 prompts and seeded f32 weights, TF32 off) in one
 ``PagedServeEngine.from_config`` engine: each group of 4 prefilled in one
 call of the engine's prefill and paged in with ``PagedKVCache.append``.
-Then it drives the decode lane's own step over all 8 resident requests on
-the calling thread, so that ``torch.profiler`` never runs beside the
-engine's lane threads: a few steps to warm up, ``--steps`` timed on the
-host, ``--steps`` under the profiler (device activity only).  Prints one
-JSON line: host ms per step, the device ms and launches per step, the
-kernels that take most of it, the device idle share (1 - device ms per
-step / host ms per step), and the paged_attention kernel's device ms a
-step and its share of the device time.  ``--arch mamba2-130m`` profiles the
+Then it drives the decode lane on the calling thread over all 8 resident
+requests, so that ``torch.profiler`` never runs beside the engine's lane
+threads, two ways on the same requests:
+
+  replay  the lane's own ``_step``: at the warm count 8 a replay of the
+          step's CUDA graph (its first call ran eagerly and captured it);
+  eager   the same step's inputs through an eager ``decode_fn`` call
+          (``_prepare``, ``_eager``, ``_advance``: what ``_step`` ran before
+          the graphs), which launches every kernel from the host.
+
+Each way: a few steps to warm up, ``--steps`` timed on the host (each ends
+with the logits on the host), ``--steps`` under the profiler (device
+activity only), in turns (replay, eager, eager, replay).  Prints one JSON
+line per way: host ms per step, device ms per step, the launches the host
+issued (``cudaLaunchKernel``/``cudaLaunchKernelExC``/``cudaGraphLaunch``
+calls the profiler saw) and the kernels the device ran per step, the
+device idle share (1 - device ms / host ms), the paged_attention kernel's
+device ms a step and its kernels a step, and the kernels that take most of
+the time.  The replay line also carries the graph's recorded launches (the
+count the smoke multiplies by the replays), which its paged_attention
+kernels per step must equal.  ``--arch mamba2-130m`` profiles the
 ``serve_paged_ssm`` requests instead.
 """
 from __future__ import annotations
@@ -42,6 +56,9 @@ from repro_torch.core import Promise, get_all_devices  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serving import PagedServeEngine  # noqa: E402
 from repro_torch.serving.paged import _PagedRequest  # noqa: E402
+
+# Runtime calls that put work on the device: a kernel, or a whole graph.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def load_smoke():
@@ -74,7 +91,7 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, size=(smoke.SERVE_BATCH, s), dtype=np.int32)
                for s in lens]
     spec = m.paged_spec(cfg)
-    steps = 4 + 2 * args.steps
+    steps = 8 + 4 * args.steps
     eng = PagedServeEngine.from_config(
         cfg, params=params, devices=[dev], max_seq_len=1 << (max(lens) + steps + 1).bit_length(),
         pool_pages=2 + sum(smoke.SERVE_BATCH * spec.pages_for(s + steps) for s in lens),
@@ -94,36 +111,65 @@ def main() -> int:
                     r.out.append(int(torch.argmax(logits[i])))
                     reqs.append(r)
                 del k, v, state
-        for _ in range(4):  # warm-up, the profiler's first start included
-            with profile(activities=[ProfilerActivity.CUDA]):
-                eng._lane._step(reqs)
-        host_ms = []
-        for _ in range(args.steps):
-            t0 = time.perf_counter()
-            eng._lane._step(reqs)  # ends with the logits on the host
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.steps):
-                eng._lane._step(reqs)
-            torch.cuda.synchronize()
+        lane = eng._lane
+
+        def eager_step():
+            prep = lane._prepare(reqs)
+            with eng._on_stream():
+                logits, state = lane._eager(*prep[1])
+            lane._advance(prep[0], prep[1][0], logits, state, time.monotonic())
+
+        ways = {"replay": lambda: lane._step(reqs), "eager": eager_step}
+        for _ in range(4):  # warm-up (capture at count 8), the profiler's first start included
+            for step in ways.values():
+                with profile(activities=[ProfilerActivity.CUDA]):
+                    step()
+        host_ms = {k: [] for k in ways}
+        traces = {k: [] for k in ways}
+        for name in ("replay", "eager", "eager", "replay"):
+            step = ways[name]
+            for _ in range(args.steps // 2):
+                t0 = time.perf_counter()
+                step()  # ends with the logits on the host
+                host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(args.steps // 2):
+                    step()
+                torch.cuda.synchronize()
+            traces[name].append(prof)
+        recorded = dict(lane._graphs._counts[len(reqs)].recorded)
+        decode = eng.metrics()["decode"]
     finally:
         eng.close()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = Counter()
-    for e in device:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    device_ms = sum(by_name.values()) / args.steps
-    paged_ms = sum(t for k, t in by_name.items() if "paged_decode" in k) / args.steps
-    step_ms = statistics.median(host_ms)
-    print(json.dumps({"arch": cfg.name, "rows": len(reqs), "prompts": list(lens),
-                      "host_ms_per_step_median": step_ms, "host_ms_per_step": host_ms,
-                      "device_ms_per_step": device_ms,
-                      "launches_per_step": len(device) / args.steps,
-                      "device_idle_share": 1 - device_ms / step_ms,
-                      "paged_attention_ms_per_step": paged_ms,
-                      "paged_attention_share": paged_ms / device_ms,
-                      "top_ms_per_step": [[k[:60], t / args.steps]
-                                          for k, t in by_name.most_common(8)]}), flush=True)
+    n = 2 * (args.steps // 2)
+    for name in ways:
+        device, host_launches = [], 0
+        for prof in traces[name]:
+            evs = prof.events()
+            device += [e for e in evs if e.device_type == DeviceType.CUDA]
+            host_launches += sum(1 for e in evs if e.device_type != DeviceType.CUDA
+                                 and e.name.startswith(LAUNCH_CALLS))
+        kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+        by_name = Counter()
+        for e in device:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        device_ms = sum(by_name.values()) / n
+        paged = [e for e in kernels if "paged_decode" in e.name]
+        paged_ms = sum(e.time_range.elapsed_us() for e in paged) / 1e3 / n
+        step_ms = statistics.median(host_ms[name])
+        row = {"arch": cfg.name, "way": name, "rows": len(reqs), "prompts": list(lens),
+               "host_ms_per_step_median": step_ms, "host_ms_per_step": host_ms[name],
+               "device_ms_per_step": device_ms,
+               "host_launches_per_step": host_launches / n,
+               "device_kernels_per_step": len(kernels) / n,
+               "device_ops_per_step": len(device) / n,
+               "device_idle_share": 1 - device_ms / step_ms,
+               "paged_attention_ms_per_step": paged_ms,
+               "paged_attention_kernels_per_step": len(paged) / n,
+               "top_ms_per_step": [[k[:60], t / n] for k, t in by_name.most_common(8)]}
+        if name == "replay":
+            row.update(graph_recorded_launches=recorded, decode=decode)
+        print(json.dumps(row), flush=True)
     return 0
 
 
