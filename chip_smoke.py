@@ -82,7 +82,7 @@ import torch  # noqa: E402
 from torch.profiler import record_function  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import Dim3, async_, dataflow, get_all_devices, wait_all  # noqa: E402
+from repro_torch.core import Dim3, Scheduler, async_, dataflow, get_all_devices, wait_all  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref  # noqa: E402
@@ -102,7 +102,7 @@ from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.serving import LanePolicy, PagedServeEngine  # noqa: E402
+from repro_torch.serving import LanePolicy, PagedKVCache, PagedServeEngine  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
@@ -135,6 +135,15 @@ SERVE_ARCH = "olmo-1b"
 SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (1000, 2000), 32
 SSM_ARCH, SSM_PROMPTS = "mamba2-130m", (1000, 4000)
 PAGED_WARMUP = 16  # tokens of the paged engines' warm-up request
+# fleet: fig6's shape, 4 logical devices of the card and fig4's 2**28 f32
+# in 16 chunks; the memory-limit run lets 3 chunks reside on a device.
+FLEET_DEVICES, FLEET_CHUNKS, FLEET_LIMIT_CHUNKS = 4, 16, 3
+FLEET_POLICIES = ("static", "round_robin", "least_loaded", "affinity")
+# serve_paged_fleet: 2 logical devices of 300 pages each; each pool holds
+# the longest request (127 pages), the two hold 598 of the 768 pages the 8
+# requests end at.
+PAGED_FLEET_DEVICES, PAGED_FLEET_POOL = 2, 300
+SPILL_PAGES = 129  # the sequence whose spill and refetch are timed (4 MiB a page)
 # f32 kernel run against the plain run: both sum in f32, in other orders,
 # through 16 (OLMo-1B) or 24 (Mamba2-130M) layers; the last-position logits
 # of both moved by about 1e-5 on an H100.
@@ -480,30 +489,35 @@ def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
 
 
 def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_seq_len: int,
-                    new_tokens: int) -> dict:
-    """One ``PagedServeEngine.from_config`` engine: a warm-up request, then
+                    new_tokens: int, devices=None, scheduler=None) -> dict:
+    """One ``PagedServeEngine.from_config`` engine over ``devices`` (by
+    default ``[dev]``), placed by ``scheduler``: a warm-up request, then
     every row of ``prompts`` submitted at once, ``new_tokens`` each (the
     prefill's token and ``new_tokens - 1`` decode steps).  The launch
     counters are set to 0 just before the measured requests and read just
     after.  Returns the tokens (one row per request), the engine's metrics,
     the launches and the wall time."""
+    devices = [dev] if devices is None else devices
     B = prompts[0].shape[0]
     policy = LanePolicy(max_batch=B, max_delay_s=0.004,  # the serve phase's groups
                         token_budget=B * max(p.shape[1] for p in prompts))
-    eng = PagedServeEngine.from_config(cfg, params=params, devices=[dev], max_seq_len=max_seq_len,
-                                       pool_pages=pool_pages, impl=impl, prefill=policy,
+    eng = PagedServeEngine.from_config(cfg, params=params, devices=devices,
+                                       max_seq_len=max_seq_len, pool_pages=pool_pages, impl=impl,
+                                       prefill=policy, scheduler=scheduler,
                                        name=f"smoke-{cfg.name}-{impl}")
     try:
         eng.submit(prompts[0][0, :PAGED_WARMUP], 2).get(timeout=600)  # cuBLAS, the stream's pool
         eng.drain()
         eng.reset_metrics()
-        dev.synchronize()
+        for d in devices:
+            d.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
         futs = [eng.submit(row, new_tokens) for p in prompts for row in p]
         tokens = np.stack([f.get(timeout=900) for f in futs])
         eng.drain()
-        dev.synchronize()
+        for d in devices:
+            d.synchronize()
         wall = time.perf_counter() - t0
         launches = {**launch_counts(), "paged_attention_kernels": paged_kernel.kernel_launches}
         metrics = eng.metrics()
@@ -548,6 +562,16 @@ def paged_device_launches(run: dict, kernel: str, counted: int) -> int:
             + d["replayed_launches"].get(kernel, 0))
 
 
+def paged_params(dev, cfg):
+    """The serve phase's seeded f32 weights and prompts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)  # the serve phase's draws
+    params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    return params, rng
+
+
 def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     """Serve ``arch`` at full width and depth through ``PagedServeEngine``:
     the serve phase's prompts and seeded f32 weights, ``SERVE_NEW + 1``
@@ -556,16 +580,11 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     path) and the plain run (``impl="ref"``: plain prefill attention or
     scan, the gather path in decode) are held against the serve phase's
     plain tokens ``plain`` and against each other, near-ties counted."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
-    m = get_model(cfg)
-    gen = torch.Generator(device=dev.torch_device).manual_seed(0)  # the serve phase's draws
-    params = m.init(cfg, generator=gen, device=dev.torch_device, dtype=torch.float32)
-    rng = np.random.default_rng(0)
+    params, rng = paged_params(dev, cfg)
     prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
                for s in prompt_lens]
-    spec = m.paged_spec(cfg)
+    spec = get_model(cfg).paged_spec(cfg)
     # page 0, every request's pages at its longest, and the one page of
     # headroom admission asks for: no request waits for pages
     pool_pages = 2 + sum(SERVE_BATCH * spec.pages_for(s + SERVE_NEW) for s in prompt_lens)
@@ -626,6 +645,199 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
                          "paged run")
     out["near_tie_cuts_kernel_vs_plain"] = cuts
     return out
+
+
+def phase_serve_paged_fleet(devs, plain: dict) -> dict:
+    """The serve_paged phase's model and requests through one
+    ``PagedServeEngine`` over ``devs`` (logical devices of the card),
+    placed by ``Scheduler(devs, policy="least_loaded")``, with pools of
+    ``PAGED_FLEET_POOL`` pages: the fleet holds about three quarters of the
+    requests' pages, so the run spills sequences, defers their decode and
+    refetches them.  Held against the serve phase's plain tokens; the
+    paged_attention kernels that ran on the device are counted as in
+    serve_paged (eager launches plus each graph's recorded launches x its
+    replays, summed over the lanes)."""
+    cfg = get_config(SERVE_ARCH)
+    params, rng = paged_params(devs[0], cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in SERVE_PROMPTS]
+    spec = get_model(cfg).paged_spec(cfg)
+    need = sum(SERVE_BATCH * spec.pages_for(s + SERVE_NEW) for s in SERVE_PROMPTS)
+    longest = spec.pages_for(max(SERVE_PROMPTS) + SERVE_NEW)
+    require(longest < PAGED_FLEET_POOL - 1 and (PAGED_FLEET_POOL - 1) * len(devs) < need,
+            f"paged fleet: pools of {PAGED_FLEET_POOL} pages do not put {need} pages under pressure")
+    max_seq_len = 1 << (max(SERVE_PROMPTS) + SERVE_NEW).bit_length()
+    sched = Scheduler(devs, policy="least_loaded")
+    run = paged_serve_run(devs[0], cfg, params, prompts, "auto", PAGED_FLEET_POOL, max_seq_len,
+                          SERVE_NEW + 1, devices=devs, scheduler=sched)
+    del params
+    toks, m = run["tokens"], run["metrics"]
+    n_req = SERVE_BATCH * len(SERVE_PROMPTS)
+    require(toks.shape == (n_req, SERVE_NEW + 1), f"paged fleet: tokens {toks.shape}")
+    require(m["requests_completed"] == n_req and m["requests_failed"] == 0,
+            f"paged fleet: {m['requests_completed']} of {n_req} requests completed")
+    require(all(p["used_pages"] == 0 for p in m["kv"].values()), "paged fleet: pages not returned")
+    differ, cuts = greedy_cuts(toks, plain["tokens"], plain["gaps"])
+    require(differ == 0, f"paged fleet: {differ} request(s) decode other greedy tokens than the "
+                         "serve phase's plain run")
+    require(m["spills"] >= 1 and m["refetches"] >= 1,
+            f"paged fleet: {m['spills']} spills and {m['refetches']} refetches, not >= 1 each")
+    lanes = m["decode_by_device"]
+    if devs[0].is_cuda:
+        for key, d in lanes.items():
+            require(d["eager_steps"] == d["graphs_captured"] <= len(d["warm_counts"]),
+                    f"paged fleet {key}: {d['eager_steps']} eager steps, {d['graphs_captured']} "
+                    f"graphs captured at warm counts {d['warm_counts']}")
+        d = m["decode"]
+        require(d["eager_steps"] + d["replayed_steps"] == m["decode_steps"] and d["replayed_steps"],
+                f"paged fleet: {d['eager_steps']} eager and {d['replayed_steps']} replayed of "
+                f"{m['decode_steps']} decode steps")
+    steps = m["decode_steps"]
+    want = cfg.num_layers * steps
+    on_device = paged_device_launches(run, "paged_attention", run["launches"]["paged_attention"])
+    kernels = paged_device_launches(run, "paged_attention",
+                                    run["launches"]["paged_attention_kernels"])
+    require(on_device == want == kernels,
+            f"paged fleet: paged_attention launched {on_device} times and {kernels} CUDA kernels "
+            f"on the device, not {want} each ({cfg.num_layers} layers x {steps} decode steps)")
+    n_flash = run["launches"]["flash_attention"]
+    require(n_flash == cfg.num_layers * m["prefill_batches"],
+            f"paged fleet: flash_attention launched {n_flash} times")
+    spill_s, refetch_s = spill_timing(devs[0], spec, SPILL_PAGES + 2)
+    per_device = {
+        key: {"placed": m["placed"].get(key, 0), "spills": m["kv"][key]["spills"],
+              "refetches": m["kv"][key]["refetches"], "stalls": lane["stalls"],
+              "deferred_rows": lane["deferred_rows"], "migrations_out": lane["migrations_out"],
+              "warm_counts": lane["warm_counts"], "graphs_captured": lane["graphs_captured"],
+              "decode_steps": lane["eager_steps"] + lane["replayed_steps"]}
+        for key, lane in lanes.items()}
+    return {"arch": cfg.name, "devices": [d.key for d in devs], "pool_pages": PAGED_FLEET_POOL,
+            "pages_needed": need, "requests": n_req, "new_tokens": SERVE_NEW + 1,
+            "near_tie_cuts_vs_serve_plain": cuts, "migrations": m["migrations"],
+            "spill_pages": SPILL_PAGES, "spill_s": spill_s, "refetch_s": refetch_s,
+            "spills": m["spills"], "refetches": m["refetches"], "per_device": per_device,
+            "launches": {"flash_attention": n_flash, "paged_attention": run["launches"][
+                "paged_attention"], "paged_attention_on_device": on_device,
+                "paged_attention_kernels": kernels},
+            **paged_times(run)}
+
+
+def spill_timing(dev, spec, pages: int, reps: int = 3) -> "tuple[list, list]":
+    """Host seconds of ``SeqPages.spill`` (pages and state to pinned host
+    memory, until the pages are free) and of ``ensure_resident`` plus the
+    end of its copy, for one sequence of ``pages - 2`` pages of random KV
+    in a pool of its own on ``dev``, ``reps`` times each."""
+    kv = PagedKVCache(spec, devices=[dev], pool_pages=pages)
+    seq = kv.new_seq(dev)
+    T = (pages - 2) * spec.page_size
+    shape = (spec.layers, T, spec.kv_heads, spec.head_dim)
+    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+    k = torch.randn(shape, generator=gen, device=dev.torch_device, dtype=spec.dtype)
+    kv.append(seq, k, -k)
+    want = kv.pool_of(dev).read_pages(seq.pages)[0].clone()
+    spill_s, refetch_s = [], []
+    for _ in range(reps):
+        dev.synchronize()
+        t0 = time.perf_counter()
+        require(seq.spill().get(timeout=600) is True, "spill timing: nothing spilled")
+        spill_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        seq.ensure_resident()
+        seq._sync_ready()
+        refetch_s.append(time.perf_counter() - t0)
+    require(torch.equal(kv.pool_of(dev).read_pages(seq.pages)[0], want),
+            "spill timing: pages differ after the refetches")
+    kv.free_seq(seq)
+    return spill_s, refetch_s
+
+
+# ---------------------------------------------------------------------------
+# fleet: partition_map through run_on_any over logical devices (fig6)
+# ---------------------------------------------------------------------------
+
+
+def logical_devices(n: int, platform: str = "cuda") -> list:
+    """``n`` logical devices of the first card (``REPRO_LOGICAL_DEVICES``,
+    set around this one discovery: the other phases keep one device a
+    card)."""
+    old = os.environ.get("REPRO_LOGICAL_DEVICES")
+    os.environ["REPRO_LOGICAL_DEVICES"] = str(n)
+    try:
+        devs = get_all_devices(1, 0, platform=platform).get()
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_LOGICAL_DEVICES")
+        else:
+            os.environ["REPRO_LOGICAL_DEVICES"] = old
+    return devs[:n]
+
+
+def fleet_run(prog, args, sched, want) -> dict:
+    """Every chunk of ``args`` through ``prog.run_on_any`` placed by
+    ``sched``, all submitted at once; each output held bit-equal to
+    ``want``.  Returns the wall time, the chunks placed on each device, the
+    steals, and the buffers spilled and refetched on the fleet."""
+    devs = sched.devices()
+    for d in devs:
+        d.spills = d.refetches = 0
+    t0 = time.perf_counter()
+    futs = [prog.run_on_any([a], "partition_map", block=MAP_BLOCK, scheduler=sched) for a in args]
+    got = [f.get(timeout=600) for f in futs]
+    for d in devs:
+        d.synchronize()
+    wall = time.perf_counter() - t0
+    differ = sum(not torch.equal(g, w) for g, w in zip(got, want))
+    require(differ == 0, f"fleet {sched.policy.name}: {differ} of {len(want)} chunks differ from "
+                         "one device's partition_map")
+    return {"wall_s": wall, "placed": sched.stats(), "steals": sched.steal_stats()["steals"],
+            "spills": sum(d.spills for d in devs), "refetches": sum(d.refetches for d in devs)}
+
+
+def phase_fleet(devs, x: "torch.Tensor") -> dict:
+    """fig6 on one card: ``x`` (on ``devs[0]``'s card) in ``FLEET_CHUNKS``
+    chunks, each through ``Program.run_on_any`` over the logical devices
+    ``devs``.  First raw chunks (every logical device reads them in place)
+    with the default scheduler (``least_loaded``, stealing on), and on one
+    device; then the chunks as buffers spread round-robin over the fleet,
+    once per policy with stealing off; then again under ``least_loaded``
+    with each device's ``memory_limit`` at ``FLEET_LIMIT_CHUNKS`` chunks,
+    so placement vetoes the full devices and spills LRU buffers to the
+    host, and later launches refetch them.  Every output is held bit-equal
+    to one device's ``partition_map`` of the same chunk, computed first."""
+    chunks = list(x.chunk(FLEET_CHUNKS))
+    if x.is_cuda:
+        torch.cuda.synchronize()  # x's copy has ended before other streams read it
+    want = [map_ops.partition_map(c, block=MAP_BLOCK.as_tuple()) for c in chunks]
+    prog = devs[0].create_program_with_file(str(KERNEL_DIR / "partition_map" / "ops.py")).get()
+    for d in devs:  # build each sibling before timing
+        prog.for_device(d).build("partition_map", block=MAP_BLOCK).get()
+    reset_launch_counts()
+    runs = {"default": fleet_run(prog, chunks, Scheduler(devs), want),
+            "one_device": fleet_run(prog, chunks, Scheduler(devs[:1], steal=False), want)}
+    bufs = [devs[i % len(devs)].create_buffer_from(c).get() for i, c in enumerate(chunks)]
+    for policy in FLEET_POLICIES:
+        runs[policy] = fleet_run(prog, bufs, Scheduler(devs, policy=policy, steal=False), want)
+    limit = FLEET_LIMIT_CHUNKS * bufs[0].nbytes
+    for d in devs:
+        d.memory_limit = limit
+    try:
+        runs["memory_limit"] = fleet_run(prog, bufs, Scheduler(devs, steal=False), want)
+    finally:
+        for d in devs:
+            d.memory_limit = 0
+    wait_all([b.free() for b in bufs])
+    launched = launch_counts()["partition_map"]
+    require(launched == FLEET_CHUNKS * len(runs),
+            f"fleet: partition_map launched {launched} times, not {FLEET_CHUNKS} x {len(runs)} runs")
+    mem = runs["memory_limit"]
+    require(mem["spills"] >= 1 and mem["refetches"] >= 1,
+            f"fleet: the memory-limit run spilled {mem['spills']} and refetched "
+            f"{mem['refetches']} buffers, not >= 1 each")
+    require(len(runs["round_robin"]["placed"]) == len(devs),
+            f"fleet: round_robin placed on {runs['round_robin']['placed']}")
+    return {"devices": [d.key for d in devs], "chunks": FLEET_CHUNKS,
+            "chunk_bytes": chunks[0].numel() * chunks[0].element_size(),
+            "memory_limit_bytes": limit, "launches": launched, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1362,10 +1574,11 @@ def main() -> int:
                   f"{g['tokens']}", flush=True)
         print(f"{phase}: " + json.dumps({k: v for k, v in serve.items() if k != "_plain"}),
               flush=True)
+    plain = {base: serves[base].pop("_plain") for base in ("serve", "serve_ssm")}
     for phase, base, arch, prompt_lens in (("serve_paged", "serve", SERVE_ARCH, SERVE_PROMPTS),
                                            ("serve_paged_ssm", "serve_ssm", SSM_ARCH, SSM_PROMPTS)):
         t0 = time.perf_counter()
-        paged = serves[phase] = phase_serve_paged(dev, arch, prompt_lens, serves[base].pop("_plain"))
+        paged = serves[phase] = phase_serve_paged(dev, arch, prompt_lens, plain[base])
         paged["seconds"] = time.perf_counter() - t0
         for impl in ("auto", "ref"):
             r = paged[impl]
@@ -1377,6 +1590,28 @@ def main() -> int:
                   f"{r['ttft_p99_s']:.4f} s, {r['decode_tokens_per_s']:.1f} decode tokens/s",
                   flush=True)
         print(f"{phase}: " + json.dumps(paged), flush=True)
+
+    t0 = time.perf_counter()
+    fleet = phase_fleet(logical_devices(FLEET_DEVICES),
+                        torch.cat([h.to(dev.torch_device, non_blocking=True) for h in fig4_hosts]))
+    fleet["seconds"] = time.perf_counter() - t0
+    for name, r in fleet["runs"].items():
+        print(f"fleet {name}: {r['wall_s']:.4f} s, chunks placed {r['placed']}, {r['steals']} "
+              f"steals, {r['spills']} spills, {r['refetches']} refetches", flush=True)
+    print("fleet: " + json.dumps(fleet), flush=True)
+
+    t0 = time.perf_counter()
+    pf = phase_serve_paged_fleet(logical_devices(PAGED_FLEET_DEVICES), plain["serve"])
+    pf["seconds"] = time.perf_counter() - t0
+    for key, d in pf["per_device"].items():
+        print(f"serve_paged_fleet {key}: {d['placed']} sequences placed, {d['spills']} spills, "
+              f"{d['refetches']} refetches, {d['stalls']} stalls ({d['deferred_rows']} rows "
+              f"deferred), {d['migrations_out']} migrations out, warm counts {d['warm_counts']}, "
+              f"{d['graphs_captured']} graphs captured", flush=True)
+    print(f"serve_paged_fleet: step p50/p99 {pf['step_ms_p50']:.3f} / {pf['step_ms_p99']:.3f} ms, "
+          f"TTFT p50/p99 {pf['ttft_p50_s']:.4f} / {pf['ttft_p99_s']:.4f} s, "
+          f"{pf['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
+    print("serve_paged_fleet: " + json.dumps(pf), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
@@ -1401,6 +1636,8 @@ def main() -> int:
                             dev.torch_device)]
     kernels[-1]["launches_on_device"] = serves["serve_paged"]["launches"]["auto"][
         "paged_attention_on_device"]
+    kernels[-1]["fleet_phase_launches_on_device"] = pf["launches"]["paged_attention_on_device"]
+    kernels[1]["fleet_phase_launches"] = fleet["launches"]
     for k in kernels[:2]:  # the graph phase's: launched by the host, run by replays
         k["graph_phase_launches"] = {part: graph["launches"][part][k["name"]]
                                      for part in ("host", "replayed")}

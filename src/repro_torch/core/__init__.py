@@ -20,6 +20,12 @@ Streams map onto ``torch.cuda.Stream``s and events onto
     s2.enqueue_write(b, 0, host_b); prog.launch([b], "k", out=[rb], stream=s2)
     s2.wait_event(s1.record())
 
+Any kernel on any device, placed by a scheduler (``REPRO_LOGICAL_DEVICES=4``
+splits a card into 4 logical devices):
+
+    sched = Scheduler(get_all_devices().get(), policy="least_loaded")
+    prog.run_on_any([buf], "partition_map", out=[res], scheduler=sched).get()
+
 A captured graph is a ``torch.cuda.CUDAGraph``:
 
     with dev.capture("step") as g:
@@ -31,7 +37,7 @@ A captured graph is a ``torch.cuda.CUDAGraph``:
 """
 from repro_torch.core.agas import GID, HOST_KEY, Placement, Registry, locality_of, registry, set_locality_id
 from repro_torch.core.buffer import Buffer
-from repro_torch.core.device import Device, Locality, get_all_devices
+from repro_torch.core.device import Device, Locality, get_all_devices, get_all_localities
 from repro_torch.core.executor import (
     Lane,
     LaneDispatcher,
@@ -57,6 +63,20 @@ from repro_torch.core.futures import (
 )
 from repro_torch.core.graph import GraphExec, GraphResult, TaskGraph, capture, current_graph
 from repro_torch.core.program import Dim3, Program
+from repro_torch.core.scheduler import (
+    POLICIES,
+    AffinityPolicy,
+    LeastLoadedPolicy,
+    PercolationPolicy,
+    PlacementPolicy,
+    RoundRobinPolicy,
+    Scheduler,
+    StaticPolicy,
+    get_scheduler,
+    locality_of_key,
+    make_policy,
+    set_scheduler,
+)
 from repro_torch.core.stream import Event, Stream
 
 __all__ = [
@@ -71,6 +91,7 @@ __all__ = [
     "Device",
     "Locality",
     "get_all_devices",
+    "get_all_localities",
     "Runtime",
     "WorkQueue",
     "Lane",
@@ -94,6 +115,18 @@ __all__ = [
     "when_any",
     "Dim3",
     "Program",
+    "Scheduler",
+    "PlacementPolicy",
+    "StaticPolicy",
+    "RoundRobinPolicy",
+    "LeastLoadedPolicy",
+    "AffinityPolicy",
+    "PercolationPolicy",
+    "POLICIES",
+    "get_scheduler",
+    "set_scheduler",
+    "make_policy",
+    "locality_of_key",
     "TaskGraph",
     "GraphExec",
     "GraphResult",

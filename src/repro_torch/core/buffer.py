@@ -28,6 +28,13 @@ return them instead of futures, and ``enqueue_read_sync`` is refused.  A
 graph-internal buffer is invalidated by a replay: its reads raise until a
 full-buffer write gives it storage again.
 
+Spill and refetch: ``spill`` copies the contents to pinned host memory,
+releases the device storage and moves the AGAS record to ``HOST_KEY``; the
+next use (a read, a launch, ``array()``) copies them back on the caller's
+stream and moves the record home.  A full overwrite of a spilled buffer
+discards the host copy instead.  ``_last_use`` is the LRU signal the
+scheduler's ``spill_lru`` evicts by.
+
 Transfers: a write from a pinned CPU tensor is asynchronous
 (``non_blocking=True`` on the caller's stream); a pageable source, such as
 an ``np.ndarray``, makes the copy synchronous.  A read copies into pinned
@@ -38,6 +45,7 @@ source may be reused once its future is ready.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -102,6 +110,17 @@ def _settle(lane_fut: Future, value=lambda r: None, name: str = "") -> Future:
     return Future(resolver=_resolve, name=name)
 
 
+def _to_host(t: "torch.Tensor") -> "torch.Tensor":
+    """A host copy of ``t``: into pinned memory, asynchronously on the
+    current stream, for a CUDA tensor (the caller synchronises before the
+    source may go)."""
+    if not t.is_cuda:
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 def _current_event(t: "torch.Tensor") -> "torch.cuda.Event | None":
     if not t.is_cuda:
         return None
@@ -132,6 +151,11 @@ class Buffer:
         self._free_future: "Future | None" = None
         self.gid: agas.GID = 0
         self._finalizer: "weakref.finalize | None" = None
+        # Spill state: while evicted the contents live in _spilled_host
+        # (pinned for a CUDA buffer) and the AGAS record sits on HOST_KEY.
+        self._spilled_host: "torch.Tensor | None" = None
+        self._spill_lock = threading.RLock()
+        self._last_use: float = time.monotonic()
 
     def _register(self, device) -> None:
         """AGAS registration with resident-bytes accounting and a GC-safe
@@ -187,6 +211,7 @@ class Buffer:
         waits (on the device) for the last writer's event when that writer
         ran on another stream and, for an in-place ``write``, for the reads
         noted since on other streams; the allocator learns of the use."""
+        self._last_use = time.monotonic()
         t = self._live()
         if t.is_cuda:
             cur = torch.cuda.current_stream(t.device)
@@ -216,7 +241,9 @@ class Buffer:
         stream (up to ``ev`` if given); returns the writer event."""
         self._tensor = t
         self._donated = False
+        self._last_use = time.monotonic()
         self._alloc_stream = torch.cuda.current_stream(t.device) if t.is_cuda else None
+        self._discard_spill()
         return self._mark_written(ev)
 
     def _mark_written(self, ev=None) -> "torch.cuda.Event | None":
@@ -232,6 +259,10 @@ class Buffer:
     def _live(self) -> "torch.Tensor":
         if self._freed:
             raise RuntimeError(f"Buffer gid={self.gid} was freed; its storage is released.")
+        if self._tensor is None and self._spilled_host is not None:
+            t = self._refetch()
+            if t is not None:
+                return t
         if self._donated:
             raise RuntimeError(
                 f"Buffer gid={self.gid} was donated to a graph replay; its contents are "
@@ -240,6 +271,7 @@ class Buffer:
 
     def _invalidate(self) -> None:
         """Mark the value as consumed by a graph replay (graph-internal)."""
+        self._discard_spill()  # a stale host copy must not resurrect the value
         self._tensor = None
         self._donated = True
         with self._sync_lock:
@@ -275,8 +307,10 @@ class Buffer:
             src = _host_tensor(data).reshape(-1)
             if count is not None:
                 src = src[:count]
-            if self._donated and offset == 0 and src.numel() == self.size:
-                # A full write gives a graph-internal buffer storage again.
+            if ((self._donated or self._spilled_host is not None)
+                    and offset == 0 and src.numel() == self.size):
+                # A full write gives a graph-internal buffer storage again,
+                # and makes a spilled buffer's host copy dead.
                 self._set_tensor(torch.empty(self.shape, dtype=self.dtype,
                                              device=self.device.torch_device))
             dst = self._use(write=True).view(-1)[offset: offset + src.numel()]
@@ -368,6 +402,7 @@ class Buffer:
                 self._finalizer = None
             agas.registry.unregister(self.gid)
             self._tensor = None
+            self._spilled_host = None
             with self._sync_lock:
                 self._last_write, self._reads = None, {}
 
@@ -384,8 +419,66 @@ class Buffer:
         if device is self.device:
             return
         self.device = device
-        if not self._freed:
-            agas.registry.update_placement(self.gid, agas.Placement(device.key, 0))
+        if self._freed:
+            return
+        with self._spill_lock:
+            if self._spilled_host is not None:
+                # The data lives in host memory, on neither device: the
+                # record stays on HOST_KEY and follows the refetch.
+                return
+        agas.registry.update_placement(self.gid, agas.Placement(device.key, 0))
+
+    # -- spill / refetch -------------------------------------------------------
+
+    def spill(self) -> Future:
+        """Evict the device storage to a pinned host copy; future of True
+        when storage was released (False: nothing to spill, as when already
+        spilled, freed or donated).  Runs on the default stream after the
+        work enqueued there; the copy has ended before the storage goes, and
+        the AGAS record moves to ``agas.HOST_KEY`` at once."""
+        return self.device.ops_queue.submit(self._spill_now)
+
+    def _spill_now(self) -> bool:
+        with self._spill_lock:
+            if (self._freed or self._donated or self._tensor is None
+                    or self._spilled_host is not None):
+                return False
+            t = self._use()
+            host = _to_host(t)
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+            self._spilled_host = host
+            self._tensor = None
+            with self._sync_lock:
+                self._last_write, self._reads = None, {}
+            agas.registry.update_placement(self.gid, agas.Placement(agas.HOST_KEY, 0))
+            self.device._count("spills")
+            return True
+
+    def _refetch(self) -> "torch.Tensor | None":
+        """Copy the host copy back on the current stream and move the AGAS
+        record home; None if another thread discarded it first."""
+        with self._spill_lock:
+            host = self._spilled_host
+            if host is None:
+                return self._tensor  # lost the race to another refetcher
+            pinned = host.device.type == "cpu" and host.is_pinned()
+            t = host.to(self.device.torch_device, non_blocking=pinned, copy=True)
+            self._set_tensor(t)
+            self.device._count("refetches")
+            return t
+
+    def _discard_spill(self) -> None:
+        """Drop the host copy (refetched, or dead after a full overwrite)
+        and put the placement record back on the owning device."""
+        if self._spilled_host is None:
+            return
+        with self._spill_lock:
+            if self._spilled_host is None:
+                return
+            self._spilled_host = None
+            if not self._freed:
+                agas.registry.update_placement(self.gid, agas.Placement(self.device.key, 0))
 
     # -- kernel-facing view ---------------------------------------------------
 

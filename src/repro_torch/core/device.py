@@ -19,9 +19,27 @@ A ``Device`` wraps one ``torch.device`` and exposes HPXCL's surface:
 a *future* of the CUDA devices whose compute capability is at least
 (major, minor).  Without a GPU it returns no devices; CPU devices appear
 only when the caller asks for them (``platform="cpu"``).
+
+Logical devices: ``REPRO_LOGICAL_DEVICES=N`` (default 1), read at each
+discovery, splits every physical device into N ``Device``s, the port's
+counterpart of the reference tests' ``--xla_force_host_platform_device_count``.
+Logical device 0 of a card is the device discovery returns by default
+(key ``cuda:0``, the card's default CUDA stream); logical device j > 0 has
+the key ``cuda:0.j`` and its own ``torch.cuda.Stream`` as its default
+stream.
+Each has its own lanes, compile queue, AGAS records and memory limit, so a
+scheduler places over them as over separate devices, while their kernels
+share the card.
+
+Scheduler surface: ``Device.load()`` and ``Device.resident_bytes()`` are
+the signals the placement policies read, and ``Device.memory_limit`` (seeded
+from ``REPRO_SPILL_BYTES``, 0 = unlimited) the threshold of the memory veto
+and LRU spill.  ``get_all_localities()`` groups devices by owning process
+(``hpx::find_all_localities``); every device of this package is local.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -32,21 +50,45 @@ from repro_torch.core.executor import LaneDispatcher, QueueLoad, WorkQueue, get_
 from repro_torch.core.futures import Future
 from repro_torch.core.stream import Stream
 
-__all__ = ["Device", "Locality", "get_all_devices"]
+__all__ = ["Device", "Locality", "get_all_devices", "get_all_localities"]
 
 # A CPU device has no compute capability; (1, 0) keeps the Listing-1
 # filter meaningful for the CPU devices the tests ask for explicitly.
 _CPU_CAPABILITY = (1, 0)
 
+_ITEM10 = "ROADMAP.md Queue 1 item 10"
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _default_memory_limit() -> int:
+    """Per-device resident-bytes threshold for memory-aware placement.  0
+    means unlimited: the veto and the LRU spill are off.  The environment
+    seeds every device; the attribute is plain and per device."""
+    return _env_int("REPRO_SPILL_BYTES", 0)
+
+
+def _device_key(torch_device: "torch.device", logical: int = 0) -> str:
+    base = f"{torch_device.type}:{torch_device.index or 0}"
+    return base if logical == 0 else f"{base}.{logical}"
+
 
 class Device:
-    """Location-transparent handle to one accelerator (or, on request, the CPU)."""
+    """Location-transparent handle to one accelerator (or, on request, the
+    CPU); ``logical`` > 0 makes it logical device ``logical`` of that
+    physical device."""
 
-    def __init__(self, torch_device: "torch.device"):
+    def __init__(self, torch_device: "torch.device", logical: int = 0):
         self.torch_device = torch.device(torch_device)
         if self.torch_device.type == "cuda" and self.torch_device.index is None:
             self.torch_device = torch.device("cuda", 0)
-        self.key = f"{self.torch_device.type}:{self.torch_device.index or 0}"
+        self.logical = int(logical)
+        self.key = _device_key(self.torch_device, self.logical)
         rt = get_runtime()
         # Streams multiplex onto one lane dispatcher per device; compilation
         # keeps its own queue so building a kernel overlaps transfers.
@@ -54,11 +96,23 @@ class Device:
         self._streams: "list[Stream]" = []
         self._replay_streams: "dict[int, Stream]" = {}
         self._stream_lock = threading.Lock()
-        default_cs = torch.cuda.default_stream(self.torch_device) if self.is_cuda else None
+        # Logical device 0 keeps the card's default stream; every other
+        # logical device of the card gets a stream of its own, so two
+        # logical devices never serialise on one CUDA stream.
+        default_cs = None
+        if self.is_cuda:
+            default_cs = (torch.cuda.default_stream(self.torch_device) if self.logical == 0
+                          else torch.cuda.Stream(self.torch_device))
         self._default_stream = self._new_stream("default", default_cs)
         # The default stream's lane IS the ops queue.
         self.ops_queue = self._default_stream.lane
         self.compile_queue: WorkQueue = rt.queue(f"compile:{self.key}")
+        # Memory-aware placement threshold; 0 = unlimited.
+        self.memory_limit: int = _default_memory_limit()
+        # Buffers spilled from this device and refetched to it.
+        self.spills = 0
+        self.refetches = 0
+        self._count_lock = threading.Lock()
         self.gid: agas.GID = agas.registry.register(
             self, agas.Placement(self.key, 0), kind="device"
         )
@@ -145,6 +199,11 @@ class Device:
     def resident_bytes(self) -> int:
         """AGAS-registered bytes currently placed here."""
         return agas.registry.resident_bytes(self.key)
+
+    def _count(self, name: str) -> None:
+        """Add one to the ``spills`` or ``refetches`` counter."""
+        with self._count_lock:
+            setattr(self, name, getattr(self, name) + 1)
 
     # -- factory surface (all async, returning futures) ---------------------
 
@@ -233,13 +292,22 @@ _device_cache: "dict[str, Device]" = {}
 _cache_lock = threading.Lock()
 
 
-def _wrap(torch_device: "torch.device") -> Device:
-    key = f"{torch_device.type}:{torch_device.index or 0}"
+def _wrap(torch_device: "torch.device", logical: int = 0) -> Device:
+    key = _device_key(torch_device, logical)
     with _cache_lock:
         dev = _device_cache.get(key)
         if dev is None:
-            dev = _device_cache[key] = Device(torch_device)
+            dev = _device_cache[key] = Device(torch_device, logical)
         return dev
+
+
+def logical_keys(torch_device: "torch.device") -> "list[str]":
+    """Keys of the discovered logical devices of ``torch_device``'s card
+    (one while the card is not split)."""
+    base = _device_key(torch.device(torch_device))
+    with _cache_lock:
+        keys = [k for k in _device_cache if k == base or k.startswith(base + ".")]
+    return keys or [base]
 
 
 def _on_runtime_reset() -> None:
@@ -257,7 +325,9 @@ def get_all_devices(major: int = 0, minor: int = 0, platform: str = "cuda") -> "
 
     ``platform="cuda"`` (the default) lists the CUDA devices, and none
     when CUDA is unavailable; it never substitutes the CPU.
-    ``platform="cpu"`` returns the one CPU device."""
+    ``platform="cpu"`` returns the one CPU device.  Under
+    ``REPRO_LOGICAL_DEVICES=N`` each physical device is listed as N
+    logical devices, its logical device 0 first."""
     if platform not in ("cuda", "cpu"):
         return Future.failed(ValueError(f"unknown platform {platform!r}; use 'cuda' or 'cpu'"))
 
@@ -268,6 +338,26 @@ def get_all_devices(major: int = 0, minor: int = 0, platform: str = "cuda") -> "
             found = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         else:
             found = []
-        return [d for d in map(_wrap, found) if d.capability() >= (major, minor)]
+        n = max(1, _env_int("REPRO_LOGICAL_DEVICES", 1))
+        devs = [_wrap(d, j) for d in found for j in range(n)]
+        return [d for d in devs if d.capability() >= (major, minor)]
 
     return get_runtime().async_(_discover)
+
+
+def get_all_localities(major: int = 0, minor: int = 0, platform: str = "cuda",
+                       cluster=None) -> "Future[list[Locality]]":
+    """Group capability-filtered devices by owning process
+    (``hpx::find_all_localities``); future of the list.  Every device of
+    this package is local, so the list holds one locality.  ``cluster``
+    (remote localities over parcels) is refused until the parcelport is
+    ported."""
+    if cluster is not None:
+        return Future.failed(NotImplementedError(
+            f"localities across a cluster need the parcelport, not ported yet ({_ITEM10})"))
+
+    def _group() -> "list[Locality]":
+        devs = get_all_devices(major, minor, platform).get()
+        return [Locality(0, devs)] if devs else []
+
+    return get_runtime().async_(_group)

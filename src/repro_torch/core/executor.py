@@ -692,7 +692,9 @@ def reset_runtime() -> None:
         if _runtime is not None:
             _runtime.shutdown()
         _runtime = None
-    # Local import: device imports this module at top level.
+    # Local imports: device and scheduler import this module at top level.
     from repro_torch.core import device as _device
+    from repro_torch.core import scheduler as _scheduler
 
     _device._on_runtime_reset()
+    _scheduler._on_runtime_reset()

@@ -45,7 +45,7 @@ buffer's value, an out-less launch's result) are copies out of the
 graph's memory: a later replay does not change them.
 
 Not ported, and refused: plans over several devices and cross-device
-transfer steps (ROADMAP.md Queue 1 item 6), remote buffers and remote
+transfer steps (ROADMAP.md Queue 1 item 6b), remote buffers and remote
 segments (Queue 1 item 10).
 """
 from __future__ import annotations
@@ -66,7 +66,7 @@ from repro_torch.kernels import tally_launches
 __all__ = ["TaskGraph", "GraphExec", "GraphResult", "LaunchNode", "ReadNode", "WriteNode",
            "capture", "current_graph"]
 
-_SCHEDULER = "ROADMAP.md Queue 1 item 6"
+_MULTI_DEVICE = "ROADMAP.md Queue 1 item 6b"
 _PARCELS = "ROADMAP.md Queue 1 item 10"
 
 _tls = threading.local()
@@ -407,7 +407,7 @@ class GraphExec:
         if len(keys) > 1:
             raise NotImplementedError(
                 f"TaskGraph '{g.name}' spans devices {keys}: multi-device plans and their "
-                f"transfer steps are not ported yet ({_SCHEDULER}); capture one device's work")
+                f"transfer steps are not ported yet ({_MULTI_DEVICE}); capture one device's work")
         return devices[0]
 
     def _build_plan(self) -> None:

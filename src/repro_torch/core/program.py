@@ -23,7 +23,14 @@ instead (``repro_torch.core.graph``).
 
 Percolation: ``run`` executes where the program's device is; argument
 buffers living on other devices are first copied there (futures, never
-blocking the caller).
+blocking the caller), and a host ``np.ndarray`` argument is copied to the
+device at launch.
+
+Any kernel on any device: ``run_on_any`` lets a placement scheduler
+(``repro_torch.core.scheduler``) pick the device and launches through the
+program's sibling there (``for_device``: one program object, and one build
+cache, a device key; siblings on logical devices of one card share the
+loaded CUDA library).
 """
 from __future__ import annotations
 
@@ -33,10 +40,14 @@ import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
-from repro_torch.core.buffer import Buffer, _current_event, _settle
+import numpy as np
+
+from repro_torch.core.buffer import Buffer, _current_event, _host_tensor, _settle
 from repro_torch.core.futures import Future, dataflow
 
 __all__ = ["Dim3", "Program"]
+
+_ITEM10 = "ROADMAP.md Queue 1 item 10"
 
 
 @dataclass
@@ -77,6 +88,7 @@ class Program:
         # once, not per launch) and bound callables per (name, grid, block).
         self._geo_params: "dict[str, tuple[bool, bool]]" = {}
         self._bound_cache: "dict[tuple, Callable]" = {}
+        self._siblings: "dict[str, Program]" = {}
         self.gid = agas.registry.register(self, agas.Placement(device.key, 0), kind="program")
         self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
 
@@ -100,6 +112,18 @@ class Program:
 
     def kernel_names(self) -> "list[str]":
         return sorted(self._kernels)
+
+    def for_device(self, device) -> "Program":
+        """This program's sibling on ``device`` (cached; ``self`` at home).
+        Siblings share the kernel callables but keep their own build
+        caches, built on their own device's compile queue."""
+        if device is self.device or device.key == self.device.key:
+            return self
+        sib = self._siblings.get(device.key)
+        if sib is None:
+            sib = Program(device, self._kernels, name=f"{self.name}@{device.key}")
+            sib = self._siblings.setdefault(device.key, sib)  # a racing creator loses
+        return sib
 
     # -- build (the NVRTC analogue) --------------------------------------------
 
@@ -208,7 +232,9 @@ class Program:
             if moved:
                 for i, b in zip(moved.keys(), resolved_args):
                     arg_list[i] = b
-            vals = [a._use() if isinstance(a, Buffer) else a for a in arg_list]
+            vals = [a._use() if isinstance(a, Buffer)
+                    else _host_tensor(a).to(home.torch_device) if isinstance(a, np.ndarray)
+                    else a for a in arg_list]
             res = compiled(*vals)
             res_list = list(res) if isinstance(res, (tuple, list)) else [res]
             ev = next((e for e in map(_current_event, res_list) if e is not None), None)
@@ -268,3 +294,38 @@ class Program:
         stream=s)`` submits the kernel on stream ``s`` (``<<<grid, block,
         0, stream>>>``).  Identical semantics to ``run``."""
         return self.run(args, name, grid=grid, block=block, out=out, sync=sync, stream=stream)
+
+    def run_on_any(
+        self,
+        args: "Sequence[Buffer | Any]",
+        name: str,
+        grid=None,
+        block=None,
+        out: "Sequence[Buffer] | None" = None,
+        sync: str = "ready",
+        scheduler=None,
+        cluster=None,
+    ):
+        """Launch kernel ``name`` on whatever device the placement policy
+        picks: the paper's "any kernel on any device".
+
+        The scheduler (default: the process scheduler, ``least_loaded``)
+        chooses from its fleet; the launch runs through the sibling program
+        there, foreign argument buffers percolate over and ``out`` buffers
+        are re-homed to the chosen device.  With stealing on and more than
+        one device, the launch parks in the scheduler's steal pool, where an
+        idle sibling may take it (never under graph capture: a recorded node
+        binds its device at capture time).  Otherwise as ``run``.
+        ``cluster`` (remote localities) is refused until the parcelport is
+        ported."""
+        from repro_torch.core.graph import current_graph
+        from repro_torch.core.scheduler import get_scheduler
+
+        if cluster is not None:
+            raise NotImplementedError(
+                f"run_on_any over a cluster needs the parcelport, not ported yet ({_ITEM10})")
+        sched = scheduler if scheduler is not None else get_scheduler()
+        if current_graph() is None and getattr(sched, "steals", False):
+            return sched.submit(self, args, name, grid=grid, block=block, out=out, sync=sync)
+        dev = sched.select(args=args, program=self)
+        return self.for_device(dev).run(args, name, grid=grid, block=block, out=out, sync=sync)

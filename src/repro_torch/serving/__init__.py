@@ -1,5 +1,8 @@
 """Serving on PyTorch: prefill and greedy decode steps, and the paged-KV
-prefill/decode-disaggregated ``PagedServeEngine`` (one device)."""
+prefill/decode-disaggregated ``PagedServeEngine`` over a fleet of page
+pools (one decode lane a device).  ``RequestEngine`` and the
+scheduler-routed fan-out of ``serve_step`` come with ROADMAP.md Queue 1
+item 8."""
 from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
 from repro_torch.serving.paged import (
     OutOfPages,

@@ -1,58 +1,73 @@
-"""Paged KV cache + prefill/decode disaggregation on PyTorch, one device
-(``src/repro/serving/paged.py``).
+"""Paged KV cache + prefill/decode disaggregation on PyTorch over a fleet of
+page pools (``src/repro/serving/paged.py``).
 
-* ``PagePool`` — two slab ``Buffer``s (k and v) of shape ``(layers,
-  num_pages, page_size, kv_heads, head_dim)`` plus a free list.  Page 0 is
-  *reserved* as the padding target: page-table slots past a sequence's
-  tail hold it, and no live sequence ever owns it.  The slabs re-register
-  under AGAS kind ``"pool"`` at 0 bytes (capacity is not pressure); every
-  sequence is a ``SeqPages`` record of kind ``"buffer"`` whose ``nbytes``
-  are its pages plus its resident state.
+* ``PagePool`` — one per device: two slab ``Buffer``s (k and v) of shape
+  ``(layers, num_pages, page_size, kv_heads, head_dim)`` plus a free list.
+  Page 0 is *reserved* as the padding target: page-table slots past a
+  sequence's tail hold it, and no live sequence ever owns it.  The slabs
+  re-register under AGAS kind ``"pool"`` at 0 bytes (capacity is not
+  pressure); every sequence is a ``SeqPages`` record of kind ``"buffer"``
+  whose ``nbytes`` are its pages plus its resident state, so the
+  scheduler's memory veto and ``spill_lru`` see sequences as residents.
 
 * ``PagedKVCache`` — the sequence lifecycle (``new_seq`` / ``append`` /
-  ``ensure_slot`` / ``note_decoded`` / ``free_seq``) and ``table`` (page
-  tables + lengths in the kernel's layout).  ``append`` writes a prompt's
-  KV from device tensors with one on-device index copy per slab (the
-  reference moves it to the host and back).
+  ``ensure_slot`` / ``note_decoded`` / ``free_seq``), ``table`` (page
+  tables + lengths in the kernel's layout), ``defrag`` (compact a pool's
+  live pages to the low slots) and ``migrate`` (a sequence's pages to
+  another device's pool in one coalesced move).  ``SeqPages.spill`` copies
+  a sequence's pages and resident state to pinned host memory and frees its
+  pages; ``ensure_resident`` brings them back into freshly allocated pages.
 
 * ``PagedServeEngine`` — a prefill lane (prompts batched by token budget,
-  first token sampled on the host) and a decode lane that steps every
-  resident sequence in ONE step at mixed lengths: the page table, not the
-  batch shape, encodes length.  Logits come back to the host for
-  ``sample_token``; each sequence's resident state (SSM state, conv
-  window) stays a device tensor.  Both lanes launch on one CUDA stream of
-  the engine, so a decode step is ordered after the page write of every
-  sequence it steps.  ``from_config(cfg)`` wires any ported family through
-  ``repro_torch.models.model.paged_surface``.
+  first token sampled on the host) that places each sequence with the
+  scheduler (``sched.select``; a full pool spills its LRU sequences), and
+  one decode lane *per device* stepping every resident sequence of that
+  device in ONE step at mixed lengths: the page table, not the batch shape,
+  encodes length.  A sequence whose pages cannot be made resident waits
+  (a deferred step) until pages free up.  Every step charges the
+  scheduler; every ``rebalance_every`` steps under page pressure the lane
+  asks ``select_batch`` whether its sequences still belong here, and a
+  different answer migrates the coldest one.  ``from_config(cfg)`` wires
+  any ported family through ``repro_torch.models.model.paged_surface``.
 
-* Warm row counts, as the reference's: the decode lane pads a batch to
-  the nearest row count it has already run (``warm_rows``: at most 2x the
-  real rows, else the exact count, which becomes warm), duplicating the
-  last row and discarding the pad rows' outputs; ``decode_shapes`` seeds
-  the warm set.  On a CUDA device each warm count has ONE CUDA graph of
-  ``decode_fn`` (``_StepGraphs``): the first step at a count runs eagerly
-  and is then captured, every later step at that count is one pinned H2D
-  of tokens, lengths and tables into the count's static tensors, the
-  per-row states stacked into a static state, and one graph launch.  The
-  prefill lane keeps running while a graph is captured.  There is no
-  switch to turn the graphs off on the card: the reference's jit is not
-  optional either.
+* Streams.  The prefill lane runs on a CUDA stream of its own and each
+  decode lane on one of its own.  Every device operation on a sequence's
+  pages (a prefill's page write, a refetch, a decode step, a migration)
+  records an event on the sequence (``SeqPages._ready``); a lane's stream
+  waits on it before a step reads the pages, and whatever frees pages (a
+  spill, a migration, ``defrag``) first waits for it on the host.  A decode
+  step holds the locks of its sequences (taken in seq-id order) from
+  ``ensure_resident`` to ``note_decoded``, so a racing spill waits for the
+  step, and its event, before the pages are freed.
+
+* Warm row counts, as the reference's: a decode lane pads a batch to the
+  nearest row count it has already run (``warm_rows``: at most 2x the real
+  rows, else the exact count, which becomes warm), duplicating the last
+  row and discarding the pad rows' outputs; ``decode_shapes`` seeds the
+  warm set.  On a CUDA device each lane holds ONE CUDA graph of
+  ``decode_fn`` per warm count (``_StepGraphs``), captured against its
+  pool's slabs by address: the first step at a count runs eagerly and is
+  then captured, every later step at that count is one pinned H2D of
+  tokens, lengths and tables into the count's static tensors, the per-row
+  states stacked into a static state, and one graph launch.  ``defrag``,
+  ``set_arrays``, ``write_pages`` and a refetch move pages *in place*, in
+  the same slab tensors, so the graphs stay valid; a slab tensor rebound
+  all the same drops that lane's graphs, which are then recaptured.
 
 Sampling is host-side and bit-reproducible: token ``position`` of request
 ``request_id`` draws from ``np.random.default_rng([seed, request_id,
-position])`` (greedy argmax when ``temperature <= 0``).
+position])`` (greedy argmax when ``temperature <= 0``), so tokens do not
+depend on batch composition or fleet size.
 
-Not ported yet, and refused where asked for: placement by a scheduler, a
-cache over several devices, ``spill``/``ensure_resident``, ``defrag``,
-``migrate``, rebalancing and the cross-locality ``export_seq``/
-``import_seq``/``paged_worker_*`` (ROADMAP.md Queue 1 items 6 and 10);
-the ``"legacy"`` two-callable contract (with the fig9 port, Queue 1 item
-4).
+Not ported yet: the cross-locality ``export_seq``/``import_seq``/
+``paged_worker_*`` (ROADMAP.md Queue 1 item 10) and the ``"legacy"``
+two-callable contract (with the fig9 port, Queue 1 item 4), which is
+refused.
 
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
-default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes, default 32 MiB),
-``REPRO_PREFILL_TOKEN_BUDGET`` (prefill lane batch bound, default 2048),
-``REPRO_DECODE_DEADLINE_S`` (decode lane arrival wait, default 1 ms).
+default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes a device, default 32
+MiB), ``REPRO_PREFILL_TOKEN_BUDGET`` (prefill lane batch bound, default
+2048), ``REPRO_DECODE_DEADLINE_S`` (decode lane arrival wait, default 1 ms).
 """
 from __future__ import annotations
 
@@ -70,7 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import agas
-from repro_torch.core.buffer import torch_dtype
+from repro_torch.core.buffer import _to_host, torch_dtype
 from repro_torch.core.futures import Future, Promise
 from repro_torch.kernels import tally_launches
 from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
@@ -86,9 +101,6 @@ __all__ = [
     "sample_token",
     "warm_rows",
 ]
-
-_SCHEDULER = "ROADMAP.md Queue 1 item 6"
-
 
 def _env_int(name: str, default: int) -> int:
     try:
@@ -122,6 +134,37 @@ def _to_device(arr: np.ndarray, device: "torch.device") -> "torch.Tensor":
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def _pow2_pad_idx(idx: np.ndarray) -> np.ndarray:
+    """Pad a page-index vector to the next power-of-two length by repeating
+    its last entry (a duplicate writes the same page with the same value),
+    so the page moves' index tensors take log2(max pages) distinct
+    lengths."""
+    n = idx.size
+    want = 1
+    while want < n:
+        want *= 2
+    if want == n:
+        return idx
+    return np.concatenate([idx, np.repeat(idx[-1:], want - n)])
+
+
+def _sync_current(device: "torch.device") -> None:
+    """Block until the current stream of ``device`` has done its work (a
+    no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _record(device: "torch.device") -> "torch.cuda.Event | None":
+    """An event at the tail of the current stream of ``device`` (None on
+    the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 def warm_rows(rows: int, warm) -> int:
@@ -225,13 +268,72 @@ def sample_token(logits, params: "SamplingParams | None",
 _MAX_DECODE_STALLS = 500
 
 
+class _CaptureGate:
+    """Device work on a cache's pools holds the gate shared; a decode
+    lane's step-graph capture holds it alone.  A capture records its
+    stream's work into a graph, and device work of another thread during
+    it can invalidate the capture: an allocation that has the caching
+    allocator free cached device memory (its answer to a failed
+    ``cudaMalloc``) synchronises the device.  Shared holds nest within a
+    thread, and a waiting capture holds back new shared holders.  Lock
+    order: sequence locks, then the gate, then pool locks; a capture holds
+    no lock."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._waiting = 0
+        self._capturing = False
+        self._depth = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        d = getattr(self._depth, "n", 0)
+        if d == 0:
+            with self._cv:
+                while self._capturing or self._waiting:
+                    self._cv.wait()
+                self._shared += 1
+        self._depth.n = d + 1
+        try:
+            yield
+        finally:
+            self._depth.n = d
+            if d == 0:
+                with self._cv:
+                    self._shared -= 1
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        if getattr(self._depth, "n", 0):
+            raise RuntimeError("a capture inside shared device work would wait for itself")
+        with self._cv:
+            self._waiting += 1
+            while self._capturing or self._shared:
+                self._cv.wait()
+            self._waiting -= 1
+            self._capturing = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._capturing = False
+                self._cv.notify_all()
+
+
 class PagePool:
     """One device's page pool: two slab Buffers + a free list.
 
     The free list and the slab bookkeeping change under ``lock``.  The
-    slabs themselves are written in place on the device (the prefill lane's
-    ``write_tokens``, the decode step's scatter), always to pages that one
-    sequence owns."""
+    slabs themselves are written in place on the device (the prefill
+    lane's ``write_tokens``, a decode step's scatter, ``write_pages``,
+    ``set_arrays``), always to pages one sequence owns: their tensors are
+    never rebound, so a captured step graph stays valid.  ``spills`` and
+    ``refetches`` count the sequences spilled from and refetched into this
+    pool.  While an admission makes room here (``admit``), ``alloc`` from
+    any other thread fails with ``OutOfPages``, so the pages a spill frees
+    for the admission go to it."""
 
     def __init__(self, device, spec: PageSpec, num_pages: int):
         if num_pages < 2:
@@ -246,12 +348,16 @@ class PagePool:
             self._repin(b)
         self.lock = threading.RLock()
         self._free: "list[int]" = list(range(self.num_pages - 1, 0, -1))
+        self.spills = 0
+        self.refetches = 0
+        # Threads making room here for an admission (ident -> count).
+        self._admitters: Counter = Counter()
 
     @staticmethod
     def _repin(buf) -> None:
         """Move a slab's AGAS record to kind ``"pool"`` at 0 bytes: usage
         is accounted per sequence (``SeqPages``), capacity is not
-        pressure."""
+        pressure, and ``spill_lru`` never evicts a slab."""
         agas.registry.unregister(buf.gid)
         if buf._finalizer is not None:
             buf._finalizer.detach()
@@ -263,6 +369,9 @@ class PagePool:
 
     def alloc(self, n: int) -> "list[int]":
         with self.lock:
+            me = threading.get_ident()
+            if any(t != me for t in self._admitters):
+                raise OutOfPages(f"{self.device.key}: an admission is making room here")
             if n > len(self._free):
                 raise OutOfPages(
                     f"{self.device.key}: need {n} page(s), {len(self._free)} free "
@@ -285,6 +394,20 @@ class PagePool:
             return len(self._free)
 
     @property
+    def admitting(self) -> bool:
+        with self.lock:
+            return bool(self._admitters)
+
+    def admit(self, n: int) -> None:
+        """The calling thread starts (``n`` 1) or ends (``n`` -1) making
+        room for an admission."""
+        me = threading.get_ident()
+        with self.lock:
+            self._admitters[me] += n
+            if self._admitters[me] <= 0:
+                del self._admitters[me]
+
+    @property
     def used_pages(self) -> int:
         return (self.num_pages - 1) - self.num_free
 
@@ -301,6 +424,17 @@ class PagePool:
         with self.lock:
             self.k_slab._mark_written()
             self.v_slab._mark_written()
+
+    def set_arrays(self, k, v) -> None:
+        """Make ``k``/``v`` the slabs' contents: copied in place into the
+        same slab tensors (a no-op for the slabs themselves), so no slab is
+        rebound and no step graph goes stale."""
+        with self.lock:
+            ks, vs = self.arrays()
+            for slab, x in ((ks, k), (vs, v)):
+                if x.data_ptr() != slab.data_ptr():
+                    slab.copy_(x)
+            self.mark_written()
 
     def write_tokens(self, pages: "Sequence[int]", k, v) -> None:
         """Write T tokens of k/v ``(L, T, Kh, D)`` into ``pages`` (token t
@@ -321,6 +455,46 @@ class PagePool:
                 flat.index_fill_(1, idx[T:], 0)
         self.mark_written()
 
+    def write_pages(self, pages: "Sequence[int]", k, v) -> None:
+        """Scatter whole pages into the slabs in place: k/v are ``(n, L, P,
+        Kh, D)`` host or device tensors, one row a page, copied on the
+        current stream (asynchronously from pinned memory).  The index is
+        padded to a power of two (``_pow2_pad_idx``), its extra entries
+        rewriting the last page with the same row."""
+        n = len(pages)
+        if n == 0:
+            return
+        idx = _pow2_pad_idx(np.asarray(pages, np.int64))
+        with self.lock:
+            ks, vs = self.arrays()
+            idx_d = _to_device(idx, ks.device)
+            for slab, x in ((ks, k), (vs, v)):
+                x = torch.as_tensor(x)
+                pinned = x.device.type == "cpu" and x.is_pinned()
+                rows = x.to(slab.device, dtype=slab.dtype, non_blocking=pinned).movedim(0, 1)
+                if idx.size != n:
+                    rows = torch.cat([rows, rows[:, -1:].expand(-1, idx.size - n, -1, -1, -1)], 1)
+                slab.index_copy_(1, idx_d, rows)
+            self.mark_written()
+
+    def read_pages(self, pages: "Sequence[int]") -> "tuple[torch.Tensor, torch.Tensor]":
+        """Gather whole pages out: ``(n, L, P, Kh, D)`` tensors on the
+        pool's device, gathered on the current stream (the caller moves
+        them and synchronises before the pages are freed).  The gather's
+        index is padded to a power of two like ``write_pages``'s and the
+        extra rows are sliced off."""
+        n = len(pages)
+        if n == 0:
+            sh = (0, self.spec.layers, self.spec.page_size, self.spec.kv_heads, self.spec.head_dim)
+            return (torch.empty(sh, dtype=self.spec.dtype, device=self.device.torch_device),
+                    torch.empty(sh, dtype=self.spec.dtype, device=self.device.torch_device))
+        idx = _pow2_pad_idx(np.asarray(pages, np.int64))
+        with self.lock:
+            ks, vs = self.arrays()
+            idx_d = _to_device(idx, ks.device)
+            return (ks.index_select(1, idx_d)[:, :n].movedim(1, 0),
+                    vs.index_select(1, idx_d)[:, :n].movedim(1, 0))
+
     def __repr__(self) -> str:
         return (f"PagePool({self.device.key}: {self.used_pages}/"
                 f"{self.num_pages - 1} pages used)")
@@ -331,18 +505,29 @@ class SeqPages:
 
     Registered kind ``"buffer"`` with ``nbytes`` = pages × page bytes plus
     the resident state's bytes (re-declared on every change), exposing
-    ``gid``/``device``/``nbytes`` as the reference's does."""
+    ``gid``/``device``/``nbytes``/``spill``/``_last_use`` as a ``Buffer``
+    does, so affinity scoring, the memory veto and ``spill_lru`` see
+    sequences as residents.  ``spill`` copies the pages and the state to
+    pinned host memory and returns the pages to the pool (the record moves
+    to ``agas.HOST_KEY``); ``ensure_resident`` allocates pages again (their
+    numbers may differ) and writes the host copy back.  ``_ready`` is the
+    event ending the last device work on the pages."""
 
-    def __init__(self, pool: PagePool, seq_id: int):
+    def __init__(self, pool: PagePool, seq_id: int, gate: _CaptureGate):
         self.pool = pool
         self.seq_id = seq_id
+        self._gate = gate
         self.pages: "list[int]" = []
         self.length = 0
         # Resident state: a nested dict of device tensors (SSM state, conv
-        # window) whose bytes fold into ``nbytes``.
+        # window) whose bytes fold into ``nbytes``; host tensors while
+        # spilled.
         self.state: Any = None
         self._state_bytes = 0
+        self._spilled: "tuple[torch.Tensor, torch.Tensor] | None" = None
+        self._ready: "torch.cuda.Event | None" = None
         self._lock = threading.RLock()
+        self._last_use = _now()
         self.gid = agas.registry.register(self, agas.Placement(pool.device.key, 0),
                                           kind="buffer", nbytes=0)
         self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
@@ -353,8 +538,16 @@ class SeqPages:
 
     @property
     def nbytes(self) -> int:
-        """Device-resident bytes: pages plus the resident state."""
-        return len(self.pages) * self.pool.spec.page_bytes + self._state_bytes
+        """Device-resident bytes: pages plus the resident state (a spilled
+        sequence pins nothing)."""
+        n = len(self.pages) * self.pool.spec.page_bytes
+        if self._spilled is None:
+            n += self._state_bytes
+        return n
+
+    @property
+    def spilled(self) -> bool:
+        return self._spilled is not None
 
     def set_state(self, state) -> None:
         """Attach/replace the sequence's resident state and re-declare its
@@ -370,15 +563,83 @@ class SeqPages:
         except KeyError:  # freed under a racing finalizer
             pass
 
+    def _mark_ready(self) -> None:
+        """The pages' last device work ends at the current stream's tail."""
+        self._ready = _record(self.pool.device.torch_device)
+
+    def _wait_ready(self) -> None:
+        """Order the current stream after the pages' last device work."""
+        if self._ready is not None:
+            torch.cuda.current_stream(self.pool.device.torch_device).wait_event(self._ready)
+
+    def _sync_ready(self) -> None:
+        """Block the host until the pages' last device work has ended."""
+        if self._ready is not None:
+            self._ready.synchronize()
+
+    # -- spill / refetch ---------------------------------------------------------
+
+    def spill(self) -> Future:
+        """Evict to pinned host memory (future of True when pages were
+        released): the page contents and the state copy out, the pages go
+        back to the pool and the AGAS record moves to ``HOST_KEY``, as
+        ``Buffer.spill``.  Waits for a decode step holding the sequence."""
+        return self.pool.device.ops_queue.submit(self._spill_now)
+
+    def _spill_now(self) -> bool:
+        with self._lock, self._gate.shared():
+            if self._spilled is not None or not self.pages:
+                return False
+            pool = self.pool
+            self._sync_ready()
+            k, v = pool.read_pages(self.pages)
+            self._spilled = (_to_host(k), _to_host(v))
+            if self.state is not None:
+                self.state = _tree_map(_to_host, self.state)
+            _sync_current(pool.device.torch_device)  # the copies have ended: the pages may go
+            self._ready = None
+            pool.free(self.pages)
+            self.pages = []
+            agas.registry.update_placement(self.gid, agas.Placement(agas.HOST_KEY, 0))
+            self._account()
+            with pool.lock:
+                pool.spills += 1
+            return True
+
+    def ensure_resident(self) -> None:
+        """Refetch after a spill, on the current stream: allocate pages
+        (``OutOfPages`` leaves the sequence spilled), write the host copy
+        into them in place and move the state back to the device."""
+        with self._lock, self._gate.shared():
+            if self._spilled is None:
+                return
+            k, v = self._spilled
+            pool = self.pool
+            pages = pool.alloc(len(k))
+            pool.write_pages(pages, k, v)
+            if self.state is not None:
+                dev = pool.device.torch_device
+                self.state = _tree_map(lambda t: t.to(dev, non_blocking=t.is_pinned()), self.state)
+            self._mark_ready()
+            self.pages = pages
+            self._spilled = None
+            agas.registry.update_placement(self.gid, agas.Placement(pool.device.key, 0))
+            self._account()
+            self._last_use = _now()
+            with pool.lock:
+                pool.refetches += 1
+
     def __repr__(self) -> str:
+        where = "spilled" if self.spilled else self.pool.device.key
         return (f"SeqPages(#{self.seq_id}: {self.length} tok / "
-                f"{len(self.pages)} pages @ {self.pool.device.key})")
+                f"{len(self.pages)} pages @ {where})")
 
 
 class PagedKVCache:
-    """Paged KV allocator: one ``PagePool`` per device (the engine takes
-    one) plus the sequence lifecycle.  ``devices=None`` takes the first
-    CUDA device."""
+    """Paged KV allocator over a fleet: one ``PagePool`` per device plus
+    the sequence lifecycle, pool compaction (``defrag``) and coalesced
+    moves between devices (``migrate``).  ``devices=None`` takes every
+    CUDA device (``REPRO_LOGICAL_DEVICES`` applies)."""
 
     def __init__(self, spec: PageSpec, devices: "Sequence | None" = None,
                  pool_pages: "int | None" = None,
@@ -386,7 +647,7 @@ class PagedKVCache:
         if devices is None:
             from repro_torch.core.device import get_all_devices
 
-            devices = get_all_devices().get()[:1]
+            devices = get_all_devices().get()
             if not devices:
                 raise RuntimeError("PagedKVCache: no CUDA device; pass devices=[...] "
                                    "(a CPU device: get_all_devices(platform='cpu'))")
@@ -401,6 +662,7 @@ class PagedKVCache:
         self._seq_lock = threading.Lock()
         self._next_seq = 0
         self._seqs: "dict[int, SeqPages]" = {}
+        self.gate = _CaptureGate()
 
     def pool_of(self, device) -> PagePool:
         try:
@@ -415,7 +677,7 @@ class PagedKVCache:
         with self._seq_lock:
             sid = self._next_seq
             self._next_seq += 1
-            seq = self._seqs[sid] = SeqPages(pool, sid)
+            seq = self._seqs[sid] = SeqPages(pool, sid, self.gate)
         return seq
 
     def append(self, seq: SeqPages, k, v) -> None:
@@ -424,16 +686,20 @@ class PagedKVCache:
         A partial tail page is zero-padded (masked by ``length`` at
         attention time)."""
         k, v = torch.as_tensor(k), torch.as_tensor(v)
-        with seq._lock:
+        with seq._lock, self.gate.shared():
+            seq.ensure_resident()
             if seq.length % self.spec.page_size:
                 raise ValueError(
                     "append must start on a page boundary (decode steps append "
                     "token-at-a-time inside decode_fn, not through append)"
                 )
             pages = seq.pool.alloc(self.spec.pages_for(k.shape[1]))
+            seq._wait_ready()
             seq.pool.write_tokens(pages, k, v)
+            seq._mark_ready()
             seq.pages.extend(pages)
             seq.length += k.shape[1]
+            seq._last_use = _now()
             seq._account()
 
     def ensure_slot(self, seq: SeqPages) -> None:
@@ -449,12 +715,16 @@ class PagedKVCache:
         ``decode_fn``; the bookkeeping catches up here."""
         with seq._lock:
             seq.length += 1
+            seq._last_use = _now()
 
     def free_seq(self, seq: SeqPages) -> None:
         with seq._lock:
             if seq.pages:
+                seq._sync_ready()
                 seq.pool.free(seq.pages)
             seq.pages = []
+            seq._spilled = None
+            seq._ready = None
             seq.state = None
             seq._state_bytes = 0
             seq.length = 0
@@ -484,14 +754,97 @@ class PagedKVCache:
             lens[i] = s.length
         return tbl, lens
 
+    # -- maintenance ---------------------------------------------------------
+
+    def defrag(self, device) -> int:
+        """Compact a pool: live pages move to the lowest slots (stable
+        order) in place, in the same slab tensors, sequence tables are
+        rewritten and the free list becomes the contiguous tail.  Returns
+        the number of pages that moved.
+
+        Lock order: every holder's ``seq._lock`` first (in ``seq_id``
+        order), then the capture gate, then the pool lock, the order spill,
+        migrate, append and a decode step use.  If the holder set changed while the locks were
+        taken, everything is released and the pass retries; after 8
+        contended passes it returns 0 (defrag is maintenance).  The move
+        waits for each holder's last device work and ends before the locks
+        are released, so a page freed here is never written while the move
+        still reads it."""
+        pool = self.pool_of(device)
+        for _ in range(8):
+            with self._seq_lock:
+                holders = sorted((s for s in self._seqs.values() if s.pool is pool),
+                                 key=lambda s: s.seq_id)
+            with contextlib.ExitStack() as stack:
+                for s in holders:
+                    stack.enter_context(s._lock)
+                with self.gate.shared(), pool.lock:
+                    with self._seq_lock:
+                        current = [s for s in self._seqs.values() if s.pool is pool]
+                    if any(s not in holders for s in current):
+                        continue  # an unlocked holder raced in: retry
+                    holders = [s for s in holders if s.pool is pool and s.pages]
+                    live = sorted(p for s in holders for p in s.pages)
+                    mapping = {old: new for new, old in enumerate(live, start=1)}
+                    moves = [(old, new) for old, new in mapping.items() if old != new]
+                    if moves:
+                        for s in holders:
+                            s._wait_ready()
+                        old = _to_device(np.asarray([m[0] for m in moves], np.int64),
+                                         pool.device.torch_device)
+                        new = _to_device(np.asarray([m[1] for m in moves], np.int64),
+                                         pool.device.torch_device)
+                        ks, vs = pool.arrays()
+                        for slab in (ks, vs):
+                            slab.index_copy_(1, new, slab.index_select(1, old))
+                        pool.mark_written()
+                        _sync_current(pool.device.torch_device)
+                        for s in holders:
+                            s.pages = [mapping[p] for p in s.pages]
+                            s._ready = None
+                    pool._free = list(range(pool.num_pages - 1, len(live), -1))
+                    return len(moves)
+        return 0
+
+    def migrate(self, seq: SeqPages, device) -> None:
+        """Re-home a sequence: all its pages leave the source slabs as one
+        gather and land in the target pool as one scatter (a device-to-
+        device copy between two logical devices of one card), the state
+        follows, and the AGAS record moves with them, so affinity scores
+        the new home at once.  The source pages are freed once the copy has
+        ended."""
+        dst = self.pool_of(device)
+        with seq._lock, self.gate.shared():
+            if seq.pool is dst:
+                return
+            seq.ensure_resident()
+            src = seq.pool
+            seq._wait_ready()
+            k, v = src.read_pages(seq.pages)
+            pages = dst.alloc(len(seq.pages))
+            dst.write_pages(pages, k, v)
+            if seq.state is not None and dst.device.torch_device != src.device.torch_device:
+                seq.state = _tree_map(lambda t: t.to(dst.device.torch_device), seq.state)
+            _sync_current(src.device.torch_device)
+            src.free(seq.pages)
+            seq.pool = dst
+            seq.pages = pages
+            seq._ready = None
+            agas.registry.update_placement(seq.gid, agas.Placement(device.key, 0))
+            seq._account()
+            seq._last_use = _now()
+
     def stats(self) -> dict:
         out = {}
         for key, pool in self.pools.items():
-            out[key] = {
-                "used_pages": pool.used_pages,
-                "free_pages": pool.num_free,
-                "resident_bytes": agas.registry.resident_bytes(key),
-            }
+            with pool.lock:
+                out[key] = {
+                    "used_pages": pool.used_pages,
+                    "free_pages": pool.num_free,
+                    "resident_bytes": agas.registry.resident_bytes(key),
+                    "spills": pool.spills,
+                    "refetches": pool.refetches,
+                }
         return out
 
 
@@ -518,14 +871,16 @@ class _PagedRequest:
 
 
 class PagedServeEngine:
-    """Prefill/decode-disaggregated serving over a one-device
-    ``PagedKVCache``.
+    """Prefill/decode-disaggregated serving over a ``PagedKVCache`` of one
+    or more devices.
 
     ``submit(prompt, max_new_tokens)`` returns a future of the generated
     token ids (np.int32).  The prefill lane batches equal-length prompts
-    by token budget and pages their KV in; the decode lane steps every
-    resident sequence in batches padded to warm row counts.  Model
-    contract (``"zoo"``):
+    by token budget and pages their KV into the pool of the device the
+    scheduler picks; one decode lane a device steps every resident sequence
+    of its pool in batches padded to warm row counts.  ``scheduler=None``
+    places with a ``Scheduler`` over the cache's devices (``least_loaded``).
+    Model contract (``"zoo"``):
 
     ``prefill_fn(tokens, extras)``
         ``(B, T)`` int32 device tensor, ``extras`` None ``-> (k, v, state,
@@ -538,16 +893,18 @@ class PagedServeEngine:
         On a CUDA device it is captured into a CUDA graph per warm row
         count, so it must not synchronise with the host.
 
-    ``decode_shapes`` seeds the decode lane's warm row counts (see
+    ``decode_shapes`` seeds the decode lanes' warm row counts (see
     ``warm_rows``): a closed palette makes the set of captured step graphs
     deterministic, at the cost of padding off-palette batches.
+    ``rebalance_every`` is the decode steps between a lane's rebalancing
+    checks.
     """
 
     def __init__(self, kv: PagedKVCache, prefill_fn: Callable, decode_fn: Callable,
                  *, max_seq_len: int, scheduler=None,
                  prefill: "LanePolicy | None" = None,
                  decode: "LanePolicy | None" = None,
-                 max_queue: int = 512,
+                 max_queue: int = 512, rebalance_every: int = 32,
                  decode_shapes: "Sequence[int] | None" = None,
                  contract: str = "zoo",
                  name: str = "paged"):
@@ -557,12 +914,6 @@ class PagedServeEngine:
                 "(ROADMAP.md Queue 1 item 4); use contract='zoo'")
         if contract != "zoo":
             raise ValueError(f"contract must be 'zoo' (or the unported 'legacy'), got {contract!r}")
-        if scheduler is not None:
-            raise NotImplementedError(f"placement by a scheduler is not ported yet ({_SCHEDULER})")
-        if len(kv.pools) != 1:
-            raise NotImplementedError(
-                f"a cache over {len(kv.pools)} devices needs the scheduler's placement, spill "
-                f"and rebalancing, not ported yet ({_SCHEDULER}); give PagedKVCache one device")
         self.kv = kv
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
@@ -571,16 +922,20 @@ class PagedServeEngine:
             tuple(sorted({int(s) for s in decode_shapes if int(s) > 0}))
             if decode_shapes is not None else ())
         self.name = name
-        self.pool = next(iter(kv.pools.values()))
-        self.device = self.pool.device
-        # One CUDA stream for both lanes: a decode step is ordered after
-        # the page writes of every sequence it steps, and after the frees
-        # that handed a page to a new owner.
+        if scheduler is None:
+            from repro_torch.core.scheduler import Scheduler
+
+            scheduler = Scheduler([p.device for p in kv.pools.values()], policy="least_loaded")
+        self.scheduler = scheduler
+        # The device the prefill runs on (the first pool's), on a stream of
+        # its own; each decode lane runs on a stream of its own too.
+        self.device = next(iter(kv.pools.values())).device
         self._stream = torch.cuda.Stream(self.device.torch_device) if self.device.is_cuda else None
         self._next_rid = 0
         self.max_seq_len = int(max_seq_len)
         self.max_pages = kv.spec.pages_for(self.max_seq_len)
         self.max_queue = int(max_queue)
+        self.rebalance_every = max(1, int(rebalance_every))
         self.prefill_policy = prefill if prefill is not None else LanePolicy(
             max_batch=8, max_delay_s=0.004,
             token_budget=_env_int("REPRO_PREFILL_TOKEN_BUDGET", 2048))
@@ -595,6 +950,10 @@ class PagedServeEngine:
         self._inflight = 0
         self._closed = False
 
+        # One decode lane a device, created on first use.
+        self._lane_lock = threading.Lock()
+        self._lanes: "dict[str, _DecodeLane]" = {}
+
         # Metrics.
         self._m_lock = threading.Lock()
         self._started_at = _now()
@@ -608,11 +967,12 @@ class PagedServeEngine:
         self._decode_rows = 0
         self._decode_padded = 0
         self._decode_s = 0.0
+        self._migrations = 0
+        self._placed: Counter = Counter()  # sequences placed, by device key
         self._token_lat: "list[float]" = []
         self._seq_lat: "list[float]" = []
         self._ttft: "list[float]" = []
 
-        self._lane = _DecodeLane(self)
         self._prefill_thread = threading.Thread(
             target=self._prefill_loop, name=f"paged:{name}:prefill", daemon=True)
         self._prefill_thread.start()
@@ -655,6 +1015,7 @@ class PagedServeEngine:
         return cls(kv, pre, dec, max_seq_len=int(max_seq_len), contract="zoo", **kw)
 
     def _on_stream(self):
+        """The prefill lane's stream as the current stream."""
         return torch.cuda.stream(self._stream) if self._stream is not None \
             else contextlib.nullcontext()
 
@@ -704,9 +1065,15 @@ class PagedServeEngine:
             self._prefill_batches = self._prefill_tokens = self._prefill_rows = 0
             self._decode_steps = self._decode_rows = self._decode_padded = 0
             self._decode_s = 0.0
-            self._lane.stats.clear()
-            for c in self._lane.launches.values():
-                c.clear()
+            self._migrations = 0
+            self._placed.clear()
+            for lane in self._lanes_now():
+                lane.stats.clear()
+                for c in lane.launches.values():
+                    c.clear()
+            for pool in self.kv.pools.values():
+                with pool.lock:
+                    pool.spills = pool.refetches = 0
             self._token_lat.clear()
             self._seq_lat.clear()
             self._ttft.clear()
@@ -722,17 +1089,30 @@ class PagedServeEngine:
             self._closed = True
             self._cv.notify_all()
         self._prefill_thread.join(timeout=60)
-        self._lane.close()
+        for lane in self._lanes_now():
+            lane.close()
 
     def drain(self) -> None:
         """Block until every submitted sequence has finished: nothing
-        queued, nothing mid-prefill, nothing active on the decode lane."""
+        queued, nothing mid-prefill, nothing active on a decode lane."""
         while True:
             with self._cv:
                 queued = len(self._queue) + self._inflight
-            if not queued and not self._lane.active_count():
+            if not queued and not sum(lane.active_count() for lane in self._lanes_now()):
                 return
             time.sleep(0.002)
+
+    def _lanes_now(self) -> "list[_DecodeLane]":
+        with self._lane_lock:
+            return list(self._lanes.values())
+
+    def _lane_for(self, device) -> "_DecodeLane":
+        """``device``'s decode lane, started on first use."""
+        with self._lane_lock:
+            lane = self._lanes.get(device.key)
+            if lane is None:
+                lane = self._lanes[device.key] = _DecodeLane(self, device)
+            return lane
 
     # -- prefill lane (throughput: token-budget batching) --------------------
 
@@ -776,10 +1156,12 @@ class PagedServeEngine:
 
     def _run_prefill(self, group: "list[_PagedRequest]") -> None:
         dev = self.device.torch_device
+        sched = self.scheduler
         with self._on_stream():
-            tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
-            k, v, state, logits = self.prefill_fn(tokens, None)
-            logits = logits.float().cpu().numpy()
+            with self.kv.gate.shared():
+                tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
+                k, v, state, logits = self.prefill_fn(tokens, None)
+                logits = logits.float().cpu().numpy()
             # First token samples host-side at position 0 of each
             # request's own PRNG stream — batch composition cannot leak.
             nxt = [sample_token(logits[i], r.sampling, r.rid, 0) for i, r in enumerate(group)]
@@ -790,22 +1172,58 @@ class PagedServeEngine:
                 self._prefill_rows += len(group)
             need = self.kv.spec.pages_for(k.shape[2]) + 1
             for i, req in enumerate(group):
-                if self.pool.num_free < need:
-                    raise OutOfPages(f"{self.device.key}: a prompt of {k.shape[2]} tokens needs "
-                                     f"{need} free page(s), {self.pool.num_free} free; spilling "
-                                     f"sequences is not ported yet ({_SCHEDULER})")
-                req.seq = self.kv.new_seq(self.device)
-                # k[i]: (L, T', Kh, D) — the whole prompt pages in as one write.
-                self.kv.append(req.seq, k[i], v[i])
+                pool = self._pool_with_room(sched.select(args=()), need)
+                try:
+                    req.seq = self.kv.new_seq(pool.device)
+                    # k[i]: (L, T', Kh, D) — the whole prompt pages in as one write.
+                    self.kv.append(req.seq, k[i], v[i])
+                finally:
+                    pool.admit(-1)
                 if state is not None:
                     req.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
+                with self._m_lock:
+                    self._placed[pool.device.key] += 1
                 req.out.append(nxt[i])
                 req.first_token_s = done - req.arrived
                 if req.max_new <= 1:
                     self._finish(req)
                 else:
-                    self._lane.admit(req)
+                    self._lane_for(pool.device).admit(req)
                 self._prefill_done(req)
+
+    def _pool_with_room(self, dev, need_pages: int) -> PagePool:
+        """The chosen device's pool if it has room, else that pool after
+        spilling its least-recently-used sequences, else the pool with the
+        most free pages: admission fails only when no pool can hold the
+        prompt.  The pool returned is held by ``PagePool.admit`` (the caller
+        lets go once the sequence is paged in): its lane can neither refetch
+        nor grow a sequence meanwhile, so it cannot take the pages a spill
+        freed for the admission.
+
+        ``spill_lru`` keeps every buffer of the device but the pool's own
+        sequences, since no other buffer's bytes give the pool a page, and
+        spilling repeats while the bytes a spill freed (a sequence's state
+        among them) left the pool short of pages."""
+        pool = self.kv.pools.get(dev.key)
+        if pool is not None:
+            pool.admit(+1)
+            while pool.num_free < need_pages:
+                with self.kv._seq_lock:
+                    mine = {s.gid for s in self.kv._seqs.values() if s.pool is pool}
+                keep = set(agas.registry.gids_on(dev.key, kind="buffer")) - mine
+                need = (need_pages - pool.num_free) * self.kv.spec.page_bytes
+                if not any([f.get() for f in self.scheduler.spill_lru(dev, need, keep=keep)]):
+                    break  # nothing left to spill
+            if pool.num_free >= need_pages:
+                return pool
+            pool.admit(-1)
+        best = max(self.kv.pools.values(), key=lambda p: p.num_free)
+        best.admit(+1)
+        if best.num_free < need_pages:
+            best.admit(-1)
+            raise OutOfPages(f"no pool has {need_pages} free page(s); deepest is "
+                             f"{best.device.key} with {best.num_free}")
+        return best
 
     def _prefill_done(self, req: "_PagedRequest") -> None:
         """Prefill is done with this request (admitted or settled): mark it
@@ -851,8 +1269,15 @@ class PagedServeEngine:
         return xs[int(q * (len(xs) - 1))]
 
     def metrics(self) -> dict:
+        """Counters and latency percentiles since the last
+        ``reset_metrics``.  ``decode`` sums the lanes' graph counters
+        (``decode_by_device`` has each lane's); ``kv`` has each pool's
+        pages, spills and refetches; ``placed`` the sequences placed on
+        each device and ``placements`` the scheduler's decisions."""
+        lanes = self._lanes_now()
         with self._m_lock:
             rows = self._prefill_rows + self._decode_rows
+            by_device = {lane.device.key: lane.graph_metrics() for lane in lanes}
             m = {
                 "requests_submitted": self._submitted,
                 "requests_completed": self._completed,
@@ -870,13 +1295,20 @@ class PagedServeEngine:
                 "ttft_p50_s": self._pct(self._ttft, 0.50),
                 "ttft_p99_s": self._pct(self._ttft, 0.99),
                 "seq_latency_p99_s": self._pct(self._seq_lat, 0.99),
-                "decode": self._lane.graph_metrics(),
+                "migrations": self._migrations,
+                "placed": dict(self._placed),
+                "decode": _sum_lanes(by_device.values()),
+                "decode_by_device": by_device,
             }
         elapsed = max(_now() - self._started_at, 1e-9)
         m["elapsed_s"] = elapsed
         m["seqs_per_s"] = m["requests_completed"] / elapsed
         m["kv"] = self.kv.stats()
-        m["active"] = self._lane.active_count()
+        m["spills"] = sum(p["spills"] for p in m["kv"].values())
+        m["refetches"] = sum(p["refetches"] for p in m["kv"].values())
+        m["placements"] = self.scheduler.stats()
+        m["active_by_device"] = {lane.device.key: lane.active_count() for lane in lanes}
+        m["active"] = sum(m["active_by_device"].values())
         return m
 
     def __repr__(self) -> str:
@@ -884,39 +1316,74 @@ class PagedServeEngine:
                 f"{self._submitted} sequences)")
 
 
-class _DecodeLane:
-    """The decode lane: continuous batched stepping at warm row counts.
+_LANE_COUNTS = ("eager_steps", "replayed_steps", "graphs_captured", "capture_s", "stalls",
+                "deferred_rows", "migrations_out")
 
-    The lane thread owns the resident sequences.  Each iteration: fold in
-    arrivals (deadline-bounded wait only when idle), take up to
-    ``max_batch`` sequences, grow tails by a page where needed, pad the
+
+def _sum_lanes(lanes) -> dict:
+    """The decode counters of several lanes as one lane's: counts summed,
+    warm counts united."""
+    out = {"warm_counts": set(), **{k: 0 for k in _LANE_COUNTS},
+           "captured_launches": Counter(), "replayed_launches": Counter()}
+    for d in lanes:
+        out["warm_counts"] |= set(d["warm_counts"])
+        for k in _LANE_COUNTS:
+            out[k] += d[k]
+        for k in ("captured_launches", "replayed_launches"):
+            out[k].update(d[k])
+    out["warm_counts"] = sorted(out["warm_counts"])
+    out["captured_launches"] = dict(out["captured_launches"])
+    out["replayed_launches"] = dict(out["replayed_launches"])
+    return out
+
+
+class _DecodeLane:
+    """One device's decode lane: continuous batched stepping at warm row
+    counts, on a CUDA stream of its own.
+
+    The lane thread owns the device's resident sequences.  Each iteration:
+    fold in arrivals (deadline-bounded wait only when idle), take up to
+    ``max_batch`` sequences (resident ones first), lock them in seq-id
+    order, make spilled ones resident and grow tails by a page where
+    needed (a sequence without pages waits for a later step), pad the
     batch to a warm row count (``warm_rows``; pad rows duplicate the last
     row — its scatter rewrites the same slot with the same value — and
-    their outputs are discarded), run ONE step of ``decode_fn`` over the
-    pool's slabs, sample on the host, and retire finished sequences.
-    Mixed-length sequences share the step at their true lengths.  On a
-    CUDA device the step at each warm count is a CUDA graph
+    their outputs are discarded), wait on the sequences' events, run ONE
+    step of ``decode_fn`` over the pool's slabs, sample on the host, record
+    the step's event on each sequence, unlock, and retire finished
+    sequences.  Mixed-length sequences share the step at their true
+    lengths.  On a CUDA device the step at each warm count is a CUDA graph
     (``_StepGraphs``); on the CPU it runs eagerly, its tokens, lengths and
     tables going to the device as one copy a step."""
 
-    def __init__(self, engine: PagedServeEngine):
+    def __init__(self, engine: PagedServeEngine, device):
         self.engine = engine
+        self.device = device
+        self.pool = engine.kv.pool_of(device)
+        self._stream = torch.cuda.Stream(device.torch_device) if device.is_cuda else None
+        self._steps = 0
         self._cv = threading.Condition()
         self._warm: "set[int]" = set(engine.decode_shapes)
         self._inbox: "list[_PagedRequest]" = []
         self._active: "list[_PagedRequest]" = []
         self._closed = False
         self._stalls = 0  # consecutive steps where nothing fit in the pool
-        # Since the engine's last reset_metrics, under its _m_lock: steps
-        # (eager_steps, replayed_steps, graphs_captured, capture_s: the
-        # seconds captures took) and, by kernel package, the launches
-        # captured into graphs and replayed from them.
+        # Since the engine's last reset_metrics, under its _m_lock: the
+        # _LANE_COUNTS (steps run eagerly and replayed, graphs captured and
+        # the seconds captures took, deferred steps and rows, sequences
+        # migrated away) and, by kernel package, the launches captured into
+        # graphs and replayed from them.
         self.stats: Counter = Counter()
         self.launches = {"captured": Counter(), "replayed": Counter()}
-        self._graphs = _StepGraphs(self) if engine.device.is_cuda else None
+        self._graphs = _StepGraphs(self) if device.is_cuda else None
         self._thread = threading.Thread(
-            target=self._loop, name=f"paged:{engine.name}:decode", daemon=True)
+            target=self._loop, name=f"paged:{engine.name}:decode:{device.key}", daemon=True)
         self._thread.start()
+
+    def _on_stream(self):
+        """The lane's stream as the current stream."""
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
 
     def admit(self, req: "_PagedRequest") -> None:
         with self._cv:
@@ -929,9 +1396,7 @@ class _DecodeLane:
 
     def graph_metrics(self) -> dict:
         """The decode counters (the caller holds the engine's _m_lock)."""
-        return {"warm_counts": sorted(self._warm),
-                **{k: self.stats[k] for k in ("eager_steps", "replayed_steps", "graphs_captured",
-                                              "capture_s")},
+        return {"warm_counts": sorted(self._warm), **{k: self.stats[k] for k in _LANE_COUNTS},
                 "captured_launches": dict(self.launches["captured"]),
                 "replayed_launches": dict(self.launches["replayed"])}
 
@@ -965,6 +1430,11 @@ class _DecodeLane:
                         self._cv.wait(timeout=max(deadline - _now(), 0.0005))
                 self._active.extend(self._inbox)
                 self._inbox.clear()
+                # Residents first (a stable sort keeps the round-robin
+                # order): a spilled sequence rejoins once pages free up, and
+                # ahead of resident work one unfittable sequence would stall
+                # the lane.
+                self._active.sort(key=lambda r: r.seq.spilled)
                 cap = pol.max_batch if pol.max_batch is not None else 64
                 batch = self._active[:cap]
             try:
@@ -978,38 +1448,80 @@ class _DecodeLane:
                     eng._finish(r, e)
 
     def _step(self, batch: "list[_PagedRequest]") -> None:
+        """One decode step over ``batch``.  Every sequence's lock is held
+        from ``ensure_resident`` to ``note_decoded`` (taken in seq-id
+        order, as ``defrag`` takes them), so a racing spill or defrag can
+        neither free nor renumber a page the step reads, and the step's
+        event is recorded on each sequence before its lock goes.  A step
+        graph the step left to capture is captured after the locks and the
+        gate are released, holding the gate alone."""
         t0 = _now()
-        prep = self._prepare(batch)
-        if prep is None:
-            return
-        batch, inputs = prep
-        with self.engine._on_stream():
-            run = self._graphs.step if self._graphs is not None else self._eager
-            logits, state = run(*inputs)
-        self._advance(batch, inputs[0], logits, state, t0)
+        held = []
+        try:
+            for r in sorted(batch, key=lambda q: q.seq.seq_id):
+                r.seq._lock.acquire()
+                held.append(r.seq)
+            with self.engine.kv.gate.shared():
+                prep = self._prepare(batch)
+                if prep is None:
+                    return
+                ready, inputs = prep
+                with self._on_stream():
+                    for r in ready:
+                        r.seq._wait_ready()
+                    run = self._graphs.step if self._graphs is not None else self._eager
+                    logits, state = run(*inputs)
+                    ev = _record(self.device.torch_device)
+                for r in ready:
+                    r.seq._ready = ev
+                done = self._advance(ready, inputs[0], logits, state, t0)
+        finally:
+            for s in held:
+                s._lock.release()
+        if self._graphs is not None:
+            with self._on_stream():
+                self._graphs.capture_pending()
+        self._retire(done)
+        charge = getattr(self.engine.scheduler, "charge", None)
+        if callable(charge):
+            # This step never passed a lane queue: the recency counter is
+            # the only sign least_loaded has of its rows.
+            charge(self.device, len(ready))
+        self._steps += 1
+        if self._steps % self.engine.rebalance_every == 0:
+            self._maybe_rebalance([r for r in ready if r not in done])
 
     def _prepare(self, batch: "list[_PagedRequest]"):
-        """Grow tails by a page where needed and build the step's host
-        inputs at a warm row count: ``(ready batch, (rows, tokens,
-        lengths, tables, states))``, or None when nothing fits in the pool
-        (the batch then waits for finishers to free pages)."""
+        """Make spilled sequences resident and grow tails by a page where
+        needed, and build the step's host inputs at a warm row count:
+        ``(ready batch, (rows, tokens, lengths, tables, states))``.  A
+        sequence without pages, or needing one while an admission makes
+        room in the pool, waits for a later step (a deferred row); with
+        none ready the lane sleeps briefly and returns None, and
+        ``_MAX_DECODE_STALLS`` such steps in a row (not counting those an
+        admission caused) fail the batch."""
         eng = self.engine
         kv = eng.kv
         ready = []
-        for r in batch:
-            try:
-                kv.ensure_slot(r.seq)
-            except OutOfPages:
-                continue
-            ready.append(r)
+        with self._on_stream():
+            for r in batch:
+                try:
+                    r.seq.ensure_resident()
+                    kv.ensure_slot(r.seq)
+                except OutOfPages:
+                    continue
+                ready.append(r)
+        if len(ready) < len(batch):
+            self._tally({"deferred_rows": len(batch) - len(ready)})
         if not ready:
-            self._stalls += 1
+            self._stalls += 0 if self.pool.admitting else 1
+            self._tally({"stalls": 1})
             if self._stalls > _MAX_DECODE_STALLS:
                 raise OutOfPages(
-                    f"{eng.device.key}: {len(batch)} sequence(s) stalled "
+                    f"{self.device.key}: {len(batch)} sequence(s) stalled "
                     f"{self._stalls} consecutive steps waiting for pages — "
                     "the pool cannot hold this working set")
-            time.sleep(0.002)  # wait for a finisher to free pages
+            time.sleep(0.002)  # wait for a finisher or a sibling to free pages
             return None
         self._stalls = 0
         B = len(ready)
@@ -1032,19 +1544,21 @@ class _DecodeLane:
         eng = self.engine
         self._tally({"eager_steps": 1})
         step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
-                             eng.device.torch_device)
+                             self.device.torch_device)
         tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
         state = None
         if rows[0] is not None:
             state = _tree_map(lambda *xs: torch.stack(xs), *rows)
-        ks, vs = eng.pool.arrays()
+        ks, vs = self.pool.arrays()
         _, _, state, logits = eng.decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
-        eng.pool.mark_written()
+        self.pool.mark_written()
         return logits.float().cpu().numpy(), state
 
-    def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state, t0: float) -> None:
-        """Sample each real row's token, hand back its state, retire the
-        finished sequences and count the step."""
+    def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state,
+                 t0: float) -> "list[_PagedRequest]":
+        """Sample each real row's token, hand back its state and count the
+        step; returns the finished requests, which leave the active set
+        here and are settled by ``_retire``."""
         eng = self.engine
         kv = eng.kv
         B = len(batch)
@@ -1076,8 +1590,42 @@ class _DecodeLane:
                     if r in self._active:
                         self._active.remove(r)
                         self._active.append(r)
+        return done
+
+    def _retire(self, done: "list[_PagedRequest]") -> None:
         for r in done:
-            eng._finish(r)
+            self.engine._finish(r)
+
+    def _maybe_rebalance(self, batch: "list[_PagedRequest]") -> None:
+        """Ask the scheduler whether this lane's sequences still belong
+        here: ``select_batch`` over their ``SeqPages`` keeps them home under
+        affinity (their bytes are here) unless memory pressure vetoes the
+        device; a different answer migrates the coldest sequence (one
+        coalesced page move) to that device's lane.  Only under page
+        pressure (under 20% of the pool free): otherwise a pure load policy
+        scoring this lane's own charge would move sequences back and forth
+        for no memory relief."""
+        if not batch or self.pool.num_free * 5 >= self.pool.num_pages:
+            return
+        eng = self.engine
+        try:
+            dev = eng.scheduler.select_batch([[r.seq] for r in batch])
+        except RuntimeError:  # advisory: never fail decode over a placement
+            return
+        if dev.key == self.device.key or dev.key not in eng.kv.pools:
+            return
+        victim = min(batch, key=lambda r: r.seq._last_use)
+        try:
+            with self._on_stream():
+                eng.kv.migrate(victim.seq, dev)
+        except OutOfPages:
+            return
+        with self._cv:
+            self._active.remove(victim)
+        with eng._m_lock:
+            eng._migrations += 1
+        self._tally({"migrations_out": 1})
+        eng._lane_for(dev).admit(victim)
 
 
 class _CountGraph:
@@ -1126,11 +1674,12 @@ class _StepGraphs:
     memory pool, each captured against the pool's slabs by address.
 
     The first step at a count runs ``decode_fn`` eagerly on the count's
-    static tensors and uses its result; the step is then captured on a
-    side stream (capture executes nothing) joined to the engine stream by
-    events, in ``thread_local`` mode, so the prefill lane's thread keeps
-    launching meanwhile.  Every later step at that count replays the graph
-    on the engine stream.  If a slab's tensor was rebound since the
+    static tensors and uses its result; after the step (``capture_pending``)
+    it is captured on a side stream (capture executes nothing) joined to
+    the lane's stream by events, in ``thread_local`` mode, holding the
+    cache's gate alone (``_CaptureGate``): the prefill lane, the other
+    lanes and page moves wait meanwhile.  Every later step at that count
+    replays the graph on the lane's stream.  If a slab's tensor was rebound since the
     captures, every graph is dropped and recaptured: a stale graph never
     replays.  Outputs are read out of the graph's memory (logits to the
     host, the state cloned) before the next step.  The graphs of all counts
@@ -1140,24 +1689,25 @@ class _StepGraphs:
 
     def __init__(self, lane: _DecodeLane):
         self.lane = lane
-        self.engine = engine = lane.engine
+        self.engine = lane.engine
         self._counts: "dict[int, _CountGraph]" = {}
         self._pool = None
         self._slabs: "tuple[int, int] | None" = None
+        self._pending = None  # (count graph, slabs, state) to capture after the step
         # High priority: the port's other streams come from PyTorch's
         # normal-priority pool, so no other thread's work lands on it.
-        self._cap = torch.cuda.Stream(engine.device.torch_device, priority=-1)
+        self._cap = torch.cuda.Stream(lane.device.torch_device, priority=-1)
 
     def step(self, W: int, tokens, lens, tbl, rows):
-        """One step at ``W`` rows on the engine stream -> (host logits
+        """One step at ``W`` rows on the lane's stream -> (host logits
         (W, V), the stacked state cloned out of the graph, or None)."""
-        eng = self.engine
-        ks, vs = eng.pool.arrays()
+        eng, lane = self.engine, self.lane
+        ks, vs = lane.pool.arrays()
         if self._slabs is not None and self._slabs != (ks.data_ptr(), vs.data_ptr()):
             self._counts, self._pool, self._slabs = {}, None, None  # stale: drop every graph
         c = self._counts.get(W)
         if c is None:
-            c = self._counts[W] = _CountGraph(W, tbl.shape[1], eng.device.torch_device)
+            c = self._counts[W] = _CountGraph(W, tbl.shape[1], lane.device.torch_device)
         state = c.load(tokens, lens, tbl, rows)
         if c.graph is None:
             self.lane._tally({"eager_steps": 1})
@@ -1166,21 +1716,31 @@ class _StepGraphs:
             c.graph.replay()
             self.lane._tally({"replayed_steps": 1}, ("replayed", c.recorded))
             out = c.outs
-        eng.pool.mark_written()
+        lane.pool.mark_written()
         _, _, out_state, logits = out
         host = logits.float().cpu().numpy()
         if out_state is not None:
             out_state = _tree_map(lambda t: t.clone(), out_state)
         if c.graph is None:
-            self._capture(c, ks, vs, state)
+            self._pending = (c, ks, vs, state)
         return host, out_state
+
+    def capture_pending(self) -> None:
+        """Capture the graph the last eager step left pending, on the
+        current (the lane's) stream, holding the cache's gate alone."""
+        if self._pending is None:
+            return
+        c, ks, vs, state = self._pending
+        self._pending = None
+        with self.engine.kv.gate.exclusive():
+            self._capture(c, ks, vs, state)
 
     def _capture(self, c: _CountGraph, ks, vs, state) -> None:
         eng = self.engine
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(eng.device.torch_device)
+        cur = torch.cuda.current_stream(self.lane.device.torch_device)
         self._cap.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self._cap), tally_launches() as recorded:

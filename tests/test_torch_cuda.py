@@ -8,14 +8,17 @@ file imports no JAX, so it also runs where only PyTorch is installed
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import ctypes
+import os
 import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke
-from repro_torch.core import Promise, get_all_devices
+from repro_torch.core import (HOST_KEY, Promise, Scheduler, get_all_devices, registry,
+                              reset_runtime, wait_all)
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1010,13 +1013,14 @@ def test_torch_cuda_paged_engine_decodes_after_the_page_write():
         return ks, vs, state, torch.nn.functional.one_hot(o[:, 0, 0, 0].round().long(), V).float()
 
     eng = PagedServeEngine(kv, prefill_fn, decode_fn, max_seq_len=16, name="t-order")
-    write = eng.pool.write_tokens
+    pool = kv.pool_of(dev)
+    write = pool.write_tokens
 
     def slow_write(pages, k, v):
-        torch.cuda._sleep(SLEEP_CYCLES)  # hold the write back on the engine's stream
+        torch.cuda._sleep(SLEEP_CYCLES)  # hold the write back on the prefill lane's stream
         write(pages, k, v)
 
-    eng.pool.write_tokens = slow_write
+    pool.write_tokens = slow_write
     reset_launch_counts()
     try:
         futs = [eng.submit(np.full(6, c, np.int32), 4) for c in (11, 29)]
@@ -1173,11 +1177,10 @@ def _resident(eng, prompts):
 
 
 def _eager_step(eng, reqs):
-    lane = eng._lane
-    prep = lane._prepare(reqs)
-    with eng._on_stream():
-        logits, state = lane._eager(*prep[1])
-    lane._advance(prep[0], prep[1][0], logits, state, 0.0)
+    """One step of the lane with its graphs off: ``decode_fn`` eagerly."""
+    lane = eng._lane_for(eng.device)
+    lane._graphs = None
+    lane._step(reqs)
 
 
 def _paged_pair(arch):
@@ -1207,7 +1210,7 @@ def test_torch_cuda_paged_graph_tokens_equal_eager_decode(arch):
     try:
         greqs, ereqs = _resident(geng, prompts), _resident(eeng, prompts)
         for b in rows:
-            geng._lane._step(greqs[:b])
+            geng._lane_for(geng.device)._step(greqs[:b])
             _eager_step(eeng, ereqs[:b])
         d = geng.metrics()["decode"]
     finally:
@@ -1235,9 +1238,10 @@ def test_torch_cuda_paged_graph_recaptured_after_slab_rebind():
         greqs, ereqs = _resident(geng, prompts[:2]), _resident(eeng, prompts[:2])
         for i in range(6):
             if i == 3:
+                pool = geng.kv.pool_of(geng.device)
                 with geng._on_stream():
-                    geng.pool.k_slab._set_tensor(geng.pool.k_slab.array().clone())
-            geng._lane._step(greqs)
+                    pool.k_slab._set_tensor(pool.k_slab.array().clone())
+            geng._lane_for(geng.device)._step(greqs)
             _eager_step(eeng, ereqs)
         d = geng.metrics()["decode"]
     finally:
@@ -1260,13 +1264,13 @@ def test_torch_cuda_paged_graph_kernel_count_matches_profiler():
     eeng.close()
     try:
         reqs = _resident(geng, prompts)
-        geng._lane._step(reqs)  # eager at 4, then captured
+        geng._lane_for(geng.device)._step(reqs)  # eager at 4, then captured
         with profile(activities=[ProfilerActivity.CUDA]):
-            geng._lane._step(reqs)  # the profiler's first start, outside the window
+            geng._lane_for(geng.device)._step(reqs)  # the profiler's first start, outside the window
         before = dict(geng.metrics()["decode"]["replayed_launches"])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                geng._lane._step(reqs)
+                geng._lane_for(geng.device)._step(reqs)
             torch.cuda.synchronize()
         after = geng.metrics()["decode"]["replayed_launches"]
     finally:
@@ -1274,3 +1278,229 @@ def test_torch_cuda_paged_graph_kernel_count_matches_profiler():
     seen = sum(1 for e in prof.events()
                if e.device_type == DeviceType.CUDA and "paged_decode" in e.name)
     assert after["paged_attention"] - before["paged_attention"] == 3 * cfg.num_layers == seen
+
+
+# ---------------------------------------------------------------------------
+# logical devices, spill and refetch, run_on_any, the paged engine's fleet
+# ---------------------------------------------------------------------------
+
+
+def _logical(n):
+    """``n`` logical devices of the first card (``REPRO_LOGICAL_DEVICES``)."""
+    old = os.environ.get("REPRO_LOGICAL_DEVICES")
+    os.environ["REPRO_LOGICAL_DEVICES"] = str(n)
+    try:
+        return get_all_devices(1, 0).get()[:n]
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_LOGICAL_DEVICES")
+        else:
+            os.environ["REPRO_LOGICAL_DEVICES"] = old
+
+
+def _lanes_sleep_s(devs):
+    """Host seconds for one ``torch.cuda._sleep`` kernel submitted to each
+    device's default lane at once, until all have ended."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [d.ops_queue.submit(torch.cuda._sleep, SLEEP_CYCLES) for d in devs]
+    wait_all(futs)
+    for d in devs:
+        d.synchronize()
+    return time.perf_counter() - t0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_logical_devices_run_kernels_concurrently():
+    """Every logical device but the first has a CUDA stream of its own as
+    its default stream, so two logical devices' kernels overlap: two ~0.1 s
+    sleep kernels on two devices take well under twice one."""
+    _need_cuda()
+    try:
+        devs = _logical(4)
+        assert [d.key for d in devs] == ["cuda:0", "cuda:0.1", "cuda:0.2", "cuda:0.3"]
+        streams = [d.default_stream.cuda_stream for d in devs]
+        assert streams[0] == torch.cuda.default_stream()
+        assert len({s.cuda_stream for s in streams}) == 4
+        _lanes_sleep_s(devs[1:2])  # warm the lanes
+        for pair in ((devs[1], devs[2]), (devs[0], devs[3])):
+            one = min(_lanes_sleep_s(pair[:1]) for _ in range(2))
+            both = min(_lanes_sleep_s(pair) for _ in range(2))
+            assert both < 1.5 * one, (pair, one, both)
+    finally:
+        reset_runtime()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 1 << 22])
+def test_torch_cuda_buffer_spill_refetch_is_bit_exact(n):
+    """A spill leaves a pinned host copy and the HOST_KEY record; a read
+    and a kernel launch refetch it bit for bit, on logical device 0 and 3."""
+    _need_cuda()
+    try:
+        devs = _logical(4)
+        prog = devs[0].create_program({"partition_map": map_ops.partition_map}).get()
+        data = np.random.default_rng(n).normal(size=(n,)).astype(np.float32) * 50
+        for dev in (devs[0], devs[3]):
+            buf = dev.create_buffer_from(data).get()
+            want = map_ops.partition_map(buf.array().clone())
+            for read in ("host", "launch"):
+                assert buf.spill().get() is True
+                assert registry.placement(buf.gid).device_key == HOST_KEY
+                assert buf._spilled_host.is_pinned() and buf._tensor is None
+                if read == "host":
+                    assert buf.enqueue_read_sync().tobytes() == data.tobytes()
+                else:
+                    got = prog.for_device(dev).run([buf], "partition_map").get()
+                    assert torch.equal(got, want)
+                assert registry.placement(buf.gid).device_key == dev.key
+            assert (dev.spills, dev.refetches) >= (2, 2)
+            buf.free().get()
+    finally:
+        reset_runtime()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_run_on_any_over_4_logical_devices_is_bit_equal():
+    """partition_map of 16 chunks through ``run_on_any`` over 4 logical
+    devices (raw chunks with stealing on; buffers spread over the fleet
+    under each policy with it off, then under a memory limit that spills
+    and refetches) is bit-equal to one device's."""
+    _need_cuda()
+    try:
+        devs = _logical(4)
+        x = torch.randn(1 << 22, device="cuda") * 100
+        chunks = list(x.chunk(16))
+        want = [map_ops.partition_map(c) for c in chunks]
+        torch.cuda.synchronize()
+        prog = devs[0].create_program({"partition_map": map_ops.partition_map}).get()
+        bufs = [devs[i % 4].create_buffer_from(c).get() for i, c in enumerate(chunks)]
+
+        def run(args, sched):
+            got = [f.get() for f in [prog.run_on_any([a], "partition_map", scheduler=sched)
+                                     for a in args]]
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), sched
+            return sched.stats()
+
+        run(chunks, Scheduler(devs))
+        placed = {p: run(bufs, Scheduler(devs, policy=p, steal=False))
+                  for p in ("static", "round_robin", "least_loaded", "affinity")}
+        assert len(placed["round_robin"]) == 4
+        assert placed["affinity"] == {d.key: 4 for d in devs}  # where the bytes are
+        for d in devs:
+            d.memory_limit = 3 * bufs[0].nbytes
+            d.spills = d.refetches = 0
+        run(bufs, Scheduler(devs, steal=False))
+        assert sum(d.spills for d in devs) >= 1 and sum(d.refetches for d in devs) >= 1
+        wait_all([b.free() for b in bufs])
+    finally:
+        reset_runtime()
+
+
+def _fleet_engines(arch, devs, decode_shapes=(1,)):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config(arch))
+    params = get_model(cfg).init(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+    ref = PagedServeEngine.from_config(cfg, params=params, devices=devs[:1], max_seq_len=64,
+                                       decode_shapes=decode_shapes, name=f"t-ref-{arch}")
+    eng = PagedServeEngine.from_config(cfg, params=params, devices=devs, max_seq_len=64,
+                                       decode_shapes=decode_shapes,
+                                       scheduler=Scheduler(devs), name=f"t-fleet-{arch}")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=s).astype(np.int32) for s in (5, 14, 17, 9)]
+    return cfg, ref, eng, prompts
+
+
+def _step_one_by_one(eng, reqs):
+    """One decode step of each request alone (one row: the same products
+    whatever its neighbours), on its own device's lane."""
+    for r in reqs:
+        eng._lane_for(r.seq.device)._step([r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_torch_cuda_paged_tokens_survive_defrag_and_migrate_between_replays(arch):
+    """Replayed decode steps (one CUDA graph a lane, captured against the
+    pool's slabs by address) with a ``defrag`` that moves every live page
+    and a ``migrate`` to the other logical device's pool between them: the
+    tokens and states equal an undisturbed engine's; the slabs keep their
+    storage, so lane 0 never recaptures."""
+    _need_cuda()
+    try:
+        devs = _logical(2)
+        cfg, ref, eng, prompts = _fleet_engines(arch, devs)
+        filler = _resident(eng, prompts[:1])[0]  # the lowest pages: freed for the defrag
+        reqs, rreqs = _resident(eng, prompts), _resident(ref, prompts)
+        pool = eng.kv.pool_of(devs[0])
+        ptrs = [t.data_ptr() for t in pool.arrays()]
+        for i in range(10):
+            if i == 3:
+                eng.kv.free_seq(filler.seq)
+                assert eng.kv.defrag(devs[0]) > 0
+            if i == 6:
+                eng.kv.migrate(reqs[1].seq, devs[1])
+                assert reqs[1].seq.device is devs[1]
+            _step_one_by_one(eng, reqs)
+            _step_one_by_one(ref, rreqs)
+        m = eng.metrics()["decode_by_device"]
+    finally:
+        ref.close()
+        eng.close()
+        reset_runtime()
+    assert [r.out for r in reqs] == [r.out for r in rreqs]
+    for r, q in zip(reqs, rreqs):
+        for n in (r.seq.state or {}):
+            assert torch.equal(r.seq.state[n], q.seq.state[n])
+    assert [t.data_ptr() for t in pool.arrays()] == ptrs
+    assert m[devs[0].key]["graphs_captured"] == 1 and m[devs[1].key]["graphs_captured"] == 1
+    assert m[devs[0].key]["replayed_steps"] == 10 * 4 - 4 - 1
+    assert m[devs[1].key]["eager_steps"] == 1 and m[devs[1].key]["replayed_steps"] == 3
+
+
+@pytest.mark.cuda
+def test_torch_cuda_spill_racing_a_replayed_step_waits_for_it():
+    """A spill asked for while a replayed step of the sequence is still
+    running on the device (held back by a ~0.1 s sleep kernel on the lane's
+    stream) waits for the step and its event: the pages stay with the
+    sequence until then, and the tokens after the refetch are the
+    undisturbed engine's."""
+    _need_cuda()
+    try:
+        devs = _logical(2)
+        cfg, ref, eng, prompts = _fleet_engines("olmo-1b", devs)
+        reqs, rreqs = _resident(eng, prompts[:2]), _resident(ref, prompts[:2])
+        lane = eng._lane_for(devs[0])
+        for _ in range(2):  # eager + capture, then a replay
+            _step_one_by_one(eng, reqs)
+            _step_one_by_one(ref, rreqs)
+        replay = lane._graphs.step
+
+        def held_back(*a):
+            torch.cuda._sleep(SLEEP_CYCLES)  # on the lane's stream, ahead of the replay
+            return replay(*a)
+
+        lane._graphs.step = held_back
+        r = reqs[0]
+        pages = list(r.seq.pages)
+        t = threading.Thread(target=lambda: lane._step([r]))
+        t.start()
+        time.sleep(0.02)  # the step holds the sequence; its kernels are queued
+        f = r.seq.spill()
+        time.sleep(0.03)
+        assert not f.done() and r.seq.pages == pages and not r.seq.spilled
+        t.join(timeout=60)
+        assert not t.is_alive() and f.get(timeout=60) is True and r.seq.spilled
+        lane._graphs.step = replay
+        _step_one_by_one(ref, rreqs[:1])  # the step the spill raced
+        for _ in range(3):
+            _step_one_by_one(eng, reqs)  # the first refetches the spilled sequence
+            _step_one_by_one(ref, rreqs)
+        d = eng.metrics()
+    finally:
+        ref.close()
+        eng.close()
+        reset_runtime()
+    assert [q.out for q in reqs] == [q.out for q in rreqs]
+    assert d["spills"] >= 1 and d["refetches"] >= 1

@@ -8,7 +8,8 @@ sweep of logits and sampling knobs.  The port's own checks: page 0 is
 never handed out, double frees and exhaustion raise, ``append`` zero-pads
 a partial page on the device and refuses a start off a page boundary, the
 AGAS record of a sequence carries its pages and state, and the engine
-refuses what it cannot run.
+refuses what it cannot run (the legacy contract, a fleet across
+localities).
 """
 import os
 import subprocess
@@ -28,7 +29,7 @@ from repro.serving.paged import PagedKVCache as JaxPagedKVCache
 from repro.serving.paged import PageSpec as JaxPageSpec
 from repro.serving.paged import SamplingParams as JaxSamplingParams
 from repro.serving.paged import sample_token as jax_sample_token
-from repro_torch.core import agas, get_all_devices
+from repro_torch.core import Scheduler, agas, get_all_devices
 from repro_torch.serving import (
     EngineClosed,
     OutOfPages,
@@ -249,12 +250,12 @@ def test_torch_engine_submit_refusals(device):
 def test_torch_engine_refuses_what_is_not_ported(device):
     with pytest.raises(NotImplementedError, match="fig9 port"):
         _toy_engine(device, contract="legacy")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _toy_engine(device, scheduler=object())
-    kv = PagedKVCache(PageSpec(1, 4, 1, 4), devices=[device], pool_pages=4)
-    kv.pools["cuda:7"] = kv.pools[device.key]  # a second device's pool
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PagedServeEngine(kv, None, None, max_seq_len=16)
+    # A fleet across localities (a device keyed in locality 1) and the
+    # cross-locality shipping of sequences wait for the parcelport.
+    remote = types.SimpleNamespace(key="L1/cpu:0")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        _toy_engine(device, scheduler=Scheduler([device, remote]))
+    assert not any(hasattr(PagedKVCache, n) for n in ("export_seq", "import_seq"))
 
 
 def test_torch_paged_modules_import_without_jax():

@@ -343,7 +343,7 @@ def _resident(eng, prompts, jax_side: bool):
 def _step_by_hand(eng, reqs, rows, jax_side: bool):
     """Step the decode lane over ``reqs[:b]`` for each b of ``rows``;
     returns the rows each step padded and the lane's warm set."""
-    lane = eng._lane_for(next(iter(eng.kv.pools.values())).device) if jax_side else eng._lane
+    lane = eng._lane_for(next(iter(eng.kv.pools.values())).device)
     pads = []
     for b in rows:
         before = eng.metrics()["padded_rows"]

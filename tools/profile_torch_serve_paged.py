@@ -111,11 +111,13 @@ def main() -> int:
                     r.out.append(int(torch.argmax(logits[i])))
                     reqs.append(r)
                 del k, v, state
-        lane = eng._lane
+        lane = eng._lane_for(dev)
 
         def eager_step():
             prep = lane._prepare(reqs)
-            with eng._on_stream():
+            with lane._on_stream():
+                for r in prep[0]:
+                    r.seq._wait_ready()
                 logits, state = lane._eager(*prep[1])
             lane._advance(prep[0], prep[1][0], logits, state, time.monotonic())
 
