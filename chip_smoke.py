@@ -44,7 +44,16 @@ with ``Dim3`` geometry, ``enqueue_read``):
         f32: eager through ``Program.run``, then ``Device.capture`` ->
         ``instantiate`` (one CUDA graph) -> 100 ``replay(feeds=...)`` with
         fresh inputs, each bit-equal to the eager chain on the same input;
-        then a two-chain plan joined by an add (a graph of two branches).
+        then a two-chain plan joined by an add (three segments on two
+        lanes, a CUDA graph each, one event edge).
+  fleet partition_map through ``run_on_any`` over 4 logical devices of the
+        card (fig6's shape, fig4's 2**28 f32 in 16 chunks), by policy.
+  graph_fleet  the same chunks, each partition_map -> stencil, recorded
+        through ``run_on_any`` (``round_robin``) over the 4 logical devices
+        and replayed through one future: a CUDA graph a segment, a transfer
+        step and a cross-device event edge a chunk; 20 replays with fresh
+        feeds bit-equal to the eager ``run_on_any`` DAG and to one device's
+        kernels, then host us and device ms a replay against that DAG.
 
 Both paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -54,7 +63,8 @@ counts the kernels each graph recorded at capture times its replays.
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
-paged serve run; the graph phase) and read just after; a kernel the run did
+paged serve run; the graph, fleet and graph_fleet phases) and read just
+after; a kernel the run did
 not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
 path's shapes and timed beside its bound.  The script prints the
@@ -64,6 +74,7 @@ without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import re
@@ -129,6 +140,10 @@ MANDEL_BLOCK = Dim3(32, 8)
 FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
 
 GRAPH_N, GRAPH_REPLAYS, GRAPH_TIMED = FIG3_N, 100, 20
+GRAPH_FLEET_REPLAYS, GRAPH_FLEET_TIMED = 20, 5
+# Sleep cycles (about 0.5 s on an H100) that hold every stream while the
+# graph_fleet steps are issued, so their device time is measured alone.
+GRAPH_FLEET_HOLD = 1_000_000_000
 GRAPH_KERNELS = ("stencil", "partition_map")
 
 SERVE_ARCH = "olmo-1b"
@@ -163,6 +178,9 @@ SSD_TOL = 2e-3
 # paged_attention against its plain version in f32: the reference's
 # tolerance (tests/test_paged.py); both sum in f32, in other orders.
 PAGED_TOL = 1e-5
+# Seconds after which a hung run dumps its threads' stacks and exits (a run
+# takes about 90 s; the limit it runs under is 1200).
+WATCHDOG_S = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -931,7 +949,7 @@ def phase_graph(dev) -> dict:
     exe, w = captured("fused")
     instantiate_s = time.perf_counter() - t0
     modes = sorted({seg.exec_mode for seg in exe._segments})
-    require(modes == ["fused"] and exe._cuda is not None, f"graph: executor {modes}, {exe!r}")
+    require(modes == ["fused"] and exe.cuda_graphs == 1, f"graph: executor {modes}, {exe!r}")
     require(exe.recorded_launches == {k: 1 for k in GRAPH_KERNELS},
             f"graph: the capture recorded {exe.recorded_launches}")
     first = first_copy = None
@@ -965,7 +983,8 @@ def phase_graph(dev) -> dict:
                      "replay": events_ms(dev, [lambda x=x: exe.replay(feeds={w: x}, sync="dispatch")
                                                for x in xs])}
 
-    # Two chains joined by an add: three segments, one event edge, one graph.
+    # Two chains joined by an add: three segments, each on its chain's lane
+    # with a CUDA graph of its own, one event edge.
     a2, b2, ma, mb, out2 = (dev.create_buffer(n, np.float32).get() for _ in range(5))
     with dev.capture("two-chains") as g2:
         wa, wb = a2.enqueue_write(0, fresh()), b2.enqueue_write(0, fresh())
@@ -974,23 +993,214 @@ def phase_graph(dev) -> dict:
         prog.run([ma, mb], "add", out=[out2])
     exe2 = instantiate_as(g2, "fused")
     require(exe2._fanout and len(exe2._segments) == 3 and exe2._event_edges
-            and exe2._cuda is not None and {s.exec_mode for s in exe2._segments} == {"fused"},
+            and exe2.cuda_graphs == 3 and {s.exec_mode for s in exe2._segments} == {"fused"},
             f"graph: the two-chain plan is {exe2!r}")
-    for i in range(5):
-        xa, xb = fresh(), fresh()
+    pairs = [(fresh(), fresh()) for _ in range(5)]
+    for i, (xa, xb) in enumerate(pairs):
         exe2.replay(feeds={wa: xa, wb: xb}).get()
         want = stencil_ops.stencil(xa, block=STENCIL_BLOCK.as_tuple()) + \
             map_ops.partition_map(xb, block=MAP_BLOCK.as_tuple())
         require(torch.equal(out2.array(), want), f"graph: two-chain replay {i} differs from eager")
+    t0 = time.perf_counter()
+    for xa, xb in pairs:
+        exe2.replay(feeds={wa: xa, wb: xb}).get()
+    two_chain_host_us = (time.perf_counter() - t0) / len(pairs) * 1e6
+    two_chain_ms = None
+    if dev.is_cuda:
+        two_chain_ms = events_ms(dev, [lambda p=p: exe2.replay(feeds={wa: p[0], wb: p[1]},
+                                                                sync="dispatch") for p in pairs])
     dev.synchronize()
+    replayed = [exe.replayed_launches(), exe2.replayed_launches()]
     return {"n": n, "replays_checked": GRAPH_REPLAYS, "exec": repr(exe), "two_chains": repr(exe2),
             "calibrated_exec_mode_by_n": calibrated,
             "instantiate_s": instantiate_s, "recorded_launches": exe.recorded_launches,
             "graph_replays": exe.graph_replays + exe2.graph_replays,
             "host_us_per_step": host_us, "device_ms_per_step": device_ms,
-            "_replayed": {k: exe.recorded_launches.get(k, 0) * exe.graph_replays
-                          + exe2.recorded_launches.get(k, 0) * exe2.graph_replays
-                          for k in GRAPH_KERNELS}}
+            "two_chains_host_us_per_replay": two_chain_host_us,
+            "two_chains_device_ms_per_replay": two_chain_ms,
+            "_replayed": {k: sum(r.get(k, 0) for r in replayed) for k in GRAPH_KERNELS}}
+
+
+# ---------------------------------------------------------------------------
+# graph_fleet: a plan over the fleet's logical devices, one future a replay
+# ---------------------------------------------------------------------------
+
+
+def fleet_dag(prog, sched, srcs, mids, outs, sync: str = "ready") -> list:
+    """Each chunk ``srcs[i]`` through partition_map -> stencil into
+    ``outs[i]``, both launches through ``run_on_any`` placed by ``sched``;
+    eager it returns the stencils' futures, under a capture their nodes."""
+    futs = []
+    for s, m, o in zip(srcs, mids, outs):
+        prog.run_on_any([s], "partition_map", block=MAP_BLOCK, out=[m], sync=sync, scheduler=sched)
+        futs.append(prog.run_on_any([m], "stencil", block=STENCIL_BLOCK, out=[o], sync=sync,
+                                    scheduler=sched))
+    return futs
+
+
+def span_ms(devs, steps, extra=(), hold: int = 0) -> "tuple[float, bool]":
+    """Device ms a step over several streams: a CUDA event before
+    ``steps`` (callables returning futures resolved once their work is
+    enqueued) run back to back, another once every stream of ``devs`` (and
+    ``extra``) has reached its end, over their number.  With ``hold``, a
+    sleep of that many cycles first occupies every device's default stream
+    and the clock starts when it ends, so work issued meanwhile queues
+    behind it and the span is the device's alone; the flag says whether
+    the sleep outlasted the issuing (else the host paced it)."""
+    for d in devs:
+        d.synchronize()
+    s = torch.cuda.Stream(devs[0].torch_device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        wait_all([d.ops_queue.submit(torch.cuda._sleep, hold) for d in devs])
+        s.wait_stream(devs[0].default_stream.cuda_stream)
+    start.record(s)
+    futs = [f for step in steps for f in step()]
+    for f in futs:
+        f.get()
+    held = not start.query()
+    for cs in [st.cuda_stream for d in devs for st in d.streams()] + list(extra):
+        s.wait_stream(cs)
+    end.record(s)
+    end.synchronize()
+    return start.elapsed_time(end) / len(steps), held
+
+
+def phase_graph_fleet(devs) -> dict:
+    """The fleet phase's shape as one captured plan: ``FLEET_CHUNKS`` chunks
+    of fig4's 2**28 f32, each partition_map -> stencil recorded through
+    ``run_on_any`` with ``round_robin`` over the logical devices ``devs``,
+    so the two launches of a chunk land on two devices (a transfer step and
+    an event edge each).  Instantiated with ``REPRO_SEGMENT_COMPILE`` fused
+    (a CUDA graph a segment), staged and auto; ``GRAPH_FLEET_REPLAYS``
+    replays of the fused plan with fresh feeds, each bit-equal to the same
+    DAG run eagerly through ``run_on_any`` and to one device's kernels;
+    then host us and device ms a replay against the eager DAG: the span
+    as the host paces it, and the device's alone (the work queued behind a
+    sleep)."""
+    n = FIG4_N // FLEET_CHUNKS
+    d0 = devs[0]
+    nd = len(devs)
+    prog = d0.create_program({"partition_map": map_ops.partition_map,
+                              "stencil": stencil_ops.stencil}, name="graph_fleet").get()
+    for d in devs:  # build each sibling before timing
+        for k in GRAPH_KERNELS:
+            prog.for_device(d).build(k, block=MAP_BLOCK).get()
+    gen = torch.Generator(device=d0.torch_device).manual_seed(1)
+
+    def fresh():
+        xs = [torch.randn(n, generator=gen, device=d0.torch_device) for _ in range(FLEET_CHUNKS)]
+        if d0.is_cuda:
+            torch.cuda.synchronize()  # made on this thread's stream, read on the fleet's
+        return xs
+
+    # Chunk i's partition_map is launch 2i, so round_robin puts it on
+    # device 2i mod nd and its stencil on the next: each buffer starts
+    # where its writer runs.
+    home = lambda i, k: devs[(2 * i + k) % nd]  # noqa: E731
+
+    def bufs():
+        return ([home(i, 0).create_buffer(n, np.float32).get() for i in range(FLEET_CHUNKS)],
+                [home(i, 0).create_buffer(n, np.float32).get() for i in range(FLEET_CHUNKS)],
+                [home(i, 1).create_buffer(n, np.float32).get() for i in range(FLEET_CHUNKS)])
+
+    gsrc, gmid, gout = bufs()
+    esrc, emid, eout = bufs()
+    rr = lambda: Scheduler(devs, policy="round_robin", steal=False)  # noqa: E731
+
+    def eager(xs, sync="ready"):
+        for s, x in zip(esrc, xs):
+            s.enqueue_write(0, x)
+        return fleet_dag(prog, rr(), esrc, emid, eout, sync)
+
+    def captured(mode: str):
+        with d0.capture("graph_fleet") as g:
+            nodes = [g.write(s) for s in gsrc]  # fed at every replay
+            fleet_dag(prog, rr(), gsrc, gmid, gout)
+        return instantiate_as(g, mode), nodes
+
+    reserved = [torch.cuda.memory_reserved() if d0.is_cuda else 0]
+    t0 = time.perf_counter()
+    exe, w = captured("fused")
+    instantiate_s = time.perf_counter() - t0
+    reserved.append(torch.cuda.memory_reserved() if d0.is_cuda else 0)
+    segs = exe._segments
+    keys = sorted({seg.device.key for seg in segs})
+    cross = [e for e in exe._event_edges if segs[e[0]].device is not segs[e[1]].device]
+    require(len(keys) >= 4 and len(keys) == nd and len(exe._transfers) >= FLEET_CHUNKS
+            and all(seg.transfer_ixs for seg in segs if seg.nodes[0].kernel == "stencil")
+            and cross, f"graph_fleet: the plan is {exe!r}")
+    spec = exe.graph._sym_spec
+    transfer_bytes = sum(int(np.prod(spec[t[0]].shape)) * spec[t[0]].dtype.itemsize
+                         for t in exe._transfers)
+
+    def check(ex, nodes, tag: str, replays: int):
+        for i in range(replays):
+            xs = fresh()
+            ex.replay(feeds=dict(zip(nodes, xs))).get()
+            wait_all(eager(xs))
+            for c, x in enumerate(xs):
+                want = stencil_ops.stencil(map_ops.partition_map(x, block=MAP_BLOCK.as_tuple()),
+                                           block=STENCIL_BLOCK.as_tuple())
+                got = gout[c].array()
+                require(torch.equal(got, eout[c].array()) and torch.equal(got, want),
+                        f"graph_fleet {tag}: replay {i}, chunk {c} differs from the eager DAG "
+                        "or from one device's kernels")
+
+    check(exe, w, "fused", GRAPH_FLEET_REPLAYS)
+    graph_keys = sorted({seg.device.key for seg in segs if seg.graph is not None})
+    require(graph_keys == keys and exe.cuda_graphs == len(segs),
+            f"graph_fleet: CUDA graphs on {graph_keys} of {keys}, {exe!r}")
+    staged, ws = captured("staged")
+    require(staged.cuda_graphs == 0 and {s.exec_mode for s in staged._segments} == {"staged"},
+            f"graph_fleet: the staged plan is {staged!r}")
+    check(staged, ws, "staged", 3)
+    auto = [seg.exec_mode for seg in captured("auto")[0]._segments]
+
+    xs = [fresh() for _ in range(GRAPH_FLEET_TIMED)]
+    host_us = {"eager": [], "replay": [], "replay_submit": []}
+    for order in (("eager", "replay"), ("replay", "eager")):
+        for kind in order:
+            t0 = time.perf_counter()
+            submit = 0.0
+            for x in xs:
+                if kind == "eager":
+                    wait_all(eager(x))
+                else:
+                    t1 = time.perf_counter()
+                    fut = exe.replay(feeds=dict(zip(w, x)))
+                    submit += time.perf_counter() - t1
+                    fut.get()
+            host_us[kind].append((time.perf_counter() - t0) / len(xs) * 1e6)
+            if kind == "replay":
+                host_us["replay_submit"].append(submit / len(xs) * 1e6)
+    device_ms = device_only_ms = None
+    if d0.is_cuda:
+        steps = {"eager": [lambda x=x: eager(x, "dispatch") for x in xs],
+                 "replay": [lambda x=x: [exe.replay(feeds=dict(zip(w, x)), sync="dispatch")]
+                            for x in xs]}
+        extra = {"eager": [], "replay": [exe._join_stream]}
+        device_ms = {k: span_ms(devs, steps[k], extra[k])[0] for k in steps}
+        device_only_ms = {k: span_ms(devs, steps[k], extra[k], hold=GRAPH_FLEET_HOLD)
+                          for k in steps}
+        require(all(held for _, held in device_only_ms.values()),
+                f"graph_fleet: the hold ended before the work was issued: {device_only_ms}")
+        device_only_ms = {k: v[0] for k, v in device_only_ms.items()}
+    for d in devs:
+        d.synchronize()
+    return {"devices": keys, "chunks": FLEET_CHUNKS, "chunk_bytes": n * 4, "exec": repr(exe),
+            "segments": len(segs), "lanes": len({id(seg.queue) for seg in segs}),
+            "transfers": len(exe._transfers), "transfer_bytes_per_replay": transfer_bytes,
+            "event_edges": len(exe._event_edges), "cross_device_event_edges": len(cross),
+            "cuda_graphs": exe.cuda_graphs,
+            "graphs_by_device": {k: sum(seg.graph is not None and seg.device.key == k
+                                        for seg in segs) for k in keys},
+            "auto_exec_mode_per_segment": auto, "staged_exec": repr(staged),
+            "instantiate_s": instantiate_s, "memory_reserved_bytes": reserved,
+            "replays_checked": GRAPH_FLEET_REPLAYS, "host_us_per_replay": host_us,
+            "device_ms_per_replay": device_ms, "device_only_ms_per_replay": device_only_ms,
+            "recorded_launches": exe.recorded_launches,
+            "_replayed": exe.replayed_launches()}
 
 
 # ---------------------------------------------------------------------------
@@ -1517,6 +1727,8 @@ def main() -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    # A run that hangs prints every thread's stack and exits non-zero.
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     t0 = time.perf_counter()
     _build.load_all()  # one nvcc per source, all started together
@@ -1560,6 +1772,10 @@ def main() -> int:
                          "replayed": graph_replayed}
     require(all(graph["launches"]["host"][k] > 0 and graph_replayed[k] >= GRAPH_REPLAYS
                 for k in GRAPH_KERNELS), f"graph: a kernel was not launched: {graph['launches']}")
+    print(f"graph: two-chain plan (3 CUDA graphs, one a segment) host us a replay "
+          f"{graph['two_chains_host_us_per_replay']:.1f}, device ms "
+          f"{graph['two_chains_device_ms_per_replay']:.4f}; the one-graph chain's "
+          f"{graph['host_us_per_step']['replay']}", flush=True)
     print("graph: " + json.dumps(graph), flush=True)
 
     serves = {}
@@ -1600,6 +1816,32 @@ def main() -> int:
               f"steals, {r['spills']} spills, {r['refetches']} refetches", flush=True)
     print("fleet: " + json.dumps(fleet), flush=True)
 
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gf = phase_graph_fleet(logical_devices(FLEET_DEVICES))
+    gf["seconds"] = time.perf_counter() - t0
+    gf_replayed = gf.pop("_replayed")
+    gf["launches"] = {"host": {k: launch_counts()[k] for k in GRAPH_KERNELS},
+                      "replayed": {k: gf_replayed.get(k, 0) for k in GRAPH_KERNELS}}
+    require(all(gf["launches"]["host"][k] > 0
+                and gf["launches"]["replayed"][k] >= GRAPH_FLEET_REPLAYS * FLEET_CHUNKS
+                for k in GRAPH_KERNELS),
+            f"graph_fleet: a kernel was not launched: {gf['launches']}")
+    dms, alone = gf["device_ms_per_replay"], gf["device_only_ms_per_replay"]
+    host = gf["host_us_per_replay"]
+    print(f"graph_fleet: {gf['segments']} segments on {gf['lanes']} lanes over "
+          f"{len(gf['devices'])} devices, {gf['transfers']} transfers "
+          f"({gf['transfer_bytes_per_replay']} bytes a replay), {gf['event_edges']} event edges "
+          f"({gf['cross_device_event_edges']} across devices), {gf['cuda_graphs']} CUDA graphs "
+          f"{gf['graphs_by_device']}; host us a replay {host['replay']} against the eager "
+          f"run_on_any DAG's {host['eager']} (replay() returns after {host['replay_submit']}); "
+          f"device ms a replay {dms['replay']:.4f} against {dms['eager']:.4f}, the device's alone "
+          f"{alone['replay']:.4f} against {alone['eager']:.4f}; memory reserved "
+          f"{gf['memory_reserved_bytes']} bytes around the fused instantiate; auto chose "
+          f"{sorted(set(gf['auto_exec_mode_per_segment']))} for "
+          f"{len(gf['auto_exec_mode_per_segment'])} segments", flush=True)
+    print("graph_fleet: " + json.dumps(gf), flush=True)
+
     t0 = time.perf_counter()
     pf = phase_serve_paged_fleet(logical_devices(PAGED_FLEET_DEVICES), plain["serve"])
     pf["seconds"] = time.perf_counter() - t0
@@ -1638,9 +1880,11 @@ def main() -> int:
         "paged_attention_on_device"]
     kernels[-1]["fleet_phase_launches_on_device"] = pf["launches"]["paged_attention_on_device"]
     kernels[1]["fleet_phase_launches"] = fleet["launches"]
-    for k in kernels[:2]:  # the graph phase's: launched by the host, run by replays
+    for k in kernels[:2]:  # the graph phases': launched by the host, run by replays
         k["graph_phase_launches"] = {part: graph["launches"][part][k["name"]]
                                      for part in ("host", "replayed")}
+        k["graph_fleet_phase_launches"] = {part: gf["launches"][part][k["name"]]
+                                           for part in ("host", "replayed")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

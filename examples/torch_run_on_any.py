@@ -6,7 +6,9 @@ the counterpart of the reference's forced host devices), then drives the
 fig6 partition map through ``Program.run_on_any`` under each placement
 policy, and once more with a per-device memory limit that makes the
 scheduler spill cold buffers to host memory and the launches refetch them.
-Every result is checked bit-equal to one device's.  Without a card it runs
+Every result is checked bit-equal to one device's.  Last, a graph recorded
+through ``run_on_any`` over two of the devices is replayed through one
+future (a segment a device, a transfer step between them).  Without a card it runs
 on the CPU's logical devices, with the plain version of the kernel.
 
     python3 examples/torch_run_on_any.py [--n 4194304] [--chunks 16]
@@ -18,9 +20,11 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import Scheduler, get_all_devices, get_all_localities, wait_all  # noqa: E402
+from repro_torch.core import (Scheduler, capture, get_all_devices, get_all_localities,  # noqa: E402
+                              wait_all)
 from repro_torch.kernels.partition_map.ops import partition_map  # noqa: E402
 
 
@@ -62,6 +66,26 @@ def main(n: int = 1 << 22, chunks: int = 16) -> int:
     print(f"{'memory limit':>13}: {sum(d.spills for d in devices)} buffers spilled, "
           f"{sum(d.refetches for d in devices)} refetched, results bit-equal")
     wait_all([b.free() for b in bufs])
+
+    # capture a graph over two devices through run_on_any; a replay is ONE
+    # future (a segment a device, a transfer step between them)
+    d0, d1 = devices[0], devices[1]
+    prog2 = d0.create_program({"inc": lambda x: x + 1.0, "scale": lambda x: x * 3.0}, "g").get()
+    b_in = d0.create_buffer(16, np.float32).get()
+    t_mid = d0.create_buffer(16, np.float32).get()
+    t_out = d1.create_buffer(16, np.float32).get()
+    rr = Scheduler([d0, d1], policy="round_robin")
+    with capture("xdev") as g:
+        b_in.enqueue_write(0, np.ones(16, np.float32))
+        prog2.run_on_any([b_in], "inc", out=[t_mid], scheduler=rr)
+        prog2.run_on_any([t_mid], "scale", out=[t_out], scheduler=rr)
+        r = t_out.enqueue_read()
+    exe = g.instantiate()
+    print(exe)  # 2 segments, 1 transfer, 1 event edge, fan-out
+    res = exe.replay().get()
+    print(f"graph result: {res[r][:4]} ... (expect 6.0 = (1+1)*3)")
+    if not np.array_equal(res[r], np.full(16, 6.0, np.float32)):
+        raise SystemExit("the captured graph over two devices gave a wrong result")
     return 0
 
 

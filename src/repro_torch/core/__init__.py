@@ -26,7 +26,9 @@ splits a card into 4 logical devices):
     sched = Scheduler(get_all_devices().get(), policy="least_loaded")
     prog.run_on_any([buf], "partition_map", out=[res], scheduler=sched).get()
 
-A captured graph is a ``torch.cuda.CUDAGraph``:
+A captured graph is a ``torch.cuda.CUDAGraph`` a segment (one for a plan on
+one device's chain; one a segment, each on its chain's lane, for a plan over
+several chains or devices):
 
     with dev.capture("step") as g:
         w = buf.enqueue_write(0, host_data)

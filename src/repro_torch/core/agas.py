@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+from collections import deque
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -110,6 +111,13 @@ class Registry:
     Registrations may carry ``nbytes=<int>`` metadata; the registry then
     keeps per-device resident-byte totals in sync across
     ``register`` / ``update_placement`` / ``unregister``.
+
+    Finalizers of collected objects call ``retire``, never ``unregister``:
+    a garbage collection can run at any allocation, also on a thread that
+    holds this registry's lock, and a finalizer taking the lock there
+    deadlocks the thread (and then every thread that asks the registry).
+    ``retire`` only queues the GID; the next call that takes the lock
+    drops it.
     """
 
     def __init__(self):
@@ -118,8 +126,16 @@ class Registry:
         self._by_device: dict[str, set[GID]] = {}
         self._bytes: dict[str, int] = {}
         self._lock = threading.Lock()
+        self._retired: "deque[GID]" = deque()  # appended without the lock
 
     # -- index maintenance (call with lock held) ----------------------------
+
+    def _drain_retired(self) -> None:
+        while self._retired:
+            gid = self._retired.popleft()
+            rec = self._records.pop(gid, None)
+            if rec is not None:
+                self._index_remove(gid, rec)
 
     def _index_add(self, gid: GID, rec: _Record) -> None:
         key = rec.placement.device_key
@@ -156,6 +172,7 @@ class Registry:
             store, weak = obj, False
         gid = (_locality_id << _LOC_SHIFT) | next(self._counter)
         with self._lock:
+            self._drain_retired()
             rec = self._records[gid] = _Record(store, placement, kind, dict(meta), weak)
             self._index_add(gid, rec)
         return gid
@@ -171,6 +188,7 @@ class Registry:
         except TypeError:
             store, weak = obj, False
         with self._lock:
+            self._drain_retired()
             if gid in self._records:
                 return False
             rec = self._records[gid] = _Record(store, placement, kind, dict(meta), weak)
@@ -188,6 +206,7 @@ class Registry:
 
     def resolve(self, gid: GID) -> Any:
         with self._lock:
+            self._drain_retired()
             rec = self._records.get(gid)
         if rec is None:
             raise self._missing(gid)
@@ -198,6 +217,7 @@ class Registry:
 
     def placement(self, gid: GID) -> Placement:
         with self._lock:
+            self._drain_retired()
             rec = self._records.get(gid)
         if rec is None:
             raise self._missing(gid)
@@ -205,6 +225,7 @@ class Registry:
 
     def update_placement(self, gid: GID, placement: Placement) -> None:
         with self._lock:
+            self._drain_retired()
             rec = self._records.get(gid)
             if rec is None:
                 raise KeyError(f"GID {gid} is not registered")
@@ -220,6 +241,7 @@ class Registry:
         a pool slab registers its slab bytes once, then a paged KV cache
         re-charges each sequence's pages as they are allocated/freed."""
         with self._lock:
+            self._drain_retired()
             rec = self._records.get(gid)
             if rec is None:
                 raise KeyError(f"GID {gid} is not registered")
@@ -229,12 +251,19 @@ class Registry:
 
     def unregister(self, gid: GID) -> None:
         with self._lock:
+            self._drain_retired()
             rec = self._records.pop(gid, None)
             if rec is not None:
                 self._index_remove(gid, rec)
 
+    def retire(self, gid: GID) -> None:
+        """``unregister`` for finalizers: queued without taking the lock,
+        dropped by the next call that takes it."""
+        self._retired.append(gid)
+
     def by_kind(self, kind: str) -> "list[tuple[GID, Any]]":
         with self._lock:
+            self._drain_retired()
             out = []
             for g, r in self._records.items():
                 if r.kind != kind:
@@ -249,6 +278,7 @@ class Registry:
     def gids_on(self, device_key: str, kind: "str | None" = None) -> "list[GID]":
         """GIDs whose placement is ``device_key`` (optionally one kind)."""
         with self._lock:
+            self._drain_retired()
             gids = self._by_device.get(device_key)
             if not gids:
                 return []
@@ -259,10 +289,12 @@ class Registry:
     def resident_bytes(self, device_key: str) -> int:
         """Total registered bytes currently placed on ``device_key``."""
         with self._lock:
+            self._drain_retired()
             return self._bytes.get(device_key, 0)
 
     def resident_bytes_by_device(self) -> "dict[str, int]":
         with self._lock:
+            self._drain_retired()
             return dict(self._bytes)
 
     def spilled_bytes(self) -> int:
@@ -271,6 +303,7 @@ class Registry:
 
     def __len__(self) -> int:
         with self._lock:
+            self._drain_retired()
             return len(self._records)
 
 

@@ -164,7 +164,7 @@ class Buffer:
         self.gid = agas.registry.register(
             self, agas.Placement(device.key, 0), kind="buffer", nbytes=self.nbytes
         )
-        self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
+        self._finalizer = weakref.finalize(self, agas.registry.retire, self.gid)
 
     # -- allocation (runs on a device lane) ----------------------------------
 

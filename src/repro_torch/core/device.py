@@ -245,7 +245,7 @@ class Device:
                 buf.enqueue_write(0, host)
                 prog.run([buf], "k", out=[out])
                 r = out.enqueue_read()
-            exe = g.instantiate()          # warm-up, then one CUDA graph
+            exe = g.instantiate()          # warm-up, then a CUDA graph a segment
             result = exe.replay().get()    # result[r] is the np.ndarray
         """
         from repro_torch.core.graph import capture as _capture

@@ -10,31 +10,56 @@ then replay it with one submission.
     builder records ``Buffer`` transfers and ``Program.run`` launches as a
     symbolic SSA DAG.  Nothing executes during capture: result shapes come
     from the kernel's plain version run on ``meta`` tensors.
-  * ``instantiate()`` plans the DAG as the reference does (SSA chains,
-    segments, the keep set, event edges), then, on a CUDA device, runs
-    every segment once eagerly on a side stream on throwaway inputs (the
-    warm-up: libraries loaded, cuBLAS handles made, nothing committed) and
-    captures the WHOLE plan into one ``torch.cuda.CUDAGraph``.  Independent
-    chains become branches of that graph, forked from and joined to the
-    capture stream by events.  Every write and every extern input gets a
-    static input tensor.
-  * ``replay()`` copies the feeds and the live value of every extern
-    buffer into the static inputs on the replay stream, launches the graph
-    once, commits the buffers and resolves **one** ``Future``.
+  * ``instantiate()`` plans the DAG as the reference does: every launch
+    joins an SSA chain (the chain of its first same-device producer, or a
+    new one), a segment is a maximal run of launches on one (device,
+    chain), every cross-device SSA edge becomes a *transfer step*, and a
+    value crossing from one chain's lane to another's an *event edge*.
+    Then, on a CUDA device, each segment is run once eagerly on a side
+    stream on throwaway inputs (the warm-up: libraries loaded, cuBLAS
+    handles made, nothing committed) and captured into a
+    ``torch.cuda.CUDAGraph`` of its own.  A segment's graph reads static
+    input tensors: the graph output of a same-device producer segment in
+    place, and a fresh tensor for anything else (a write, an extern, a
+    transfer slot), which every replay fills.
+  * ``replay()`` resolves **one** ``Future``.  A plan of one segment on
+    one device takes one task on its lane: copy the feeds and the live
+    value of every extern into the static inputs, launch the graph,
+    commit.  Any other plan fans out (DESIGN.md §9, §11): extern reads on
+    their owners' lanes, write payloads staged on their devices' lanes,
+    then every segment, in capture order from the calling thread, on its
+    chain's lane.  A segment's lane task waits on the host only until its
+    producers are *issued*; its stream waits on their CUDA events (the
+    event edges), runs its transfer steps (a copy into the static input,
+    on this stream) and replays its graph.  A join on the host pool
+    commits the buffers once every segment is issued (``sync="dispatch"``)
+    or its work has ended (``sync="ready"``).
 
-Per-plan executor (``REPRO_SEGMENT_COMPILE=fused|staged|auto``): ``fused``
-is the CUDA graph, ``staged`` the plan's launches run eagerly in capture
-order on the replay lane.  ``auto`` times both once at instantiate on zero
-inputs and keeps the faster (ties, and any failed trial, keep ``fused``).
-The segments of a plan share one graph, so they share the choice; every
-segment's ``exec_mode`` shows it, and so does ``repr``.  A CPU device has
-no CUDA graph: its plans replay ``staged`` with the same bookkeeping.  A
-capture that fails raises; it never falls back to eager.
+Executor per segment (``REPRO_SEGMENT_COMPILE=fused|staged|auto``, read
+once an instantiate): ``fused`` is the segment's CUDA graph, ``staged``
+its launches run eagerly on its lane.  ``auto`` times both once on zero
+inputs for a segment of two or more launches and keeps the faster (ties,
+a failed trial and inputs above ``_CAL_MAX_BYTES`` keep ``fused``); a
+segment of one launch stays ``fused``.  A CPU device has no CUDA graph:
+its segments replay ``staged`` with the same bookkeeping.  A capture that
+fails raises; it never falls back to eager.
 
 Correspondence: capture <-> ``cudaStreamBeginCapture``; ``GraphExec`` <->
 ``cudaGraphExec_t``; ``replay`` <-> ``cudaGraphLaunch``; feeds copied into
-the static inputs <-> ``cudaGraphExecKernelNodeSetParams``; chain ->
-branch of the graph <-> ``cudaGraph`` node-to-stream assignment.
+the static inputs <-> ``cudaGraphExecKernelNodeSetParams``; chain -> lane
+and its CUDA stream <-> ``cudaGraph`` node-to-stream assignment; event
+edge <-> ``cudaEventRecord`` at the producer's tail and
+``cudaStreamWaitEvent`` on the consumer's stream.
+
+Ordering: replays of one ``GraphExec`` serialise.  The fan-out holds a
+lock from submission to its join, every stream of a replay first waits on
+the previous replay's end event (so no replay overwrites graph memory or a
+transfer slot that the previous one still reads), and the default lane of
+every device the plan touches is fenced until the join has committed, so
+eager work submitted after ``replay()`` returns sees the committed
+buffers.  A buffer whose final value materialised on another device is
+re-homed there; an extern that moved or was spilled since instantiate is
+brought back to its planned device before a segment reads it.
 
 Ownership rule (CUDA Graphs'): a buffer whose final value is consumed by a
 later in-graph launch and does not survive the plan is *graph-internal* —
@@ -44,9 +69,8 @@ replayed any number of times.  Values the graph hands out (a kept
 buffer's value, an out-less launch's result) are copies out of the
 graph's memory: a later replay does not change them.
 
-Not ported, and refused: plans over several devices and cross-device
-transfer steps (ROADMAP.md Queue 1 item 6b), remote buffers and remote
-segments (Queue 1 item 10).
+Not ported, and refused: remote buffers and remote segments (ROADMAP.md
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -59,14 +83,14 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.buffer import Buffer, _host_tensor, _settle, _to_host_value
+from repro_torch.core.buffer import Buffer, _host_tensor, _settle, _to_host, _to_host_value
+from repro_torch.core.executor import get_runtime
 from repro_torch.core.futures import Future
 from repro_torch.kernels import tally_launches
 
 __all__ = ["TaskGraph", "GraphExec", "GraphResult", "LaunchNode", "ReadNode", "WriteNode",
            "capture", "current_graph"]
 
-_MULTI_DEVICE = "ROADMAP.md Queue 1 item 6b"
 _PARCELS = "ROADMAP.md Queue 1 item 10"
 
 _tls = threading.local()
@@ -321,17 +345,26 @@ class TaskGraph:
 
 class _Segment:
     __slots__ = ("device", "nodes", "chain", "queue", "in_syms", "out_syms", "donated_ixs",
-                 "exec_mode")
+                 "transfer_ixs", "exec_mode", "graph", "static_in", "outs", "recorded", "replays")
 
     def __init__(self, device, nodes, chain: int = 0):
         self.device = device
         self.nodes = nodes
-        self.chain = chain  # SSA chain id on this device -> stream lane / graph branch
+        self.chain = chain  # SSA chain id on this device -> stream lane
         self.queue = None  # lane resolved at instantiate (_replay_lane)
         self.in_syms: "list[int]" = []
         self.out_syms: "list[int]" = []
         self.donated_ixs: "tuple[int, ...]" = ()
+        self.transfer_ixs: "tuple[int, ...]" = ()  # input slots fed cross-device
         self.exec_mode = "fused"  # fused | staged
+        # The segment's CUDA graph (fused on a card): its static inputs
+        # (sym -> tensor the graph reads), its outputs in the graph's
+        # memory, the kernel launches its capture recorded, its replays.
+        self.graph: "torch.cuda.CUDAGraph | None" = None
+        self.static_in: "dict[int, torch.Tensor]" = {}
+        self.outs: "dict[int, torch.Tensor]" = {}
+        self.recorded: "dict[str, int]" = {}
+        self.replays = 0
 
 
 class _FastPlan:
@@ -339,28 +372,52 @@ class _FastPlan:
     fetch layout that replay would otherwise derive per call, resolved once
     at instantiate."""
 
-    __slots__ = ("externs", "writes", "commit_sets", "commit_invs", "keep_externs",
-                 "fetch_plan")
+    __slots__ = ("externs", "extern_bufs", "writes", "commit_sets", "commit_invs",
+                 "fetch_plan", "commit_syms")
 
-    def __init__(self, *, externs, writes, commit_sets, commit_invs, keep_externs, fetch_plan):
+    def __init__(self, *, externs, writes, commit_sets, commit_invs, fetch_plan):
         self.externs = externs  # ((sym, Buffer), ...)
+        self.extern_bufs = tuple(b for _, b in externs)
         self.writes = writes
-        self.commit_sets = commit_sets  # ((Buffer, sym), ...)
+        self.commit_sets = commit_sets  # ((Buffer, sym, planned producer device), ...)
         self.commit_invs = commit_invs  # buffers whose final value did not survive
-        self.keep_externs = keep_externs
         self.fetch_plan = fetch_plan  # ("read", node, sym) | ("launch", node, res_syms)
+        # Every sym the commit reads.
+        self.commit_syms = {s for _, s, _ in commit_sets}
+        for kind, _, syms in fetch_plan:
+            self.commit_syms.update([syms] if kind == "read" else syms)
 
 
-class _CudaPlan:
-    """The captured graph: its static inputs (plan inputs consumed by a
-    launch) and its outputs in the graph's memory."""
+class _Val(NamedTuple):
+    """A value of one replay: its tensor, the CUDA stream its work ran on
+    and the event ending that work (both None on the CPU), and whether the
+    replay owns the tensor (fresh memory) or not (graph memory, a caller's
+    tensor, a buffer's)."""
 
-    __slots__ = ("graph", "static_in", "outs")
+    tensor: "torch.Tensor"
+    stream: "torch.cuda.Stream | None"
+    event: "torch.cuda.Event | None"
+    owned: bool
 
-    def __init__(self, graph, static_in, outs):
-        self.graph = graph
-        self.static_in = static_in  # sym -> tensor (written at every replay)
-        self.outs = outs  # sym -> tensor in the graph's memory
+
+def _current_stream(device) -> "torch.cuda.Stream | None":
+    return torch.cuda.current_stream(device.torch_device) if device.is_cuda else None
+
+
+def _record(stream) -> "torch.cuda.Event | None":
+    if stream is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
+
+
+def _resolve(dep) -> _Val:
+    """A fan-out dependency ``(future, key)``: the future's value, or its
+    entry ``key``."""
+    fut, key = dep
+    r = fut.get()
+    return r if key is None else r[key]
 
 
 class GraphExec:
@@ -372,30 +429,36 @@ class GraphExec:
         self._donate = donate
         self._writes: "list[WriteNode]" = [n for n in graph._nodes if isinstance(n, WriteNode)]
         self._reads: "list[ReadNode]" = [n for n in graph._nodes if isinstance(n, ReadNode)]
-        self._route_dev = self._single_device()
+        self._route_dev = self._route_device()
         self._queue = self._route_dev.ops_queue
         self._build_plan()
+        # Placement spans segments AND plan inputs: a graph whose input
+        # buffer lives on another device fans out even with one segment.
+        placements = {s.device.key for s in self._segments}
+        placements.update(b.device.key for b in graph._extern.values())
+        placements.update(n.buf.device.key for n in self._writes)
+        self._multi_device = len(placements) > 1
         self._fast = self._build_fast_plan()
-        self._cuda: "_CudaPlan | None" = None
-        # Kernel launches the captured graph holds, by kernel package (what
-        # every replay runs on the device), and the replays made of it.
-        self.recorded_launches: "dict[str, int]" = {}
-        self.graph_replays = 0
         self._compile_segments()
-        # Replays serialize: a replay's staging into the static inputs must
-        # follow the previous replay's commit.  The lock is held while
+        # Replays serialize.  The single-lane path holds the lock while
         # submitting; a replay on another lane parks on the previous one
         # (host) and its stream waits on the previous one's end (device).
+        # The fan-out holds it until its join has committed.
         self._replay_lock = threading.Lock()
-        self._last_replay: "Future | None" = None
+        self._last_replay: "Future | None" = None  # the last single-lane replay
         self._last_replay_queue = self._queue
-        self._last_event: "torch.cuda.Event | None" = None
+        self._last_event: "torch.cuda.Event | None" = None  # the last replay's end
+        # The fan-out's join: a stream that waits on every segment's end
+        # and records the replay's end event there.
+        devices = [s.device for s in self._segments] + [b.device for b in graph._buffers.values()]
+        cards = [d for d in devices if d.is_cuda]
+        self._join_stream = torch.cuda.Stream(cards[0].torch_device) if cards else None
 
     # -- planning ----------------------------------------------------------
 
-    def _single_device(self):
-        """The one device of the plan; a plan over several devices, or
-        with a remote piece, is refused."""
+    def _route_device(self):
+        """The route device (the first launch's, else the first buffer's);
+        a plan with a remote piece is refused."""
         g = self.graph
         devices = [n.device for n in g._nodes if isinstance(n, LaunchNode)]
         devices += [b.device for b in g._buffers.values()]
@@ -403,11 +466,6 @@ class GraphExec:
             raise ValueError(f"TaskGraph '{g.name}' is empty")
         if any(getattr(d, "is_remote_proxy", False) for d in devices):
             raise NotImplementedError(f"remote graph segments are not ported yet ({_PARCELS})")
-        keys = sorted({d.key for d in devices})
-        if len(keys) > 1:
-            raise NotImplementedError(
-                f"TaskGraph '{g.name}' spans devices {keys}: multi-device plans and their "
-                f"transfer steps are not ported yet ({_MULTI_DEVICE}); capture one device's work")
         return devices[0]
 
     def _build_plan(self) -> None:
@@ -415,11 +473,11 @@ class GraphExec:
         nodes = g._nodes
 
         # Stream assignment (DESIGN.md §11): every launch joins an SSA
-        # *chain* — the chain of its first producer, or a new chain when it
-        # has none (an independent head).
+        # *chain* — the chain of its first same-device producer, or a new
+        # chain on its device when it has none (an independent head).
         producer_launch: "dict[int, LaunchNode]" = {}  # sym -> producing launch
+        chain_counters: "dict[str, int]" = {}  # device.key -> next chain id
         chain_of: "dict[int, int]" = {}  # id(LaunchNode) -> chain
-        next_chain = 0
         for n in nodes:
             if not isinstance(n, LaunchNode):
                 continue
@@ -427,22 +485,24 @@ class GraphExec:
             for a in n.arg_refs:
                 if isinstance(a, _SymRef):
                     p = producer_launch.get(a.sym)
-                    if p is not None:
+                    if p is not None and p.device.key == n.device.key:
                         chain = chain_of[id(p)]
                         break
             if chain is None:
-                chain, next_chain = next_chain, next_chain + 1
+                chain = chain_counters.get(n.device.key, 0)
+                chain_counters[n.device.key] = chain + 1
             chain_of[id(n)] = chain
             for s in n.res_syms:
                 producer_launch[s] = n
 
-        # Segment = maximal run of launches on one chain.
+        # Segment = maximal run of launches on one (device, chain), i.e. on
+        # one stream.
         self._segments: "list[_Segment]" = []
         for n in nodes:
             if not isinstance(n, LaunchNode):
                 continue
             last = self._segments[-1] if self._segments else None
-            if last is not None and last.chain == chain_of[id(n)]:
+            if last is not None and last.device is n.device and last.chain == chain_of[id(n)]:
                 last.nodes.append(n)
             else:
                 self._segments.append(_Segment(n.device, [n], chain=chain_of[id(n)]))
@@ -470,6 +530,9 @@ class GraphExec:
                 keep.add(s)
         self._keep = keep
         self._final_sym = final_sym
+        # Fan-out when the plan has more than one segment: two segments
+        # that both consume a sym may run concurrently, so "last consumer
+        # donates" only holds when a sym's consumers all sit in one segment.
         self._fanout = len(self._segments) > 1
 
         # Per-segment interface: inputs (consumed, produced earlier) and
@@ -502,49 +565,73 @@ class GraphExec:
                     if any(u > si for u in launch_use_segs.get(s, ())):
                         continue
                     if self._fanout and set(launch_use_segs.get(s, ())) != {si}:
-                        continue  # a sibling segment also reads it
+                        continue  # a concurrent sibling segment also reads it
                     donated.append(pos)
                 seg.donated_ixs = tuple(donated)
         self._donated_syms = {
             seg.in_syms[pos] for seg in self._segments for pos in seg.donated_ixs
         }
 
+        # Cross-device edges -> explicit transfer steps (frozen percolation).
+        # _prod_dev maps each sym to the device its value materializes on:
+        # externs and writes on their buffer's device, launch results on
+        # their segment's.  A segment input produced elsewhere gets a
+        # transfer slot, copied onto the consuming segment's device on its
+        # stream at replay.  _prod_dev also drives the commit-time re-home
+        # of out buffers written on a foreign device.
+        prod_dev: "dict[int, Any]" = {}
+        for s, buf in g._extern.items():
+            prod_dev[s] = buf.device
+        for n in self._writes:
+            prod_dev[n.sym] = n.buf.device
+        for seg in self._segments:
+            for n in seg.nodes:
+                for s in n.res_syms:
+                    prod_dev[s] = seg.device
+        self._prod_dev = prod_dev
+        self._transfers: "list[tuple[int, str, str]]" = []  # (sym, src key, dst key)
+        for seg in self._segments:
+            slots = []
+            for pos, s in enumerate(seg.in_syms):
+                src = prod_dev.get(s)
+                if src is not None and src.key != seg.device.key:
+                    slots.append(pos)
+                    self._transfers.append((s, src.key, seg.device.key))
+            seg.transfer_ixs = tuple(slots)
+
         # Stream lanes + event edges (DESIGN.md §11): each chain's lane on
-        # the device; a sym produced by one segment and consumed by a
-        # segment of another chain is an *event edge*, recorded at the
-        # producer's tail and waited on by the consumer's stream (in the
-        # captured graph: an edge between two branches).
-        sym_seg: "dict[int, int]" = {}
+        # its device; a sym produced by one segment and consumed by a
+        # segment on another lane is an *event edge*, recorded at the
+        # producer's tail and waited on by the consumer's stream.
+        self._sym_seg: "dict[int, int]" = {}
         for si, seg in enumerate(self._segments):
             seg.queue = seg.device._replay_lane(seg.chain)
             for n in seg.nodes:
                 for s in n.res_syms:
-                    sym_seg[s] = si
+                    self._sym_seg[s] = si
         self._event_edges: "list[tuple[int, int, int]]" = []  # (producer, consumer, sym)
         for si, seg in enumerate(self._segments):
             for s in seg.in_syms:
-                pi = sym_seg.get(s)
+                pi = self._sym_seg.get(s)
                 if pi is not None and pi != si and self._segments[pi].queue is not seg.queue:
                     self._event_edges.append((pi, si, s))
 
     def _build_fast_plan(self) -> _FastPlan:
-        """Freeze the commit decisions (set / invalidate / keep per buffer)
-        and the fetch layout into flat tuples."""
+        """Freeze the commit decisions (set / invalidate per buffer, the
+        device a set buffer is re-homed to) and the fetch layout into flat
+        tuples."""
         g = self.graph
         env_syms = set(g._extern) | {n.sym for n in self._writes}
         for seg in self._segments:
             env_syms.update(seg.out_syms)
         commit_sets: list = []
         commit_invs: list = []
-        keep_externs: list = []
         for bid, s in self._final_sym.items():
             buf = g._buffers[bid]
             if s in g._extern:
-                if s in self._keep:
-                    keep_externs.append(s)
                 continue
             if s in env_syms and s not in self._donated_syms:
-                commit_sets.append((buf, s))
+                commit_sets.append((buf, s, self._prod_dev.get(s)))
             else:
                 commit_invs.append(buf)
         fetch_plan: list = []
@@ -555,116 +642,114 @@ class GraphExec:
                 fetch_plan.append(("launch", n, tuple(n.res_syms)))
         return _FastPlan(externs=tuple(g._extern.items()), writes=tuple(self._writes),
                          commit_sets=tuple(commit_sets), commit_invs=tuple(commit_invs),
-                         keep_externs=tuple(keep_externs), fetch_plan=tuple(fetch_plan))
+                         fetch_plan=tuple(fetch_plan))
 
     # -- executors -----------------------------------------------------------
 
-    def _launch_inputs(self) -> "list[int]":
-        """Plan inputs a launch consumes (externs and writes), in first-use
-        order: the static inputs of the captured graph."""
-        produced = {s for seg in self._segments for n in seg.nodes for s in n.res_syms}
-        out: "list[int]" = []
+    @property
+    def recorded_launches(self) -> "dict[str, int]":
+        """Kernel launches the segments' CUDA graphs hold, by kernel
+        package: what one replay of every graph runs on the device."""
+        out: "dict[str, int]" = {}
         for seg in self._segments:
-            for s in seg.in_syms:
-                if s not in produced and s not in out:
-                    out.append(s)
+            for k, v in seg.recorded.items():
+                out[k] = out.get(k, 0) + v
         return out
 
-    def _out_syms(self) -> "list[int]":
-        return [s for seg in self._segments for s in seg.out_syms]
+    @property
+    def graph_replays(self) -> int:
+        """CUDA graph launches made by replays, summed over the segments."""
+        return sum(seg.replays for seg in self._segments)
+
+    def replayed_launches(self) -> "dict[str, int]":
+        """Kernel launches the replays ran on the device through CUDA
+        graphs (no wrapper counted them): each graph's recorded launches
+        times its replays."""
+        out: "dict[str, int]" = {}
+        for seg in self._segments:
+            for k, v in seg.recorded.items():
+                out[k] = out.get(k, 0) + v * seg.replays
+        return out
+
+    @property
+    def cuda_graphs(self) -> int:
+        """Segments replayed through a CUDA graph of their own."""
+        return sum(seg.graph is not None for seg in self._segments)
 
     def _run_segment(self, seg: _Segment, env: dict) -> None:
+        """The segment's launches, eagerly, on the current stream; ``env``
+        holds its inputs, its results are added."""
         for n in seg.nodes:
             vals = [env[a.sym] if isinstance(a, _SymRef) else a for a in n.arg_refs]
             for s, v in zip(n.res_syms, _results(n.bound(*vals))):
                 env[s] = v
 
-    def _staged(self, env: dict) -> dict:
-        """The plan's launches, eagerly, in capture order on the current
-        stream; ``env`` holds the plan inputs, the outputs are added."""
-        for seg in self._segments:
-            self._run_segment(seg, env)
-        return env
-
-    def _fused(self, env: dict) -> dict:
-        """Copy the plan inputs into the static inputs, launch the graph;
-        the outputs are the graph's own tensors."""
-        cp = self._cuda
-        for s, t in cp.static_in.items():
+    def _replay_graph(self, seg: _Segment, env: dict) -> None:
+        """Copy the segment's inputs into its static inputs (a transfer
+        slot's copy is this one), launch its graph on the current stream;
+        its outputs are the graph's own tensors."""
+        for s, t in seg.static_in.items():
             if env[s] is not t:
                 t.copy_(env[s], non_blocking=True)
-        cp.graph.replay()
-        self.graph_replays += 1
-        env.update(cp.outs)
-        return env
+        seg.graph.replay()
+        env.update(seg.outs)
 
-    def _zeros(self, syms) -> dict:
-        dev = self._route_dev.torch_device
-        return {s: torch.zeros(self.graph._sym_spec[s].shape, dtype=self.graph._sym_spec[s].dtype,
-                               device=dev) for s in syms}
+    def _zeros(self, syms, device) -> dict:
+        spec = self.graph._sym_spec
+        return {s: torch.zeros(spec[s].shape, dtype=spec[s].dtype, device=device.torch_device)
+                for s in syms}
 
     def _compile_segments(self) -> None:
-        """Build every kernel; on CUDA warm up, capture, and choose the
-        executor (``REPRO_SEGMENT_COMPILE``)."""
+        """Build every kernel; on CUDA warm up, capture and choose each
+        segment's executor (``REPRO_SEGMENT_COMPILE``, read once here)."""
         for seg in self._segments:
             for n in seg.nodes:  # nvcc / load, on the compile queue
                 n.program.build(n.kernel, grid=n.grid, block=n.block).get()
-        if not self._segments:
-            return
-        if not self._route_dev.is_cuda:
-            for seg in self._segments:
-                seg.exec_mode = "staged"
-            return
-        self._capture()
         mode_env = os.environ.get("REPRO_SEGMENT_COMPILE", "auto").lower()
-        if mode_env == "fused" or all(len(seg.nodes) < 2 for seg in self._segments):
-            return
-        mode = "staged" if mode_env == "staged" else _calibrate(self)
+        streams: dict = {}  # card -> (warm-up stream, capture stream), shared by its segments
         for seg in self._segments:
-            seg.exec_mode = mode
+            if not seg.device.is_cuda or mode_env == "staged":
+                seg.exec_mode = "staged"
+                continue
+            dev = seg.device.torch_device
+            if dev not in streams:
+                # High priority for the capture: PyTorch hands out pooled
+                # streams round-robin, and the port's other streams come
+                # from the normal-priority pool, so no other thread's work
+                # can land on a stream being captured.
+                streams[dev] = torch.cuda.Stream(dev), torch.cuda.Stream(dev, priority=-1)
+            self._capture(seg, *streams[dev])
+            if mode_env == "auto" and len(seg.nodes) > 1 and self._calibrate(seg) == "staged":
+                seg.exec_mode = "staged"
+                seg.graph, seg.static_in, seg.outs, seg.recorded = None, {}, {}, {}
 
-    def _capture(self) -> None:
-        """Warm up on a side stream, then capture the whole plan into one
-        CUDA graph on private streams: chain 0 on the capture stream, each
-        other chain on a branch forked from it by an event and joined back
-        at the end; event edges become waits between branches."""
-        dev = self._route_dev.torch_device
+    def _capture(self, seg: _Segment, side, cap) -> None:
+        """Warm the segment up on the ``side`` stream, then capture it into
+        its own CUDA graph on the private stream ``cap`` of its card.
+        Segments are captured one after another, on the instantiating
+        thread."""
+        dev = seg.device.torch_device
         caller = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
         side.wait_stream(caller)
         with torch.cuda.stream(side):  # warm-up: throwaway inputs, nothing committed
-            for seg in self._segments:
-                self._run_segment(seg, self._zeros(seg.in_syms))
+            self._run_segment(seg, self._zeros(seg.in_syms, seg.device))
         side.synchronize()
-        static_in = self._zeros(self._launch_inputs())  # outside the graph's pool
-        chains = sorted({seg.chain for seg in self._segments})
-        # High priority: PyTorch hands out pooled streams round-robin, and
-        # the port's other streams come from the normal-priority pool, so
-        # no other thread's work can land on a stream being captured.
-        streams = {c: torch.cuda.Stream(dev, priority=-1) for c in chains}
-        cap = streams[chains[0]]
+        transfers = {seg.in_syms[pos] for pos in seg.transfer_ixs}
+        static_in: "dict[int, torch.Tensor]" = {}
+        for s in seg.in_syms:
+            pi = self._sym_seg.get(s)
+            prod = self._segments[pi] if pi is not None else None
+            if prod is not None and prod.graph is not None and s not in transfers:
+                static_in[s] = prod.outs[s]  # read in place: the event edge orders it
+            else:
+                static_in.update(self._zeros([s], seg.device))  # outside the graph's pool
         cap.wait_stream(caller)
         graph = torch.cuda.CUDAGraph()
         env = dict(static_in)
-        with torch.cuda.stream(cap), tally_launches() as recorded:
+        with torch.cuda.device(dev), torch.cuda.stream(cap), tally_launches() as recorded:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                fork = torch.cuda.Event()
-                fork.record(cap)
-                for c in chains[1:]:
-                    streams[c].wait_event(fork)
-                ends: "dict[int, torch.cuda.Event]" = {}
-                for si, seg in enumerate(self._segments):
-                    st = streams[seg.chain]
-                    for pi, ci, _ in self._event_edges:
-                        if ci == si:
-                            st.wait_event(ends[pi])
-                    with torch.cuda.stream(st):
-                        self._run_segment(seg, env)
-                    ends[si] = torch.cuda.Event()
-                    ends[si].record(st)
-                for c in chains[1:]:
-                    cap.wait_stream(streams[c])
+                self._run_segment(seg, env)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -672,16 +757,49 @@ class GraphExec:
                     pass  # the capture is already invalid; the first error is the one to raise
                 raise
             graph.capture_end()
-        self.recorded_launches = dict(recorded)
-        self._cuda = _CudaPlan(graph, static_in, {s: env[s] for s in self._out_syms()})
+        seg.graph, seg.static_in = graph, static_in
+        seg.outs = {s: env[s] for s in seg.out_syms}
+        seg.recorded = dict(recorded)
+
+    def _calibrate(self, seg: _Segment) -> str:
+        """Time the segment's two executors on throwaway zero inputs and
+        return the winner's mode.  Fresh inputs per trial, built and synced
+        before the clock starts; min-of-N; ties go to fused.  Any trial
+        failure, and inputs above ``_CAL_MAX_BYTES``, keep fused."""
+        spec = self.graph._sym_spec
+        if sum(int(np.prod(spec[s].shape)) * spec[s].dtype.itemsize
+               for s in seg.in_syms) > _CAL_MAX_BYTES:
+            return "fused"
+        stream = torch.cuda.current_stream(seg.device.torch_device)
+
+        def timed(fn):
+            env = self._zeros(seg.in_syms, seg.device)
+            stream.synchronize()
+            t0 = time.perf_counter()
+            fn(seg, env)
+            stream.synchronize()
+            return time.perf_counter() - t0
+
+        try:
+            timed(self._replay_graph), timed(self._run_segment)  # warm-up
+            tf, ts = [], []
+            for _ in range(_CAL_TRIALS):  # interleaved: drift hits both sides
+                tf.append(timed(self._replay_graph))
+                ts.append(timed(self._run_segment))
+            if min(ts) * _CAL_FUSED_EDGE < min(tf):
+                return "staged"
+        except (RuntimeError, ValueError, TypeError):  # calibration must never break instantiate
+            pass
+        return "fused"
 
     # -- replay ------------------------------------------------------------
 
     def _stage_write(self, n: WriteNode, feeds, dst: "torch.Tensor | None"):
-        """Resolve one write node's payload -> (device tensor, owned?).
-        With ``dst`` (a static input) the payload is copied into it;
-        otherwise a conforming device tensor is used by reference (not
-        owned) and anything else is copied into a fresh one (owned)."""
+        """Resolve one write node's payload -> (tensor on its planned
+        device, owned?).  With ``dst`` (a static input) the payload is
+        copied into it; otherwise a conforming device tensor is used by
+        reference (not owned) and anything else is copied into a fresh one
+        (owned)."""
         data = n.data
         if feeds is not None:
             data = feeds.get(n, feeds.get(n.buf, data))
@@ -690,7 +808,7 @@ class GraphExec:
                 f"write node for buffer gid={n.buf.gid} has no payload: "
                 "record one at capture or pass feeds={node: data}"
             )
-        dev = self._route_dev.torch_device
+        dev = self._prod_dev[n.sym].torch_device
         src = _host_tensor(data)
         if tuple(src.shape) != n.buf.shape or src.dtype != n.buf.dtype:
             src = src.reshape(n.buf.shape).to(n.buf.dtype)
@@ -702,14 +820,17 @@ class GraphExec:
         return out, dst is None
 
     def _execute(self, feeds, block: bool, gate: "Future | None"):
-        """One lane task: stage the inputs, run the executor, commit."""
+        """One lane task of a single-segment, single-device plan: stage the
+        inputs, run the executor, commit."""
         if gate is not None:
             gate.wait()  # the previous replay went down another lane
-        fused = self._cuda is not None and self._segments[0].exec_mode == "fused"
-        if self._last_event is not None and self._route_dev.is_cuda:
-            torch.cuda.current_stream(self._route_dev.torch_device).wait_event(self._last_event)
+        stream = _current_stream(self._route_dev)
+        if self._last_event is not None and stream is not None:
+            stream.wait_event(self._last_event)
         p = self._fast
-        statics = self._cuda.static_in if fused else {}
+        seg = self._segments[0] if self._segments else None
+        fused = seg is not None and seg.graph is not None
+        statics = seg.static_in if fused else {}
         env: "dict[int, Any]" = {}
         owned: "set[int]" = set()
         for s, buf in p.externs:
@@ -719,67 +840,212 @@ class GraphExec:
             if fresh:
                 owned.add(n.sym)
         if fused:
-            self._fused(env)
-        else:
-            self._staged(env)
-            owned.update(s for seg in self._segments for n in seg.nodes for s in n.res_syms)
-        if self._route_dev.is_cuda and p.externs:
-            ran = torch.cuda.Event()
-            ran.record(torch.cuda.current_stream(self._route_dev.torch_device))
-            for _, buf in p.externs:  # a later in-place write elsewhere waits for this read
+            self._replay_graph(seg, env)
+            seg.replays += 1
+        elif seg is not None:
+            self._run_segment(seg, env)
+            owned.update(s for n in seg.nodes for s in n.res_syms)
+        if stream is not None and p.externs:
+            ran = _record(stream)
+            for buf in p.extern_bufs:  # a later in-place write elsewhere waits for this read
                 buf._mark_read(ran)
-        return self._commit(env, owned, block)
+        res, _, pinned = self._commit({s: _Val(env[s], stream, None, s in owned)
+                                       for s in p.commit_syms})
+        ev = _record(stream)
+        self._last_event = ev
+        if ev is not None and pinned and not block:
+            ev.synchronize()  # host arrays must be filled when the future resolves
+        return res, ev
 
-    def _commit(self, env: dict, owned: "set[int]", block: bool):
-        """Commit buffer states (CUDA Graphs ownership rule) and gather the
-        fetches; a device value handed out that this replay does not own
-        (the graph's memory, a caller's tensor) is copied first."""
+    def _commit(self, env: "dict[int, _Val]"):
+        """Commit buffer states (CUDA Graphs ownership rule), re-home a
+        buffer whose final value materialized on another device, and
+        gather the fetches.  Work on a value (a copy out of memory the
+        replay does not own, a D2H read) is issued on the stream that made
+        it.  Returns (result, the streams worked on, whether a fetch is a
+        pending D2H copy)."""
         p = self._fast
-        given: "dict[int, Any]" = {}
+        given: "dict[int, torch.Tensor]" = {}
+        streams: "dict[int, torch.cuda.Stream]" = {}
+
+        def on(v: _Val):
+            if v.stream is not None:
+                streams[id(v.stream)] = v.stream
+            return torch.cuda.stream(v.stream)
 
         def handed(s):
-            v = given.get(s)
-            if v is None:
-                v = given[s] = env[s] if s in owned else env[s].clone()
-            return v
+            t = given.get(s)
+            if t is None:
+                v = env[s]
+                if v.owned:
+                    t = v.tensor
+                else:
+                    with on(v):
+                        t = v.tensor.clone()
+                given[s] = t
+            return t
 
-        for buf, s in p.commit_sets:
-            buf._set_tensor(handed(s))
+        for buf, s, prod in p.commit_sets:
+            t = handed(s)
+            with on(env[s]):
+                buf._set_tensor(t)
+            if prod is not None and prod is not buf.device:
+                buf._rehome(prod)
         for buf in p.commit_invs:
             buf._invalidate()
         fetches: dict = {}
         reads: list = []
-        pinned = []
+        pinned = False
         for kind, node, syms in p.fetch_plan:
             if kind == "read":
-                t = env[syms]
-                if t.is_cuda:
-                    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    host.copy_(t, non_blocking=True)
-                    pinned.append(host)
-                else:
-                    host = t.clone()
+                v = env[syms]
+                with on(v):
+                    host = _to_host(v.tensor)
+                pinned = pinned or v.tensor.is_cuda
                 val = _to_host_value(host)
                 fetches[node] = val
                 reads.append(val)
             else:
                 vals = [handed(s) for s in syms]
                 fetches[node] = vals[0] if len(vals) == 1 else vals
-        ev = None
-        if self._route_dev.is_cuda:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self._route_dev.torch_device))
-            self._last_event = ev
-            if pinned and not block:
-                ev.synchronize()  # host arrays must be filled when the future resolves
-        return GraphResult(fetches, reads), ev
+        return GraphResult(fetches, reads), list(streams.values()), pinned
+
+    # -- fan-out -------------------------------------------------------------
+
+    def _read_extern(self, s: int, buf: Buffer) -> _Val:
+        """Task on the extern's owning lane (after the eager work there):
+        its live value on its planned device.  A spilled buffer is
+        refetched (``_use``); one that moved since instantiate is copied
+        back."""
+        t = buf._use()
+        planned = self._prod_dev[s]
+        moved = buf.device.key != planned.key
+        if moved:
+            t = t.to(planned.torch_device, copy=True)
+        stream = _current_stream(buf.device)
+        return _Val(t, stream, _record(stream), moved)
+
+    def _stage_writes(self, device, nodes, feeds) -> "dict[int, _Val]":
+        """Task on a device's default lane: the payloads of its writes."""
+        staged = {n.sym: self._stage_write(n, feeds, None) for n in nodes}
+        stream = _current_stream(device)
+        ev = _record(stream)
+        return {s: _Val(t, stream, ev, owned) for s, (t, owned) in staged.items()}
+
+    def _run_lane_segment(self, seg: _Segment, deps: list, gate, ends: list, si: int):
+        """Task on the segment's lane: wait (host) until its producers are
+        issued, make its stream wait on their events and on the previous
+        replay's end, run its transfer steps and its executor, record its
+        end event."""
+        vals = [_resolve(d) for d in deps]
+        stream = _current_stream(seg.device)
+        if stream is not None and gate is not None:
+            stream.wait_event(gate)
+        for v in vals:
+            if v.event is None or v.stream == stream:
+                continue
+            if stream is None:
+                v.event.synchronize()  # a card's value read on the CPU
+            else:
+                stream.wait_event(v.event)
+                v.tensor.record_stream(stream)
+        env = {s: v.tensor for s, v in zip(seg.in_syms, vals)}
+        if seg.graph is not None:
+            self._replay_graph(seg, env)
+            seg.replays += 1
+        else:
+            for pos in seg.transfer_ixs:
+                s = seg.in_syms[pos]
+                env[s] = env[s].to(seg.device.torch_device, copy=True)
+            self._run_segment(seg, env)
+        ends[si] = end = _record(stream)
+        return {s: _Val(env[s], stream, end, seg.graph is None) for s in seg.out_syms}
+
+    def _replay_fanout(self, feeds, block: bool, lane=None) -> "Future[GraphResult]":
+        """Everything lane-bound is submitted synchronously, in capture
+        order, from the calling thread: extern reads on their owning lanes,
+        write staging on their devices' default lanes, then one task per
+        segment on its chain's lane (or ``lane``, for a single segment).
+        So eager work submitted after ``replay()`` returns runs after the
+        replay's work on that lane.  A join on the host pool commits and
+        resolves the single returned future; fences park the default lane
+        of every device involved until then."""
+        g = self.graph
+        self._replay_lock.acquire()  # released by the join
+        try:
+            if self._last_replay is not None:
+                self._last_replay.wait()  # a single-lane replay: its commit comes first
+                self._last_replay = None
+            gate = self._last_event
+            vals: dict = {}  # sym -> (future, key)
+            futs: "list[Future]" = []
+            for s, buf in g._extern.items():
+                f = buf.device.ops_queue.submit(self._read_extern, s, buf)
+                futs.append(f)
+                vals[s] = (f, None)
+            by_dev: dict = {}
+            for n in self._writes:
+                d = self._prod_dev[n.sym]
+                by_dev.setdefault(d.key, (d, []))[1].append(n)
+            for d, nodes in by_dev.values():
+                f = d.ops_queue.submit(self._stage_writes, d, nodes, feeds)
+                futs.append(f)
+                for n in nodes:
+                    vals[n.sym] = (f, n.sym)
+            ends: list = [None] * len(self._segments)
+            for si, seg in enumerate(self._segments):
+                q = seg.queue if lane is None else lane
+                f = q.submit(self._run_lane_segment, seg, [vals[s] for s in seg.in_syms],
+                             gate, ends, si)
+                futs.append(f)
+                for s in seg.out_syms:
+                    vals[s] = (f, s)
+        except BaseException:
+            self._replay_lock.release()
+            raise
+
+        def _join() -> GraphResult:
+            try:
+                for f in futs:
+                    f.wait()  # nothing of this replay runs past the lock
+                for f in futs:
+                    f.get()  # the first failure propagates
+                res, streams, pinned = self._commit({s: _resolve(vals[s])
+                                                     for s in self._fast.commit_syms})
+                js = self._join_stream
+                if js is not None:
+                    for ev in [e for e in ends if e is not None] + [_record(s) for s in streams]:
+                        js.wait_event(ev)
+                    end = self._last_event = _record(js)
+                    with torch.cuda.stream(js):
+                        # a later in-place write waits for the reads
+                        for buf in self._fast.extern_bufs:
+                            buf._mark_read(end)
+                    if block or pinned:
+                        end.synchronize()
+                return res
+            finally:
+                self._replay_lock.release()
+
+        out: "Future[GraphResult]" = Future.from_concurrent(get_runtime().pool.submit(_join),
+                                                             name=f"replay:{g.name}")
+        fenced: "set[str]" = set()
+        for dev in [seg.device for seg in self._segments] + [b.device for b in g._buffers.values()]:
+            if dev.key not in fenced:
+                fenced.add(dev.key)
+                dev.ops_queue.submit(out.wait)
+        return out
 
     def replay(self, feeds: "dict | None" = None, sync: str = "ready",
                stream=None) -> "Future[GraphResult]":
         """Execute the whole graph and resolve **one** ``Future``
-        (``cudaGraphLaunch`` analogue).  One task on the route device's
-        default lane (or on ``stream``'s): stage feeds and externs into
-        the static inputs, launch the graph, commit.
+        (``cudaGraphLaunch`` analogue).
+
+        A single-segment plan on one device takes one task on the route
+        device's default lane (or on ``stream``'s): stage feeds and externs
+        into the static inputs, launch the graph, commit.  Any other plan
+        fans out, each segment on its chain's lane (see the module
+        docstring), joined through the one future.
 
         ``feeds`` overrides recorded write payloads, keyed by the
         ``WriteNode`` handle or by the target ``Buffer``.  ``sync="ready"``
@@ -788,16 +1054,23 @@ class GraphExec:
 
         ``stream`` replays a single-segment graph on a caller-chosen stream
         of the route device (``cudaGraphLaunch(exec, stream)``).  A fan-out
-        plan fixed its chains at instantiate and refuses the override."""
+        plan fixed its lanes at instantiate and refuses the override."""
         block = sync == "ready"
         if stream is not None and self._fanout:
             raise ValueError(
                 f"GraphExec '{self.graph.name}' is a fan-out plan ({len(self._segments)} "
-                "segments): its lanes were resolved at instantiate (one branch per "
+                "segments): its lanes were resolved at instantiate (one stream per "
                 "chain) and cannot be overridden per replay — stream= applies to "
                 "single-segment graphs only"
             )
         queue = self._queue if stream is None else stream._lane_for(self._route_dev)
+        if self._multi_device or any(b.device is not self._route_dev
+                                     for b in self._fast.extern_bufs):
+            # Several devices, or an extern moved off the route device: its
+            # read must run on its owner's lane.
+            return self._replay_fanout(feeds, block, None if stream is None else queue)
+        if self._fanout:
+            return self._replay_fanout(feeds, block)
         with self._replay_lock:
             prev = self._last_replay
             gate = prev if self._last_replay_queue is not queue else None
@@ -815,48 +1088,18 @@ class GraphExec:
         nseg = len(self._segments)
         nk = sum(len(s.nodes) for s in self._segments)
         nlanes = len({id(s.queue) for s in self._segments})
-        ne = len(self._event_edges)
-        mode = "fan-out" if self._fanout else "pre-bound"
+        mode = "fan-out" if self._fanout else "multi-device" if self._multi_device else "pre-bound"
+        ng = self.cuda_graphs
+        where = "no CUDA graph" if ng == 0 else f"{ng} CUDA graph(s)"
         comp = "+".join(sorted({s.exec_mode for s in self._segments})) or "empty"
-        where = "one CUDA graph" if self._cuda is not None else "no CUDA graph"
+        per = ",".join(s.exec_mode for s in self._segments)
         return (
             f"GraphExec({self.graph.name}: {nk} launches -> {nseg} segment(s) "
-            f"on {nlanes} stream(s), {ne} event edge(s), {mode}, {where}, compile={comp})"
+            f"on {nlanes} stream(s), {len(self._transfers)} transfer(s), "
+            f"{len(self._event_edges)} event edge(s), {mode}, {where}, compile={comp} [{per}])"
         )
 
 
 _CAL_TRIALS = 3
-_CAL_MAX_BYTES = 256 << 20  # plans above this skip trials (alloc churn)
+_CAL_MAX_BYTES = 256 << 20  # segments above this skip trials (alloc churn)
 _CAL_FUSED_EDGE = 1.05  # prefer fused within 5%
-
-
-def _calibrate(exe: GraphExec) -> str:
-    """Time both executors on throwaway zero inputs and return the
-    winner's mode.  Fresh inputs per trial, built and synced before the
-    clock starts; min-of-N; ties go to fused.  Any trial failure keeps
-    fused."""
-    syms = exe._launch_inputs()
-    spec = exe.graph._sym_spec
-    if sum(int(np.prod(spec[s].shape)) * spec[s].dtype.itemsize for s in syms) > _CAL_MAX_BYTES:
-        return "fused"
-    stream = torch.cuda.current_stream(exe._route_dev.torch_device)
-
-    def timed(fn):
-        env = exe._zeros(syms)
-        stream.synchronize()
-        t0 = time.perf_counter()
-        fn(env)
-        stream.synchronize()
-        return time.perf_counter() - t0
-
-    try:
-        timed(exe._fused), timed(exe._staged)  # warm-up
-        tf, ts = [], []
-        for _ in range(_CAL_TRIALS):  # interleaved: drift hits both sides
-            tf.append(timed(exe._fused))
-            ts.append(timed(exe._staged))
-        if min(ts) * _CAL_FUSED_EDGE < min(tf):
-            return "staged"
-    except (RuntimeError, ValueError, TypeError):  # calibration must never break instantiate
-        pass
-    return "fused"

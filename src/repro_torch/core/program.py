@@ -90,7 +90,7 @@ class Program:
         self._bound_cache: "dict[tuple, Callable]" = {}
         self._siblings: "dict[str, Program]" = {}
         self.gid = agas.registry.register(self, agas.Placement(device.key, 0), kind="program")
-        self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
+        self._finalizer = weakref.finalize(self, agas.registry.retire, self.gid)
 
     # -- construction ---------------------------------------------------------
 
@@ -207,7 +207,7 @@ class Program:
         Inside a ``repro_torch.core.graph.capture()`` region the launch is
         *recorded*, not executed: the return value is then the graph node,
         and execution happens at ``replay()`` (capture ignores ``stream``:
-        ``instantiate`` assigns chains to branches itself).
+        ``instantiate`` assigns each chain its lane itself).
         """
         from repro_torch.core.graph import current_graph
 

@@ -363,7 +363,7 @@ class PagePool:
             buf._finalizer.detach()
         buf.gid = agas.registry.register(buf, agas.Placement(buf.device.key, 0), kind="pool",
                                          nbytes=0)
-        buf._finalizer = weakref.finalize(buf, agas.registry.unregister, buf.gid)
+        buf._finalizer = weakref.finalize(buf, agas.registry.retire, buf.gid)
 
     # -- allocation ----------------------------------------------------------
 
@@ -530,7 +530,7 @@ class SeqPages:
         self._last_use = _now()
         self.gid = agas.registry.register(self, agas.Placement(pool.device.key, 0),
                                           kind="buffer", nbytes=0)
-        self._finalizer = weakref.finalize(self, agas.registry.unregister, self.gid)
+        self._finalizer = weakref.finalize(self, agas.registry.retire, self.gid)
 
     @property
     def device(self):

@@ -1077,7 +1077,7 @@ def test_torch_cuda_graph_replay_bit_equal_to_eager_with_new_feeds():
         chain(gsrc, ga, gb, gc)
         r = gc.enqueue_read()
     exe = g.instantiate()
-    assert exe._cuda is not None and {s.exec_mode for s in exe._segments} == {"fused"}, repr(exe)
+    assert exe.cuda_graphs == 1 and {s.exec_mode for s in exe._segments} == {"fused"}, repr(exe)
     assert exe.recorded_launches == {"stencil": 1, "partition_map": 1}
     reset_launch_counts()
     first = None
@@ -1099,6 +1099,9 @@ def test_torch_cuda_graph_replay_bit_equal_to_eager_with_new_feeds():
 
 @pytest.mark.cuda
 def test_torch_cuda_graph_two_chains_are_branches_of_one_graph():
+    """Two chains joined by an add: three segments on two lanes, each
+    with a CUDA graph of its own (once branches of one graph), the join an
+    event edge; replays bit-equal to eager."""
     _need_cuda()
     n = 1 << 18
     dev, prog, _, _ = _graph_chain(n)
@@ -1111,7 +1114,8 @@ def test_torch_cuda_graph_two_chains_are_branches_of_one_graph():
         prog.run([b], "partition_map", out=[mb])
         prog.run([ma, mb], "add", out=[out])
     exe = g.instantiate()
-    assert exe._fanout and exe._event_edges and exe._cuda is not None, repr(exe)
+    assert exe._fanout and exe._event_edges and exe.cuda_graphs == 3, repr(exe)
+    assert len({id(seg.queue) for seg in exe._segments}) == 2, repr(exe)
     for _ in range(3):
         xa, xb = (torch.randn(n, generator=gen, device="cuda") for _ in range(2))
         exe.replay(feeds={wa: xa, wb: xb}).get()
@@ -1393,6 +1397,186 @@ def test_torch_cuda_run_on_any_over_4_logical_devices_is_bit_equal():
         run(bufs, Scheduler(devs, steal=False))
         assert sum(d.spills for d in devs) >= 1 and sum(d.refetches for d in devs) >= 1
         wait_all([b.free() for b in bufs])
+    finally:
+        reset_runtime()
+
+
+def _fleet_graph(devs, n, chunks, mode):
+    """``chunks`` chunks of ``n`` f32, each partition_map -> stencil
+    through ``run_on_any`` round-robin over ``devs``, captured and
+    instantiated with ``REPRO_SEGMENT_COMPILE=mode``; returns (exe, its
+    write nodes, the eager DAG on the same inputs, the graph's outputs)."""
+    prog = devs[0].create_program({"partition_map": map_ops.partition_map,
+                                   "stencil": stencil_ops.stencil}, name="fleet-graph").get()
+    nd = len(devs)
+    mk = lambda k: [devs[(2 * i + k) % nd].create_buffer(n, np.float32).get()  # noqa: E731
+                    for i in range(chunks)]
+    gsrc, gmid, gout, esrc, emid, eout = mk(0), mk(0), mk(1), mk(0), mk(0), mk(1)
+
+    def dag(sched, srcs, mids, outs):
+        return [(prog.run_on_any([s], "partition_map", out=[m], scheduler=sched),
+                 prog.run_on_any([m], "stencil", out=[o], scheduler=sched))[1]
+                for s, m, o in zip(srcs, mids, outs)]
+
+    with devs[0].capture("fleet") as g:
+        nodes = [g.write(s) for s in gsrc]
+        dag(Scheduler(devs, policy="round_robin", steal=False), gsrc, gmid, gout)
+    old = os.environ.get("REPRO_SEGMENT_COMPILE")
+    os.environ["REPRO_SEGMENT_COMPILE"] = mode
+    try:
+        exe = g.instantiate()
+    finally:
+        if old is None:
+            del os.environ["REPRO_SEGMENT_COMPILE"]
+        else:
+            os.environ["REPRO_SEGMENT_COMPILE"] = old
+
+    def eager(xs):
+        for s, x in zip(esrc, xs):
+            s.enqueue_write(0, x)
+        wait_all(dag(Scheduler(devs, policy="round_robin", steal=False), esrc, emid, eout))
+        return [o.array() for o in eout]
+
+    return exe, nodes, eager, gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "staged"])
+def test_torch_cuda_graph_over_4_logical_devices_one_graph_a_segment(mode):
+    """A plan recorded through ``run_on_any`` over 4 logical devices:
+    fused, every segment is a CUDA graph of its own (each device has
+    some); staged, none is.  Replays with fresh feeds are bit-equal to the
+    eager DAG and to one device's kernels."""
+    _need_cuda()
+    try:
+        devs = _logical(4)
+        n, chunks = 1 << 20, 8
+        exe, nodes, eager, gout = _fleet_graph(devs, n, chunks, mode)
+        segs = exe._segments
+        assert len(segs) == 2 * chunks and len(exe._transfers) == chunks, repr(exe)
+        assert {s.exec_mode for s in segs} == {mode}
+        if mode == "fused":
+            assert exe.cuda_graphs == len(segs)
+            assert {s.device.key for s in segs if s.graph is not None} == {d.key for d in devs}
+            assert exe.recorded_launches == {"partition_map": chunks, "stencil": chunks}
+        else:
+            assert exe.cuda_graphs == 0 and exe.recorded_launches == {}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for _ in range(4):
+            xs = [torch.randn(n, generator=gen, device="cuda") for _ in range(chunks)]
+            torch.cuda.synchronize()
+            exe.replay(feeds=dict(zip(nodes, xs))).get()
+            want = eager(xs)
+            for x, o, w in zip(xs, gout, want):
+                assert torch.equal(o.array(), w)
+                assert torch.equal(w, stencil_ops.stencil(map_ops.partition_map(x)))
+        assert exe.graph_replays == (4 * len(segs) if mode == "fused" else 0)
+    finally:
+        reset_runtime()
+
+
+def _slow(x):
+    """x + 1 after ~0.1 s of device time (on a card)."""
+    if x.is_cuda:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    return x + 1.0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_event_edges_are_device_side():
+    """The first segment sleeps ~0.1 s on the device; its consumer sits on
+    another logical device.  ``replay(sync="dispatch")`` resolves before
+    the producer's work ends (the consumer's stream waits on its event,
+    nobody waits on the host), and the committed value is still right;
+    ``sync="ready"`` resolves once it has ended."""
+    _need_cuda()
+    try:
+        devs = _logical(2)
+        prog = devs[0].create_program({"slow": _slow, "double": lambda x: x * 2.0}, "slow").get()
+        x = devs[0].create_buffer_from(torch.arange(1 << 16, dtype=torch.float32,
+                                                    device="cuda")).get()
+        m = devs[0].create_buffer(1 << 16, np.float32).get()
+        o = devs[1].create_buffer(1 << 16, np.float32).get()
+        with devs[0].capture("slow") as g:
+            prog.run([x], "slow", out=[m])
+            prog.for_device(devs[1]).run([m], "double", out=[o])
+        exe = g.instantiate()
+        assert exe._fanout and exe.cuda_graphs == 2 and exe._event_edges, repr(exe)
+        want = (torch.arange(1 << 16, dtype=torch.float32, device="cuda") + 1.0) * 2.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.replay(sync="dispatch").get()
+        dispatched = time.perf_counter() - t0
+        pending = not exe._last_event.query()
+        assert torch.equal(o.array(), want)  # ordered after the replay's work on the device
+        assert pending and dispatched < 0.05, (pending, dispatched)
+        exe.replay(sync="ready").get()
+        assert exe._last_event.query()
+        assert torch.equal(o.array(), want)
+    finally:
+        reset_runtime()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["transfer slot", "read in place"])
+def test_torch_cuda_graph_next_replay_waits_for_the_slow_consumer(where):
+    """Two replays dispatched back to back while the first one's consumer
+    (slow: it sleeps before reading) still has to read its input, a
+    transfer slot on another logical device or a same-device producer's
+    graph output read in place: each replay's out-less result is its own
+    inputs' (the second replay's copies and producer wait for the first
+    replay's end)."""
+    _need_cuda()
+    try:
+        devs = _logical(2)
+        k = {"inc": lambda x: x + 1.0, "slow_add": lambda x, y: _slow(x) + y - 1.0}
+        prog = devs[0].create_program(k, "slow-consumer").get()
+        n = 1 << 16
+        a, b = (devs[0].create_buffer(n, np.float32).get() for _ in range(2))
+        ma, mb = (devs[0].create_buffer(n, np.float32).get() for _ in range(2))
+        with devs[0].capture("slow-consumer") as g:
+            wa, wb = g.write(a), g.write(b)
+            prog.run([a], "inc", out=[ma])  # chain 0
+            prog.run([b], "inc", out=[mb])  # chain 1
+            cons = prog if where == "read in place" else prog.for_device(devs[1])
+            node = cons.run([mb, ma], "slow_add")  # chain 1 (or device 1): ma from chain 0
+        exe = g.instantiate()
+        consumer, ma_sym = exe._segments[-1], g._cur[id(ma)]
+        if where == "transfer slot":
+            assert exe.cuda_graphs == 3 and len(consumer.transfer_ixs) == 2, repr(exe)
+        else:  # inc(b) and slow_add share chain 1: one segment, reading ma in place
+            assert exe.cuda_graphs == 2 and not consumer.transfer_ixs, repr(exe)
+            assert consumer.static_in[ma_sym] is exe._segments[0].outs[ma_sym]
+        feeds = [{wa: torch.full((n,), float(v), device="cuda"),
+                  wb: torch.full((n,), 10.0 * v, device="cuda")} for v in (1, 2)]
+        torch.cuda.synchronize()
+        res = [exe.replay(feeds=f, sync="dispatch").get() for f in feeds]
+        torch.cuda.synchronize()
+        for v, r in zip((1, 2), res):
+            assert torch.equal(r[node], torch.full((n,), 11.0 * v + 2.0, device="cuda")), v
+    finally:
+        reset_runtime()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_graph_fleet_memory_stays_bounded_over_50_replays():
+    """The graph memory is allocated at instantiate: 50 replays of a plan
+    over 4 logical devices do not grow the reserved memory."""
+    _need_cuda()
+    try:
+        devs = _logical(4)
+        n, chunks = 1 << 20, 8
+        exe, nodes, _, _ = _fleet_graph(devs, n, chunks, "fused")
+        xs = [torch.randn(n, device="cuda") for _ in range(chunks)]
+        torch.cuda.synchronize()
+        feeds = dict(zip(nodes, xs))
+        for _ in range(5):
+            exe.replay(feeds=feeds).get()
+        before = torch.cuda.memory_reserved()
+        for _ in range(50):
+            exe.replay(feeds=feeds).get()
+        assert torch.cuda.memory_reserved() <= before + n * 4 * chunks, \
+            (before, torch.cuda.memory_reserved())
     finally:
         reset_runtime()
 

@@ -9,7 +9,8 @@ against the reference's replay AND against the port's own eager chain of
 has no CUDA graph: every plan replays ``staged`` with the same bookkeeping
 (the CUDA-graph half is in ``tests/test_torch_cuda.py`` and the smoke's
 ``graph`` phase).  Also: the first result survives a second replay with
-other feeds, multi-device plans and remote buffers are refused, and
+other feeds, a plan over two devices replays (the reference's checks), remote
+buffers are refused, and
 ``REPRO_SEGMENT_COMPILE=staged|fused`` give the same values.
 """
 import numpy as np
@@ -363,14 +364,47 @@ def test_torch_segment_compile_env_same_values(device, prog, monkeypatch, mode):
 
 
 def test_torch_multi_device_plan_refused(device, prog):
-    other = Device(torch.device("cpu", 1))  # a second device object, never allocated on
-    oprog = other.create_program(dict(KERNELS), name="other").get()
-    a, b = _bufs(device, 8, 2)
-    g = TaskGraph("two-devices")
-    g.run(prog, [a], "double", out=[b])
-    g.run(oprog, [b], "inc")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        g.instantiate()
+    """Refused until the multi-device slice; now the reference's checks of
+    a plan over two devices (``tests/test_scheduler.py``'s xdev graph and
+    donation race), on the CPU device and a logical CPU device: recorded
+    through ``run_on_any``, the plan replays through one future, with a
+    transfer step and the out buffer left on the device that wrote it."""
+    d0, d1 = device, Device(torch.device("cpu"), logical=1)
+    p2 = d0.create_program({"inc": lambda x: x + 1.0, "scale": lambda x: x * 3.0}, "g").get()
+    b_in, t_mid = _bufs(d0, 16, 2)
+    t_out = d1.create_buffer(16, np.float32).get()
+    rr = tcore.Scheduler([d0, d1], policy="round_robin")
+    with capture("xdev") as g:
+        w = b_in.enqueue_write(0, np.ones(16, np.float32))
+        p2.run_on_any([b_in], "inc", out=[t_mid], scheduler=rr)     # -> d0
+        p2.run_on_any([t_mid], "scale", out=[t_out], scheduler=rr)  # -> d1
+        r = t_out.enqueue_read()
+    exe = g.instantiate()
+    assert exe._fanout and len(exe._segments) == 2, repr(exe)
+    assert len(exe._transfers) >= 1 and "1 transfer(s)" in repr(exe), repr(exe)
+    fut = exe.replay()  # ONE future for the whole graph
+    assert isinstance(fut, Future)
+    _same(fut.get()[r], np.full(16, 6.0, np.float32))
+    res2 = exe.replay(feeds={w: np.full(16, 2.0, np.float32)}).get()
+    _same(res2[r], np.full(16, 9.0, np.float32))
+    assert tcore.registry.placement(t_out.gid).device_key == d1.key
+
+    # a sym consumed by two segments that may run concurrently is never donated
+    a0, m1, o2 = _bufs(d0, 8, 3)
+    o1 = d1.create_buffer(8, np.float32).get()
+    ga = TaskGraph("donate-race")
+    ga.write(a0, np.ones(8, np.float32))
+    ga.run(p2.for_device(d0), [a0], "inc", out=[m1])    # seg 0 (d0) -> m1
+    ga.run(p2.for_device(d1), [m1], "scale", out=[o1])  # seg 1 (d1) reads m1
+    ga.run(p2.for_device(d0), [m1], "inc", out=[o2])    # seg 2 (d0) reads m1 too
+    r1, r2 = ga.read(o1), ga.read(o2)
+    m1_sym = ga._cur[id(m1)]
+    exe_a = ga.instantiate()
+    assert exe_a._fanout and len(exe_a._segments) == 3, repr(exe_a)
+    assert m1_sym not in exe_a._donated_syms
+    res_a = exe_a.replay().get()
+    _same(res_a[r1], np.full(8, 6.0, np.float32))  # (1+1)*3
+    _same(res_a[r2], np.full(8, 3.0, np.float32))  # (1+1)+1
 
 
 def test_torch_remote_buffer_refused(device, prog):

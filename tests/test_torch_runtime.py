@@ -157,6 +157,41 @@ def test_torch_buffer_free_releases_and_retires_record(device):
         buf.enqueue_read_sync()
 
 
+@pytest.mark.parametrize("what", ["buffer", "program"])
+def test_torch_finalizer_under_the_registry_lock_does_not_deadlock(device, what):
+    """A garbage collection can run at any allocation, also on a thread
+    that holds the AGAS registry's lock: a collected buffer's or program's
+    finalizer must not take that lock (it deadlocked the thread, and then
+    every thread asking the registry).  Its record is dropped at the next
+    registry call instead."""
+    import gc
+    import threading
+
+    obj = (device.create_buffer(4, np.float32) if what == "buffer"
+           else device.create_program({"k": lambda x: x})).get()
+    gid = obj.gid
+    cycle = [obj]
+    cycle.append(cycle)  # reachable only through a reference cycle
+    del obj
+
+    def collect_under_the_lock():
+        nonlocal cycle
+        with registry._lock:
+            cycle = None
+            gc.collect()  # the finalizer runs here, on this thread
+
+    t = threading.Thread(target=collect_under_the_lock, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    deadlocked = t.is_alive()
+    if deadlocked:  # let the stuck finalizer through, so the tests after this one run
+        registry._lock.release()
+        t.join(timeout=10)
+    assert not deadlocked, "the finalizer deadlocked on the registry lock"
+    with pytest.raises(KeyError):
+        registry.placement(gid)
+
+
 def test_torch_program_listing2_workflow(device):
     """The paper's Listing 2, end to end, through both packages: sum of n
     elements."""

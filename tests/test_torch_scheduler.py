@@ -32,6 +32,7 @@ from repro_torch.core import (
     HOST_KEY,
     QueueLoad,
     Scheduler,
+    TaskGraph,
     capture,
     get_all_devices,
     get_all_localities,
@@ -774,8 +775,8 @@ def test_torch_scheduler_integration_8_logical_devices(fleet8):
     assert aff.stats() == {target.key: 1}
     assert registry.placement(out.gid).device_key == target.key
 
-    # a graph recorded through run_on_any over two devices is a
-    # multi-device plan: refused until its slice (ROADMAP item 6b)
+    # captured multi-device graph (recorded through run_on_any) replays
+    # through ONE future: per-device segments + an explicit transfer
     d0, d1 = devices[0], devices[1]
     p2 = d0.create_program({"inc": lambda x: x + 1.0, "scale": lambda x: x * 3.0}, "g").get()
     b_in = d0.create_buffer(16, np.float32).get()
@@ -783,13 +784,39 @@ def test_torch_scheduler_integration_8_logical_devices(fleet8):
     t_out = d1.create_buffer(16, np.float32).get()
     rr = Scheduler([d0, d1], policy="round_robin")
     with capture("xdev") as g:
-        b_in.enqueue_write(0, np.ones(16, np.float32))
-        p2.run_on_any([b_in], "inc", out=[t_mid], scheduler=rr)
-        p2.run_on_any([t_mid], "scale", out=[t_out], scheduler=rr)
-        t_out.enqueue_read()
+        w = b_in.enqueue_write(0, np.ones(16, np.float32))
+        p2.run_on_any([b_in], "inc", out=[t_mid], scheduler=rr)     # -> cpu:0
+        p2.run_on_any([t_mid], "scale", out=[t_out], scheduler=rr)  # -> cpu:0.1
+        r = t_out.enqueue_read()
     assert rr.stats() == {d0.key: 1, d1.key: 1}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        g.instantiate()
+    exe = g.instantiate()
+    assert exe._fanout and len(exe._segments) == 2, repr(exe)
+    assert len(exe._transfers) >= 1, repr(exe)
+    res = exe.replay().get()  # ONE future for the whole graph
+    np.testing.assert_array_equal(res[r], np.full(16, 6.0, np.float32))
+    res2 = exe.replay(feeds={w: np.full(16, 2.0, np.float32)}).get()
+    np.testing.assert_array_equal(res2[r], np.full(16, 9.0, np.float32))
+    assert registry.placement(t_out.gid).device_key == d1.key
+
+    # fan-out donation safety: a sym consumed by two segments that may run
+    # concurrently (both depend only on the producer) is never donated
+    a0 = d0.create_buffer(8, np.float32).get()
+    m1 = d0.create_buffer(8, np.float32).get()
+    o1 = d1.create_buffer(8, np.float32).get()
+    o2 = d0.create_buffer(8, np.float32).get()
+    ga = TaskGraph("donate-race")
+    ga.write(a0, np.ones(8, np.float32))
+    ga.run(p2.for_device(d0), [a0], "inc", out=[m1])    # seg 0 (dev0) -> m1
+    ga.run(p2.for_device(d1), [m1], "scale", out=[o1])  # seg 1 (dev1) reads m1
+    ga.run(p2.for_device(d0), [m1], "inc", out=[o2])    # seg 2 (dev0) reads m1 too
+    r1, r2 = ga.read(o1), ga.read(o2)
+    m1_sym = ga._cur[id(m1)]
+    exe_a = ga.instantiate()
+    assert exe_a._fanout and len(exe_a._segments) == 3, repr(exe_a)
+    assert m1_sym not in exe_a._donated_syms  # concurrent readers: no donation
+    res_a = exe_a.replay().get()
+    np.testing.assert_array_equal(res_a[r1], np.full(8, 6.0, np.float32))  # (1+1)*3
+    np.testing.assert_array_equal(res_a[r2], np.full(8, 3.0, np.float32))  # (1+1)+1
 
 
 def test_torch_steal_recovers_throttled_lane_8_logical_devices(fleet8, monkeypatch):
