@@ -54,6 +54,17 @@ with ``Dim3`` geometry, ``enqueue_read``):
         step and a cross-device event edge a chunk; 20 replays with fresh
         feeds bit-equal to the eager ``run_on_any`` DAG and to one device's
         kernels, then host us and device ms a replay against that DAG.
+  engine  ``examples/serving_engine.py``'s workload on the partition_map
+        kernel: 64 single-row requests of 2**20 f32 (4 rounds of
+        partition_map a step) through ``RequestEngine`` (batches of up to
+        8, a CUDA graph a bucket, replayed on the engine's stream), against
+        the same requests one by one through ``Program.run``, bit for bit.
+  serve_engine  OLMo-1B at full width and depth, f32: 4 requests of
+        512-token prompts prefilled through a ``RequestEngine`` lane (the
+        flash kernel, one batch of 2048 tokens), then 8 greedy steps
+        through ``make_serve_engine``, each request held against itself
+        served alone; the first step again through ``make_serve_fanout``
+        over 2 logical devices.
 
 Both paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -63,9 +74,8 @@ counts the kernels each graph recorded at capture times its replays.
 Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
-paged serve run; the graph, fleet and graph_fleet phases) and read just
-after; a kernel the run did
-not launch fails it.  Then each
+paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
+phases) and read just after; a kernel the run did not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
 path's shapes and timed beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
@@ -113,7 +123,9 @@ from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.serving import LanePolicy, PagedKVCache, PagedServeEngine  # noqa: E402
+from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, RequestEngine,  # noqa: E402
+                                 cache_to_rows, make_serve_engine, make_serve_fanout,
+                                 rows_to_cache)
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
@@ -159,6 +171,18 @@ FLEET_POLICIES = ("static", "round_robin", "least_loaded", "affinity")
 # requests end at.
 PAGED_FLEET_DEVICES, PAGED_FLEET_POOL = 2, 300
 SPILL_PAGES = 129  # the sequence whose spill and refetch are timed (4 MiB a page)
+# engine: examples/serving_engine.py's workload on the partition_map kernel,
+# 64 single-row requests of 2**20 f32, 4 rounds a step, batches of up to 8.
+ENGINE_REQUESTS, ENGINE_N, ENGINE_ROUNDS, ENGINE_MAX_BATCH = 64, 1 << 20, 4, 8
+# serve_engine: OLMo-1B f32, 4 requests with prompts of 512 tokens, prefilled
+# through a RequestEngine lane of a 2048-token budget, then 8 greedy decode
+# steps through make_serve_engine; the fan-out over 2 logical devices.
+SERVE_ENGINE_BATCH, SERVE_ENGINE_PROMPT, SERVE_ENGINE_NEW = 4, 512, 8
+SERVE_ENGINE_BUDGET, SERVE_ENGINE_FANOUT = 2048, 2
+# Both engines' assembly deadline: long, so that each burst of the 4 requests
+# fills one batch however the submitting thread is scheduled; a full batch
+# (4 rows, or the 2048-token budget) dispatches at once, so it adds no wait.
+SERVE_ENGINE_DELAY_S = 1.0
 # f32 kernel run against the plain run: both sum in f32, in other orders,
 # through 16 (OLMo-1B) or 24 (Mamba2-130M) layers; the last-position logits
 # of both moved by about 1e-5 on an H100.
@@ -261,7 +285,8 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
     written into a cache of prompt + ``new_tokens`` slots; ssm: the
     prefill's recurrent cache itself).  Returns the greedy tokens (B,
     1 + new_tokens), each pick's top-2 gap, the last-position prefill
-    logits, the times, and whether the work ran on the stream's CUDA
+    logits, every step's last-position logits (B, 1 + new_tokens, V, on the
+    device), the times, and whether the work ran on the stream's CUDA
     stream.  Its three parts are the profiler ranges ``SERVE_SPANS``; each
     ends with the device idle."""
     cs = torch.cuda.current_stream(dev.torch_device) if dev.is_cuda else None
@@ -277,7 +302,7 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
     t1 = time.perf_counter()
     with record_function(span_cache):
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        toks, gaps = [tok.cpu()], [top2_gap(logits[:, -1])]
+        toks, gaps, lasts = [tok.cpu()], [top2_gap(logits[:, -1])], [logits[:, -1]]
         t_first = time.perf_counter()
         if cfg.family == "dense":
             cache = get_model(cfg).init_cache(cfg, B, S + new_tokens, dtype=kv["k"].dtype,
@@ -294,12 +319,14 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
             tok, step_logits, cache = step(cache, tok, S + i)
             toks.append(tok)
             gaps.append(top2_gap(step_logits[:, -1]))
+            lasts.append(step_logits[:, -1])
         tokens = torch.cat([t.cpu() for t in toks], dim=1).numpy()
     t3 = time.perf_counter()
     decode_s = t3 - t2
     return {"on_stream": on_stream, "tokens": tokens,
             "gaps": torch.stack(gaps, dim=1).cpu().numpy(),
             "logits_last": logits[:, -1].float().cpu().numpy(),
+            "logits_steps": torch.stack(lasts, dim=1),
             "prefill_s": t1 - t0, "ttft_s": t_first - t_submit, "decode_s": decode_s,
             "decode_ms_per_step": decode_s / max(new_tokens, 1) * 1e3,
             "decode_tokens_per_s": B * new_tokens / decode_s}
@@ -767,6 +794,292 @@ def spill_timing(dev, spec, pages: int, reps: int = 3) -> "tuple[list, list]":
             "spill timing: pages differ after the refetches")
     kv.free_seq(seq)
     return spill_s, refetch_s
+
+
+# ---------------------------------------------------------------------------
+# engine and serve_engine: the continuous-batching RequestEngine
+# ---------------------------------------------------------------------------
+
+
+def engine_step(x: "torch.Tensor", map_fn=map_ops.partition_map) -> "torch.Tensor":
+    """``examples/serving_engine.py``'s step on the hand-written kernel:
+    ``ENGINE_ROUNDS`` rounds of ``v <- partition_map(v) * 0.5 + v * 0.5``
+    (``map_fn=partition_map_ref``: the plain version)."""
+    v = x
+    for _ in range(ENGINE_ROUNDS):
+        v = map_fn(v.reshape(-1)).reshape(v.shape) * 0.5 + v * 0.5
+    return v
+
+
+def percentiles(values) -> "tuple[float, float]":
+    """(p50, p99) as ``RequestEngine.metrics`` takes them."""
+    s = sorted(values)
+    return s[int(0.50 * (len(s) - 1))], s[int(0.99 * (len(s) - 1))]
+
+
+def phase_engine(dev) -> dict:
+    """``ENGINE_REQUESTS`` single-row requests of (1, ``ENGINE_N``) f32, all
+    at once: through ``Program.run`` one after another (the example's
+    serial baseline), then through ``RequestEngine(engine_step, max_batch=8,
+    max_delay_s=0.002)`` on the graph route, once to capture the bucket
+    routes and once timed.  Every result bit-equal to the serial run's;
+    every route a CUDA graph, replayed on the engine's own stream; every
+    bucket in {1, 2, 4, 8}; the replays ran ``ENGINE_ROUNDS`` partition_map
+    kernels each (the graphs' recorded launches x their replays).  Every
+    result is also bit-equal to the step on the plain ``partition_map_ref``,
+    run on the device request by request (the two agree bit for bit, as
+    ``check_partition_map`` holds).  The launch counts are the engine's
+    alone: the host's (its probe, warm-up and capture a route) and the
+    replayed; the serial run's are reported apart.  A request's latency is
+    from the burst's start to its result."""
+    rng = np.random.default_rng(0)
+    payloads = [rng.standard_normal((1, ENGINE_N), dtype=np.float32) * 10
+                for _ in range(ENGINE_REQUESTS)]
+    plain = [engine_step(torch.from_numpy(p).to(dev.torch_device), partition_map_ref).cpu().numpy()
+             for p in payloads]
+    reset_launch_counts()
+    prog = dev.create_program({"step": engine_step}, "serve-demo").get()
+    prog.run([payloads[0]], "step").get()  # warm the step
+    serial, serial_lat = [], []
+    t0 = time.perf_counter()
+    for p in payloads:
+        serial.append(prog.run([p], "step").get().cpu().numpy())
+        serial_lat.append(time.perf_counter() - t0)
+    t_serial = time.perf_counter() - t0
+    n_serial = launch_counts()["partition_map"]
+
+    reset_launch_counts()  # the main path: the engine's launches alone
+    eng = RequestEngine(engine_step, max_batch=ENGINE_MAX_BATCH, max_delay_s=0.002,
+                        scheduler=Scheduler([dev]), name="demo")
+    try:
+        warm = [f.get(timeout=600) for f in [eng.submit(p) for p in payloads]]
+        eng.drain()
+        before, n_lat = eng.metrics(), len(eng._latencies)
+        t0 = time.perf_counter()
+        futs = [eng.submit(p) for p in payloads]
+        got = [f.get(timeout=600) for f in futs]
+        t_engine = time.perf_counter() - t0
+        eng.drain()
+        after, lats = eng.metrics(), list(eng._latencies)[n_lat:]
+    finally:
+        eng.close()
+    n_host = launch_counts()["partition_map"]
+    routes = eng._graphs
+    unbuilt = sorted(k[2] for k, e in routes.items() if e is None)
+    require(bool(routes) and not unbuilt, f"engine: graph routes not built for buckets {unbuilt}")
+    buckets = sorted(k[2] for k in routes)
+    require(set(buckets) <= {1, 2, 4, 8}, f"engine: buckets {buckets}")
+    s = eng._streams[dev.key]
+    on_stream = s is not dev.default_stream and all(e.exe._last_replay_queue is s.lane
+                                                    for e in routes.values())
+    differ = sum(not (g.dtype == w.dtype and np.array_equal(g, w))
+                 for g, w in zip(warm + got, serial + serial))
+    require(differ == 0,
+            f"engine: {differ} of {2 * len(serial)} results differ from the serial run")
+    differ_plain = sum(not (g.dtype == w.dtype and np.array_equal(g, w))
+                       for g, w in zip(warm + got, plain + plain))
+    require(differ_plain == 0, f"engine: {differ_plain} of {2 * len(plain)} results differ "
+                               "from the step on the plain partition_map")
+    replayed = sum(e.exe.replayed_launches().get("partition_map", 0) for e in routes.values())
+    batches = after["batches"]
+    if dev.is_cuda:  # a CPU device replays its routes eagerly, on the plain version
+        default = torch.cuda.default_stream(dev.torch_device).cuda_stream
+        on_stream = on_stream and s.cuda_stream.cuda_stream != default
+        require(all(e.exe.cuda_graphs == 1 and e.exe.graph_replays > 0
+                    for e in routes.values()), "engine: a route is not one replayed CUDA graph")
+        require(replayed >= ENGINE_ROUNDS * batches,
+                f"engine: {replayed} replayed partition_map launches for {batches} batches")
+    require(on_stream, "engine: the replays did not run on the engine's own stream")
+    d = {k: after[k] - before[k] for k in ("batches", "rows", "padded_rows")}
+    p50, p99 = percentiles(lats)
+    sp50, sp99 = percentiles(serial_lat)
+    return {"requests": ENGINE_REQUESTS, "n": ENGINE_N, "rounds": ENGINE_ROUNDS,
+            "max_batch": ENGINE_MAX_BATCH, "buckets": buckets,
+            "graph_replays": sum(e.exe.graph_replays for e in routes.values()),
+            "results_bit_equal": 2 * len(serial) - differ,
+            "results_bit_equal_plain": 2 * len(plain) - differ_plain,
+            "on_engine_stream": on_stream,
+            "serial": {"requests_per_s": ENGINE_REQUESTS / t_serial, "latency_p50_s": sp50,
+                       "latency_p99_s": sp99, "batches": ENGINE_REQUESTS, "mean_batch_rows": 1.0,
+                       "padding_waste": 0.0},
+            "engine": {"requests_per_s": ENGINE_REQUESTS / t_engine, "latency_p50_s": p50,
+                       "latency_p99_s": p99, "batches": d["batches"],
+                       "mean_batch_rows": d["rows"] / d["batches"],
+                       "padding_waste": d["padded_rows"] / d["rows"]},
+            "batches_with_warmup": batches,
+            "launches": {"host": n_host, "replayed": replayed, "serial": n_serial}}
+
+
+def serve_engine_flow(prefill_engine, decode_engine, prompts, new_tokens: int) -> dict:
+    """Every prompt through the prefill engine at once (its KV rows written
+    into a request cache of prompt + ``new_tokens`` slots on the host), then
+    ``new_tokens`` decode steps, each submitting every request's cache rows,
+    token and ``pos`` to the decode engine.  Returns the tokens (B, 1 + new),
+    the last-position logits (B, 1 + new, V), the first decode step's
+    requests, TTFT and the step times."""
+    S = prompts[0].shape[1]
+    t0 = time.perf_counter()
+    futs = [prefill_engine.submit({"tokens": p}, kind="prefill") for p in prompts]
+    pre, ttft = [], []
+    for f in futs:
+        pre.append(f.get(timeout=600))
+        ttft.append(time.perf_counter() - t0)
+    rows, toks, logits = [], [], [[r["logits"]] for r in pre]
+    for r in pre:
+        cache = {}
+        for name, kv in r["kv"].items():
+            c = np.zeros(kv.shape[:2] + (S + new_tokens,) + kv.shape[3:], np.float32)
+            c[:, :, :S] = kv
+            cache[name] = c
+        rows.append(cache)
+        toks.append(np.argmax(r["logits"], axis=-1).astype(np.int32).reshape(1, 1))
+    first = list(zip(rows, toks))
+    tokens = [list(t[:, 0]) for t in toks]
+    step_s = []
+    for i in range(new_tokens):
+        t1 = time.perf_counter()
+        futs = [decode_engine.submit({"cache": c, "tokens": t, "pos": np.int32(S + i)},
+                                     kind="decode") for c, t in zip(rows, toks)]
+        outs = [f.get(timeout=600) for f in futs]
+        step_s.append(time.perf_counter() - t1)
+        rows, toks = [o["cache"] for o in outs], [o["next"] for o in outs]
+        for j, o in enumerate(outs):
+            logits[j].append(o["logits"][:, -1])
+            tokens[j].append(int(o["next"][0, 0]))
+    return {"tokens": np.array(tokens), "logits": np.stack([np.concatenate(lg) for lg in logits]),
+            "first": first, "ttft_s": ttft, "step_s": step_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_serve_engine(dev) -> dict:
+    """OLMo-1B at full width and depth (the serve phase's seeded f32
+    weights): ``SERVE_ENGINE_BATCH`` requests with prompts of
+    ``SERVE_ENGINE_PROMPT`` tokens, prefilled through a ``RequestEngine``
+    lane of a ``SERVE_ENGINE_BUDGET``-token budget (``make_prefill`` on the
+    flash kernel, the KV handed back by ``cache_to_rows``), then
+    ``SERVE_ENGINE_NEW`` decode steps through ``make_serve_engine``; the
+    flow once to warm up (its times printed too), once measured.  Each
+    request is held against itself served alone, eagerly, on the plain path
+    (``serve_group`` with ``impl="ref"``: attention without the flash
+    kernel): every step's last-position logits within ``SERVE_LOGIT_TOL``
+    while the tokens agree, greedy tokens equal up to near-ties
+    (``greedy_cuts``).  Then ``make_serve_fanout`` over
+    ``SERVE_ENGINE_FANOUT`` logical devices for the first decode step: its
+    tokens equal the engine's, near-ties excepted.  The decode step's
+    device compute is an eager batched step on a resident cache."""
+    cfg = get_config(SERVE_ARCH)
+    params, _ = paged_params(dev, cfg)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(1, SERVE_ENGINE_PROMPT), dtype=np.int32)
+               for _ in range(SERVE_ENGINE_BATCH)]
+    prefill = make_prefill(cfg, params)
+
+    def prefill_step(batch):
+        logits, kv = prefill(batch)
+        return {"logits": logits[:, -1], "kv": cache_to_rows(kv)}
+
+    sched = Scheduler([dev])
+    peng = RequestEngine({"prefill": prefill_step},
+                         lanes={"prefill": LanePolicy(token_budget=SERVE_ENGINE_BUDGET,
+                                                      max_delay_s=SERVE_ENGINE_DELAY_S)},
+                         graph=False, scheduler=sched, name="prefill")
+    deng = make_serve_engine(cfg, params, max_batch=SERVE_ENGINE_BATCH,
+                             max_delay_s=SERVE_ENGINE_DELAY_S, scheduler=sched)
+    try:
+        # Warm-up, the whole flow: the streams' pools and the pinned host
+        # blocks every step's batch and results take.
+        warm = serve_engine_flow(peng, deng, prompts, SERVE_ENGINE_NEW)
+        pm0, dm0 = peng.metrics(), deng.metrics()
+        dev.synchronize()
+        reset_launch_counts()
+        run = serve_engine_flow(peng, deng, prompts, SERVE_ENGINE_NEW)
+        dev.synchronize()
+        n_flash = launch_counts()["flash_attention"]
+        pm, dm = peng.metrics(), deng.metrics()
+    finally:
+        peng.close()
+        deng.close()
+    prefill_batches = pm["batches"] - pm0["batches"]
+    decode_batches = dm["batches"] - dm0["batches"]
+    require(n_flash == cfg.num_layers * prefill_batches * dev.is_cuda,
+            f"serve_engine: flash_attention launched {n_flash} times for {prefill_batches} "
+            "prefill batches")
+    require(pm["requests_failed"] == dm["requests_failed"] == 0, "serve_engine: failed requests")
+    require(decode_batches == SERVE_ENGINE_NEW, f"serve_engine: {decode_batches} decode batches "
+                                                f"for {SERVE_ENGINE_NEW} steps")
+
+    stream = dev.create_stream()
+    alone = [serve_flow(dev, cfg, params, [p], [stream], SERVE_ENGINE_NEW, impl="ref")[0]
+             for p in prompts]
+    dev.synchronize()
+    require(launch_counts()["flash_attention"] == n_flash,
+            "serve_engine: the plain reference launched the flash kernel")
+    want_tokens = np.concatenate([a["tokens"] for a in alone])
+    want_gaps = np.concatenate([a["gaps"] for a in alone])
+    toks, lg = run["tokens"], run["logits"]
+    want_lg_shape = (SERVE_ENGINE_BATCH, SERVE_ENGINE_NEW + 1, cfg.vocab_size)
+    require(toks.shape == want_tokens.shape and lg.shape == want_lg_shape
+            and bool(np.isfinite(lg).all()),
+            f"serve_engine: tokens {toks.shape}, logits {lg.shape}")
+    differ, cuts = greedy_cuts(toks, want_tokens, want_gaps)
+    require(differ == 0, f"serve_engine: {differ} request(s) decode other greedy tokens than "
+                         "served alone")
+    err = 0.0
+    for j, a in enumerate(alone):  # logits while the inputs agree
+        want_lg = a["logits_steps"][0].float().cpu().numpy()
+        same = int(np.argmin(np.append(toks[j] == want_tokens[j], False)))
+        err = max(err, float(np.abs(lg[j, :same + 1] - want_lg[:same + 1]).max()))
+    require(err <= SERVE_LOGIT_TOL, f"serve_engine: logits differ from the requests served "
+                                    f"alone on the plain path by {err} > {SERVE_LOGIT_TOL}")
+    del alone
+
+    # The fan-out: each request's first decode step with its own params,
+    # placed round-robin over logical devices of the card.
+    devs = logical_devices(SERVE_ENGINE_FANOUT, dev.platform)
+    fsched = Scheduler(devs, policy="round_robin")
+    S = SERVE_ENGINE_PROMPT
+    futs = make_serve_fanout(cfg)([(params, rows_to_cache(c), t, np.int32(S))
+                                   for c, t in run["first"]], scheduler=fsched)
+    fan = np.array([int(f.get(timeout=600)[0][0, 0]) for f in futs])
+    fan_differ = int(sum(a != b and gap >= NEAR_TIE
+                         for a, b, gap in zip(fan, toks[:, 1], want_gaps[:, 1])))
+    require(fan_differ == 0, f"serve_engine: the fan-out decodes {fan_differ} other first tokens")
+    require(len(fsched.stats()) == SERVE_ENGINE_FANOUT, f"serve_engine: fan-out placed "
+                                                        f"{fsched.stats()}")
+
+    # The batched decode step's device work alone: the engine's step on a
+    # cache already resident on the card.
+    step = make_serve_step(cfg, params)
+    cache = get_model(cfg).init_cache(cfg, SERVE_ENGINE_BATCH, S + SERVE_ENGINE_NEW,
+                                      dtype=torch.float32, device=dev.torch_device)
+    tok = torch.zeros((SERVE_ENGINE_BATCH, 1), dtype=torch.int32, device=dev.torch_device)
+    if dev.is_cuda:
+        compute_ms = cuda_ms(lambda: step(cache, tok, S), 5)
+    else:
+        t0 = time.perf_counter()
+        step(cache, tok, S)
+        compute_ms = (time.perf_counter() - t0) * 1e3
+    del cache, params
+    steps_ms = [t * 1e3 for t in run["step_s"]]
+    step_p50 = percentiles(steps_ms)[0]
+    return {"arch": cfg.name, "requests": SERVE_ENGINE_BATCH, "prompt": SERVE_ENGINE_PROMPT,
+            "new_tokens": SERVE_ENGINE_NEW, "token_budget": SERVE_ENGINE_BUDGET,
+            "ttft_s": run["ttft_s"], "decode_ms_per_step": steps_ms,
+            "warmup_ttft_s": warm["ttft_s"],
+            "warmup_decode_ms_per_step": [t * 1e3 for t in warm["step_s"]],
+            "decode_ms_p50": step_p50, "decode_compute_ms": compute_ms,
+            "host_share_of_step": 1.0 - compute_ms / step_p50,
+            "cache_bytes_per_request": int(sum(v.nbytes for v in run["first"][0][0].values())),
+            "requests_per_s": SERVE_ENGINE_BATCH / run["wall_s"], "wall_s": run["wall_s"],
+            "prefill": {"batches": prefill_batches,
+                        "mean_batch_rows": (pm["rows"] - pm0["rows"]) / prefill_batches},
+            "decode": {"batches": decode_batches,
+                       "mean_batch_rows": (dm["rows"] - dm0["rows"]) / decode_batches,
+                       "padding_waste": dm["padding_waste"]},
+            "max_abs_logit_err_vs_alone_plain": err, "near_tie_cuts": cuts,
+            "fanout": {"devices": [d.key for d in devs], "placed": fsched.stats(),
+                       "tokens_equal": int((fan == toks[:, 1]).sum())},
+            "launches": {"flash_attention": n_flash}}
 
 
 # ---------------------------------------------------------------------------
@@ -1855,6 +2168,35 @@ def main() -> int:
           f"{pf['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
     print("serve_paged_fleet: " + json.dumps(pf), flush=True)
 
+    dev.synchronize()
+    t0 = time.perf_counter()
+    engine = phase_engine(dev)
+    engine["seconds"] = time.perf_counter() - t0
+    ser, eng = engine["serial"], engine["engine"]
+    print(f"engine: {engine['requests']} requests of (1, {engine['n']}) f32: serial "
+          f"{ser['requests_per_s']:.1f} req/s (p50/p99 {ser['latency_p50_s']:.4f} / "
+          f"{ser['latency_p99_s']:.4f} s), engine {eng['requests_per_s']:.1f} req/s (p50/p99 "
+          f"{eng['latency_p50_s']:.4f} / {eng['latency_p99_s']:.4f} s, {eng['batches']} "
+          f"batches, mean {eng['mean_batch_rows']:.2f} rows, padding_waste "
+          f"{eng['padding_waste']:.3f}); buckets {engine['buckets']}; results bit-equal "
+          f"{engine['results_bit_equal']} (serial), {engine['results_bit_equal_plain']} (plain); "
+          f"partition_map {engine['launches']}", flush=True)
+    print("engine: " + json.dumps(engine), flush=True)
+
+    dev.synchronize()
+    t0 = time.perf_counter()
+    se = phase_serve_engine(dev)
+    se["seconds"] = time.perf_counter() - t0
+    print(f"serve_engine: {se['requests']} requests of {se['prompt']} tokens, TTFT "
+          f"{max(se['ttft_s']):.4f} s, decode {se['decode_ms_p50']:.2f} ms a step p50 "
+          f"(device compute {se['decode_compute_ms']:.2f} ms, host share "
+          f"{se['host_share_of_step']:.3f}), {se['requests_per_s']:.3f} req/s, prefill "
+          f"{se['prefill']['batches']} batches of {se['prefill']['mean_batch_rows']:.1f} rows, "
+          f"decode {se['decode']['batches']} batches of {se['decode']['mean_batch_rows']:.1f} "
+          f"rows; flash launches {se['launches']['flash_attention']}; fan-out tokens equal "
+          f"{se['fanout']['tokens_equal']} of {se['requests']}", flush=True)
+    print("serve_engine: " + json.dumps(se), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -1885,6 +2227,9 @@ def main() -> int:
                                      for part in ("host", "replayed")}
         k["graph_fleet_phase_launches"] = {part: gf["launches"][part][k["name"]]
                                            for part in ("host", "replayed")}
+    kernels[1]["engine_phase_launches"] = {part: engine["launches"][part]
+                                           for part in ("host", "replayed")}
+    kernels[3]["engine_phase_launches"] = se["launches"]["flash_attention"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1688,3 +1688,133 @@ def test_torch_cuda_spill_racing_a_replayed_step_waits_for_it():
         reset_runtime()
     assert [q.out for q in reqs] == [q.out for q in rreqs]
     assert d["spills"] >= 1 and d["refetches"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# RequestEngine on the card: the graph route is a real CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _map_rounds(x, rounds=2):
+    """The engine phase's step at a smaller size: ``v <- partition_map(v) *
+    0.5 + v * 0.5``, the hand-written kernel on a CUDA tensor."""
+    v = x
+    for _ in range(rounds):
+        v = map_ops.partition_map(v.reshape(-1)).reshape(v.shape) * 0.5 + v * 0.5
+    return v
+
+
+def _engine_results(step, payloads, graph, name, **kw):
+    from repro_torch.serving import RequestEngine
+
+    dev = get_all_devices(1, 0).get()[0]
+    eng = RequestEngine(step, max_batch=4, max_delay_s=0.002, graph=graph,
+                        scheduler=Scheduler([dev]), name=name, **kw)
+    try:
+        futs = [eng.submit(p) for p in payloads]
+        return [f.get(timeout=120) for f in futs], eng, dev
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_engine_graph_route_bit_equal_to_direct():
+    """Batches replayed from the engine's CUDA graphs, back to back on one
+    route, give the direct route's bits; each route is one CUDA graph on the
+    engine's own stream, and its replays ran the kernel."""
+    _need_cuda()
+    rng = np.random.default_rng(11)
+    payloads = [(rng.normal(size=(1, 4096)) * 10).astype(np.float32) for _ in range(24)]
+    got, eng, dev = _engine_results(_map_rounds, payloads, True, "t-cuda-graph")
+    want, _, _ = _engine_results(_map_rounds, payloads, False, "t-cuda-direct")
+    for g, w, p in zip(got, want, payloads):
+        assert np.array_equal(g, w)
+        assert np.array_equal(g, _map_rounds(torch.from_numpy(p).cuda()).cpu().numpy())
+    entries = list(eng._graphs.values())
+    assert entries and all(e is not None and e.exe.cuda_graphs == 1 for e in entries)
+    s = eng._streams[dev.key]
+    assert s.cuda_stream.cuda_stream != torch.cuda.default_stream().cuda_stream
+    assert all(e.exe._last_replay_queue is s.lane for e in entries)
+    replayed = sum(e.exe.replayed_launches().get("partition_map", 0) for e in entries)
+    assert replayed == 2 * eng.metrics()["batches"]
+
+
+@pytest.mark.cuda
+def test_torch_cuda_engine_six_pos_values_share_one_graph():
+    """``pos`` is a 0-d write-fed input of the graph, not a constant baked
+    into the capture: six values through one route, six right results."""
+    _need_cuda()
+    from repro_torch.serving import RequestEngine
+
+    dev = get_all_devices(1, 0).get()[0]
+    eng = RequestEngine(lambda b: {"y": b["x"] + b["pos"].to(torch.float32)}, max_batch=2,
+                        max_delay_s=0.002, scheduler=Scheduler([dev]), name="t-cuda-pos")
+    try:
+        for pos in range(6):
+            got = eng.submit({"x": np.zeros((1, 4), np.float32),
+                              "pos": np.int32(pos)}).get(timeout=120)
+            np.testing.assert_array_equal(got["y"], np.full((1, 4), float(pos), np.float32))
+        routes = [(k, v) for k, v in eng._graphs.items() if v is not None]
+        assert len(routes) == 1 and routes[0][1].exe.cuda_graphs == 1
+        assert routes[0][1].exe.graph_replays == 6
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_engine_host_sync_step_falls_back_and_the_next_capture_works():
+    """A step that reads a value on the host (``.item()``) cannot be
+    captured: its route is None, it is served directly with the right
+    results, and the engine's next capture (another step) succeeds."""
+    _need_cuda()
+
+    def synced(x):
+        return x * float(x.abs().max().item())
+
+    rng = np.random.default_rng(12)
+    payloads = [rng.normal(size=(1, 64)).astype(np.float32) for _ in range(6)]
+    got, eng, _ = _engine_results(synced, payloads, True, "t-cuda-sync")
+    assert eng._graphs and set(eng._graphs.values()) == {None}
+    for g, p in zip(got, payloads):
+        assert g.shape == p.shape and np.isfinite(g).all()
+    got, eng, _ = _engine_results(_map_rounds, payloads, True, "t-cuda-after")
+    entries = list(eng._graphs.values())
+    assert entries and all(e is not None and e.exe.cuda_graphs == 1 for e in entries)
+    for g, p in zip(got, payloads):
+        assert np.array_equal(g, _map_rounds(torch.from_numpy(p).cuda()).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_torch_cuda_make_serve_engine_matches_per_request_eager_decode():
+    """``make_serve_engine`` on smoke(olmo-1b) on the card: a batch of
+    three requests against each decoded alone by ``make_serve_step``:
+    equal tokens, logits within 2e-4."""
+    _need_cuda()
+    from repro_torch.serving import cache_to_rows, make_serve_engine, rows_to_cache
+    from repro_torch.serving.serve_step import make_serve_step
+
+    cfg = smoke(get_config("olmo-1b"))
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dev = get_all_devices(1, 0).get()[0]
+    rng = np.random.default_rng(13)
+    shape = (1, cfg.num_layers, 8, cfg.num_kv_heads, cfg.hd)
+    reqs = [{"cache": {"k": rng.normal(size=shape).astype(np.float32),
+                       "v": rng.normal(size=shape).astype(np.float32)},
+             "tokens": rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(np.int32),
+             "pos": np.int32(3)} for _ in range(3)]
+    eng = make_serve_engine(cfg, params, max_batch=4, max_delay_s=0.2,
+                            scheduler=Scheduler([dev]))
+    try:
+        got = [f.get(timeout=120) for f in [eng.submit(r, kind="decode") for r in reqs]]
+        assert eng.metrics()["batches"] == 1
+    finally:
+        eng.close()
+    step = make_serve_step(cfg, params)
+    for r, g in zip(reqs, got):
+        cache = rows_to_cache({k: torch.from_numpy(v).cuda() for k, v in r["cache"].items()})
+        nxt, logits, cache = step(cache, torch.from_numpy(r["tokens"]).cuda(), 3)
+        np.testing.assert_array_equal(g["next"], nxt.cpu().numpy())
+        np.testing.assert_allclose(g["logits"], logits.cpu().numpy(), rtol=0, atol=2e-4)
+        for k, v in cache_to_rows(cache).items():
+            np.testing.assert_allclose(g["cache"][k], v.cpu().numpy(), rtol=0, atol=2e-4)
