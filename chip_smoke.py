@@ -65,8 +65,30 @@ with ``Dim3`` geometry, ``enqueue_read``):
         through ``make_serve_engine``, each request held against itself
         served alone; the first step again through ``make_serve_fanout``
         over 2 logical devices.
+  serve_moe  Qwen1.5-MoE-A2.7B at full width and depth (60 experts top-4 and
+        a shared expert, 14.3 B parameters, 57.3 GB in f32) through the serve
+        flow with the serve phase's prompts: the f32 kernel run (flash in
+        the prefill, 24 layers x 2 groups) with every routing decision
+        recorded; the plain run with that routing replayed, held to it
+        (logits within ``SERVE_LOGIT_TOL``, tokens up to near-ties); the
+        plain run unpinned, its differing routing decisions counted and
+        printed with their router margins; then bf16 after the f32 params
+        are freed.
+  serve_paged_moe  the same requests through ``PagedServeEngine`` (MoE
+        dispatched per row, decode on CUDA graphs, paged_attention 24 a
+        step), the kernel run held to the plain paged run; a request that
+        differs is run again alone both ways and must show a near-tie of
+        the logits or of the router.
+  serve_paged_encdec  whisper-tiny at full size through ``PagedServeEngine``:
+        prompts of 64 and 256 tokens in groups of 4, each request with its
+        own (1500, 384) f32 frames as ``extras``, 32 tokens; flash on the
+        encoder (non-causal, counted apart) and the decoder prefill
+        (causal), 4 launches of each a prefill batch; paged_attention 4 a
+        step; the cross K/V (18 MB a
+        request) rides as the sequence's state.  Both runs are held to the
+        reference's padded oracle on the plain path.
 
-Both paged phases decode on CUDA graphs, one per warm row count: every
+The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
 run on the device without passing the wrappers, so the paged launch check
 counts the kernels each graph recorded at capture times its replays.
@@ -75,9 +97,10 @@ Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
 paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
-phases) and read just after; a kernel the run did not launch fails it.  Then each
+phases, and each run of the moe and encdec phases) and read just after; a
+kernel the run did not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
-path's shapes and timed beside its bound.  The script prints the
+path's shapes (whisper-tiny's among them) and timed beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without CUDA or outside a checkout of the repository.
@@ -85,6 +108,7 @@ without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -92,6 +116,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -122,6 +147,7 @@ from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, RequestEngine,  # noqa: E402
                                  cache_to_rows, make_serve_engine, make_serve_fanout,
@@ -153,9 +179,11 @@ FIG_KERNELS = ("stencil", "partition_map", "mandelbrot")
 
 GRAPH_N, GRAPH_REPLAYS, GRAPH_TIMED = FIG3_N, 100, 20
 GRAPH_FLEET_REPLAYS, GRAPH_FLEET_TIMED = 20, 5
-# Sleep cycles (about 0.5 s on an H100) that hold every stream while the
+# Sleep cycles (about 2 s on an H100) that hold every stream while the
 # graph_fleet steps are issued, so their device time is measured alone.
-GRAPH_FLEET_HOLD = 1_000_000_000
+# The eager DAG's 5 steps take 0.1-0.25 s to issue on the H100's host (its
+# host us a step, times 5); a stalled host once took over 0.5 s.
+GRAPH_FLEET_HOLD = 4_000_000_000
 GRAPH_KERNELS = ("stencil", "partition_map")
 
 SERVE_ARCH = "olmo-1b"
@@ -202,8 +230,20 @@ SSD_TOL = 2e-3
 # paged_attention against its plain version in f32: the reference's
 # tolerance (tests/test_paged.py); both sum in f32, in other orders.
 PAGED_TOL = 1e-5
+# serve_moe / serve_paged_moe: Qwen1.5-MoE-A2.7B at full width and depth,
+# the serve phase's prompts and steps.  A routing decision is a near-tie
+# where its k-th and (k+1)-th router probabilities lie closer than this: a
+# rounding of the kernel run may then pick the other expert.
+MOE_ARCH = "qwen2-moe-a2.7b"
+ROUTER_NEAR_TIE = 1e-4
+MOE_PRINTED_FLIPS = 20  # differing routing decisions on the summary line (the JSON has all)
+# serve_paged_encdec: whisper-tiny at full size, prompts of 64 and 256 tokens
+# in groups of 4 with 32 new tokens (under the decoder's 448 positions), each
+# request with its own (1500, 384) f32 frames.
+ENCDEC_ARCH, ENCDEC_PROMPTS, ENCDEC_NEW = "whisper-tiny", (64, 256), 32
+ENCODER_SHAPE = (4, 1500, 6, 6, 64)  # whisper-tiny's encoder heads: B, S, H, K, D
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
-# takes about 90 s; the limit it runs under is 1200).
+# takes about 150 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
 
 
@@ -281,7 +321,7 @@ def top2_gap(logits: "torch.Tensor") -> "torch.Tensor":
 def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, impl: str,
                 t_submit: float) -> dict:
     """One group of requests, run as a task of ``stream``: prefill, then
-    ``new_tokens`` greedy decode steps from its cache (dense: the KV
+    ``new_tokens`` greedy decode steps from its cache (dense, moe: the KV
     written into a cache of prompt + ``new_tokens`` slots; ssm: the
     prefill's recurrent cache itself).  Returns the greedy tokens (B,
     1 + new_tokens), each pick's top-2 gap, the last-position prefill
@@ -304,11 +344,16 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         toks, gaps, lasts = [tok.cpu()], [top2_gap(logits[:, -1])], [logits[:, -1]]
         t_first = time.perf_counter()
-        if cfg.family == "dense":
-            cache = get_model(cfg).init_cache(cfg, B, S + new_tokens, dtype=kv["k"].dtype,
-                                              device=dev.torch_device)
-            cache["k"][:, :, :S] = kv["k"]
-            cache["v"][:, :, :S] = kv["v"]
+        if cfg.family in ("dense", "moe", "vlm"):
+            # init_cache's (L, B, S + new, K, hd) layout, keys then values,
+            # each prefill tensor freed once copied: only half the KV is
+            # ever held twice (Qwen1.5-MoE's f32 KV at 4 x 2000 is 3.1 GB)
+            cache = {}
+            for n in ("k", "v"):
+                rows = kv.pop(n)
+                cache[n] = rows.new_zeros((*rows.shape[:2], S + new_tokens, *rows.shape[3:]))
+                cache[n][:, :, :S] = rows
+                del rows
         else:
             cache = kv
         del kv
@@ -333,12 +378,15 @@ def serve_group(dev, stream, cfg, params, prompt: np.ndarray, new_tokens: int, i
 
 
 def serve_flow(dev, cfg, params, prompts, streams, new_tokens: int = SERVE_NEW,
-               impl: str = "auto") -> "list[dict]":
+               impl: str = "auto", routes: "RouteLog | None" = None) -> "list[dict]":
     """Each group of prompts (B, S) as one future on its own stream, all
     submitted before any is awaited (as ``route_batches`` submits to device
-    lanes); returns each group's ``serve_group`` result."""
-    futs = [s.submit(serve_group, dev, s, cfg, params, p, new_tokens, impl, time.perf_counter())
-            for p, s in zip(prompts, streams)]
+    lanes); returns each group's ``serve_group`` result.  With ``routes``,
+    group ``g``'s routing calls are logged under key ``g``."""
+    task = serve_group if routes is None else routes.keyed(serve_group)
+    futs = [s.submit(task, dev, s, cfg, params, p, new_tokens, impl, time.perf_counter(),
+                     **({} if routes is None else {"key": g}))
+            for g, (p, s) in enumerate(zip(prompts, streams))]
     wait_all(futs)
     return [f.get() for f in futs]
 
@@ -534,11 +582,12 @@ def phase_serve(dev, arch: str, prompt_lens, kernel: str) -> dict:
 
 
 def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_seq_len: int,
-                    new_tokens: int, devices=None, scheduler=None) -> dict:
+                    new_tokens: int, devices=None, scheduler=None, extras=None) -> dict:
     """One ``PagedServeEngine.from_config`` engine over ``devices`` (by
     default ``[dev]``), placed by ``scheduler``: a warm-up request, then
     every row of ``prompts`` submitted at once, ``new_tokens`` each (the
-    prefill's token and ``new_tokens - 1`` decode steps).  The launch
+    prefill's token and ``new_tokens - 1`` decode steps), request ``i``
+    with ``extras[i]`` where given (the warm-up with the first).  The launch
     counters are set to 0 just before the measured requests and read just
     after.  Returns the tokens (one row per request), the engine's metrics,
     the launches and the wall time."""
@@ -551,20 +600,23 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
                                        prefill=policy, scheduler=scheduler,
                                        name=f"smoke-{cfg.name}-{impl}")
     try:
-        eng.submit(prompts[0][0, :PAGED_WARMUP], 2).get(timeout=600)  # cuBLAS, the stream's pool
+        ex = [None] * sum(len(p) for p in prompts) if extras is None else extras
+        eng.submit(prompts[0][0, :PAGED_WARMUP], 2, extras=ex[0]).get(timeout=600)  # cuBLAS, pools
         eng.drain()
         eng.reset_metrics()
         for d in devices:
             d.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        futs = [eng.submit(row, new_tokens) for p in prompts for row in p]
+        rows = [row for p in prompts for row in p]
+        futs = [eng.submit(row, new_tokens, extras=e) for row, e in zip(rows, ex)]
         tokens = np.stack([f.get(timeout=900) for f in futs])
         eng.drain()
         for d in devices:
             d.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**launch_counts(), "paged_attention_kernels": paged_kernel.kernel_launches}
+        launches = {**launch_counts(), "paged_attention_kernels": paged_kernel.kernel_launches,
+                    "flash_attention_noncausal": flash_kernel.noncausal_launches}
         metrics = eng.metrics()
     finally:
         eng.close()
@@ -617,42 +669,49 @@ def paged_params(dev, cfg):
     return params, rng
 
 
-def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
-    """Serve ``arch`` at full width and depth through ``PagedServeEngine``:
-    the serve phase's prompts and seeded f32 weights, ``SERVE_NEW + 1``
-    tokens each, every request resident at once (the pool holds them all),
-    all decoding in the same steps.  The kernel run (the main
-    path) and the plain run (``impl="ref"``: plain prefill attention or
-    scan, the gather path in decode) are held against the serve phase's
-    plain tokens ``plain`` and against each other, near-ties counted."""
-    cfg = get_config(arch)
-    params, rng = paged_params(dev, cfg)
-    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
-               for s in prompt_lens]
+def paged_phase_runs(dev, cfg, params, prompts, new_tokens: int, extras=None
+                     ) -> "tuple[dict, dict]":
+    """The kernel run (``impl="auto"``, the main path) and the plain run
+    (``impl="ref"``: plain prefill attention or scan, the gather path in
+    decode) of ``prompts`` through ``paged_serve_run``, every request
+    resident at once (the pool holds them all), with their launch checks:
+    paged_attention once a layer a decode step on the device (attention
+    families), the prefill kernel once a decoder layer a prefill batch
+    (causal) and flash once an encoder layer a batch (non-causal, counted
+    apart), none in the plain run.  Returns (the phase's record, the two
+    runs)."""
+    arch = cfg.name
     spec = get_model(cfg).paged_spec(cfg)
+    lens = [p.shape[1] for p in prompts]
     # page 0, every request's pages at its longest, and the one page of
     # headroom admission asks for: no request waits for pages
-    pool_pages = 2 + sum(SERVE_BATCH * spec.pages_for(s + SERVE_NEW) for s in prompt_lens)
-    max_seq_len = 1 << (max(prompt_lens) + SERVE_NEW).bit_length()
-    runs = {impl: paged_serve_run(dev, cfg, params, prompts, impl, pool_pages, max_seq_len,
-                                  SERVE_NEW + 1)
-            for impl in ("auto", "ref")}
-    del params
-    got, ref = runs["auto"], runs["ref"]
+    pool_pages = 2 + sum(p.shape[0] * spec.pages_for(s + new_tokens - 1)
+                         for p, s in zip(prompts, lens))
+    max_seq_len = 1 << (max(lens) + new_tokens - 1).bit_length()
+    runs = {}
+    for impl in ("auto", "ref"):
+        runs[impl] = paged_serve_run(dev, cfg, params, prompts, impl, pool_pages, max_seq_len,
+                                     new_tokens, extras=extras)
+        gc.collect()  # the closed engine's pool (4.8 GB for Qwen1.5-MoE), before the next one's
+        torch.cuda.empty_cache()
+    got = runs["auto"]
     steps = got["metrics"]["decode_steps"]
-    prefill_kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
-    launches = {impl: {k: r["launches"][k] for k in ("paged_attention", prefill_kernel)}
-                for impl, r in runs.items()}
+    attends = cfg.family != "ssm"
+    prefill_kernel = "flash_attention" if attends else "ssd_scan"
+    enc_layers = cfg.encdec.encoder_layers if cfg.encdec else 0
+    counted = ("paged_attention", prefill_kernel) + (("flash_attention_noncausal",)
+                                                     if enc_layers else ())
+    launches = {impl: {k: r["launches"][k] for k in counted} for impl, r in runs.items()}
     for impl, r in runs.items():
         if dev.is_cuda:  # graphs are captured on a CUDA device only
             graph_steps_check(f"{arch} paged {impl}", r["metrics"])
-    want_paged = cfg.num_layers * steps if cfg.family == "dense" else 0
+    want_paged = cfg.num_layers * steps if attends else 0
     # Under replay a graph's kernels pass no wrapper: the kernels that ran
     # are the counted ones less those captured, plus those replayed (each
     # graph's recorded launches x its replays).  One CUDA kernel a call, as
     # the C entry counts its launches.
     d = got["metrics"]["decode"]
-    per_graph = cfg.num_layers if cfg.family == "dense" else 0
+    per_graph = cfg.num_layers if attends else 0
     require(d["captured_launches"].get("paged_attention", 0) == per_graph * d["graphs_captured"]
             and d["replayed_launches"].get("paged_attention", 0) == per_graph * d["replayed_steps"],
             f"{arch} paged: graphs recorded {d['captured_launches']} and replayed "
@@ -665,27 +724,52 @@ def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
     require(on_device == want_paged == kernels,
             f"{arch} paged: paged_attention launched {on_device} times and {kernels} CUDA kernels "
             f"on the device, not {want_paged} each ({cfg.num_layers} layers x {steps} decode steps)")
-    require(launches["auto"][prefill_kernel] == cfg.num_layers * got["metrics"]["prefill_batches"],
-            f"{arch} paged: {prefill_kernel} launched {launches['auto'][prefill_kernel]} times")
+    # the decoder's layers (or the ssm's) once a prefill batch, causal; an
+    # encoder's layers once a batch too, non-causal, counted apart
+    batches = got["metrics"]["prefill_batches"]
+    noncausal = got["launches"]["flash_attention_noncausal"]
+    causal = launches["auto"][prefill_kernel] - (noncausal if attends else 0)
+    require(causal == cfg.num_layers * batches and noncausal == enc_layers * batches,
+            f"{arch} paged: {prefill_kernel} launched {causal} times and the non-causal flash "
+            f"{noncausal} times in {batches} prefill batches, not {cfg.num_layers} and "
+            f"{enc_layers} a batch")
     require(all(n == 0 for n in launches["ref"].values()),
             f"{arch} paged: the plain run launched a kernel: {launches['ref']}")
-    n_req = SERVE_BATCH * len(prompt_lens)
-    out = {"arch": cfg.name, "prompts": list(prompt_lens), "requests": n_req,
-           "new_tokens": SERVE_NEW + 1, "pool_pages": pool_pages, "page_size": spec.page_size,
-           "max_seq_len": max_seq_len, "launches": launches}
+    n_req = sum(p.shape[0] for p in prompts)
+    out = {"arch": cfg.name, "prompts": lens, "requests": n_req, "new_tokens": new_tokens,
+           "pool_pages": pool_pages, "page_size": spec.page_size, "max_seq_len": max_seq_len,
+           "launches": launches}
     for impl, r in runs.items():
         toks, mt = r["tokens"], r["metrics"]
-        require(toks.shape == (n_req, SERVE_NEW + 1), f"{arch} paged {impl}: tokens {toks.shape}")
+        require(toks.shape == (n_req, new_tokens), f"{arch} paged {impl}: tokens {toks.shape}")
         require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
                 f"{arch} paged {impl}: token out of the vocabulary")
         require(mt["requests_completed"] == n_req and mt["requests_failed"] == 0,
                 f"{arch} paged {impl}: {mt['requests_completed']} of {n_req} requests completed")
         require(mt["kv"][dev.key]["used_pages"] == 0, f"{arch} paged {impl}: pages not returned")
-        differ, cuts = greedy_cuts(toks, plain["tokens"], plain["gaps"])
+        out[impl] = paged_times(r)
+    return out, runs
+
+
+def phase_serve_paged(dev, arch: str, prompt_lens, plain: dict) -> dict:
+    """Serve ``arch`` at full width and depth through ``PagedServeEngine``:
+    the serve phase's prompts and seeded f32 weights, ``SERVE_NEW + 1``
+    tokens each, all decoding in the same steps (``paged_phase_runs``).
+    The kernel run (the main path) and the plain run are held against the
+    serve phase's plain tokens ``plain`` and against each other, near-ties
+    counted."""
+    cfg = get_config(arch)
+    params, rng = paged_params(dev, cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in prompt_lens]
+    out, runs = paged_phase_runs(dev, cfg, params, prompts, SERVE_NEW + 1)
+    del params
+    for impl, r in runs.items():
+        differ, cuts = greedy_cuts(r["tokens"], plain["tokens"], plain["gaps"])
         require(differ == 0, f"{arch} paged {impl}: {differ} request(s) decode other greedy tokens "
                              "than the serve phase's plain run")
-        out[impl] = {**paged_times(r), "near_tie_cuts_vs_serve_plain": cuts}
-    differ, cuts = greedy_cuts(got["tokens"], ref["tokens"], plain["gaps"])
+        out[impl]["near_tie_cuts_vs_serve_plain"] = cuts
+    differ, cuts = greedy_cuts(runs["auto"]["tokens"], runs["ref"]["tokens"], plain["gaps"])
     require(differ == 0, f"{arch} paged: {differ} request(s) decode other tokens than the plain "
                          "paged run")
     out["near_tie_cuts_kernel_vs_plain"] = cuts
@@ -1080,6 +1164,357 @@ def phase_serve_engine(dev) -> dict:
             "fanout": {"devices": [d.key for d in devs], "placed": fsched.stats(),
                        "tokens_equal": int((fan == toks[:, 1]).sum())},
             "launches": {"flash_attention": n_flash}}
+
+
+# ---------------------------------------------------------------------------
+# the moe and encdec families: Qwen1.5-MoE-A2.7B and whisper-tiny
+# ---------------------------------------------------------------------------
+
+
+def router_probs(x2d: "torch.Tensor", wr: "torch.Tensor") -> "torch.Tensor":
+    """The f32 router probabilities ``moe.route`` computes."""
+    return torch.softmax(torch.matmul(x2d.float(), wr.float()), dim=-1)
+
+
+def route_with(x2d, wr, idx, renormalize: bool):
+    """``moe.route`` with the top-k indices ``idx`` given: the weights are
+    the router probabilities at ``idx``, renormalized, and the aux loss
+    counts ``idx``."""
+    probs = router_probs(x2d, wr)
+    weights = probs.gather(1, idx)
+    if renormalize:
+        weights = weights / (torch.sum(weights, dim=-1, keepdim=True) + 1e-9)
+    E = wr.shape[-1]
+    ce = torch.mean((idx[:, :1] == torch.arange(E, device=idx.device)).float(), dim=0)
+    return weights, idx, E * torch.sum(torch.mean(probs, dim=0) * ce)
+
+
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route`` while it is entered (this
+    script's wrapper: the package has no routing hook).  ``record`` keeps
+    each call's top-k indices and router margins (the gap between the k-th
+    and the (k+1)-th probability) under the calling task's key, in call
+    order; ``replay`` gives each call the indices the same call of a
+    recorded run chose (``route_with``); with no mode it calls ``route``.
+    A task is keyed by running it through ``keyed``."""
+
+    def __init__(self):
+        self.route = moe_model.route
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.start()
+
+    def __enter__(self) -> "RouteLog":
+        moe_model.route = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        moe_model.route = self.route
+
+    def start(self, mode: "str | None" = None, replay: "dict | None" = None) -> None:
+        self.mode, self.calls, self.replay, self.n = mode, {}, replay or {}, {}
+
+    def keyed(self, fn):
+        def task(*args, key, **kwargs):
+            self.local.key = key
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.local.key = None
+        return task
+
+    def __call__(self, x2d, wr, top_k: int, renormalize: bool):
+        if self.mode is None:
+            return self.route(x2d, wr, top_k, renormalize)
+        key = getattr(self.local, "key", None)
+        with self.lock:
+            i = self.n[key] = self.n.get(key, -1) + 1
+        if self.mode == "replay":
+            return route_with(x2d, wr, self.replay[key][i][0], renormalize)
+        out = self.route(x2d, wr, top_k, renormalize)
+        top = torch.topk(router_probs(x2d, wr), top_k + 1, dim=-1).values
+        with self.lock:
+            self.calls.setdefault(key, []).append((out[1], top[:, top_k - 1] - top[:, top_k]))
+        return out
+
+
+def route_flips(a: dict, b: dict, layers: int) -> "list[dict]":
+    """The routing decisions of log ``b`` whose set of experts differs from
+    the same call and token of log ``a``, in call order, each with ``b``'s
+    router margin: its key, call, step (0: the prefill; the call's layer
+    is the call modulo ``layers``) and token."""
+    flips = []
+    for key in sorted(b, key=str):
+        for c, ((ia, _), (ib, mb)) in enumerate(zip(a.get(key, ()), b[key])):
+            if ia.shape != ib.shape:
+                break
+            diff = (torch.sort(ia, -1).values != torch.sort(ib, -1).values).any(-1)
+            rows = torch.nonzero(diff).flatten()
+            for t, m in zip(rows.tolist(), mb[rows].tolist()):
+                flips.append({"key": key, "call": c, "step": c // layers, "layer": c % layers,
+                              "token": t, "margin": m})
+    return flips
+
+
+def first_flips(flips: "list[dict]") -> "dict":
+    """For each key, the flips of its first call that has any: the calls
+    whose inputs differ by rounding alone."""
+    first: dict = {}
+    for f in flips:  # in call order within a key
+        first.setdefault(f["key"], f["call"])
+    return {k: [f for f in flips if f["key"] == k and f["call"] == c] for k, c in first.items()}
+
+
+def flips_summary(flips: "list[dict]") -> dict:
+    firsts = first_flips(flips)
+    margins = [f["margin"] for f in flips]
+    return {"differing_decisions": len(flips), "flips": flips,
+            "margin_min": min(margins, default=None), "margin_max": max(margins, default=None),
+            "first_call_flips": {str(k): v for k, v in firsts.items()},
+            "first_call_margin_max": max((f["margin"] for v in firsts.values() for f in v),
+                                         default=None)}
+
+
+def phase_serve_moe(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth through the serve phase's
+    flow (``serve_flow``: the prompts of ``SERVE_PROMPTS`` in two groups of
+    ``SERVE_BATCH``, ``SERVE_NEW`` greedy steps, f32 with TF32 off): the
+    kernel run (the main path: flash in the prefill), each routing decision
+    recorded; the plain run with the kernel run's routing replayed, held to
+    it (last-position logits of the prefill and of each step while the
+    tokens agree within ``SERVE_LOGIT_TOL``; greedy tokens equal up to
+    near-ties of the plain run); the plain run unpinned, its routing
+    decisions that differ from the kernel run's counted with their margins
+    (those of each group's first differing call must be router near-ties,
+    and a request whose tokens differ, logit near-ties apart, must have
+    one); then bf16, timed, after the f32 params are freed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    m, L = get_model(cfg), cfg.num_layers
+
+    def init(dtype):  # the same seeded draws, rounded to dtype
+        gen = torch.Generator(device=dev.torch_device).manual_seed(0)
+        return m.init(cfg, generator=gen, device=dev.torch_device, dtype=dtype)
+
+    params = init(torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in SERVE_PROMPTS]
+    streams = [dev.create_stream() for _ in prompts]  # reused: the allocator pools per stream
+    log = RouteLog()
+
+    def run(p, impl, new=SERVE_NEW, mode=None, replay=None):
+        dev.synchronize()
+        log.start(mode, replay)
+        reset_launch_counts()
+        out = serve_flow(dev, cfg, p, prompts, streams, new, impl, routes=log)
+        dev.synchronize()
+        torch.cuda.empty_cache()  # each stream's cached blocks: the next run starts unfragmented
+        calls = log.calls
+        log.start()
+        return out, launch_counts()["flash_attention"], calls
+
+    want_launches = L * len(prompts)
+    with log:
+        run(params, "auto", 2)  # warm-up: cuBLAS handles, the streams' memory pools
+        f32, n_f32, routes = run(params, "auto", mode="record")  # the main path
+        require(n_f32 == want_launches, f"{MOE_ARCH}: flash launched {n_f32} times, "
+                                        f"not {want_launches}")
+        require(all(g["on_stream"] for g in f32), f"{MOE_ARCH}: a group's CUDA work left its stream")
+        n_calls = {k: len(v) for k, v in routes.items()}
+        require(n_calls == {g: L * (SERVE_NEW + 1) for g in range(len(prompts))},
+                f"{MOE_ARCH}: route calls by group {n_calls}, not {L} a pass")
+        pinned, n_pinned, _ = run(params, "ref", mode="replay", replay=routes)
+        free, n_free, free_routes = run(params, "ref", mode="record")
+    require(n_pinned == n_free == 0, f"{MOE_ARCH}: the plain runs launched flash "
+                                     f"{n_pinned} and {n_free} times")
+    decisions = int(sum(ix.shape[0] for calls in routes.values() for ix, _ in calls))
+    flips = route_flips(routes, free_routes, L)
+    summary = flips_summary(flips)
+    firsts = first_flips(flips)
+    require(all(f["margin"] < ROUTER_NEAR_TIE for v in firsts.values() for f in v),
+            f"{MOE_ARCH}: a routing decision of the plain run differs from the kernel run's at "
+            f"a margin of {summary['first_call_margin_max']} >= {ROUTER_NEAR_TIE} in its first "
+            "differing call")
+    groups = []
+    for gi, (S, g, w, u) in enumerate(zip(SERVE_PROMPTS, f32, pinned, free)):
+        require(g["tokens"].shape == (SERVE_BATCH, SERVE_NEW + 1), f"{MOE_ARCH}: token shape")
+        require(g["logits_last"].shape == (SERVE_BATCH, cfg.vocab_size)
+                and bool(np.isfinite(g["logits_last"]).all()), f"{MOE_ARCH}: bad prefill logits")
+        require(bool(((g["tokens"] >= 0) & (g["tokens"] < cfg.vocab_size)).all()),
+                f"{MOE_ARCH}: token out of the vocabulary")
+        err = 0.0
+        for j in range(SERVE_BATCH):  # every step's logits while the tokens agree
+            same = int(np.argmin(np.append(g["tokens"][j] == w["tokens"][j], False)))
+            err = max(err, float((g["logits_steps"][j, :same + 1]
+                                  - w["logits_steps"][j, :same + 1]).abs().max()))
+        require(err <= SERVE_LOGIT_TOL, f"{MOE_ARCH} S={S}: with the routing pinned the logits "
+                                        f"differ from the plain run's by {err} > "
+                                        f"{SERVE_LOGIT_TOL}")
+        differ, cuts = greedy_cuts(g["tokens"], w["tokens"], w["gaps"])
+        require(differ == 0, f"{MOE_ARCH} S={S}: with the routing pinned, {differ} request(s) "
+                             "decode other greedy tokens than in the plain run")
+        # Unpinned: a request whose tokens differ (logit near-ties cut) needs
+        # a routing flip in its group at a router near-tie.
+        free_differ, free_cuts = greedy_cuts(g["tokens"], u["tokens"], u["gaps"])
+        group_first = firsts.get(gi, [])
+        require(free_differ == 0 or bool(group_first),
+                f"{MOE_ARCH} S={S}: unpinned, {free_differ} request(s) decode other tokens with "
+                "no routing decision of the group differing")
+        groups.append({"prompt": S, "batch": SERVE_BATCH, "f32": serve_times(g),
+                       "plain_f32_pinned": serve_times(w), "plain_f32_unpinned": serve_times(u),
+                       "max_abs_logit_err_pinned": err, "near_tie_cuts_pinned": cuts,
+                       "min_gap_plain": float(w["gaps"].min()),
+                       "unpinned_requests_differing": free_differ,
+                       "unpinned_near_tie_cuts": free_cuts,
+                       "unpinned_max_abs_logit_err": float(np.abs(g["logits_last"]
+                                                                  - u["logits_last"]).max()),
+                       "unpinned_differing_decisions": sum(f["key"] == gi for f in flips),
+                       "unpinned_first_flips": group_first})
+    f32_tokens = [g["tokens"] for g in f32]
+    del f32, pinned, free, routes, free_routes, params
+    torch.cuda.empty_cache()
+    f32_peak = {k: getattr(torch.cuda, f"max_memory_{k}")() if dev.is_cuda else 0
+                for k in ("allocated", "reserved")}
+
+    params = init(torch.bfloat16)
+    run(params, "auto", 2)
+    bf16, n_bf16, _ = run(params, "auto")
+    require(n_bf16 == want_launches, f"{MOE_ARCH} bf16: flash launched {n_bf16} times")
+    for row, g, w in zip(groups, bf16, f32_tokens):
+        require(bool(np.isfinite(g["logits_last"]).all()), f"{MOE_ARCH} bf16: non-finite logits")
+        row["bf16"] = serve_times(g)
+        row["bf16_tokens_equal_f32"] = int((g["tokens"] == w).sum())
+        row["tokens"] = int(w.size)
+    del params, bf16
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": cfg.param_count(), "layers": L, "d_model": cfg.d_model,
+            "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+            "new_tokens": SERVE_NEW, "groups": groups,
+            "routing": {"decisions": decisions, "router_near_tie": ROUTER_NEAR_TIE, **summary},
+            "launches": {"kernel": "flash_attention", "f32": n_f32, "plain_pinned": n_pinned,
+                         "plain_unpinned": n_free, "bf16": n_bf16},
+            "max_memory_f32": f32_peak}
+
+
+def padded_alone(dev, cfg, params, prompt: np.ndarray, new_tokens: int, impl: str,
+                 extras: "dict | None" = None) -> dict:
+    """One request alone, eagerly: its ``paged_prefill`` (``impl``) seeds an
+    ``init_cache`` of prompt + ``new_tokens`` slots (self K/V rows, and an
+    encdec's cross K/V), then ``decode_step`` (plain attention), as the
+    reference's padded oracle (tests/test_paged_models.py).  One row is one
+    MoE dispatch group, as the paged engine's per-row groups.  Returns the
+    greedy tokens (1 + ``new_tokens`` - 1) and each pick's top-2 gap."""
+    m, td = get_model(cfg), dev.torch_device
+    S = prompt.size
+    ex = None if extras is None else {k: torch.from_numpy(np.asarray(v)[None]).to(td)
+                                      for k, v in extras.items()}
+    k, v, state, logits = m.paged_prefill(cfg, params, torch.from_numpy(prompt[None]).to(td), ex,
+                                          impl=impl)
+    cache = m.init_cache(cfg, 1, S + new_tokens, device=td, dtype=k.dtype)
+    if cfg.family == "encdec":
+        cache["self_k"][:, 0, :S], cache["self_v"][:, 0, :S] = k[0], v[0]
+        cache["cross_k"][:, 0], cache["cross_v"][:, 0] = state["cross_k"][0], state["cross_v"][0]
+    else:
+        cache["k"][:, 0, :S], cache["v"][:, 0, :S] = k[0], v[0]
+    lasts = [logits]
+    tok = torch.argmax(logits, dim=-1).view(1, 1)
+    toks = [tok]
+    for i in range(new_tokens - 1):
+        lg, cache = m.decode_step(cfg, params, cache, tok, S + i)
+        tok = torch.argmax(lg[:, -1], dim=-1).view(1, 1)
+        toks.append(tok)
+        lasts.append(lg[:, -1])
+    return {"tokens": torch.cat(toks, dim=1)[0].cpu().numpy(),
+            "gaps": torch.cat([top2_gap(x) for x in lasts]).cpu().numpy()}
+
+
+def phase_serve_paged_moe(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth through
+    ``PagedServeEngine.from_config``: the serve phase's requests and seeded
+    f32 weights (``paged_phase_runs``: every request resident, decode on
+    CUDA graphs, MoE dispatched per row).  The kernel run's tokens are held
+    to the plain paged run's.  A request whose tokens differ is run again
+    alone, eagerly, both ways (``padded_alone``), routes recorded: the
+    difference must be a near-tie of the plain logits at the first
+    differing token, or come with a routing flip whose first differing
+    call's margins are router near-ties; the flips are printed."""
+    cfg = get_config(MOE_ARCH)
+    params, rng = paged_params(dev, cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in SERVE_PROMPTS]
+    out, runs = paged_phase_runs(dev, cfg, params, prompts, SERVE_NEW + 1)
+    rows = [r for p in prompts for r in p]
+    got, ref = runs["auto"]["tokens"], runs["ref"]["tokens"]
+    explained = []
+    with RouteLog() as log:
+        for i in np.flatnonzero((got != ref).any(axis=1)):
+            t = int(np.argmax(got[i] != ref[i]))
+            alone, logs = {}, {}
+            for impl in ("auto", "ref"):
+                log.start("record")
+                alone[impl] = padded_alone(dev, cfg, params, rows[i], SERVE_NEW + 1, impl)
+                logs[impl] = log.calls
+            log.start()
+            flips = route_flips(logs["auto"], logs["ref"], cfg.num_layers)
+            firsts = first_flips(flips).get(None, [])
+            logit_tie = float(alone["ref"]["gaps"][t]) < NEAR_TIE
+            router_tie = bool(firsts) and all(f["margin"] < ROUTER_NEAR_TIE for f in firsts)
+            case = {"request": int(i), "prompt": int(rows[i].size), "first_differing_token": t,
+                    "plain_gap_there": float(alone["ref"]["gaps"][t]),
+                    "alone_tokens_differ": bool((alone["auto"]["tokens"]
+                                                 != alone["ref"]["tokens"]).any()),
+                    "flips": len(flips), "first_call_flips": firsts,
+                    "logit_near_tie": logit_tie, "router_near_tie": router_tie}
+            print(f"serve_paged_moe: request {i} (S={rows[i].size}) differs from token {t}: "
+                  f"plain gap {case['plain_gap_there']:.3g}, {len(flips)} routing decisions "
+                  f"differ alone, the first call's: {firsts}", flush=True)
+            require(logit_tie or router_tie, f"{MOE_ARCH} paged: request {i} decodes other tokens "
+                                             "than the plain paged run, with neither a logit nor "
+                                             "a router near-tie")
+            explained.append(case)
+    del params
+    out["requests_differing_kernel_vs_plain"] = len(explained)
+    out["explained"] = explained
+    return out
+
+
+def phase_serve_paged_encdec(dev) -> dict:
+    """whisper-tiny at full size through ``PagedServeEngine.from_config``
+    (seeded f32 weights): ``SERVE_BATCH`` requests of each prompt length of
+    ``ENCDEC_PROMPTS``, each with its own (1500, 384) f32 frames as
+    ``extras``, ``ENCDEC_NEW`` tokens each (``paged_phase_runs``: flash on
+    the encoder, non-causal, and on the decoder's prefill, causal;
+    paged_attention in decode).  Both runs are held to the reference's
+    padded oracle (``padded_alone`` on the plain path, each request alone)
+    and to each other, near-ties of the oracle's logits counted."""
+    cfg = get_config(ENCDEC_ARCH)
+    params, rng = paged_params(dev, cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in ENCDEC_PROMPTS]
+    n_req = SERVE_BATCH * len(prompts)
+    frames = rng.normal(0, 0.02, (n_req, cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32)
+    extras = [{"frames": f} for f in frames]
+    out, runs = paged_phase_runs(dev, cfg, params, prompts, ENCDEC_NEW, extras=extras)
+    rows = [r for p in prompts for r in p]
+    oracle = [padded_alone(dev, cfg, params, r, ENCDEC_NEW, "ref", e) for r, e in zip(rows, extras)]
+    del params
+    want = np.stack([o["tokens"] for o in oracle])
+    gaps = np.stack([o["gaps"] for o in oracle])
+    for impl, r in runs.items():
+        differ, cuts = greedy_cuts(r["tokens"], want, gaps)
+        require(differ == 0, f"{ENCDEC_ARCH} paged {impl}: {differ} request(s) decode other greedy "
+                             "tokens than the padded oracle")
+        out[impl]["near_tie_cuts_vs_oracle"] = cuts
+    differ, cuts = greedy_cuts(runs["auto"]["tokens"], runs["ref"]["tokens"], gaps)
+    require(differ == 0, f"{ENCDEC_ARCH} paged: {differ} request(s) decode other tokens than the "
+                         "plain paged run")
+    out["near_tie_cuts_kernel_vs_plain"] = cuts
+    out["min_gap_oracle"] = float(gaps.min())
+    out["encoder_seq"] = cfg.encdec.encoder_seq
+    out["state_bytes_per_request"] = 2 * cfg.num_layers * cfg.encdec.encoder_seq * cfg.d_model * 4
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1752,13 +2187,14 @@ def paged_ptxas(log: "str | None" = None) -> dict:
     return out
 
 
-def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict:
+def check_flash(name: str, shape, dtype, launches: int, device, causal: bool = True,
+                **extra) -> dict:
     B, S, H, K, D = shape
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, dtype)
                for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
-    run = lambda: flash_kernel.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
+    run = lambda: flash_kernel.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, causal=causal)  # noqa: E731
     got, want = run(), plain()
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
@@ -1770,8 +2206,8 @@ def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict
         limit = {"bf16_bound": "2**-7 * (attention of |v| + |o|)", "max_err_over_bound": ratio}
         require(ratio <= 1, f"{name} differs from its plain version by {ratio} of bf16_bound")
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
-    flops = 4 * D * attention_pairs(B, H, S, S, True)
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal, enable_gqa=True)
+    flops = 4 * D * attention_pairs(B, H, S, S, causal)
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q, k, v, o once each
     *bound_pair, peak = flash_bound(nbytes, flops, dtype)
     ms, library_ms = cuda_ms(run, 10), cuda_ms(sdpa, 10)
@@ -1779,7 +2215,7 @@ def check_flash(name: str, shape, dtype, launches: int, device, **extra) -> dict
                  "src/repro/kernels/flash_attention/kernel.py:73", launches, err,
                  ms, cuda_ms(plain, 3), bound_pair, library_ms,
                  shape={"B": B, "S": S, "H": H, "K": K, "D": D}, dtype=str(dtype).split(".")[-1],
-                 causal=True, flops=flops, flop_peak=peak, tflops=flops / ms / 1e9,
+                 causal=causal, flops=flops, flop_peak=peak, tflops=flops / ms / 1e9,
                  x_library=ms / library_ms, ptxas=flash_ptxas(dtype, D), limit=limit, **extra)
 
 
@@ -1967,34 +2403,54 @@ def paged_case(B: int, H: int, K: int, D: int, P: int, M: int, lengths, device, 
     return {**out, "ms": ms, "bound_ms": t, "bound_by": by, "x_bound": ms / t, **launched}
 
 
-def check_paged(launches: int, device) -> dict:
-    """paged_attention at the serve decode shape (OLMo-1B: B 8, H = K = 16,
-    D 128, P 16, lengths 4 x 1000 and 4 x 2000, table width 128) in f32
-    against the plain gather version; the same in bf16, a bf16 GQA check
-    at StarCoder2-7B's heads, per element within
-    ``paged_attention.ref.bf16_bound``, and B 1 with one 2000-token row
-    (the grid at small batch), each timed beside its bound; the 16-layer
-    fold against 16 single-layer launches, bit for bit; no spill in any
-    instantiation.  The bound counts ``paged_bytes``; the library time is
-    SDPA over a cache gathered beforehand (the gather excluded)."""
-    B, H, K, D, P, M = SERVE_BATCH * 2, 16, 16, 128, 16, 128
-    lengths = [1000] * SERVE_BATCH + [2000] * SERVE_BATCH
+def paged_entry(name: str, shape, lengths, launches: int, device, **extra) -> dict:
+    """paged_attention at ``shape`` (B, H, K, D, P, M) over ``lengths`` in
+    f32 against the plain gather version within ``PAGED_TOL``, on the vector
+    loads, in clusters of ``splits()`` blocks; timed beside its bound
+    (``paged_bytes``), the plain version and SDPA over a cache gathered
+    beforehand (the gather excluded).  The kernels-line entry ``name``."""
+    B, H, K, D, P, M = shape
     q, kp, vp, tbl, lens = paged_inputs(B, H, K, D, P, M, lengths, device)
     run = lambda: paged_kernel.paged_attention(q, kp, vp, tbl, lens)  # noqa: E731
     plain = lambda: paged_attention_ref(q, kp, vp, tbl, lens)  # noqa: E731
     got, want = run(), plain()
     err = float((got - want).abs().max())
-    require(bool(got.isfinite().all()), "paged_attention: non-finite output")
-    require(err <= PAGED_TOL, f"paged_attention differs from its plain version by {err}")
-    require(paged_kernel.last_load_width == 4, "paged_attention: the serve shape did not take "
-                                               "the vector loads")
+    require(bool(got.isfinite().all()), f"{name}: non-finite output")
+    require(err <= PAGED_TOL, f"{name} differs from its plain version by {err}")
+    require(paged_kernel.last_load_width == 4, f"{name}: the shape did not take the vector loads")
     splits = paged_kernel.splits()
     launched = {"splits": splits, "cluster": paged_kernel.last_cluster,
                 "blocks": paged_kernel.last_blocks}
     require(launched["cluster"] == splits and launched["blocks"] == splits * K * B,
-            f"paged_attention launched {launched['blocks']} blocks in clusters of "
+            f"{name} launched {launched['blocks']} blocks in clusters of "
             f"{launched['cluster']}, not {splits * K * B} in clusters of {splits}")
+    S = M * P
+    kc = kp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
+    vc = vp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
+    mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+    nbytes, flops = paged_bytes(q, kp, tbl, lens), paged_flops(q, lens, S)
+    return entry(name, "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "src/repro/kernels/paged_attention/kernel.py:84", launches, err,
+                 cuda_ms(run, 20), cuda_ms(plain, 5), bound(nbytes, flops), cuda_ms(sdpa, 20),
+                 shape={"B": B, "H": H, "K": K, "D": D, "P": P, "M": M, "lengths": lengths},
+                 dtype="float32", bytes=nbytes, flops=flops, limit={"max_abs": PAGED_TOL},
+                 library="SDPA over the cache gathered beforehand (gather excluded)",
+                 **launched, **extra)
 
+
+def check_paged(launches: int, device) -> dict:
+    """paged_attention at the serve decode shape (OLMo-1B: B 8, H = K = 16,
+    D 128, P 16, lengths 4 x 1000 and 4 x 2000, table width 128) in f32
+    against the plain gather version (``paged_entry``); the same in bf16, a
+    bf16 GQA check at StarCoder2-7B's heads, per element within
+    ``paged_attention.ref.bf16_bound``, and B 1 with one 2000-token row
+    (the grid at small batch), each timed beside its bound; the 16-layer
+    fold against 16 single-layer launches, bit for bit; no spill in any
+    instantiation."""
+    B, H, K, D, P, M = SERVE_BATCH * 2, 16, 16, 128, 16, 128
+    lengths = [1000] * SERVE_BATCH + [2000] * SERVE_BATCH
     Lf = get_config(SERVE_ARCH).num_layers
     fq, fk, fv, ftbl, flens = paged_inputs(B, H, K, D, P, M, lengths, device, layers=Lf)
     folded = paged_kernel.paged_attention_layers(fq, fk, fv, ftbl, flens)
@@ -2012,25 +2468,27 @@ def check_paged(launches: int, device) -> dict:
     gqa = paged_case(GB, GH, GK, D, P, M, glens, device, torch.bfloat16)
     bf16 = paged_case(B, H, K, D, P, M, lengths, device, torch.bfloat16)
     row = paged_case(1, H, K, D, P, M, [2000], device, torch.float32)
+    return paged_entry("paged_attention", (B, H, K, D, P, M), lengths, launches, device,
+                       ptxas=paged_ptxas(),
+                       fold={"layers": Lf, "bit_equal": fold_equal, "ms": fold_ms,
+                             "blocks": fold_blocks, "bound_ms": fold_bound[0],
+                             "bound_by": fold_bound[1]},
+                       bf16=bf16, b1_row=row,
+                       gqa_bf16={**gqa, "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
 
-    S = M * P
-    kc = kp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
-    vc = vp[tbl.long()].reshape(B, S, K, D).transpose(1, 2)
-    mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
-    nbytes, flops = paged_bytes(q, kp, tbl, lens), paged_flops(q, lens, S)
-    return entry("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
-                 "src/repro/kernels/paged_attention/kernel.py:84", launches, err,
-                 cuda_ms(run, 20), cuda_ms(plain, 5), bound(nbytes, flops), cuda_ms(sdpa, 20),
-                 shape={"B": B, "H": H, "K": K, "D": D, "P": P, "M": M, "lengths": lengths},
-                 dtype="float32", bytes=nbytes, flops=flops, limit={"max_abs": PAGED_TOL},
-                 library="SDPA over the cache gathered beforehand (gather excluded)",
-                 **launched, ptxas=paged_ptxas(),
-                 fold={"layers": Lf, "bit_equal": fold_equal, "ms": fold_ms, "blocks": fold_blocks,
-                       "bound_ms": fold_bound[0], "bound_by": fold_bound[1]},
-                 bf16=bf16, b1_row=row,
-                 gqa_bf16={**gqa, "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
+
+def check_paged_encdec(launches: int, device) -> dict:
+    """paged_attention at whisper-tiny's decode shape in serve_paged_encdec
+    (``paged_entry``): B 8, H = K = 6, D 64, P 16, lengths across the
+    decode of the 64- and 256-token prompts (64-95 and 256-287), a table
+    of the 18 pages the longest row ends at."""
+    cfg = get_config(ENCDEC_ARCH)
+    new = ENCDEC_NEW - 1  # decode steps past the prompt
+    lengths = [s + new * i // (SERVE_BATCH - 1) for s in ENCDEC_PROMPTS
+               for i in range(SERVE_BATCH)]
+    P = 16
+    shape = (len(lengths), cfg.num_heads, cfg.num_kv_heads, cfg.hd, P, -(-max(lengths) // P))
+    return paged_entry("paged_attention_encdec", shape, lengths, launches, device)
 
 
 def main() -> int:
@@ -2197,6 +2655,47 @@ def main() -> int:
           f"{se['fanout']['tokens_equal']} of {se['requests']}", flush=True)
     print("serve_engine: " + json.dumps(se), flush=True)
 
+    zoo = {}
+    for phase, fn in (("serve_moe", phase_serve_moe), ("serve_paged_moe", phase_serve_paged_moe),
+                      ("serve_paged_encdec", phase_serve_paged_encdec)):
+        dev.synchronize()
+        gc.collect()  # the earlier phases' engines and graphs
+        torch.cuda.empty_cache()  # their cached blocks, before 57 GB of weights
+        torch.cuda.reset_peak_memory_stats()
+        print(f"{phase}: starts with {torch.cuda.memory_allocated()} bytes allocated, "
+              f"{torch.cuda.memory_reserved()} reserved", flush=True)
+        t0 = time.perf_counter()
+        r = zoo[phase] = fn(dev)
+        r["seconds"] = time.perf_counter() - t0
+        r["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        print(f"{phase}: {r['arch']} max_memory_reserved {r['max_memory_reserved']} bytes, "
+              f"max_memory_allocated {r['max_memory_allocated']} bytes, {r['seconds']:.1f} s",
+              flush=True)
+        if phase == "serve_moe":
+            for g in r["groups"]:
+                print(f"serve_moe S={g['prompt']}: pinned routing: logits within "
+                      f"{g['max_abs_logit_err_pinned']:.3g}, near-tie cuts "
+                      f"{g['near_tie_cuts_pinned']}; unpinned: "
+                      f"{g['unpinned_differing_decisions']} routing decisions differ, "
+                      f"{g['unpinned_requests_differing']} requests decode other tokens "
+                      f"({g['unpinned_near_tie_cuts']} cut at near-ties); bf16 tokens equal to "
+                      f"f32: {g['bf16_tokens_equal_f32']} of {g['tokens']}", flush=True)
+            rt = r["routing"]
+            print(f"serve_moe routing: {rt['differing_decisions']} of {rt['decisions']} decisions "
+                  f"differ unpinned (margins {rt['margin_min']} .. {rt['margin_max']}; first "
+                  f"differing call's max {rt['first_call_margin_max']}); first ones: "
+                  f"{rt['flips'][:MOE_PRINTED_FLIPS]}", flush=True)
+        else:
+            for impl in ("auto", "ref"):
+                x = r[impl]
+                print(f"{phase} {impl}: {x['graphs_captured']} graphs, decode steps "
+                      f"{x['eager_steps']} eager / {x['replayed_steps']} replayed; step p50/p99 "
+                      f"{x['step_ms_p50']:.3f} / {x['step_ms_p99']:.3f} ms, TTFT p50/p99 "
+                      f"{x['ttft_p50_s']:.4f} / {x['ttft_p99_s']:.4f} s, "
+                      f"{x['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
+        print(f"{phase}: " + json.dumps(r), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -2230,6 +2729,27 @@ def main() -> int:
     kernels[1]["engine_phase_launches"] = {part: engine["launches"][part]
                                            for part in ("host", "replayed")}
     kernels[3]["engine_phase_launches"] = se["launches"]["flash_attention"]
+    encdec_launches = zoo["serve_paged_encdec"]["launches"]["auto"]
+    encdec_flash = encdec_launches["flash_attention"]
+    encdec_noncausal = encdec_launches["flash_attention_noncausal"]
+    kernels[3]["moe_phase_launches"] = {"serve_moe": zoo["serve_moe"]["launches"]["f32"],
+                                        "serve_paged_moe": zoo["serve_paged_moe"]["launches"][
+                                            "auto"]["flash_attention"]}
+    kernels[4]["moe_phase_launches"] = zoo["serve_moe"]["launches"]["bf16"]
+    kernels[-1]["moe_phase_launches_on_device"] = zoo["serve_paged_moe"]["launches"]["auto"][
+        "paged_attention_on_device"]
+    # serve_paged_encdec's shapes (whisper-tiny, f32), each with the launches
+    # its phase made there: the encoder's non-causal flash, the decoder's
+    # causal prefill at the longer prompt, the decode's paged_attention
+    enc = get_config(ENCDEC_ARCH)
+    kernels += [check_flash("flash_attention_noncausal", ENCODER_SHAPE, torch.float32,
+                            encdec_noncausal, dev.torch_device, causal=False),
+                check_flash("flash_attention_encdec_decoder",
+                            (SERVE_BATCH, max(ENCDEC_PROMPTS), enc.num_heads, enc.num_kv_heads,
+                             enc.hd), torch.float32, encdec_flash - encdec_noncausal,
+                            dev.torch_device),
+                check_paged_encdec(encdec_launches["paged_attention_on_device"],
+                                   dev.torch_device)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` over the configs the port runs.
 
-The port carries the dense decoder configs and mamba2-130m (ssm family).
-The reference's other archs are known by name and raise ``KeyError``
-naming the ROADMAP item that brings their family to the port.
+The port carries every reference config but hymba-1.5b, whose hybrid
+family is known by name and raises ``KeyError`` naming the ROADMAP item
+that brings it to the port.
 """
 from __future__ import annotations
 
@@ -11,20 +11,20 @@ import importlib
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, smoke
 
 _MODULES = {
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 # The reference's other archs, with the ROADMAP.md item that ports them.
 _WAITING = {
-    "qwen2-vl-72b": "Queue 1 item 7 (vlm family: vision stub, M-RoPE)",
-    "starcoder2-7b": "Queue 1 item 7 (gelu_mlp with biases; its configs come with the zoo)",
-    "phi3.5-moe-42b-a6.6b": "Queue 1 item 7 (moe family)",
-    "qwen2-moe-a2.7b": "Queue 1 item 7 (moe family)",
     "hymba-1.5b": "Queue 1 item 7 (hybrid family)",
-    "whisper-tiny": "Queue 1 item 7 (encdec family)",
 }
 
 # short aliases accepted by --arch

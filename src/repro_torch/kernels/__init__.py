@@ -38,13 +38,15 @@ def launch_counts() -> "dict[str, int]":
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches``, and its ``kernel_launches``
-    where one call launches several kernels."""
+    """Zero every wrapper's ``launches``, its ``kernel_launches`` where one
+    call launches several kernels, and its ``noncausal_launches`` where it
+    counts those apart."""
     for pkg in _PACKAGES:
         mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
         mod.launches = 0
-        if hasattr(mod, "kernel_launches"):
-            mod.kernel_launches = 0
+        for extra in ("kernel_launches", "noncausal_launches"):
+            if hasattr(mod, extra):
+                setattr(mod, extra, 0)
 
 
 _tally = threading.local()

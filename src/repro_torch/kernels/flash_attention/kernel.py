@@ -7,7 +7,8 @@ launches on the current CUDA stream.  It takes the model layout
 (B, S, H, D) with any strides whose last one is 1 (and, for the kernel's
 16-byte copies, a base address and other strides in whole 16-byte units),
 so the q/k/v views that come out of the projections go in without a copy.
-``launches`` counts the launches made.
+``launches`` counts the launches made, ``noncausal_launches`` those of
+them with ``causal=False``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels import _build, note_launch
 
 launches = 0
+noncausal_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -75,7 +77,7 @@ def flash_attention(q: "torch.Tensor", k: "torch.Tensor", v: "torch.Tensor", *,
     """q (B, Sq, H, D), k/v (B, Skv, K, D), H % K == 0, f32 or bf16 CUDA
     tensors, D in (16, 32, 64, 128) -> o (B, Sq, H, D), contiguous, of q's
     dtype.  ``causal`` masks to kpos <= qpos, both counted from 0."""
-    global launches
+    global launches, noncausal_launches
     _check(q, k, v)
     lib = _build.load("flash_attention")
     fn = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")
@@ -90,5 +92,7 @@ def flash_attention(q: "torch.Tensor", k: "torch.Tensor", v: "torch.Tensor", *,
                  v.stride(0), v.stride(1), v.stride(2), int(causal), stream)
     _build.check(lib, err, "flash_attention")
     launches += 1
+    if not causal:
+        noncausal_launches += 1
     note_launch("flash_attention")
     return o

@@ -16,7 +16,7 @@ __all__ = ["params_from_numpy"]
 
 
 def params_from_numpy(cfg, tree, *, device="cuda", dtype=torch.float32):
-    """Nested dict of numpy arrays (the JAX tree's names and shapes) ->
+    """Nested dicts and lists of numpy arrays (the JAX tree's names and shapes) ->
     the same tree of ``dtype`` tensors on ``device``, the card unless the
     caller asks for another.  bf16 arrays widen to f32 exactly on the way."""
     want = get_model(cfg).param_shapes(cfg)
@@ -27,6 +27,11 @@ def params_from_numpy(cfg, tree, *, device="cuda", dtype=torch.float32):
                 got = sorted(node) if isinstance(node, dict) else type(node).__name__
                 raise KeyError(f"params{path}: expected keys {sorted(want_node)}, got {got}")
             return {k: conv(want_node[k], node[k], f"{path}[{k!r}]") for k in want_node}
+        if isinstance(want_node, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(want_node):
+                got = len(node) if isinstance(node, (list, tuple)) else type(node).__name__
+                raise KeyError(f"params{path}: expected a list of {len(want_node)}, got {got}")
+            return [conv(w, n, f"{path}[{i}]") for i, (w, n) in enumerate(zip(want_node, node))]
         arr = np.asarray(node)
         if tuple(arr.shape) != tuple(want_node):
             raise ValueError(f"params{path}: expected shape {tuple(want_node)}, got {arr.shape}")

@@ -1,5 +1,5 @@
-"""Model building blocks on PyTorch tensors (the dense decoder's parts of
-``src/repro/models/layers.py``).
+"""Model building blocks on PyTorch tensors (the parts of
+``src/repro/models/layers.py`` the dense, moe, vlm and encdec families use).
 
 Conventions
 -----------
@@ -8,12 +8,13 @@ Conventions
 * Norms, rotary embeddings, scores and softmax compute in f32; projections
   keep the activation dtype, as the reference's ``preferred_element_type``
   does; the logits are f32.
-* ``attention`` sends the prefill case on a CUDA tensor (causal, queries
-  and keys both from position 0, Sq == Skv, no valid length) through the
-  hand-written flash kernel
-  (``repro_torch.kernels.flash_attention``).  Every other case, and every
-  CPU tensor, computes the plain math of the reference, chunked over query
-  blocks of ``q_block`` (exact: each block sees all keys).
+* ``attention`` sends self-attention on a CUDA tensor (causal or not,
+  queries and keys both from position 0, Sq == Skv, no valid length, no
+  logit softcap) through the hand-written flash kernel
+  (``repro_torch.kernels.flash_attention``).  Every other case (decode,
+  cross-attention, a softcap), and every CPU tensor, computes the plain
+  math of the reference, chunked over query blocks of ``q_block`` (exact:
+  each block sees all keys).
 * ``paged_decode_attend`` sends a CUDA tensor through the hand-written
   paged-attention kernel (``repro_torch.kernels.paged_attention``); a CPU
   tensor, or ``impl="ref"``, gathers the pages into a contiguous cache and
@@ -35,9 +36,12 @@ NEG_INF = -1e30
 
 
 def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict."""
+    """``fn`` over the leaves of nested dicts and lists (whisper's layers
+    are a list of dicts, as in the reference)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -56,8 +60,10 @@ def ninit(shape, *, generator: "torch.Generator", device, dtype=F32,
 
 
 def init_leaf(leaf, *, generator: "torch.Generator", device, dtype=F32):
-    """A (shape, fill) leaf: fill is "ones", "zeros", or ``ninit``'s scale."""
-    shape, fill = leaf
+    """A (shape, fill) leaf: fill is "ones", "zeros", or ``ninit``'s scale.
+    A third element, where there is one, is the leaf's own dtype (the MoE
+    router stays f32 whatever ``dtype`` the rest takes)."""
+    shape, fill, dtype = (*leaf, dtype)[:3]
     if fill in ("ones", "zeros"):
         return torch.full(shape, 1.0 if fill == "ones" else 0.0, dtype=dtype, device=device)
     return ninit(shape, generator=generator, device=device, dtype=dtype, scale=fill)
@@ -70,6 +76,37 @@ def embed_layout(cfg):
     if not cfg.tie_embeddings:
         emb["unembed"] = ((cfg.d_model, cfg.vocab_size), None)
     return emb
+
+
+def attn_layout(cfg, lead=()):
+    """The attention block's (shape, fill) leaves, with leading dims
+    ``lead``: fan-in scaled projections, zero biases where the config has
+    them."""
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {"wq": ((*lead, d, H * hd), None), "wk": ((*lead, d, K * hd), None),
+         "wv": ((*lead, d, K * hd), None), "wo": ((*lead, H * hd, d), None)}
+    if cfg.attn_qkv_bias:
+        p.update({"bq": ((*lead, H * hd), "zeros"), "bk": ((*lead, K * hd), "zeros"),
+                  "bv": ((*lead, K * hd), "zeros")})
+    if cfg.attn_out_bias:
+        p["bo"] = ((*lead, d), "zeros")
+    return p
+
+
+def mlp_layout(cfg, lead=()):
+    """The MLP's (shape, fill) leaves, with leading dims ``lead``."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p = {"wi_gate": ((*lead, d, f), None), "wi_up": ((*lead, d, f), None),
+             "wo": ((*lead, f, d), None)}
+        if cfg.mlp_bias:
+            p.update({"bi_gate": ((*lead, f), "zeros"), "bi_up": ((*lead, f), "zeros"),
+                      "bo": ((*lead, d), "zeros")})
+        return p
+    p = {"wi": ((*lead, d, f), None), "wo": ((*lead, f, d), None)}
+    if cfg.mlp_bias:
+        p.update({"bi": ((*lead, f), "zeros"), "bo": ((*lead, d), "zeros")})
+    return p
 
 
 def norm_layout(cfg, lead=()):
@@ -118,16 +155,27 @@ def apply_norm(cfg, x, p):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (RoPE / partial RoPE)
+# rotary embeddings (RoPE / partial RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
-def rope_angles(positions, rotary_dim: int, theta: float):
-    """positions: (B, S) int.  Returns (cos, sin) of shape (B, S,
-    rotary_dim), rotate-half convention (angles repeated over both
-    halves).  M-RoPE comes with the vlm family (ROADMAP.md Queue 1 item 7)."""
+def rope_angles(positions, rotary_dim: int, theta: float, sections=()):
+    """positions: (B, S) int, or (3, B, S) for M-RoPE (t, h, w streams).
+
+    Returns (cos, sin) of shape (B, S, rotary_dim), rotate-half convention
+    (angles repeated over both halves).  With ``sections`` the frequency
+    bands of the half are split between the t, h and w position ids."""
     half = rotary_dim // 2
     inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=F32, device=positions.device) / half))
-    freqs = positions.to(F32)[..., None] * inv_freq  # (B, S, half)
+    if sections:
+        assert positions.ndim == 3, "mrope needs (3, B, S) positions"
+        assert sum(sections) == half, (sections, half)
+        parts, start = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(positions[i].to(F32)[..., None] * inv_freq[start:start + sec])
+            start += sec
+        freqs = torch.cat(parts, dim=-1)  # (B, S, half)
+    else:
+        freqs = positions.to(F32)[..., None] * inv_freq  # (B, S, half)
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
 
@@ -154,14 +202,18 @@ def apply_rope(x, cos, sin):
 # attention core
 # ---------------------------------------------------------------------------
 
-def _block_attend(q, k, v, qpos, kpos, *, causal, valid_len=None):
+def _block_attend(q, k, v, qpos, kpos, *, causal, softcap=None, valid_len=None):
     """q: (B, Sq, K, R, D); k/v: (B, Skv, K, D); qpos: (Sq,); kpos: (Skv,).
 
-    Returns (B, Sq, K, R, D).  Scores and softmax in f32.  ``valid_len`` may
-    be a scalar (one cache fill level for the whole batch) or a (B,) tensor
-    (ragged paged decode: each row attends over its own prefix)."""
+    Returns (B, Sq, K, R, D).  Scores and softmax in f32; a ``softcap``
+    bounds the scores to ``softcap * tanh(s / softcap)`` before the mask.
+    ``valid_len`` may be a scalar (one cache fill level for the whole batch)
+    or a (B,) tensor (ragged paged decode: each row attends over its own
+    prefix)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqkrd,bskd->bkrqs", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos[None, :] <= qpos[:, None]
@@ -185,6 +237,7 @@ def attention(
     q_offset: int = 0,
     q_block: "Optional[int]" = None,
     valid_len=None,
+    softcap: "Optional[float]" = None,
     impl: str = "auto",
 ):
     """GQA attention. q: (B, Sq, H, D); k/v: (B, Skv, K, D); H % K == 0.
@@ -192,23 +245,26 @@ def attention(
     ``q_block``: the plain path takes queries in blocks of this size, so
     the peak score tensor is (B, H, q_block, Skv).  ``valid_len``: number
     of valid cache slots (decode), a scalar or a (B,) tensor of per-row
-    prefixes (paged decode).  ``impl``: ``auto`` sends the prefill
-    case on a CUDA tensor through the flash kernel; ``ref`` keeps every
-    case on the plain path.  Sliding windows and logit softcaps come with
-    the archs that use them (ROADMAP.md Queue 1 item 7)."""
+    prefixes (paged decode).  ``softcap``: scores become ``softcap *
+    tanh(s / softcap)`` before the mask.  ``impl``: ``auto`` sends
+    self-attention on a CUDA tensor (causal or not, Sq == Skv from position
+    0, no ``valid_len``) through the flash kernel; the kernel has no
+    softcap (nor has the Pallas one), so a call with a softcap takes the
+    plain path.  ``ref`` keeps every case on the plain path.  Sliding
+    windows come with the hybrid family (ROADMAP.md Queue 1 item 7)."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     B, Sq, H, D = q.shape
-    if (impl == "auto" and q.is_cuda and causal and q_offset == 0 and Sq == k.shape[1]
-            and valid_len is None):
-        return flash_attention(q, k, v, causal=True)
+    if (impl == "auto" and q.is_cuda and q_offset == 0 and Sq == k.shape[1]
+            and valid_len is None and softcap is None):
+        return flash_attention(q, k, v, causal=causal)
     K = k.shape[2]
     qr = q.reshape(B, Sq, K, H // K, D)
     kpos = torch.arange(k.shape[1], device=q.device)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     step = Sq if q_block is None else q_block
     blocks = [_block_attend(qr[:, i:i + step], k, v, qpos[i:i + step], kpos, causal=causal,
-                            valid_len=valid_len)
+                            softcap=softcap, valid_len=valid_len)
               for i in range(0, Sq, step)]
     return torch.cat(blocks, dim=1).reshape(B, Sq, H, D)
 

@@ -1,14 +1,19 @@
-"""Decoder-only transformer LM, dense family (``src/repro/models/
-transformer.py`` on PyTorch).
+"""Decoder-only transformer LM: the dense, moe and vlm families
+(``src/repro/models/transformer.py`` on PyTorch).
 
 Params keep the JAX tree's names and shapes: layer params are stacked
 with a leading L axis, and ``forward``/``decode_step``/``paged_decode_step``
-walk the layers in a Python loop where the reference scans.  The paged
-serving contract (``paged_spec``/``paged_prefill``/``paged_decode_step``)
-is the reference's; its decode attends through the paged-attention kernel
-on a CUDA tensor.  MoE blocks, sliding windows,
-logit softcaps, the vision stub and M-RoPE are refused: they come with the
-rest of the model zoo (ROADMAP.md Queue 1 item 7).
+walk the layers in a Python loop where the reference scans.  A layer of a
+moe config holds ``moe`` (``models/moe.py``) in place of ``mlp``.  The
+paged serving contract (``paged_spec``/``paged_prefill``/
+``paged_decode_step``) is the reference's; its decode attends through the
+paged-attention kernel on a CUDA tensor.
+
+VLM (qwen2-vl): the vision frontend is a STUB, as in the reference:
+precomputed patch embeddings (B, P, D) are written over positions [1, P+1)
+of the token embedding, and M-RoPE takes the stub's (3, B, S) t/h/w
+position ids.  Sliding windows are refused: they come with the hybrid
+family (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -17,19 +22,16 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.layers import tree_map
 
 _ZOO = "ROADMAP.md Queue 1 item 7"
 
 
 def _refuse_unported(cfg) -> None:
-    for what, on in (("MoE blocks", cfg.moe is not None),
-                     ("sliding-window attention", cfg.sliding_window is not None),
-                     ("attention logit softcap", cfg.attn_logit_softcap is not None),
-                     ("the vision stub", cfg.vision_stub),
-                     ("M-RoPE", cfg.rope_type == "mrope")):
-        if on:
-            raise NotImplementedError(f"{cfg.name}: {what} not ported yet ({_ZOO})")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention not ported yet ({_ZOO}, hybrid family)")
 
 
 # ---------------------------------------------------------------------------
@@ -38,30 +40,14 @@ def _refuse_unported(cfg) -> None:
 
 def _layout(cfg):
     """Nested dict of (shape, fill) leaves, as ``layers.init_leaf`` takes them."""
-    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    f, n = cfg.d_ff, cfg.num_layers
-    attn = {"wq": ((n, d, H * hd), None), "wk": ((n, d, K * hd), None),
-            "wv": ((n, d, K * hd), None), "wo": ((n, H * hd, d), None)}
-    if cfg.attn_qkv_bias:
-        attn.update({"bq": ((n, H * hd), "zeros"), "bk": ((n, K * hd), "zeros"),
-                     "bv": ((n, K * hd), "zeros")})
-    if cfg.attn_out_bias:
-        attn["bo"] = ((n, d), "zeros")
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        mlp = {"wi_gate": ((n, d, f), None), "wi_up": ((n, d, f), None), "wo": ((n, f, d), None)}
-        if cfg.mlp_bias:
-            mlp.update({"bi_gate": ((n, f), "zeros"), "bi_up": ((n, f), "zeros"),
-                        "bo": ((n, d), "zeros")})
+    n = cfg.num_layers
+    layer = {"ln1": L.norm_layout(cfg, (n,)), "attn": L.attn_layout(cfg, (n,)),
+             "ln2": L.norm_layout(cfg, (n,))}
+    if cfg.moe is not None:
+        layer["moe"] = M.layout(cfg, (n,))
     else:
-        mlp = {"wi": ((n, d, f), None), "wo": ((n, f, d), None)}
-        if cfg.mlp_bias:
-            mlp.update({"bi": ((n, f), "zeros"), "bo": ((n, d), "zeros")})
-    return {
-        "embed": L.embed_layout(cfg),
-        "layers": {"ln1": L.norm_layout(cfg, (n,)), "attn": attn, "ln2": L.norm_layout(cfg, (n,)),
-                   "mlp": mlp},
-        "final_norm": L.norm_layout(cfg),
-    }
+        layer["mlp"] = L.mlp_layout(cfg, (n,))
+    return {"embed": L.embed_layout(cfg), "layers": layer, "final_norm": L.norm_layout(cfg)}
 
 
 def param_shapes(cfg):
@@ -82,10 +68,35 @@ def _layer(params, i: int):
     return tree_map(lambda t: t[i], params["layers"])
 
 
+# ---------------------------------------------------------------------------
+# embedding (+ VLM patch merge)
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg, params, batch):
+    x = L.embed(cfg, params["embed"], batch["tokens"])
+    if cfg.vision_stub and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)  # (B, P, D) from the stub
+        P, S = pe.shape[1], x.shape[1]
+        start = max(0, min(1, S - P))  # positions [1, P+1), clamped as dynamic_update_slice
+        x[:, start:start + P] = pe
+    return x
+
+
+def _positions(cfg, batch, S):
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    if cfg.rope_type == "mrope":
+        pos = batch.get("positions")
+        if pos is None:  # text-only fallback: all three streams equal
+            pos = torch.arange(S, device=tokens.device)[None, None].expand(3, B, S)
+        return pos
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+
 def _rope(cfg, positions):
-    if cfg.rope_type == "rope":
+    if cfg.rope_type in ("rope", "mrope"):
         rot = int(cfg.hd * cfg.partial_rotary)
-        return L.rope_angles(positions, rot, cfg.rope_theta)
+        return L.rope_angles(positions, rot, cfg.rope_theta, cfg.mrope_sections)
     return None, None
 
 
@@ -93,46 +104,54 @@ def _rope(cfg, positions):
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl):
+def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl, moe_groups=None):
     h = L.apply_norm(cfg, x, lp["ln1"])
     q, k, v = L.qkv_proj(cfg, lp["attn"], h)
     if cos is not None:
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-    o = L.attention(q, k, v, causal=True, q_block=q_block, impl=impl)
+    o = L.attention(q, k, v, causal=True, q_block=q_block, softcap=cfg.attn_logit_softcap,
+                    impl=impl)
     x = x + L.out_proj(cfg, lp["attn"], o)
     h = L.apply_norm(cfg, x, lp["ln2"])
-    return x + L.mlp(cfg, lp["mlp"], h), (k, v)
+    if cfg.moe is not None:
+        y, aux = M.moe_block(cfg, lp["moe"], h, groups=moe_groups)
+        return x + y, aux, (k, v)
+    return x + L.mlp(cfg, lp["mlp"], h), None, (k, v)
 
 
 def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bool = False,
-            last_only: bool = False, impl: str = "auto"):
-    """Teacher-forcing forward. batch["tokens"]: (B, S) int.
+            last_only: bool = False, impl: str = "auto", moe_groups: "Optional[int]" = None):
+    """Teacher-forcing forward. batch["tokens"]: (B, S) int; a vlm batch
+    may add "patch_embeds" (B, P, D) and "positions" (3, B, S).
 
     Returns (logits, aux_loss) or (logits, aux_loss, kv_cache) with
     ``return_kv`` (prefill: kv_cache is {'k','v'}: (L, B, S, K, hd)).
-    ``aux_loss`` is 0: the dense family has no router.  ``impl`` goes to
-    ``layers.attention``: ``ref`` keeps attention on the plain path."""
+    ``aux_loss`` is the layers' router losses summed in f32 (0 without
+    MoE).  ``impl`` goes to ``layers.attention``: ``ref`` keeps attention on
+    the plain path.  ``moe_groups`` goes to ``moe_block`` as ``groups``."""
     _refuse_unported(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(cfg, params["embed"], tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    cos, sin = _rope(cfg, positions)
-    ks, vs = [], []
+    x = _embed_inputs(cfg, params, batch)
+    S = x.shape[1]
+    cos, sin = _rope(cfg, _positions(cfg, batch, S))
+    kv, auxs = None, []
     for i in range(cfg.num_layers):
-        x, (k, v) = _attn_mlp_layer(cfg, _layer(params, i), x, cos, sin, q_block=q_block,
-                                    impl=impl)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
+        x, aux, (k, v) = _attn_mlp_layer(cfg, _layer(params, i), x, cos, sin, q_block=q_block,
+                                         impl=impl, moe_groups=moe_groups)
+        if aux is not None:
+            auxs.append(aux)
+        if return_kv:  # written layer by layer into the stacked cache: no second copy
+            if kv is None:
+                kv = {n: t.new_empty((cfg.num_layers, *t.shape)) for n, t in (("k", k), ("v", v))}
+            kv["k"][i], kv["v"][i] = k, v
     x = L.apply_norm(cfg, x, params["final_norm"])
     if last_only:  # prefill: only the final position feeds sampling
         x = x[:, -1:]
     logits = L.unembed(cfg, params["embed"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = (torch.sum(torch.stack(auxs)) if auxs
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     if return_kv:
-        return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, aux, kv
     return logits, aux
 
 
@@ -150,13 +169,15 @@ def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
 
 
 def decode_step(cfg, params, cache, tokens, pos: int):
-    """tokens: (B, 1) int; pos: the write position.
+    """tokens: (B, 1) int; pos: the write position (text decode: M-RoPE's
+    three streams all at ``pos``).
 
     Returns (logits (B, 1, V), cache); the cache is updated in place."""
     _refuse_unported(cfg)
     x = L.embed(cfg, params["embed"], tokens)
     B = x.shape[0]
-    cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.int64, device=x.device))
+    shape = (3, B, 1) if cfg.rope_type == "mrope" else (B, 1)
+    cos, sin = _rope(cfg, torch.full(shape, pos, dtype=torch.int64, device=x.device))
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = L.apply_norm(cfg, x, lp["ln1"])
@@ -168,7 +189,8 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         o = L.decode_attend(cfg, q, ck, cv, pos)
         x = x + L.out_proj(cfg, lp["attn"], o)
         h = L.apply_norm(cfg, x, lp["ln2"])
-        x = x + L.mlp(cfg, lp["mlp"], h)
+        x = x + (M.moe_block(cfg, lp["moe"], h)[0] if cfg.moe is not None
+                 else L.mlp(cfg, lp["mlp"], h))
     x = L.apply_norm(cfg, x, params["final_norm"])
     return L.unembed(cfg, params["embed"], x), cache
 
@@ -192,11 +214,14 @@ def paged_prefill(cfg, params, tokens, extras=None, *, impl: str = "auto"):
 
     k/v: (B, L, T, K, hd) views of ``forward(..., return_kv=True)``'s KV,
     ready for ``PagedKVCache.append``; state: None (attention only);
-    last_logits: (B, V) f32 for the sampling stage."""
+    last_logits: (B, V) f32 for the sampling stage.  ``moe_groups=B``:
+    capacity buckets stay per row, so each request's prefill logits do not
+    depend on which rows batched with it."""
     batch = {"tokens": tokens}
     if extras:
         batch.update(extras)
-    logits, _, kv = forward(cfg, params, batch, return_kv=True, last_only=True, impl=impl)
+    logits, _, kv = forward(cfg, params, batch, return_kv=True, last_only=True, impl=impl,
+                            moe_groups=tokens.shape[0])
     return kv["k"].movedim(0, 1), kv["v"].movedim(0, 1), None, logits[:, -1]
 
 
@@ -210,10 +235,14 @@ def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, t
     (k_pages, v_pages, state, logits (B, V)).  Per-row math is
     ``decode_step``'s: the new token is scattered at ``positions`` and each
     row attends over ``lengths + 1`` slots, through the paged-attention
-    kernel on a CUDA tensor (``impl="ref"``: the gather path)."""
+    kernel on a CUDA tensor (``impl="ref"``: the gather path).  MoE
+    dispatches per row (``groups=B``): a row's expert drops do not depend
+    on which sequences share the step."""
     _refuse_unported(cfg)
     x = L.embed(cfg, params["embed"], tokens.reshape(-1, 1))
-    cos, sin = _rope(cfg, positions[:, None])
+    B = x.shape[0]
+    p = positions[:, None]
+    cos, sin = _rope(cfg, p[None].expand(3, B, 1) if cfg.rope_type == "mrope" else p)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = L.apply_norm(cfg, x, lp["ln1"])
@@ -225,6 +254,7 @@ def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, t
         o = L.paged_decode_attend(q, kp, vp, tables, lengths, impl=impl)
         x = x + L.out_proj(cfg, lp["attn"], o)
         h = L.apply_norm(cfg, x, lp["ln2"])
-        x = x + L.mlp(cfg, lp["mlp"], h)
+        x = x + (M.moe_block(cfg, lp["moe"], h, groups=B)[0] if cfg.moe is not None
+                 else L.mlp(cfg, lp["mlp"], h))
     x = L.apply_norm(cfg, x, params["final_norm"])
     return k_pages, v_pages, state, L.unembed(cfg, params["embed"], x)[:, 0]

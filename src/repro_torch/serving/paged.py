@@ -136,6 +136,15 @@ def _to_device(arr: np.ndarray, device: "torch.device") -> "torch.Tensor":
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _stack_extras(group, device: "torch.device"):
+    """The group's ``extras`` stacked by key (the first request's keys) on
+    ``device``, on the current stream; None without extras."""
+    if group[0].extras is None:
+        return None
+    return {key: _to_device(np.stack([np.asarray(r.extras[key]) for r in group]), device)
+            for key in group[0].extras}
+
+
 def _pow2_pad_idx(idx: np.ndarray) -> np.ndarray:
     """Pad a page-index vector to the next power-of-two length by repeating
     its last entry (a duplicate writes the same page with the same value),
@@ -850,9 +859,9 @@ class PagedKVCache:
 
 class _PagedRequest:
     __slots__ = ("tokens", "max_new", "promise", "arrived", "seq", "out",
-                 "first_token_s", "handed_off", "rid", "sampling")
+                 "first_token_s", "handed_off", "rid", "sampling", "extras")
 
-    def __init__(self, tokens, max_new, promise, arrived, rid=0, sampling=None):
+    def __init__(self, tokens, max_new, promise, arrived, rid=0, sampling=None, extras=None):
         self.tokens = tokens
         self.max_new = max_new
         self.promise = promise
@@ -861,6 +870,8 @@ class _PagedRequest:
         # SamplingParams (None = greedy).
         self.rid = rid
         self.sampling = sampling
+        # ``extras`` carries per-request modality inputs (whisper frames).
+        self.extras = extras
         self.seq: "SeqPages | None" = None
         self.out: "list[int]" = []
         self.first_token_s: "float | None" = None
@@ -883,7 +894,9 @@ class PagedServeEngine:
     Model contract (``"zoo"``):
 
     ``prefill_fn(tokens, extras)``
-        ``(B, T)`` int32 device tensor, ``extras`` None ``-> (k, v, state,
+        ``(B, T)`` int32 device tensor, ``extras`` None or a dict of device
+        tensors stacked by key from each request's ``submit(...,
+        extras=...)`` (modality inputs: whisper frames) ``-> (k, v, state,
         last_logits)``
         with k/v ``(B, L, T', K, D)``, ``state`` a batch-leading nested
         dict of per-sequence residue or None, ``last_logits`` ``(B, V)``.
@@ -1023,12 +1036,13 @@ class PagedServeEngine:
 
     def submit(self, prompt, max_new_tokens: int, *,
                sampling: "SamplingParams | None" = None,
-               request_id: "int | None" = None) -> Future:
+               request_id: "int | None" = None,
+               extras: "dict | None" = None) -> Future:
         """Queue one request.  ``sampling`` selects the host-side sampler
         (None = greedy); ``request_id`` keys the sampling PRNG stream
-        (default: submission order).  Modality inputs (the reference's
-        ``extras``) come with the families that take them (ROADMAP.md Queue
-        1 item 7)."""
+        (default: submission order).  ``extras``: per-request modality
+        inputs (whisper: ``{"frames": (S_enc, D)}``), host arrays, stacked
+        by key over the prefill's group."""
         tokens = np.asarray(prompt, np.int32).reshape(-1)
         if tokens.size == 0:
             raise ValueError("empty prompt")
@@ -1042,7 +1056,7 @@ class PagedServeEngine:
             rid = self._next_rid if request_id is None else int(request_id)
             self._next_rid += 1
         req = _PagedRequest(tokens, int(max_new_tokens), promise, _now(),
-                            rid=rid, sampling=sampling)
+                            rid=rid, sampling=sampling, extras=extras)
         with self._cv:
             if self._closed:
                 raise EngineClosed(f"engine {self.name!r} is closed")
@@ -1160,7 +1174,7 @@ class PagedServeEngine:
         with self._on_stream():
             with self.kv.gate.shared():
                 tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
-                k, v, state, logits = self.prefill_fn(tokens, None)
+                k, v, state, logits = self.prefill_fn(tokens, _stack_extras(group, dev))
                 logits = logits.float().cpu().numpy()
             # First token samples host-side at position 0 of each
             # request's own PRNG stream — batch composition cannot leak.

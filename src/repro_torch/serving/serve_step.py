@@ -2,10 +2,10 @@
 scheduler-routed fan-out of independent batches, and the continuous-batching
 decode engine: the port of ``src/repro/serving/serve_step.py``.
 
-``make_prefill`` and ``make_serve_step`` close over the params, for the
-dense and ssm families.  On a CUDA device the dense prefill's attention
-runs the hand-written flash kernel and the ssm prefill's scans run the
-``ssd_scan`` kernel; the decode steps are plain PyTorch.
+``make_prefill`` and ``make_serve_step`` close over the params, for every
+ported family.  On a CUDA device the prefill's attention runs the
+hand-written flash kernel and the ssm prefill's scans run the ``ssd_scan``
+kernel; the decode steps are plain PyTorch.
 
 Batch fan-out (DESIGN.md §9): ``route_batches`` asks the placement policy
 for a device per batch, percolates the batch there and runs it on that
@@ -44,14 +44,15 @@ def make_serve_step(cfg, params):
 
 def make_prefill(cfg, params, *, q_block: int = 512, impl: str = "auto"):
     """Returns ``prefill(batch) -> (logits_last, cache)``: logits (B, 1, V)
-    f32 of the last position and the prompt's cache.  Dense: kv {'k', 'v'}:
-    (L, B, S, K, hd), to be copied into a decode cache of S + new slots.
+    f32 of the last position and the prompt's cache.  Dense, moe, vlm: kv
+    {'k', 'v'}: (L, B, S, K, hd), to be copied into a decode cache of S +
+    new slots; encdec: {'self', 'cross'}, as its ``forward`` returns them.
     ssm: the decode cache itself, {'state', 'conv'} (the real state the
     prompt leaves, not the reference ``forward``'s zeros).  ``impl="ref"``
     keeps attention or the scan on the plain path; ``q_block`` is the
-    dense plain attention's query block."""
+    plain attention's query block."""
     m = get_model(cfg)
-    kw = {"q_block": q_block} if cfg.family == "dense" else {}
+    kw = {} if cfg.family == "ssm" else {"q_block": q_block}  # the attention families'
 
     def prefill(batch):
         logits, _aux, cache = m.forward(cfg, params, batch, return_kv=True, last_only=True,

@@ -222,9 +222,133 @@ def test_torch_cuda_create_buffer_from_pinned_resolves_after_its_copy():
     np.testing.assert_array_equal(buf.enqueue_read_sync(), want.numpy())
 
 
+# ---------------------------------------------------------------------------
+# the moe, vlm and encdec families, and starcoder2's GQA, at smoke size
+# ---------------------------------------------------------------------------
+
+ZOO_CARD = ["qwen2-moe-a2.7b", "qwen2-vl-72b", "starcoder2-7b", "whisper-tiny"]
+
+
+def _zoo_cfg(arch):
+    cfg = smoke(get_config(arch))
+    if arch == "starcoder2-7b":  # StarCoder2-7B's 36 heads over 4 kv heads: R 9 through flash
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, num_heads=36, num_kv_heads=4)
+    return cfg
+
+
+def _zoo_batch(cfg, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).cuda()}
+    if cfg.family == "vlm":
+        b["patch_embeds"] = torch.from_numpy(
+            rng.normal(0, 0.02, (B, cfg.num_patches, cfg.d_model)).astype(np.float32)).cuda()
+        b["positions"] = torch.from_numpy(rng.integers(0, S, (3, B, S))).cuda()
+    if cfg.family == "encdec":
+        b["frames"] = torch.from_numpy(
+            rng.normal(0, 0.02, (B, cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ZOO_CARD)
+def test_torch_cuda_zoo_prefill_and_paged_decode_match_plain(arch):
+    """On the card, smoke size, f32 with TF32 off: the prefill's attention
+    runs flash (once a layer; whisper's encoder layers too, non-causal)
+    and the paged decode step paged_attention (once a layer), each within
+    1e-4 of the plain path (``impl="ref"``), which launches neither."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _zoo_cfg(arch)
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    b = _zoo_batch(cfg, 2, 40)
+    ex = {k: v for k, v in b.items() if k != "tokens"} or None
+    reset_launch_counts()
+    k, v, state, got = m.paged_prefill(cfg, params, b["tokens"], ex)
+    enc = cfg.encdec.encoder_layers if cfg.encdec else 0
+    assert launch_counts()["flash_attention"] == cfg.num_layers + enc
+    assert flash_kernel.noncausal_launches == enc  # the encoder's, counted apart
+    k2, v2, state2, want = m.paged_prefill(cfg, params, b["tokens"], ex, impl="ref")
+    assert launch_counts()["flash_attention"] == cfg.num_layers + enc
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(k, k2, rtol=1e-4, atol=1e-4)
+    for n in state or {}:
+        torch.testing.assert_close(state[n], state2[n], rtol=1e-4, atol=1e-4)
+
+    spec = m.paged_spec(cfg)
+    P, T = spec.page_size, k.shape[2]
+    n = -(-(T + 1) // P)
+    shape = (spec.layers, 1 + 2 * n, P, spec.kv_heads, spec.head_dim)
+    kp = torch.zeros(shape, device="cuda")
+    vp = torch.zeros(shape, device="cuda")
+    tbl = torch.arange(1, 1 + 2 * n, dtype=torch.int32, device="cuda").view(2, n)
+    for r in range(2):  # each row's prefill KV into its pages, in order
+        for pages, rows in ((kp, k[r]), (vp, v[r])):
+            padded = torch.zeros((spec.layers, n * P, *shape[3:]), device="cuda")
+            padded[:, :T] = rows
+            pages[:, tbl[r].long()] = padded.view(spec.layers, n, P, *shape[3:])
+    lens = torch.full((2,), T, dtype=torch.int32, device="cuda")
+    tok = torch.argmax(got, dim=-1).to(torch.int32)
+    reset_launch_counts()
+    outs = {}
+    for impl in ("auto", "ref"):
+        kpi, vpi = kp.clone(), vp.clone()
+        st = None if state is None else {nm: t.clone() for nm, t in state.items()}
+        outs[impl] = m.paged_decode_step(cfg, params, kpi, vpi, st, tok, lens, tbl, lens,
+                                         impl=impl)
+        assert launch_counts()["paged_attention"] == cfg.num_layers
+    torch.testing.assert_close(outs["auto"][3], outs["ref"][3], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs["auto"][0], outs["ref"][0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_moe_paged_decode_step_captures_into_a_graph():
+    """One qwen2-moe paged decode step (4 rows, dispatched per row) records
+    into a CUDA graph, which raises on any host sync under capture, and its
+    replay gives the eager step's logits and pages bit for bit."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config("qwen2-moe-a2.7b"))
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spec = m.paged_spec(cfg)
+    rng = np.random.default_rng(2)
+    shape = (spec.layers, 9, spec.page_size, spec.kv_heads, spec.head_dim)
+    kp0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    vp0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    tbl = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 8]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([16, 20, 3, 31], dtype=torch.int32, device="cuda")
+    tok = torch.tensor([3, 7, 11, 200], dtype=torch.int32, device="cuda")
+    kp, vp = kp0.clone(), vp0.clone()
+    m.paged_decode_step(cfg, params, kp, vp, None, tok, lens, tbl, lens)  # warm-up, eager
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    want = m.paged_decode_step(cfg, params, kp, vp, None, tok, lens, tbl, lens)[3].clone()
+    want_k = kp.clone()
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = m.paged_decode_step(cfg, params, kp, vp, None, tok, lens, tbl, lens)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[3], want) and torch.equal(kp, want_k)
+
+
 # (B, Sq, Skv, H, K, D): the reference's cases (tests/test_kernels.py:115),
 # then ragged lengths that are no multiple of the kernel's tiles,
-# causal with Sq != Skv, and the serving head dim 128.
+# causal with Sq != Skv, the serving head dim 128, and whisper-tiny's encoder
+# (S 1500, H = K = 6, D 64; non-causal in the model).
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64),
     (2, 256, 256, 8, 2, 32),
@@ -234,6 +358,7 @@ FLASH_CASES = [
     (2, 100, 200, 8, 2, 64),
     (1, 200, 100, 4, 1, 32),
     (1, 1000, 1000, 2, 2, 128),
+    (4, 1500, 1500, 6, 6, 64),
 ]
 
 
@@ -709,7 +834,9 @@ def test_torch_cuda_ssm_prefill_runs_the_kernel():
 
 # (B, H, K, D, P, M, lengths): the reference's cases (tests/test_paged.py:
 # 74-119, D 4 and 8, P 2-8), a length-0 row, the zoo's D 64 with GQA, and
-# the serve decode shape (OLMo-1B: H = K = 16, D 128, P 16, table width 128).
+# whisper-tiny's decoder (H = K = 6, D 64; prompts of 64 and 256 with up to
+# 32 new tokens, a table of 18 pages), and, last, the serve decode shape
+# (OLMo-1B: H = K = 16, D 128, P 16, table width 128).
 PAGED_CASES = [
     (4, 4, 2, 8, 4, 6, [3, 4, 7, 24]),
     (3, 4, 2, 8, 4, 5, [1, 6, 20]),
@@ -717,6 +844,7 @@ PAGED_CASES = [
     (3, 4, 2, 4, 8, 3, [24, 0, 9]),
     (2, 8, 2, 64, 16, 8, [100, 37]),
     (2, 36, 4, 128, 16, 16, [250, 129]),
+    (8, 6, 6, 64, 16, 18, [64, 95, 70, 80, 256, 287, 260, 270]),
     (8, 16, 16, 128, 16, 128, [1000] * 4 + [2000] * 4),
 ]
 

@@ -41,15 +41,13 @@ def _tokens(cfg, B, S, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S), dtype=np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["starcoder2-7b", "qwen2-moe", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ARCHS + ["starcoder2-7b", "qwen2-moe", "mamba2-130m", "phi3.5-moe",
+                                  "qwen2-vl-72b", "whisper-tiny"])
 def test_torch_configs_match_reference(arch):
-    if arch in ARCHS + ["mamba2-130m"]:
-        assert dataclasses.asdict(tcfg.get_config(arch)) == dataclasses.asdict(jcfg.get_config(arch))
-        assert (dataclasses.asdict(tcfg.smoke(tcfg.get_config(arch)))
-                == dataclasses.asdict(jcfg.smoke(jcfg.get_config(arch))))
-    else:
-        with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 7"):
-            tcfg.get_config(arch)
+    assert dataclasses.asdict(tcfg.get_config(arch)) == dataclasses.asdict(jcfg.get_config(arch))
+    assert (dataclasses.asdict(tcfg.smoke(tcfg.get_config(arch)))
+            == dataclasses.asdict(jcfg.smoke(jcfg.get_config(arch))))
+    assert tcfg.get_config(arch).param_count() == jcfg.get_config(arch).param_count()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -88,7 +86,8 @@ def test_torch_decode_steps_match_reference(arch):
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "phi3.5-moe", "starcoder2-7b",
+                                  "qwen2-vl-72b", "whisper-tiny"])
 def test_torch_init_matches_reference_tree_and_scale(arch):
     jc, tc = jcfg.smoke(jcfg.get_config(arch)), tcfg.smoke(tcfg.get_config(arch))
     jparams = jax.tree.map(np.asarray, jax_get_model(jc).init(jc, jax.random.key(0)))
@@ -158,13 +157,18 @@ def test_torch_plain_attention_matches_reference(q_offset, valid_len, q_block):
 
 
 def test_torch_model_refuses_unported_parts():
+    """Sliding windows and the hybrid family wait for the hybrid slice; the
+    softcap, the vision stub and M-RoPE are ported (``tests/test_torch_zoo.py``)."""
     base = tcfg.smoke(tcfg.get_config("olmo-1b"))
     gen = torch.Generator().manual_seed(0)
-    for change in (dict(sliding_window=16), dict(attn_logit_softcap=30.0), dict(vision_stub=True),
-                   dict(rope_type="mrope", mrope_sections=(4, 2, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-            T.init(dataclasses.replace(base, **change), generator=gen, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        T.init(dataclasses.replace(base, sliding_window=16), generator=gen, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         get_model(dataclasses.replace(base, family="hybrid"))
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 7 \\(hybrid family\\)"):
+        tcfg.get_config("hymba-1.5b")
+    for change in (dict(attn_logit_softcap=30.0), dict(vision_stub=True, num_patches=4),
+                   dict(rope_type="mrope", mrope_sections=(4, 2, 2))):
+        T.init(dataclasses.replace(base, **change), generator=gen, device="cpu")
     with pytest.raises(ValueError, match="impl="):
         layers.attention(*(torch.zeros(1, 4, 2, 16) for _ in range(3)), impl="cuda")

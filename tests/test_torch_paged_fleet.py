@@ -265,12 +265,16 @@ def test_torch_migrate_between_logical_devices(fleet):
     _append(kv, seq, spec, 5, 5)
     seq.set_state({"s": torch.arange(4.0)})
     src_free = kv.pool_of(devs[0]).num_free
+    # Buffers that other tests of the process left on the device: the
+    # migrate must take this sequence's record away and add none.
+    on_src = set(agas.registry.gids_on(devs[0].key, kind="buffer")) - {seq.gid}
+    assert seq.gid in agas.registry.gids_on(devs[0].key, kind="buffer")
     kv.migrate(seq, devs[2])
     assert seq.pool is kv.pool_of(devs[2]) and seq.device is devs[2]
     assert agas.registry.placement(seq.gid).device_key == devs[2].key == "cpu:0.2"
     assert kv.pool_of(devs[0]).num_free == src_free + 3
     assert agas.registry.resident_bytes(devs[2].key) >= seq.nbytes
-    assert not agas.registry.gids_on(devs[0].key, kind="buffer")
+    assert set(agas.registry.gids_on(devs[0].key, kind="buffer")) == on_src
     np.testing.assert_array_equal(_seq_tokens(seq), np.arange(5) + 5000.0)
     assert torch.equal(seq.state["s"], torch.arange(4.0))
     kv.migrate(seq, devs[2])

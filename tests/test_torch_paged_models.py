@@ -17,7 +17,9 @@ the JAX package on the CPU.
   tokens) are BIT-IDENTICAL to the port's own padded ``decode_step``
   oracle over a cache of the same width (48 slots), as
   ``tests/test_paged_models.py`` asserts for the JAX package, and
-  identical to the JAX padded oracle's tokens.
+  identical to the JAX padded oracle's tokens; for olmo-1b, stablelm-1.6b,
+  mamba2-130m, qwen2-moe-a2.7b (MoE dispatched per row) and whisper-tiny
+  (each request with its frames as ``extras``, the cross K/V its state).
 """
 import functools
 
@@ -132,17 +134,36 @@ def _prompts(cfg):
     return [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in PROMPT_LENS]
 
 
-def _port_oracle(cfg, params, prompt):
+def _extras(cfg):
+    """whisper's frames, drawn after the prompts from the same stream, as
+    ``tests/test_paged_models.py`` draws them; None for the other families."""
+    if cfg.family != "encdec":
+        return None
+    rng = np.random.default_rng(3)
+    for n in PROMPT_LENS:
+        rng.integers(1, cfg.vocab_size, size=n)
+    e = cfg.encdec
+    return {"frames": rng.normal(0, 0.02, (e.encoder_seq, cfg.d_model)).astype(np.float32)}
+
+
+def _port_oracle(cfg, params, prompt, extras=None):
     """Greedy tokens from the port's padded path: the shared
     ``paged_prefill``, its KV (or state) seeded into an ``init_cache`` of
     MAX_SEQ slots, then ``decode_step``."""
     m = get_model(cfg)
-    k, v, state, logits = m.paged_prefill(cfg, params, torch.from_numpy(prompt)[None])
+    ex = None if extras is None else {n: torch.from_numpy(x)[None] for n, x in extras.items()}
+    k, v, state, logits = m.paged_prefill(cfg, params, torch.from_numpy(prompt)[None], ex)
     out = [int(torch.argmax(logits[0]))]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         cache = m.init_cache(cfg, 1, MAX_SEQ, device="cpu", dtype=torch.float32)
         cache["k"][:, 0, :len(prompt)] = k[0]
         cache["v"][:, 0, :len(prompt)] = v[0]
+    elif cfg.family == "encdec":
+        cache = m.init_cache(cfg, 1, MAX_SEQ, device="cpu", dtype=torch.float32)
+        cache["self_k"][:, 0, :len(prompt)] = k[0]
+        cache["self_v"][:, 0, :len(prompt)] = v[0]
+        cache["cross_k"][:, 0] = state["cross_k"][0]
+        cache["cross_v"][:, 0] = state["cross_v"][0]
     else:
         cache = {n: state[n].movedim(0, 1).clone() for n in state}
     for g in range(MAX_NEW - 1):
@@ -152,16 +173,23 @@ def _port_oracle(cfg, params, prompt):
     return out
 
 
-def _jax_oracle(cfg, params, prompt):
+def _jax_oracle(cfg, params, prompt, extras=None):
     """The JAX package's padded oracle (``tests/test_paged_models.py``):
     its ``paged_prefill``, then ``decode_step`` over a MAX_SEQ cache."""
     m = jax_get_model(cfg)
+    ex = None if extras is None else {n: jnp.asarray(x)[None] for n, x in extras.items()}
     k, v, state, logits = jax.jit(functools.partial(m.paged_prefill, cfg, params))(
-        jnp.asarray(prompt)[None], None)
+        jnp.asarray(prompt)[None], ex)
     out = [int(np.argmax(np.asarray(logits)[0]))]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         cache = m.init_cache(cfg, 1, MAX_SEQ, dtype=jnp.float32)
         cache = {n: cache[n].at[:, 0, :len(prompt)].set(x[0]) for n, x in (("k", k), ("v", v))}
+    elif cfg.family == "encdec":
+        cache = m.init_cache(cfg, 1, MAX_SEQ, dtype=jnp.float32)
+        cache = {"self_k": cache["self_k"].at[:, 0, :len(prompt)].set(k[0]),
+                 "self_v": cache["self_v"].at[:, 0, :len(prompt)].set(v[0]),
+                 "cross_k": jnp.asarray(state["cross_k"])[0][:, None],
+                 "cross_v": jnp.asarray(state["cross_v"])[0][:, None]}
     else:
         cache = {n: jnp.moveaxis(state[n], 0, 1) for n in state}
     dec = jax.jit(functools.partial(m.decode_step, cfg, params))
@@ -171,17 +199,17 @@ def _jax_oracle(cfg, params, prompt):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "whisper-tiny"])
 def test_torch_paged_engine_greedy_tokens_bit_identical(arch, device):
     jc, tc, jparams, tparams = _pair(arch)
-    prompts = _prompts(tc)
-    want = [_port_oracle(tc, tparams, p) for p in prompts]
+    prompts, extras = _prompts(tc), _extras(tc)
+    want = [_port_oracle(tc, tparams, p, extras) for p in prompts]
     reset_launch_counts()
     eng = PagedServeEngine.from_config(tc, params=tparams, devices=[device], max_seq_len=MAX_SEQ,
                                        name=f"t-zoo-{arch}")
     try:
         assert eng.max_pages == MAX_PAGES and eng.kv.spec.page_size == PAGE
-        futs = [eng.submit(p, MAX_NEW) for p in prompts]
+        futs = [eng.submit(p, MAX_NEW, extras=extras) for p in prompts]
         got = [list(np.asarray(f.get(timeout=600))) for f in futs]
         eng.drain()
         m = eng.metrics()
@@ -196,7 +224,7 @@ def test_torch_paged_engine_greedy_tokens_bit_identical(arch, device):
     assert m["decode_rows"] == 3 * (MAX_NEW - 1)
     assert m["kv"][device.key]["used_pages"] == 0  # every page back
     assert sum(launch_counts().values()) == 0  # CPU tensors: the plain versions
-    jax_want = [_jax_oracle(jc, jparams, p) for p in prompts]
+    jax_want = [_jax_oracle(jc, jparams, p, extras) for p in prompts]
     assert got == jax_want, f"{arch}: port {got} != JAX padded oracle {jax_want}"
 
 

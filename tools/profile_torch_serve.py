@@ -1,13 +1,15 @@
 """Where a serving group's time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/profile_torch_serve.py [--prompt 1000]
+    python3 tools/profile_torch_serve.py [--prompt 1000] [--arch olmo-1b]
 
 Runs one group of requests alone through ``chip_smoke.serve_group``, the
 serve phase's own flow (prefill, its KV copied into a cache, greedy
-decode), at ``chip_smoke.py``'s size, with OLMo-1B's seeded random weights
-in f32 (TF32 off) and in bf16.  Per dtype it runs the group once to warm
-up, once to time on the host, and once under ``torch.profiler``, and prints
-one JSON line: the host times of the timed run, and for each part of the
+decode), at ``chip_smoke.py``'s size, with the seeded random weights of
+``--arch`` (OLMo-1B by default; ``qwen2-moe-a2.7b`` is the serve_moe
+phase's model) in f32 (TF32 off) and then in bf16, drawn anew for each
+dtype after the last one's are freed.  Per dtype it runs the group once
+to warm up, once to time on the host, and once under ``torch.profiler``,
+and prints one JSON line: the host times of the timed run, and for each part of the
 flow (``chip_smoke.SERVE_SPANS``) the device time of the kernels that
 started in it and the kernels that take most of it, with the decode's
 device idle share (1 - device ms per step / host ms per step).  The group
@@ -36,7 +38,6 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import get_all_devices  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
 
 
 def load_smoke():
@@ -69,6 +70,7 @@ def span_device_ms(prof, spans, top: int = 6) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--prompt", type=int, default=1000)
+    ap.add_argument("--arch", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: needs a CUDA device", file=sys.stderr)
@@ -79,9 +81,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = get_all_devices(1, 0).get()[0]
     stream = dev.create_stream()
-    cfg = get_config(smoke.SERVE_ARCH)
-    gen = torch.Generator(device=dev.torch_device).manual_seed(0)
-    params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device)
+    cfg = get_config(args.arch or smoke.SERVE_ARCH)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (smoke.SERVE_BATCH, args.prompt),
                                                dtype=np.int32)
     new = smoke.SERVE_NEW
@@ -92,7 +92,8 @@ def main() -> int:
                                      time.perf_counter())
 
     for dtype in (torch.float32, torch.bfloat16):
-        p = tree_map(lambda t: t.to(dtype), params)
+        gen = torch.Generator(device=dev.torch_device).manual_seed(0)  # the same draws, rounded
+        p = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device, dtype=dtype)
         group(p, 2)  # warm-up
         timed = group(p, new)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -106,6 +107,7 @@ def main() -> int:
                           **smoke.serve_times(timed), "on_stream": timed["on_stream"],
                           "spans": spans}), flush=True)
         del p
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -29,7 +29,8 @@ device ms a step and its kernels a step, and the kernels that take most of
 the time.  The replay line also carries the graph's recorded launches (the
 count the smoke multiplies by the replays), which its paged_attention
 kernels per step must equal.  ``--arch mamba2-130m`` profiles the
-``serve_paged_ssm`` requests instead.
+``serve_paged_ssm`` requests instead, ``--arch qwen2-moe-a2.7b`` the
+``serve_paged_moe`` ones.
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ def main() -> int:
     m = get_model(cfg)
     gen = torch.Generator(device=dev.torch_device).manual_seed(0)
     params = m.init(cfg, generator=gen, device=dev.torch_device)
-    lens = smoke.SERVE_PROMPTS if cfg.family == "dense" else smoke.SSM_PROMPTS
+    lens = smoke.SSM_PROMPTS if cfg.family == "ssm" else smoke.SERVE_PROMPTS
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(smoke.SERVE_BATCH, s), dtype=np.int32)
                for s in lens]
