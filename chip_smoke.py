@@ -87,6 +87,17 @@ with ``Dim3`` geometry, ``enqueue_read``):
         step; the cross K/V (18 MB a
         request) rides as the sequence's state.  Both runs are held to the
         reference's padded oracle on the plain path.
+  serve_paged_hybrid  Hymba-1.5B at full width and depth (32 layers of
+        attention and Mamba-2 heads in parallel, 128 meta tokens, windows of
+        1024 but on 3 global layers, K/V shared by pairs of layers; 1.63 B
+        parameters, f32) through ``PagedServeEngine``: 4 prompts of 700
+        tokens and 4 of 2000, 32 tokens each.  flash on every layer of a
+        prefill batch that fits the window with its meta tokens (828), on
+        the 3 global layers of a longer one (2128: the SWA layers run the
+        plain windowed blocks); ssd_scan on every layer of each batch;
+        paged_attention on the 3 global layers a decode step (the 16 SWA
+        producers rebuild their rings from the pages, plain).  Both runs
+        are held to the padded oracle (ring caches) and to each other.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -100,7 +111,8 @@ paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
 phases, and each run of the moe and encdec phases) and read just after; a
 kernel the run did not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
-path's shapes (whisper-tiny's among them) and timed beside its bound.  The script prints the
+path's shapes (whisper-tiny's and Hymba-1.5B's among them) and timed
+beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without CUDA or outside a checkout of the repository.
@@ -242,8 +254,13 @@ MOE_PRINTED_FLIPS = 20  # differing routing decisions on the summary line (the J
 # request with its own (1500, 384) f32 frames.
 ENCDEC_ARCH, ENCDEC_PROMPTS, ENCDEC_NEW = "whisper-tiny", (64, 256), 32
 ENCODER_SHAPE = (4, 1500, 6, 6, 64)  # whisper-tiny's encoder heads: B, S, H, K, D
+# serve_paged_hybrid: Hymba-1.5B at full width and depth, f32, 4 prompts of 700
+# and 4 of 2000 content tokens (+ 128 meta tokens: 828 fit the 1024-token
+# window, so every layer's prefill takes flash; 2128 do not, so the SWA
+# layers run the windowed blocks and the ring wraps in decode), 32 tokens each.
+HYBRID_ARCH, HYBRID_PROMPTS, HYBRID_NEW = "hymba-1.5b", (700, 2000), 32
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
-# takes about 150 s; the limit it runs under is 1200).
+# takes about 175 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
 
 
@@ -590,7 +607,8 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
     with ``extras[i]`` where given (the warm-up with the first).  The launch
     counters are set to 0 just before the measured requests and read just
     after.  Returns the tokens (one row per request), the engine's metrics,
-    the launches and the wall time."""
+    the launches, the (rows, tokens) of each prefill batch the engine formed
+    for them, and the wall time."""
     devices = [dev] if devices is None else devices
     B = prompts[0].shape[0]
     policy = LanePolicy(max_batch=B, max_delay_s=0.004,  # the serve phase's groups
@@ -599,6 +617,14 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
                                        max_seq_len=max_seq_len, pool_pages=pool_pages, impl=impl,
                                        prefill=policy, scheduler=scheduler,
                                        name=f"smoke-{cfg.name}-{impl}")
+    batches = []
+    prefill_fn = eng.prefill_fn
+
+    def prefill_logged(tokens, extras):
+        batches.append(tuple(tokens.shape))
+        return prefill_fn(tokens, extras)
+
+    eng.prefill_fn = prefill_logged
     try:
         ex = [None] * sum(len(p) for p in prompts) if extras is None else extras
         eng.submit(prompts[0][0, :PAGED_WARMUP], 2, extras=ex[0]).get(timeout=600)  # cuBLAS, pools
@@ -607,6 +633,7 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
         for d in devices:
             d.synchronize()
         reset_launch_counts()
+        batches.clear()
         t0 = time.perf_counter()
         rows = [row for p in prompts for row in p]
         futs = [eng.submit(row, new_tokens, extras=e) for row, e in zip(rows, ex)]
@@ -616,11 +643,13 @@ def paged_serve_run(dev, cfg, params, prompts, impl: str, pool_pages: int, max_s
             d.synchronize()
         wall = time.perf_counter() - t0
         launches = {**launch_counts(), "paged_attention_kernels": paged_kernel.kernel_launches,
-                    "flash_attention_noncausal": flash_kernel.noncausal_launches}
+                    "flash_attention_noncausal": flash_kernel.noncausal_launches,
+                    "ssd_scan_kernels": ssd_kernel.kernel_launches}
         metrics = eng.metrics()
     finally:
         eng.close()
-    return {"tokens": tokens, "metrics": metrics, "launches": launches, "wall_s": wall}
+    return {"tokens": tokens, "metrics": metrics, "launches": launches,
+            "prefill_batches": list(batches), "wall_s": wall}
 
 
 def paged_times(run: dict) -> dict:
@@ -669,25 +698,47 @@ def paged_params(dev, cfg):
     return params, rng
 
 
+def paged_attention_layers(cfg) -> int:
+    """Layers whose decode attends through paged_attention: every decoder
+    layer of an attention family, none of an ssm, a hybrid's global layers
+    (its SWA layers attend over the ring rebuilt from the pages, plain)."""
+    if cfg.family == "ssm":
+        return 0
+    return len(cfg.global_attn_layers) if cfg.family == "hybrid" else cfg.num_layers
+
+
+def prefill_kernel_layers(cfg, tokens: int) -> int:
+    """Layers whose prefill of a ``tokens``-token batch launches the
+    family's prefill kernel once (causal flash, or ssd_scan for an ssm): all
+    decoder layers, but a hybrid whose sequence, meta tokens included,
+    outgrows the window only its global layers (the SWA layers run the plain
+    windowed blocks)."""
+    if cfg.family == "hybrid" and tokens + cfg.meta_tokens > cfg.sliding_window:
+        return len(cfg.global_attn_layers)
+    return cfg.num_layers
+
+
 def paged_phase_runs(dev, cfg, params, prompts, new_tokens: int, extras=None
                      ) -> "tuple[dict, dict]":
     """The kernel run (``impl="auto"``, the main path) and the plain run
     (``impl="ref"``: plain prefill attention or scan, the gather path in
     decode) of ``prompts`` through ``paged_serve_run``, every request
     resident at once (the pool holds them all), with their launch checks:
-    paged_attention once a layer a decode step on the device (attention
-    families), the prefill kernel once a decoder layer a prefill batch
-    (causal) and flash once an encoder layer a batch (non-causal, counted
-    apart), none in the plain run.  Returns (the phase's record, the two
-    runs)."""
+    paged_attention once a ``paged_attention_layers`` layer a decode step
+    on the device, the prefill kernel once a ``prefill_kernel_layers``
+    layer of each prefill batch the engine formed (causal), flash once an
+    encoder layer a batch (non-causal, counted apart), a hybrid's ssd_scan
+    once a layer a batch (3 CUDA kernels a call), none in the plain run.
+    Returns (the phase's record, the two runs)."""
     arch = cfg.name
     spec = get_model(cfg).paged_spec(cfg)
     lens = [p.shape[1] for p in prompts]
+    meta = cfg.meta_tokens  # a hybrid's meta tokens page in with the prompt
     # page 0, every request's pages at its longest, and the one page of
     # headroom admission asks for: no request waits for pages
-    pool_pages = 2 + sum(p.shape[0] * spec.pages_for(s + new_tokens - 1)
+    pool_pages = 2 + sum(p.shape[0] * spec.pages_for(meta + s + new_tokens - 1)
                          for p, s in zip(prompts, lens))
-    max_seq_len = 1 << (max(lens) + new_tokens - 1).bit_length()
+    max_seq_len = 1 << (meta + max(lens) + new_tokens - 1).bit_length()
     runs = {}
     for impl in ("auto", "ref"):
         runs[impl] = paged_serve_run(dev, cfg, params, prompts, impl, pool_pages, max_seq_len,
@@ -699,19 +750,21 @@ def paged_phase_runs(dev, cfg, params, prompts, new_tokens: int, extras=None
     attends = cfg.family != "ssm"
     prefill_kernel = "flash_attention" if attends else "ssd_scan"
     enc_layers = cfg.encdec.encoder_layers if cfg.encdec else 0
-    counted = ("paged_attention", prefill_kernel) + (("flash_attention_noncausal",)
-                                                     if enc_layers else ())
+    hybrid = cfg.family == "hybrid"
+    counted = (("paged_attention", prefill_kernel)
+               + (("flash_attention_noncausal",) if enc_layers else ())
+               + (("ssd_scan", "ssd_scan_kernels") if hybrid else ()))
     launches = {impl: {k: r["launches"][k] for k in counted} for impl, r in runs.items()}
     for impl, r in runs.items():
         if dev.is_cuda:  # graphs are captured on a CUDA device only
             graph_steps_check(f"{arch} paged {impl}", r["metrics"])
-    want_paged = cfg.num_layers * steps if attends else 0
+    per_graph = paged_attention_layers(cfg)
+    want_paged = per_graph * steps
     # Under replay a graph's kernels pass no wrapper: the kernels that ran
     # are the counted ones less those captured, plus those replayed (each
     # graph's recorded launches x its replays).  One CUDA kernel a call, as
     # the C entry counts its launches.
     d = got["metrics"]["decode"]
-    per_graph = cfg.num_layers if attends else 0
     require(d["captured_launches"].get("paged_attention", 0) == per_graph * d["graphs_captured"]
             and d["replayed_launches"].get("paged_attention", 0) == per_graph * d["replayed_steps"],
             f"{arch} paged: graphs recorded {d['captured_launches']} and replayed "
@@ -723,22 +776,34 @@ def paged_phase_runs(dev, cfg, params, prompts, new_tokens: int, extras=None
                             paged_attention_replayed=d["replayed_launches"].get("paged_attention", 0))
     require(on_device == want_paged == kernels,
             f"{arch} paged: paged_attention launched {on_device} times and {kernels} CUDA kernels "
-            f"on the device, not {want_paged} each ({cfg.num_layers} layers x {steps} decode steps)")
-    # the decoder's layers (or the ssm's) once a prefill batch, causal; an
-    # encoder's layers once a batch too, non-causal, counted apart
+            f"on the device, not {want_paged} each ({per_graph} layers x {steps} decode steps)")
+    # the decoder's layers (or the ssm's; a long hybrid prefill's global
+    # layers) once a prefill batch, causal; an encoder's layers once a batch
+    # too, non-causal, counted apart
     batches = got["metrics"]["prefill_batches"]
+    shapes = got["prefill_batches"]
+    require(len(shapes) == batches, f"{arch} paged: {len(shapes)} prefill calls seen, "
+                                    f"{batches} batches counted")
+    want_causal = sum(prefill_kernel_layers(cfg, T) for _, T in shapes)
     noncausal = got["launches"]["flash_attention_noncausal"]
     causal = launches["auto"][prefill_kernel] - (noncausal if attends else 0)
-    require(causal == cfg.num_layers * batches and noncausal == enc_layers * batches,
+    require(causal == want_causal and noncausal == enc_layers * batches,
             f"{arch} paged: {prefill_kernel} launched {causal} times and the non-causal flash "
-            f"{noncausal} times in {batches} prefill batches, not {cfg.num_layers} and "
+            f"{noncausal} times in the prefill batches {shapes}, not {want_causal} and "
             f"{enc_layers} a batch")
+    if hybrid:  # every layer's SSM path scans, whatever the length
+        scans = launches["auto"]["ssd_scan"]
+        require(scans == cfg.num_layers * batches
+                and launches["auto"]["ssd_scan_kernels"] == len(SSD_KERNELS) * scans,
+                f"{arch} paged: ssd_scan called {scans} times launching "
+                f"{launches['auto']['ssd_scan_kernels']} kernels in {batches} prefill batches, "
+                f"not {cfg.num_layers} calls a batch, {len(SSD_KERNELS)} kernels a call")
     require(all(n == 0 for n in launches["ref"].values()),
             f"{arch} paged: the plain run launched a kernel: {launches['ref']}")
     n_req = sum(p.shape[0] for p in prompts)
     out = {"arch": cfg.name, "prompts": lens, "requests": n_req, "new_tokens": new_tokens,
            "pool_pages": pool_pages, "page_size": spec.page_size, "max_seq_len": max_seq_len,
-           "launches": launches}
+           "prefill_batch_shapes": shapes, "launches": launches}
     for impl, r in runs.items():
         toks, mt = r["tokens"], r["metrics"]
         require(toks.shape == (n_req, new_tokens), f"{arch} paged {impl}: tokens {toks.shape}")
@@ -1399,21 +1464,25 @@ def phase_serve_moe(dev) -> dict:
 
 
 def padded_alone(dev, cfg, params, prompt: np.ndarray, new_tokens: int, impl: str,
-                 extras: "dict | None" = None) -> dict:
+                 extras: "dict | None" = None, max_seq: "int | None" = None) -> dict:
     """One request alone, eagerly: its ``paged_prefill`` (``impl``) seeds an
-    ``init_cache`` of prompt + ``new_tokens`` slots (self K/V rows, and an
-    encdec's cross K/V), then ``decode_step`` (plain attention), as the
-    reference's padded oracle (tests/test_paged_models.py).  One row is one
-    MoE dispatch group, as the paged engine's per-row groups.  Returns the
-    greedy tokens (1 + ``new_tokens`` - 1) and each pick's top-2 gap."""
+    ``init_cache`` of ``max_seq`` slots (by default prompt + ``new_tokens``;
+    self K/V rows, an encdec's cross K/V, a hybrid's rings, full caches and
+    SSM state through ``hybrid.seed_cache``), then ``decode_step`` (plain
+    attention), as the reference's padded oracle
+    (tests/test_paged_models.py).  One row is one MoE dispatch group, as
+    the paged engine's per-row groups.  Returns the greedy tokens (1 +
+    ``new_tokens`` - 1) and each pick's top-2 gap."""
     m, td = get_model(cfg), dev.torch_device
     S = prompt.size
     ex = None if extras is None else {k: torch.from_numpy(np.asarray(v)[None]).to(td)
                                       for k, v in extras.items()}
     k, v, state, logits = m.paged_prefill(cfg, params, torch.from_numpy(prompt[None]).to(td), ex,
                                           impl=impl)
-    cache = m.init_cache(cfg, 1, S + new_tokens, device=td, dtype=k.dtype)
-    if cfg.family == "encdec":
+    cache = m.init_cache(cfg, 1, max_seq or S + new_tokens, device=td, dtype=k.dtype)
+    if cfg.family == "hybrid":
+        m.seed_cache(cfg, cache, k, v, state)
+    elif cfg.family == "encdec":
         cache["self_k"][:, 0, :S], cache["self_v"][:, 0, :S] = k[0], v[0]
         cache["cross_k"][:, 0], cache["cross_v"][:, 0] = state["cross_k"][0], state["cross_v"][0]
     else:
@@ -1514,6 +1583,53 @@ def phase_serve_paged_encdec(dev) -> dict:
     out["min_gap_oracle"] = float(gaps.min())
     out["encoder_seq"] = cfg.encdec.encoder_seq
     out["state_bytes_per_request"] = 2 * cfg.num_layers * cfg.encdec.encoder_seq * cfg.d_model * 4
+    return out
+
+
+def phase_serve_paged_hybrid(dev) -> dict:
+    """Hymba-1.5B at full width and depth through
+    ``PagedServeEngine.from_config`` (seeded f32 weights, pages of 16,
+    decode on CUDA graphs): ``SERVE_BATCH`` requests of each prompt length
+    of ``HYBRID_PROMPTS``, ``HYBRID_NEW`` tokens each (``paged_phase_runs``:
+    flash on all 32 layers of a prefill batch that fits the window with its
+    meta tokens and on the 3 global layers of a longer one, ssd_scan on
+    every layer of every batch, paged_attention on the 3 global layers of
+    every decode step).  Both runs are held to the padded oracle
+    (``padded_alone`` on the plain path over a cache as wide as the
+    engine's table, so the rings match) and to each other, near-ties of the
+    oracle's logits counted."""
+    cfg = get_config(HYBRID_ARCH)
+    params, rng = paged_params(dev, cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)
+               for s in HYBRID_PROMPTS]
+    out, runs = paged_phase_runs(dev, cfg, params, prompts, HYBRID_NEW)
+    rows = [r for p in prompts for r in p]
+    oracle = [padded_alone(dev, cfg, params, r, HYBRID_NEW, "ref", max_seq=out["max_seq_len"])
+              for r in rows]
+    del params
+    want = np.stack([o["tokens"] for o in oracle])
+    gaps = np.stack([o["gaps"] for o in oracle])
+    for impl, r in runs.items():
+        differ, cuts = greedy_cuts(r["tokens"], want, gaps)
+        require(differ == 0, f"{HYBRID_ARCH} paged {impl}: {differ} request(s) decode other "
+                             "greedy tokens than the padded oracle")
+        out[impl]["near_tie_cuts_vs_oracle"] = cuts
+    differ, cuts = greedy_cuts(runs["auto"]["tokens"], runs["ref"]["tokens"], gaps)
+    require(differ == 0, f"{HYBRID_ARCH} paged: {differ} request(s) decode other tokens than the "
+                         "plain paged run")
+    out["near_tie_cuts_kernel_vs_plain"] = cuts
+    out["min_gap_oracle"] = float(gaps.min())
+    spec = get_model(cfg).paged_spec(cfg)
+    s = cfg.ssm
+    di, H = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    conv = di + 2 * s.n_groups * s.d_state
+    pages = {S: spec.pages_for(cfg.meta_tokens + S + HYBRID_NEW - 1) for S in HYBRID_PROMPTS}
+    out.update(
+        meta_tokens=cfg.meta_tokens, window=cfg.sliding_window, kv_layers=spec.layers,
+        page_bytes=spec.page_bytes,
+        kv_bytes_per_request={S: spec.page_bytes * n for S, n in pages.items()},
+        state_bytes_per_request=4 * cfg.num_layers * (H * s.d_state * s.head_dim
+                                                      + (s.d_conv - 1) * conv))
     return out
 
 
@@ -2256,13 +2372,13 @@ def ssd_bound(nbytes: float, Bz: int, H: int, S: int, P: int, N: int
     return min(routes, key=lambda r: r[0])
 
 
-def ssd_inputs(cfg, device) -> "list[torch.Tensor]":
-    """x, dt, A, B, C at the serve shape (the longer prompt) like the
-    model's: x, B and C strided views of one xBC tensor, the init's dt
-    range and A = -(1..H), from a seed."""
+def ssd_inputs(cfg, device, S: int = max(SSM_PROMPTS)) -> "list[torch.Tensor]":
+    """x, dt, A, B, C at a serve shape (by default serve_ssm's longer
+    prompt) like the model's: x, B and C strided views of one xBC tensor,
+    the init's dt range and A = -(1..H), from a seed."""
     s = cfg.ssm
     H, P, G, N, di = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state, s.d_inner(cfg.d_model)
-    Bz, S = SERVE_BATCH, max(SSM_PROMPTS)
+    Bz = SERVE_BATCH
     rng = np.random.default_rng(7)
     xbc = torch.from_numpy(rng.standard_normal((Bz, S, di + 2 * G * N), dtype=np.float32)).to(device)
     x = xbc[..., :di].reshape(Bz, S, H, P)
@@ -2274,19 +2390,21 @@ def ssd_inputs(cfg, device) -> "list[torch.Tensor]":
     return [x, dt, A, B, C]
 
 
-def check_ssd(cfg, launches: int, kernel_launches: int, device) -> dict:
-    """ssd_scan at the serve shape on ``ssd_inputs``.  y and the final
-    state against ``ssd_chunked`` and against ``ssd_three_pass`` at the
-    kernel's own chunk length, and against the sequential recurrence at the
-    shorter prompt (a ragged last chunk).  ``launches`` and
-    ``kernel_launches`` are the main path's calls and the CUDA kernels they
-    launched, three a call.  The bound is ``ssd_bound``'s."""
+def check_ssd(cfg, launches: int, kernel_launches: int, device, *, name: str = "ssd_scan",
+              prompts=SSM_PROMPTS) -> dict:
+    """ssd_scan at the serve shape (``cfg``'s heads, the longer of
+    ``prompts``) on ``ssd_inputs``.  y and the final state against
+    ``ssd_chunked`` and against ``ssd_three_pass`` at the kernel's own chunk
+    length, and against the sequential recurrence at the shorter prompt (a
+    ragged last chunk).  ``launches`` and ``kernel_launches`` are the main
+    path's calls and the CUDA kernels they launched, three a call.  The
+    bound is ``ssd_bound``'s.  The kernels-line entry ``name``."""
     s = cfg.ssm
-    x, dt, A, B, C = ssd_inputs(cfg, device)
+    x, dt, A, B, C = ssd_inputs(cfg, device, max(prompts))
     Bz, S, H, P = x.shape
     G, N = B.shape[2:]
     require(kernel_launches == len(SSD_KERNELS) * launches,
-            f"ssd_scan: {launches} calls launched {kernel_launches} kernels, "
+            f"{name}: {launches} calls launched {kernel_launches} kernels, "
             f"not {len(SSD_KERNELS)} each")
     chunk = ssd_kernel.chunk_length()
     run = lambda: ssd_kernel.ssd_scan(x, dt, A, B, C)  # noqa: E731
@@ -2297,7 +2415,7 @@ def check_ssd(cfg, launches: int, kernel_launches: int, device) -> dict:
     y3, state3 = ssd_three_pass(x, dt, A, B, C, chunk)
     err_three = max(float((y - y3).abs().max()), float((state - state3).abs().max()))
     del y3, state3
-    S1 = min(SSM_PROMPTS)
+    S1 = min(prompts)
     y1, state1 = ssd_kernel.ssd_scan(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1])
     y1_seq, state1_seq = ssd_ops.ssd(x[:, :S1], dt[:, :S1], A, B[:, :S1], C[:, :S1], impl="ref",
                                      return_state=True)
@@ -2306,10 +2424,10 @@ def check_ssd(cfg, launches: int, kernel_launches: int, device) -> dict:
     for what, err in (("y", err_y), ("final state", err_state), ("y vs sequential", err_seq),
                       ("final state vs sequential", err_seq_state),
                       (f"vs ssd_three_pass at chunk {chunk}", err_three)):
-        require(err <= SSD_TOL, f"ssd_scan {what} differs from its plain version by {err}")
+        require(err <= SSD_TOL, f"{name} {what} differs from its plain version by {err}")
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + 2 * B.numel() + state.numel())
     t_bound, by, peak, flops = ssd_bound(nbytes, Bz, H, S, P, N)
-    return entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    return entry(name, "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:64", launches,
                  max(err_y, err_state, err_seq, err_seq_state),
                  cuda_ms(run, 10), cuda_ms(plain, 3), (t_bound, by), None,
@@ -2477,18 +2595,38 @@ def check_paged(launches: int, device) -> dict:
                        gqa_bf16={**gqa, "bf16_bound": "2**-7 * (attention of |v| + |o|)"})
 
 
-def check_paged_encdec(launches: int, device) -> dict:
-    """paged_attention at whisper-tiny's decode shape in serve_paged_encdec
-    (``paged_entry``): B 8, H = K = 6, D 64, P 16, lengths across the
-    decode of the 64- and 256-token prompts (64-95 and 256-287), a table
-    of the 18 pages the longest row ends at."""
-    cfg = get_config(ENCDEC_ARCH)
-    new = ENCDEC_NEW - 1  # decode steps past the prompt
-    lengths = [s + new * i // (SERVE_BATCH - 1) for s in ENCDEC_PROMPTS
+def check_paged_decode(name: str, arch: str, prompts, new_tokens: int, launches: int,
+                       device) -> dict:
+    """paged_attention at a paged phase's decode shape (``paged_entry``):
+    ``SERVE_BATCH`` rows of each prompt length of ``prompts`` (a hybrid's
+    meta tokens added), ``arch``'s heads, pages of 16, lengths spread across
+    the ``new_tokens - 1`` decode steps, a table of the pages the longest
+    row ends at."""
+    cfg = get_config(arch)
+    new = new_tokens - 1  # decode steps past the prompt
+    lengths = [cfg.meta_tokens + s + new * i // (SERVE_BATCH - 1) for s in prompts
                for i in range(SERVE_BATCH)]
     P = 16
     shape = (len(lengths), cfg.num_heads, cfg.num_kv_heads, cfg.hd, P, -(-max(lengths) // P))
-    return paged_entry("paged_attention_encdec", shape, lengths, launches, device)
+    return paged_entry(name, shape, lengths, launches, device)
+
+
+def check_paged_encdec(launches: int, device) -> dict:
+    """paged_attention at whisper-tiny's decode shape in serve_paged_encdec:
+    B 8, H = K = 6, D 64, P 16, lengths across the decode of the 64- and
+    256-token prompts (64-95 and 256-287), a table of the 18 pages the
+    longest row ends at."""
+    return check_paged_decode("paged_attention_encdec", ENCDEC_ARCH, ENCDEC_PROMPTS, ENCDEC_NEW,
+                              launches, device)
+
+
+def check_paged_hybrid(launches: int, device) -> dict:
+    """paged_attention at Hymba-1.5B's decode shape in serve_paged_hybrid
+    (its 3 global layers' launches): B 8, H 25 over K 5, D 64, P 16, lengths
+    across the decode of the 700- and 2000-token prompts with their 128 meta
+    tokens (828-859 and 2128-2159), a table of 135 pages."""
+    return check_paged_decode("paged_attention_hybrid", HYBRID_ARCH, HYBRID_PROMPTS, HYBRID_NEW,
+                              launches, device)
 
 
 def main() -> int:
@@ -2657,7 +2795,8 @@ def main() -> int:
 
     zoo = {}
     for phase, fn in (("serve_moe", phase_serve_moe), ("serve_paged_moe", phase_serve_paged_moe),
-                      ("serve_paged_encdec", phase_serve_paged_encdec)):
+                      ("serve_paged_encdec", phase_serve_paged_encdec),
+                      ("serve_paged_hybrid", phase_serve_paged_hybrid)):
         dev.synchronize()
         gc.collect()  # the earlier phases' engines and graphs
         torch.cuda.empty_cache()  # their cached blocks, before 57 GB of weights
@@ -2694,6 +2833,22 @@ def main() -> int:
                       f"{x['step_ms_p50']:.3f} / {x['step_ms_p99']:.3f} ms, TTFT p50/p99 "
                       f"{x['ttft_p50_s']:.4f} / {x['ttft_p99_s']:.4f} s, "
                       f"{x['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
+        if phase == "serve_paged_hybrid":
+            la = r["launches"]["auto"]
+            print(f"serve_paged_hybrid: prefill batches (rows, tokens) {r['prefill_batch_shapes']}: "
+                  f"flash {la['flash_attention']}, ssd_scan {la['ssd_scan']} calls "
+                  f"({la['ssd_scan_kernels']} kernels), paged_attention "
+                  f"{la['paged_attention_on_device']} on the device in "
+                  f"{r['auto']['decode_steps']} steps; TTFT p50/p99 {r['auto']['ttft_p50_s']:.4f} / "
+                  f"{r['auto']['ttft_p99_s']:.4f} s, step p50/p99 {r['auto']['step_ms_p50']:.3f} / "
+                  f"{r['auto']['step_ms_p99']:.3f} ms (plain {r['ref']['step_ms_p50']:.3f} / "
+                  f"{r['ref']['step_ms_p99']:.3f} ms); KV bytes a request "
+                  f"{r['kv_bytes_per_request']}, state {r['state_bytes_per_request']}; near-tie "
+                  f"cuts vs the oracle {r['auto']['near_tie_cuts_vs_oracle']} (kernel) / "
+                  f"{r['ref']['near_tie_cuts_vs_oracle']} (plain), kernel vs plain "
+                  f"{r['near_tie_cuts_kernel_vs_plain']}; peak allocated / reserved "
+                  f"{r['max_memory_allocated'] / 1e9:.2f} / {r['max_memory_reserved'] / 1e9:.2f} GB",
+                  flush=True)
         print(f"{phase}: " + json.dumps(r), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
@@ -2750,6 +2905,18 @@ def main() -> int:
                             dev.torch_device),
                 check_paged_encdec(encdec_launches["paged_attention_on_device"],
                                    dev.torch_device)]
+    # serve_paged_hybrid's shapes (Hymba-1.5B, f32), each with the launches
+    # its phase made: flash at the longer prompt's prefill batch, ssd_scan
+    # there, paged_attention in the global layers' decode
+    hyb = get_config(HYBRID_ARCH)
+    hyb_launches = zoo["serve_paged_hybrid"]["launches"]["auto"]
+    hyb_lens = [hyb.meta_tokens + s for s in HYBRID_PROMPTS]
+    kernels += [check_flash("flash_attention_hybrid",
+                            (SERVE_BATCH, max(hyb_lens), hyb.num_heads, hyb.num_kv_heads, hyb.hd),
+                            torch.float32, hyb_launches["flash_attention"], dev.torch_device),
+                check_ssd(hyb, hyb_launches["ssd_scan"], hyb_launches["ssd_scan_kernels"],
+                          dev.torch_device, name="ssd_scan_hybrid", prompts=hyb_lens),
+                check_paged_hybrid(hyb_launches["paged_attention_on_device"], dev.torch_device)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

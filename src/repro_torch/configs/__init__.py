@@ -1,9 +1,5 @@
-"""Config registry: ``get_config(arch_id)`` over the configs the port runs.
-
-The port carries every reference config but hymba-1.5b, whose hybrid
-family is known by name and raises ``KeyError`` naming the ROADMAP item
-that brings it to the port.
-"""
+"""Config registry: ``get_config(arch_id)`` over the configs the port runs,
+every reference config."""
 from __future__ import annotations
 
 import importlib
@@ -19,12 +15,8 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
-}
-
-# The reference's other archs, with the ROADMAP.md item that ports them.
-_WAITING = {
-    "hymba-1.5b": "Queue 1 item 7 (hybrid family)",
 }
 
 # short aliases accepted by --arch
@@ -46,8 +38,6 @@ def get_config(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name)
     mod = _MODULES.get(key)
     if mod is None:
-        if key in _WAITING:
-            raise KeyError(f"arch '{name}' is not ported yet: ROADMAP.md {_WAITING[key]}")
         raise KeyError(f"unknown arch '{name}'; known: {sorted(_MODULES)}")
     return importlib.import_module(mod).CONFIG
 

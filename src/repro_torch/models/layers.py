@@ -1,5 +1,6 @@
 """Model building blocks on PyTorch tensors (the parts of
-``src/repro/models/layers.py`` the dense, moe, vlm and encdec families use).
+``src/repro/models/layers.py`` the dense, moe, vlm, encdec and hybrid
+families use).
 
 Conventions
 -----------
@@ -12,9 +13,12 @@ Conventions
   queries and keys both from position 0, Sq == Skv, no valid length, no
   logit softcap) through the hand-written flash kernel
   (``repro_torch.kernels.flash_attention``).  Every other case (decode,
-  cross-attention, a softcap), and every CPU tensor, computes the plain
-  math of the reference, chunked over query blocks of ``q_block`` (exact:
-  each block sees all keys).
+  cross-attention, a softcap, a sliding window), and every CPU tensor,
+  computes the plain math of the reference, chunked over query blocks of
+  ``q_block`` (exact: each block sees all keys).
+* Sliding windows (``local_block_attention``, ``cache_update(ring=)``,
+  ``decode_attend(window=)``, ``ring_gather``, ``paged_ring_attend``) are
+  plain PyTorch, as in the reference, which has no kernel for them.
 * ``paged_decode_attend`` sends a CUDA tensor through the hand-written
   paged-attention kernel (``repro_torch.kernels.paged_attention``); a CPU
   tensor, or ``impl="ref"``, gathers the pages into a contiguous cache and
@@ -202,11 +206,12 @@ def apply_rope(x, cos, sin):
 # attention core
 # ---------------------------------------------------------------------------
 
-def _block_attend(q, k, v, qpos, kpos, *, causal, softcap=None, valid_len=None):
+def _block_attend(q, k, v, qpos, kpos, *, causal, window=None, softcap=None, valid_len=None):
     """q: (B, Sq, K, R, D); k/v: (B, Skv, K, D); qpos: (Sq,); kpos: (Skv,).
 
     Returns (B, Sq, K, R, D).  Scores and softmax in f32; a ``softcap``
     bounds the scores to ``softcap * tanh(s / softcap)`` before the mask.
+    A ``window`` keeps the keys in ``(qpos - window, qpos]``.
     ``valid_len`` may be a scalar (one cache fill level for the whole batch)
     or a (B,) tensor (ragged paged decode: each row attends over its own
     prefix)."""
@@ -217,6 +222,8 @@ def _block_attend(q, k, v, qpos, kpos, *, causal, softcap=None, valid_len=None):
     mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
     if valid_len is not None and getattr(valid_len, "ndim", 0) == 1:
         mask_b = mask[None] & (kpos[None, None, :] < valid_len[:, None, None])  # (B, Sq, Skv)
         s = s.masked_fill(~mask_b[:, None, None], NEG_INF)
@@ -234,6 +241,7 @@ def attention(
     v,
     *,
     causal: bool = True,
+    window: "Optional[int]" = None,
     q_offset: int = 0,
     q_block: "Optional[int]" = None,
     valid_len=None,
@@ -245,18 +253,19 @@ def attention(
     ``q_block``: the plain path takes queries in blocks of this size, so
     the peak score tensor is (B, H, q_block, Skv).  ``valid_len``: number
     of valid cache slots (decode), a scalar or a (B,) tensor of per-row
-    prefixes (paged decode).  ``softcap``: scores become ``softcap *
+    prefixes (paged decode).  ``window``: each query sees the keys in
+    ``(qpos - window, qpos]``.  ``softcap``: scores become ``softcap *
     tanh(s / softcap)`` before the mask.  ``impl``: ``auto`` sends
     self-attention on a CUDA tensor (causal or not, Sq == Skv from position
-    0, no ``valid_len``) through the flash kernel; the kernel has no
-    softcap (nor has the Pallas one), so a call with a softcap takes the
-    plain path.  ``ref`` keeps every case on the plain path.  Sliding
-    windows come with the hybrid family (ROADMAP.md Queue 1 item 7)."""
+    0, no ``valid_len``, no window) through the flash kernel; the kernel has
+    no softcap and no window (nor has the Pallas one), so a call with
+    either takes the plain path.  ``ref`` keeps every case on the plain
+    path."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     B, Sq, H, D = q.shape
     if (impl == "auto" and q.is_cuda and q_offset == 0 and Sq == k.shape[1]
-            and valid_len is None and softcap is None):
+            and valid_len is None and softcap is None and window is None):
         return flash_attention(q, k, v, causal=causal)
     K = k.shape[2]
     qr = q.reshape(B, Sq, K, H // K, D)
@@ -264,9 +273,37 @@ def attention(
     qpos = q_offset + torch.arange(Sq, device=q.device)
     step = Sq if q_block is None else q_block
     blocks = [_block_attend(qr[:, i:i + step], k, v, qpos[i:i + step], kpos, causal=causal,
-                            softcap=softcap, valid_len=valid_len)
+                            window=window, softcap=softcap, valid_len=valid_len)
               for i in range(0, Sq, step)]
     return torch.cat(blocks, dim=1).reshape(B, Sq, H, D)
+
+
+def local_block_attention(q, k, v, *, window: int, q_offset: int = 0):
+    """Sliding-window attention in O(S * window): queries in blocks of
+    ``window`` attend to their own and the previous key block only (block 0
+    to a zero block, masked).  Exact for window-limited causal attention
+    when Sq == Skv and Sq % window == 0: the caller pads, and a length that
+    is not a whole number of windows raises.  Plain PyTorch, one block at a
+    time, so the peak score tensor is (B, K, R, window, 2 * window) f32."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    if S % window:
+        raise ValueError(f"local_block_attention: length {S} is not a multiple of the "
+                         f"window {window} (pad upstream)")
+    qr = q.reshape(B, S // window, window, K, H // K, D)
+    kr = k.reshape(B, S // window, window, K, D)
+    vr = v.reshape(B, S // window, window, K, D)
+    ar = torch.arange(window, device=q.device)
+    blocks = []
+    for i in range(S // window):
+        kp = kr[:, i - 1] if i else torch.zeros_like(kr[:, 0])
+        vp = vr[:, i - 1] if i else torch.zeros_like(vr[:, 0])
+        kk = torch.cat([kp, kr[:, i]], dim=1)  # (B, 2w, K, D)
+        vv = torch.cat([vp, vr[:, i]], dim=1)
+        qpos = q_offset + i * window + ar
+        kpos = q_offset + (i - 1) * window + torch.arange(2 * window, device=q.device)
+        blocks.append(_block_attend(qr[:, i], kk, vv, qpos, kpos, causal=True, window=window))
+    return torch.stack(blocks, dim=1).reshape(B, S, H, D)
 
 
 # ---------------------------------------------------------------------------
@@ -329,24 +366,30 @@ def unembed(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# KV cache helpers (contiguous per-layer cache)
+# KV cache helpers (contiguous per-layer cache, ring buffer for SWA)
 # ---------------------------------------------------------------------------
 
-def cache_update(ck, cv, k_new, v_new, pos: int):
-    """Insert (B, s, K, D) new keys/values at slot ``pos``.  Updates ``ck``
-    and ``cv`` IN PLACE (the reference returns new arrays) and returns
-    them."""
+def cache_update(ck, cv, k_new, v_new, pos: int, *, ring: "Optional[int]" = None):
+    """Insert (B, s, K, D) new keys/values at slot ``pos`` (``ring``: a
+    sliding-window ring of that length, slot ``pos % ring``).  Updates
+    ``ck`` and ``cv`` IN PLACE (the reference returns new arrays) and
+    returns them."""
     s = k_new.shape[1]
-    ck[:, pos:pos + s] = k_new.to(ck.dtype)
-    cv[:, pos:pos + s] = v_new.to(cv.dtype)
+    slot = pos if ring is None else pos % ring
+    ck[:, slot:slot + s] = k_new.to(ck.dtype)
+    cv[:, slot:slot + s] = v_new.to(cv.dtype)
     return ck, cv
 
 
-def decode_attend(cfg, q, ck, cv, pos: int):
+def decode_attend(cfg, q, ck, cv, pos: int, *, window: "Optional[int]" = None):
     """One-token attention against a cache. q: (B, 1, H, D); cache (B, S,
     K, D); slots past ``pos`` are masked.  Plain math: the flash kernel's
-    causal mask counts query positions from 0."""
-    return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=pos + 1)
+    causal mask counts query positions from 0.  With ``window`` the cache is
+    a ring: every resident entry is in the window and in the past, so only
+    the ``min(pos + 1, ring)`` written slots count."""
+    if window is None:
+        return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=pos + 1)
+    return attention(q, ck, cv, causal=False, valid_len=min(pos + 1, ck.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -398,3 +441,30 @@ def paged_decode_attend(q, kp, vp, tables, lengths, *, impl: str = "auto"):
     kc = page_gather(kp, tables)
     vc = page_gather(vp, tables)
     return attention(q, kc, vc, causal=False, valid_len=lengths + 1, impl="ref")
+
+
+def ring_gather(pages, tables, positions, ring: int):
+    """Rebuild a sliding-window ring cache (B, ring, K, D) from paged
+    full-history KV.  Slot ``s`` of a ring written by ``cache_update(...,
+    ring=ring)`` holds the newest token ``p <= pos`` with ``p % ring == s``,
+    that is ``p = pos - ((pos - s) % ring)``; a slot not written yet
+    (``p < 0``) is clamped to token 0 and masked by the caller's
+    ``valid_len = min(pos + 1, ring)``, as the oracle masks its zero slots.
+    Reads no value on the host: the ring length comes from the caller."""
+    P = pages.shape[1]
+    pos = positions.long()[:, None]
+    s = torch.arange(ring, device=pages.device)
+    p = torch.clamp(pos - torch.remainder(pos - s, ring), min=0)  # (B, ring)
+    page = tables.long().gather(1, p // P)
+    return pages[page, p % P]
+
+
+def paged_ring_attend(q, kp, vp, tables, positions, *, ring: int):
+    """Sliding-window one-token attention against paged KV: the ring the
+    oracle's cache would hold at ``pos = positions`` (the new token already
+    scattered), then the same windowed attend, per row bit-equal to
+    ``decode_attend(..., window=w)``."""
+    kc = ring_gather(kp, tables, positions, ring)
+    vc = ring_gather(vp, tables, positions, ring)
+    valid = torch.clamp(positions + 1, max=ring)
+    return attention(q, kc, vc, causal=False, valid_len=valid)

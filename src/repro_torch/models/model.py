@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import encdec, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
 __all__ = ["get_model", "make_batch", "paged_surface"]
 
@@ -41,8 +41,7 @@ def get_model(cfg: ArchConfig) -> ModuleType:
     if cfg.family == "encdec":
         return encdec
     if cfg.family == "hybrid":
-        raise NotImplementedError(f"model family 'hybrid' ({cfg.name}) is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 7 (hybrid family)")
+        return hybrid
     raise ValueError(cfg.family)
 
 

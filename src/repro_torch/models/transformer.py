@@ -12,8 +12,13 @@ paged-attention kernel on a CUDA tensor.
 VLM (qwen2-vl): the vision frontend is a STUB, as in the reference:
 precomputed patch embeddings (B, P, D) are written over positions [1, P+1)
 of the token embedding, and M-RoPE takes the stub's (3, B, S) t/h/w
-position ids.  Sliding windows are refused: they come with the hybrid
-family (ROADMAP.md Queue 1 item 7).
+position ids.
+
+A sliding window (``cfg.sliding_window``) applies, as in the
+reference, only to a prefill longer than the window, through the plain
+``layers.local_block_attention``; it does not pad, so such a prefill must
+be a whole number of windows.  Decode attends over the whole cache, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -24,14 +29,6 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.layers import tree_map
-
-_ZOO = "ROADMAP.md Queue 1 item 7"
-
-
-def _refuse_unported(cfg) -> None:
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention not ported yet ({_ZOO}, hybrid family)")
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +56,6 @@ def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     """Truncated-normal ([-2, 2]) weights scaled by 1/sqrt(fan-in), like
     the reference's ``ninit``; embeddings at 0.02; norm scales 1, biases 0.
     Drawn from ``generator`` (on ``device``) leaf by leaf in a fixed order."""
-    _refuse_unported(cfg)
     return tree_map(lambda leaf: L.init_leaf(leaf, generator=generator, device=device,
                                              dtype=dtype), _layout(cfg))
 
@@ -110,8 +106,11 @@ def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl, moe_groups=None):
     if cos is not None:
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-    o = L.attention(q, k, v, causal=True, q_block=q_block, softcap=cfg.attn_logit_softcap,
-                    impl=impl)
+    if cfg.sliding_window is not None and x.shape[1] > cfg.sliding_window:
+        o = L.local_block_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        o = L.attention(q, k, v, causal=True, q_block=q_block, softcap=cfg.attn_logit_softcap,
+                        impl=impl)
     x = x + L.out_proj(cfg, lp["attn"], o)
     h = L.apply_norm(cfg, x, lp["ln2"])
     if cfg.moe is not None:
@@ -130,7 +129,6 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bo
     ``aux_loss`` is the layers' router losses summed in f32 (0 without
     MoE).  ``impl`` goes to ``layers.attention``: ``ref`` keeps attention on
     the plain path.  ``moe_groups`` goes to ``moe_block`` as ``groups``."""
-    _refuse_unported(cfg)
     x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     cos, sin = _rope(cfg, _positions(cfg, batch, S))
@@ -173,7 +171,6 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     three streams all at ``pos``).
 
     Returns (logits (B, 1, V), cache); the cache is updated in place."""
-    _refuse_unported(cfg)
     x = L.embed(cfg, params["embed"], tokens)
     B = x.shape[0]
     shape = (3, B, 1) if cfg.rope_type == "mrope" else (B, 1)
@@ -238,7 +235,6 @@ def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, t
     kernel on a CUDA tensor (``impl="ref"``: the gather path).  MoE
     dispatches per row (``groups=B``): a row's expert drops do not depend
     on which sequences share the step."""
-    _refuse_unported(cfg)
     x = L.embed(cfg, params["embed"], tokens.reshape(-1, 1))
     B = x.shape[0]
     p = positions[:, None]

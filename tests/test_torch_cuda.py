@@ -345,6 +345,165 @@ def test_torch_cuda_moe_paged_decode_step_captures_into_a_graph():
     assert torch.equal(out[3], want) and torch.equal(kp, want_k)
 
 
+# ---------------------------------------------------------------------------
+# the hybrid family (hymba-1.5b): a deeper smoke with a KV-consuming layer
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_cfg():
+    """hymba-1.5b's smoke at 6 layers, global layers 0 and 5: producers 0,
+    1, 2, 4, 5, consumer 3; 4 meta tokens, window 16."""
+    import dataclasses
+
+    return dataclasses.replace(smoke(get_config("hymba-1.5b")), num_layers=6,
+                               global_attn_layers=(0, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [10, 40])
+def test_torch_cuda_hybrid_prefill_and_paged_decode_match_plain(S):
+    """On the card, f32 with TF32 off: a hybrid prefill runs flash on every
+    layer while meta + S fits the window (14 tokens) and on the 2 global
+    layers past it (44 tokens: the SWA layers pad to windows, plain), and
+    ssd_scan on every layer (3 kernels a call); the paged decode step runs
+    paged_attention on the global layers only.  Each within 1e-4 of the
+    plain path (``impl="ref"``), which launches none of them."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hybrid_cfg()
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, S))).cuda()
+    reset_launch_counts()
+    k, v, state, got = m.paged_prefill(cfg, params, tokens)
+    flash = cfg.num_layers if S + cfg.meta_tokens <= cfg.sliding_window else 2
+    counts = launch_counts()
+    assert counts["flash_attention"] == flash and counts["ssd_scan"] == cfg.num_layers
+    assert ssd_kernel.kernel_launches == 3 * cfg.num_layers
+    k2, v2, state2, want = m.paged_prefill(cfg, params, tokens, impl="ref")
+    assert launch_counts() == counts
+    for a, b in ((got, want), (k, k2), (v, v2), *((state[n], state2[n]) for n in state)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+    spec = m.paged_spec(cfg)
+    P, T = spec.page_size, k.shape[2]
+    n = -(-(T + 1) // P)
+    shape = (spec.layers, 1 + 2 * n, P, spec.kv_heads, spec.head_dim)
+    kp = torch.zeros(shape, device="cuda")
+    vp = torch.zeros(shape, device="cuda")
+    tbl = torch.arange(1, 1 + 2 * n, dtype=torch.int32, device="cuda").view(2, n)
+    for r in range(2):  # each row's prefill KV into its pages, in order
+        for pages, rows in ((kp, k[r]), (vp, v[r])):
+            padded = torch.zeros((spec.layers, n * P, *shape[3:]), device="cuda")
+            padded[:, :T] = rows
+            pages[:, tbl[r].long()] = padded.view(spec.layers, n, P, *shape[3:])
+    lens = torch.full((2,), T, dtype=torch.int32, device="cuda")
+    tok = torch.argmax(got, dim=-1).to(torch.int32)
+    outs = {}
+    for impl in ("auto", "ref"):
+        reset_launch_counts()
+        st = {nm: t.clone() for nm, t in state.items()}
+        outs[impl] = m.paged_decode_step(cfg, params, kp.clone(), vp.clone(), st, tok, lens, tbl,
+                                         lens, impl=impl)
+        assert launch_counts()["paged_attention"] == (2 if impl == "auto" else 0)
+    for a, b in zip(outs["auto"], outs["ref"]):
+        for x, y in ((a, b),) if torch.is_tensor(a) else ((a[n], b[n]) for n in a):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_hybrid_paged_decode_step_captures_into_a_graph():
+    """One hybrid paged decode step (4 rows, rings rebuilt from the pages,
+    SSM state advanced) records into a CUDA graph, which raises on any host
+    sync under capture, and its replay gives the eager step's logits, pages
+    and state bit for bit."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hybrid_cfg()
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spec = m.paged_spec(cfg)
+    rng = np.random.default_rng(2)
+    shape = (spec.layers, 9, spec.page_size, spec.kv_heads, spec.head_dim)
+    kp0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    vp0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    one = m.init_cache(cfg, 4, 32, device="cuda", dtype=torch.float32)
+    state = {n: torch.from_numpy(rng.standard_normal(tuple(one[n].movedim(0, 1).shape),
+                                                     dtype=np.float32)).cuda()
+             for n in ("ssm_state", "ssm_conv")}
+    tbl = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 8]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([16, 20, 3, 31], dtype=torch.int32, device="cuda")  # 20, 31 wrap the ring
+    tok = torch.tensor([3, 7, 11, 200], dtype=torch.int32, device="cuda")
+
+    def step():
+        return m.paged_decode_step(cfg, params, kp, vp, state, tok, lens, tbl, lens)
+
+    kp, vp = kp0.clone(), vp0.clone()
+    step()  # warm-up, eager
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    _, _, want_state, want = step()  # the input state is read, never written
+    want_k = kp.clone()
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = step()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    kp.copy_(kp0)
+    vp.copy_(vp0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[3], want) and torch.equal(kp, want_k)
+    assert all(torch.equal(out[2][n], want_state[n]) for n in want_state)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_hybrid_kernels_at_hymba_heads():
+    """The three kernels at Hymba-1.5B's head geometry, at short lengths:
+    flash with 25 heads over 5 of 64 (GQA ratio 5, f32, causal, after a
+    128-token meta prefix: 300 tokens); ssd_scan with 50 heads, P 64, N 16,
+    one group; paged_attention with 25 heads over 5 of 64 in f32, on the
+    vector loads.  Each against its plain version."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(2, 300, H, D, device="cuda", generator=g)
+    k, v = (torch.randn(2, 300, K, D, device="cuda", generator=g) for _ in range(2))
+    torch.testing.assert_close(flash_kernel.flash_attention(q, k, v, causal=True),
+                               flash_attention_ref(q, k, v, causal=True), rtol=2e-4, atol=2e-4)
+    s = cfg.ssm
+    x, dt, A, B, C = _ssd_inputs(2, 300, s.n_heads(cfg.d_model), s.n_groups, s.head_dim, s.d_state,
+                                 seed=4)
+    y, st = ssd_kernel.ssd_scan(x, dt, A, B, C)
+    y2, st2 = ssd_chunked(x, dt, A, B, C, s.chunk)
+    torch.testing.assert_close(y, y2, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(st, st2, rtol=2e-3, atol=2e-3)
+    lengths = [828, 859, 2128, 2159]
+    P, M = 16, 135
+    N = 1 + sum(-(-n // P) for n in lengths)
+    kp, vp = (torch.randn(N, P, K, D, device="cuda", generator=g) for _ in range(2))
+    tbl = torch.zeros((4, M), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        pages = -(-n // P)
+        tbl[b, :pages] = torch.arange(nxt, nxt + pages)
+        nxt += pages
+    tbl, lens = tbl.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qd = torch.randn(4, H, D, device="cuda", generator=g)
+    got = paged_kernel.paged_attention(qd, kp, vp, tbl, lens)
+    assert paged_kernel.last_load_width == 4
+    torch.testing.assert_close(got, paged_attention_ref(qd, kp, vp, tbl, lens), rtol=1e-5,
+                               atol=1e-5)
+
+
 # (B, Sq, Skv, H, K, D): the reference's cases (tests/test_kernels.py:115),
 # then ragged lengths that are no multiple of the kernel's tiles,
 # causal with Sq != Skv, the serving head dim 128, and whisper-tiny's encoder

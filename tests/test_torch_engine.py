@@ -129,10 +129,14 @@ def test_torch_broadcast_leaves_gate_batch_compatibility(device):
 
 
 def test_torch_backpressure_queue_full_and_cancellation(device):
-    eng = RequestEngine(_linear_step, max_batch=2, max_delay_s=10.0, max_queue=3,
+    # The cap (4 rows) is above the three queued rows and the deadline is far
+    # off, so no group can fill or time out while the test submits: the queue
+    # holds all three when the fourth arrives.  The warm-up fills the cap and
+    # dispatches at once.
+    eng = RequestEngine(_linear_step, max_batch=4, max_delay_s=10.0, max_queue=3,
                         scheduler=Scheduler([device], policy="least_loaded"), name="t-bp")
     try:
-        eng.submit(np.ones((2, 4), np.float32)).get(timeout=T)  # warm the route
+        eng.submit(np.ones((4, 4), np.float32)).get(timeout=T)  # warm the route
         time.sleep(0.05)
         futs = [eng.submit(np.ones((1, 4), np.float32)) for _ in range(3)]
         with pytest.raises(QueueFull, match="backpressure"):

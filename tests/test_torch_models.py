@@ -42,7 +42,7 @@ def _tokens(cfg, B, S, seed):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-7b", "qwen2-moe", "mamba2-130m", "phi3.5-moe",
-                                  "qwen2-vl-72b", "whisper-tiny"])
+                                  "qwen2-vl-72b", "whisper-tiny", "hymba-1.5b"])
 def test_torch_configs_match_reference(arch):
     assert dataclasses.asdict(tcfg.get_config(arch)) == dataclasses.asdict(jcfg.get_config(arch))
     assert (dataclasses.asdict(tcfg.smoke(tcfg.get_config(arch)))
@@ -157,16 +157,23 @@ def test_torch_plain_attention_matches_reference(q_offset, valid_len, q_block):
 
 
 def test_torch_model_refuses_unported_parts():
-    """Sliding windows and the hybrid family wait for the hybrid slice; the
-    softcap, the vision stub and M-RoPE are ported (``tests/test_torch_zoo.py``)."""
+    """Nothing of the model zoo is refused any more: sliding windows, the
+    hybrid family and hymba-1.5b's config (``tests/test_torch_hybrid.py``),
+    the softcap, the vision stub and M-RoPE (``tests/test_torch_zoo.py``)
+    all load; an unknown arch and an unknown ``impl`` are still refused."""
+    from repro_torch.models import hybrid
+
     base = tcfg.smoke(tcfg.get_config("olmo-1b"))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        T.init(dataclasses.replace(base, sliding_window=16), generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        get_model(dataclasses.replace(base, family="hybrid"))
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 7 \\(hybrid family\\)"):
-        tcfg.get_config("hymba-1.5b")
+    windowed = dataclasses.replace(base, sliding_window=16)
+    params = T.init(windowed, generator=gen, device="cpu")
+    logits, _ = T.forward(windowed, params, {"tokens": torch.zeros((1, 32), dtype=torch.int32)})
+    assert logits.shape == (1, 32, base.vocab_size) and bool(torch.isfinite(logits).all())
+    assert get_model(dataclasses.replace(base, family="hybrid")) is hybrid
+    assert tcfg.get_config("hymba-1.5b").family == "hybrid"
+    assert tcfg.get_config("hymba") is tcfg.get_config("hymba-1.5b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfg.get_config("hymba-2b")
     for change in (dict(attn_logit_softcap=30.0), dict(vision_stub=True, num_patches=4),
                    dict(rope_type="mrope", mrope_sections=(4, 2, 2))):
         T.init(dataclasses.replace(base, **change), generator=gen, device="cpu")

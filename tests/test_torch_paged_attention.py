@@ -135,13 +135,14 @@ def test_torch_paged_layers_refuses_mismatched_layer_dims():
         paged_ops.paged_attention_layers(*_t(q[:1], kp, vp, tbl, lens))
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "stablelm-1.6b", "deepseek-67b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "stablelm-1.6b", "deepseek-67b", "mamba2-130m",
+                                  "hymba-1.5b"])
 def test_torch_paged_zoo_geometries(arch):
     """Every ported family's ``paged_spec`` geometry (multi-layer folds and
     GQA ratios): the port's fold against the JAX reference per layer."""
     cfg = tcfg.smoke(tcfg.get_config(arch))
     spec = paged_surface(cfg)[0](cfg)
-    H = cfg.num_heads if cfg.family == "dense" else 1
+    H = cfg.num_heads if cfg.family in ("dense", "hybrid") else 1
     K, D = spec.kv_heads, spec.head_dim
     assert H % K == 0
     q, kp, vp, tbl, lens = _random_layered(np.random.default_rng(6), spec.layers, 2, H, K, D,

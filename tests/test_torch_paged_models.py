@@ -18,8 +18,11 @@ the JAX package on the CPU.
   oracle over a cache of the same width (48 slots), as
   ``tests/test_paged_models.py`` asserts for the JAX package, and
   identical to the JAX padded oracle's tokens; for olmo-1b, stablelm-1.6b,
-  mamba2-130m, qwen2-moe-a2.7b (MoE dispatched per row) and whisper-tiny
-  (each request with its frames as ``extras``, the cross K/V its state).
+  mamba2-130m, qwen2-moe-a2.7b (MoE dispatched per row), whisper-tiny
+  (each request with its frames as ``extras``, the cross K/V its state) and
+  hymba-1.5b (meta tokens paged in with the prompt, ring caches seeded for
+  the sliding-window layers; its deeper smoke is in
+  ``tests/test_torch_hybrid.py``).
 """
 import functools
 
@@ -164,6 +167,9 @@ def _port_oracle(cfg, params, prompt, extras=None):
         cache["self_v"][:, 0, :len(prompt)] = v[0]
         cache["cross_k"][:, 0] = state["cross_k"][0]
         cache["cross_v"][:, 0] = state["cross_v"][0]
+    elif cfg.family == "hybrid":
+        cache = m.init_cache(cfg, 1, MAX_SEQ, device="cpu", dtype=torch.float32)
+        m.seed_cache(cfg, cache, k, v, state)
     else:
         cache = {n: state[n].movedim(0, 1).clone() for n in state}
     for g in range(MAX_NEW - 1):
@@ -171,6 +177,29 @@ def _port_oracle(cfg, params, prompt, extras=None):
                                       len(prompt) + g)
         out.append(int(torch.argmax(logits[0, 0])))
     return out
+
+
+def _jax_hybrid_cache(cfg, cache, k, v, state):
+    """The reference test's seeding (``tests/test_paged_models.py``): one
+    prefill row (k/v (producers, T', K, hd)) written token by token, slot
+    t % ring of a sliding-window producer, [0, T') of a global one."""
+    from repro.models.hybrid import _is_global, kv_producers
+
+    out = {n: np.asarray(x).copy() for n, x in cache.items()}
+    ring, swa, glob = out["swa_k"].shape[2], 0, 0
+    for li, l in enumerate(kv_producers(cfg)):
+        if _is_global(cfg, l):
+            out["glob_k"][glob, 0, :k.shape[1]] = k[li]
+            out["glob_v"][glob, 0, :v.shape[1]] = v[li]
+            glob += 1
+            continue
+        for t in range(k.shape[1]):
+            out["swa_k"][swa, 0, t % ring] = k[li, t]
+            out["swa_v"][swa, 0, t % ring] = v[li, t]
+        swa += 1
+    out["ssm_state"] = np.asarray(state["ssm_state"])[0][:, None]
+    out["ssm_conv"] = np.asarray(state["ssm_conv"])[0][:, None]
+    return {n: jnp.asarray(x) for n, x in out.items()}
 
 
 def _jax_oracle(cfg, params, prompt, extras=None):
@@ -190,6 +219,9 @@ def _jax_oracle(cfg, params, prompt, extras=None):
                  "self_v": cache["self_v"].at[:, 0, :len(prompt)].set(v[0]),
                  "cross_k": jnp.asarray(state["cross_k"])[0][:, None],
                  "cross_v": jnp.asarray(state["cross_v"])[0][:, None]}
+    elif cfg.family == "hybrid":
+        cache = _jax_hybrid_cache(cfg, m.init_cache(cfg, 1, MAX_SEQ, dtype=jnp.float32),
+                                  np.asarray(k)[0], np.asarray(v)[0], state)
     else:
         cache = {n: jnp.moveaxis(state[n], 0, 1) for n in state}
     dec = jax.jit(functools.partial(m.decode_step, cfg, params))
@@ -199,7 +231,7 @@ def _jax_oracle(cfg, params, prompt, extras=None):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "whisper-tiny", "hymba-1.5b"])
 def test_torch_paged_engine_greedy_tokens_bit_identical(arch, device):
     jc, tc, jparams, tparams = _pair(arch)
     prompts, extras = _prompts(tc), _extras(tc)

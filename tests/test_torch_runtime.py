@@ -59,10 +59,10 @@ def test_torch_package_imports_without_jax():
         import repro_torch.core, repro_torch.kernels
         import repro_torch.configs, repro_torch.models.convert, repro_torch.serving.serve_step
         import repro_torch.models.ssm_lm, repro_torch.kernels.ssd_scan.ops
-        import repro_torch.models.moe, repro_torch.models.encdec
+        import repro_torch.models.moe, repro_torch.models.encdec, repro_torch.models.hybrid
         from repro_torch.configs import get_config
         for arch in ("qwen2-moe-a2.7b", "phi3.5-moe", "starcoder2-7b", "whisper-tiny",
-                     "qwen2-vl-72b"):
+                     "qwen2-vl-72b", "hymba-1.5b"):
             get_config(arch)
         from repro_torch.kernels import all_kernels
         all_kernels()

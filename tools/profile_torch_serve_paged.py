@@ -30,7 +30,10 @@ the time.  The replay line also carries the graph's recorded launches (the
 count the smoke multiplies by the replays), which its paged_attention
 kernels per step must equal.  ``--arch mamba2-130m`` profiles the
 ``serve_paged_ssm`` requests instead, ``--arch qwen2-moe-a2.7b`` the
-``serve_paged_moe`` ones.
+``serve_paged_moe`` ones, ``--arch hymba-1.5b`` the ``serve_paged_hybrid``
+ones (prompts of 700 and 2000 tokens behind 128 meta tokens: paged_attention
+on the 3 global layers, the 16 SWA producers' rings gathered from the pages
+in plain PyTorch).
 """
 from __future__ import annotations
 
@@ -87,15 +90,18 @@ def main() -> int:
     m = get_model(cfg)
     gen = torch.Generator(device=dev.torch_device).manual_seed(0)
     params = m.init(cfg, generator=gen, device=dev.torch_device)
-    lens = smoke.SSM_PROMPTS if cfg.family == "ssm" else smoke.SERVE_PROMPTS
+    lens = {"ssm": smoke.SSM_PROMPTS, "hybrid": smoke.HYBRID_PROMPTS}.get(cfg.family,
+                                                                         smoke.SERVE_PROMPTS)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(smoke.SERVE_BATCH, s), dtype=np.int32)
                for s in lens]
     spec = m.paged_spec(cfg)
     steps = 8 + 4 * args.steps
+    meta = cfg.meta_tokens  # a hybrid's meta tokens page in with the prompt
     eng = PagedServeEngine.from_config(
-        cfg, params=params, devices=[dev], max_seq_len=1 << (max(lens) + steps + 1).bit_length(),
-        pool_pages=2 + sum(smoke.SERVE_BATCH * spec.pages_for(s + steps) for s in lens),
+        cfg, params=params, devices=[dev],
+        max_seq_len=1 << (meta + max(lens) + steps + 1).bit_length(),
+        pool_pages=2 + sum(smoke.SERVE_BATCH * spec.pages_for(meta + s + steps) for s in lens),
         name="profile")
     try:
         reqs = []
@@ -169,7 +175,7 @@ def main() -> int:
                "device_idle_share": 1 - device_ms / step_ms,
                "paged_attention_ms_per_step": paged_ms,
                "paged_attention_kernels_per_step": len(paged) / n,
-               "top_ms_per_step": [[k[:60], t / n] for k, t in by_name.most_common(8)]}
+               "top_ms_per_step": [[k[:60], t / n] for k, t in by_name.most_common(12)]}
         if name == "replay":
             row.update(graph_recorded_launches=recorded, decode=decode)
         print(json.dumps(row), flush=True)
