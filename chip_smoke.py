@@ -98,6 +98,21 @@ with ``Dim3`` geometry, ``enqueue_read``):
         paged_attention on the 3 global layers a decode step (the 16 SWA
         producers rebuild their rings from the pages, plain).  Both runs
         are held to the padded oracle (ring caches) and to each other.
+  train  OLMo-1B at full width and depth (1,176,764,416 parameters,
+        seeded random weights) trained through ``launch.train.train``: the
+        plan's remat full, 1 microbatch, bf16 compute over f32 master
+        weights, AdamW, 10 steps of 4 x 2048 ``SyntheticTokens``.  The flash
+        kernel runs each layer's forward and again in each layer's recompute
+        (16 + 16 launches a step); its backward differentiates the plain
+        attention.  Step ms, tokens/s, peak memory; then 8 steps of
+        ``make_train_step`` on one fixed batch, whose loss must fall.
+  train_ssm  Mamba2-130M whole the same way (the plan's remat dots:
+        ssd_scan 24 + 24 calls a step), then kill-and-resume: 8 steps
+        straight, 4 checkpointed and 4 resumed by a fresh ``train``, the
+        final losses within 1e-5.
+  grad_parity  ``loss_fn`` gradients in f32 with the kernels in the forward
+        against the plain path: OLMo-1B at full width with 2 layers, and
+        Mamba2-130M whole; every leaf within 1e-3 of its largest gradient.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -108,10 +123,12 @@ Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
 paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
-phases, and each run of the moe and encdec phases) and read just after; a
+phases, each run of the moe and encdec phases, each train run and each
+grad_parity run) and read just after; a
 kernel the run did not launch fails it.  Then each
 kernel is held against its plain PyTorch version on the card at the main
-path's shapes (whisper-tiny's and Hymba-1.5B's among them) and timed
+path's shapes (whisper-tiny's, Hymba-1.5B's and the train phases' among
+them) and timed
 beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -119,6 +136,7 @@ without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import gc
 import json
@@ -140,6 +158,8 @@ import torch  # noqa: E402
 from torch.profiler import record_function  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distribution.recipes import plan_for  # noqa: E402
 from repro_torch.core import Dim3, Scheduler, async_, dataflow, get_all_devices, wait_all  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
@@ -158,13 +178,17 @@ from repro_torch.kernels.partition_map import ops as map_ops  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models import get_model, make_batch  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, RequestEngine,  # noqa: E402
                                  cache_to_rows, make_serve_engine, make_serve_fanout,
                                  rows_to_cache)
+from repro_torch.pytree import tree_flatten_with_path, tree_unflatten  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
+from repro_torch.training.optimizer import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.training.train_step import make_train_step  # noqa: E402
 
 KERNEL_DIR = ROOT / "src" / "repro_torch" / "kernels"
 
@@ -259,8 +283,19 @@ ENCODER_SHAPE = (4, 1500, 6, 6, 64)  # whisper-tiny's encoder heads: B, S, H, K,
 # window, so every layer's prefill takes flash; 2128 do not, so the SWA
 # layers run the windowed blocks and the ring wraps in decode), 32 tokens each.
 HYBRID_ARCH, HYBRID_PROMPTS, HYBRID_NEW = "hymba-1.5b", (700, 2000), 32
+# train / train_ssm: OLMo-1B and Mamba2-130M at full width and depth through
+# launch.train.train, 4 x 2048 tokens a step, 10 steps; OLMo's overfit of one
+# batch (the default lr of OptConfig, no warm-up); Mamba2's kill-and-resume
+# (8 straight, 4 + 4 resumed) held at the reference's rtol.
+TRAIN_ARCH, TRAIN_SSM_ARCH = "olmo-1b", "mamba2-130m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 10
+OVERFIT_STEPS, OVERFIT_LR = 8, 3e-4
+RESUME_STEPS, RESUME_AT, RESUME_RTOL = 8, 4, 1e-5
+# grad_parity: loss_fn gradients with the kernels in the forward against the
+# plain path, in f32, per leaf relative to the leaf's largest gradient.
+PARITY_BATCH, PARITY_SEQ, GRAD_PARITY_TOL = 2, 1024, 1e-3
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
-# takes about 175 s; the limit it runs under is 1200).
+# takes about 230 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
 
 
@@ -1634,6 +1669,184 @@ def phase_serve_paged_hybrid(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training: launch.train.train and make_train_step on the card
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_layers(cfg, plan) -> int:
+    """Kernel launches a step the plan implies: one a layer in the forward,
+    one more in the backward's recompute of each layer under remat full or
+    dots (the kernel's backward recomputes the plain version instead)."""
+    return cfg.num_layers * (1 if plan.remat == "none" else 2)
+
+
+def train_run(dev, arch: str, steps: int, **kw) -> dict:
+    """``train`` at full width and depth on the card, seeded; the launch
+    counters set to 0 just before and read just after; peak memory."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = train(arch, use_smoke=False, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                log_every=0, seed=0, device=dev.torch_device, **kw)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["ssd_scan_kernels"] = ssd_kernel.kernel_launches
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    return out
+
+
+def train_summary(cfg, plan, run: dict, kernel: str) -> dict:
+    """Step times (the first step apart: it builds cuBLAS plans and fills
+    the allocator), tokens/s at the p50, memory and the kernel's launches a
+    step against the plan's."""
+    secs = run["step_seconds"]
+    p50, p99 = percentiles(secs[1:])
+    steps = len(secs)
+    per_step = train_kernel_layers(cfg, plan)
+    launched = run["launches"][kernel]
+    require(all(np.isfinite(run["losses"])), f"train {cfg.name}: a loss is not finite: "
+                                             f"{run['losses']}")
+    require(launched == steps * per_step,
+            f"train {cfg.name}: {kernel} launched {launched} times in {steps} steps, not "
+            f"{per_step} a step (remat {plan.remat}, {cfg.num_layers} layers)")
+    others = {k: n for k, n in run["launches"].items() if k != kernel and n}
+    require(not others, f"train {cfg.name}: other kernels launched: {others}")
+    return {"arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "remat": plan.remat, "microbatches": plan.num_microbatches,
+            "compute_dtype": plan.compute_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": steps, "losses": run["losses"], "first_step_ms": secs[0] * 1e3,
+            "step_ms_p50": p50 * 1e3, "step_ms_p99": p99 * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50, "launches": run["launches"],
+            f"{kernel}_per_step": launched / steps, f"{kernel}_per_step_plan": per_step,
+            "stragglers": run["stragglers"],
+            "max_memory_allocated": run["max_memory_allocated"],
+            "max_memory_reserved": run["max_memory_reserved"]}
+
+
+def phase_train(dev) -> dict:
+    """OLMo-1B at full width and depth (1,176,764,416 parameters; the plan
+    for 4 x 2048 tokens: remat full, 1 microbatch, bf16 compute over f32
+    masters) through ``launch.train.train``: ``TRAIN_STEPS`` steps on
+    ``SyntheticTokens``, flash on every layer's forward and its recompute.
+    Then ``OVERFIT_STEPS`` steps of ``make_train_step`` on one fixed batch
+    from the trained params and a fresh AdamW state: the loss falls."""
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")
+    plan = plan_for(cfg, shape)
+    run = train_run(dev, TRAIN_ARCH, TRAIN_STEPS)
+    out = train_summary(cfg, plan, run, "flash_attention")
+    params = run.pop("params")
+    del run["opt_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, shape, OptConfig(lr=OVERFIT_LR, warmup_steps=0, total_steps=50),
+                           plan, donate=True)
+    batch = make_batch(cfg, shape, seed=1, device=dev.torch_device)
+    opt_state = init_opt_state(params)
+    losses = []
+    reset_launch_counts()
+    for _ in range(OVERFIT_STEPS):
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+    launched = launch_counts()["flash_attention"]
+    del params, opt_state
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"train overfit: the loss of one batch did not fall: {losses}")
+    require(launched == OVERFIT_STEPS * train_kernel_layers(cfg, plan),
+            f"train overfit: flash launched {launched} times in {OVERFIT_STEPS} steps")
+    out["overfit"] = {"steps": OVERFIT_STEPS, "lr": OVERFIT_LR, "losses": losses,
+                      "flash_attention": launched,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def phase_train_ssm(dev) -> dict:
+    """Mamba2-130M whole (the plan: remat dots, bf16 compute) through
+    ``train`` at the train phase's batch, length and steps, ssd_scan on
+    every layer's forward and its recompute (3 kernels a call).  Then
+    kill-and-resume as ``tests/test_checkpoint.py`` does: 8 steps straight;
+    4 steps checkpointed at 4 into a temporary directory; a fresh ``train``
+    resumed from it to 8: the final losses agree within ``RESUME_RTOL``."""
+    cfg = get_config(TRAIN_SSM_ARCH)
+    shape = ShapeConfig("train_smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")
+    plan = plan_for(cfg, shape)
+    run = train_run(dev, TRAIN_SSM_ARCH, TRAIN_STEPS)
+    out = train_summary(cfg, plan, run, "ssd_scan")
+    require(run["ssd_scan_kernels"] == len(SSD_KERNELS) * run["launches"]["ssd_scan"],
+            f"train_ssm: {run['launches']['ssd_scan']} ssd_scan calls launched "
+            f"{run['ssd_scan_kernels']} kernels")
+    out["ssd_scan_kernels"] = run["ssd_scan_kernels"]
+    del run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        full = train_run(dev, TRAIN_SSM_ARCH, RESUME_STEPS, ckpt_dir=os.path.join(tmp, "a"),
+                         ckpt_every=100)
+        part = train_run(dev, TRAIN_SSM_ARCH, RESUME_AT, ckpt_dir=os.path.join(tmp, "b"),
+                         ckpt_every=RESUME_AT, schedule_total=RESUME_STEPS)
+        resumed = train_run(dev, TRAIN_SSM_ARCH, RESUME_STEPS, ckpt_dir=os.path.join(tmp, "b"),
+                            resume=True, ckpt_every=100)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = abs(resumed["final_loss"] - full["final_loss"]) / abs(full["final_loss"])
+    require(len(resumed["losses"]) == RESUME_STEPS - RESUME_AT and rel <= RESUME_RTOL,
+            f"train_ssm resume: final loss {resumed['final_loss']} against the straight run's "
+            f"{full['final_loss']} (relative {rel})")
+    out["resume"] = {"straight": full["losses"], "first_part": part["losses"],
+                     "resumed": resumed["losses"], "relative_difference": rel,
+                     "rtol": RESUME_RTOL}
+    return out
+
+
+def grad_parity(dev, cfg, batch_shape) -> dict:
+    """``loss_fn`` gradients in f32 with ``impl="auto"`` (the kernels in the
+    forward) against ``impl="ref"`` (the plain path throughout), from the
+    same seeded params and batch: for every leaf, max |g_auto - g_ref| <=
+    ``GRAD_PARITY_TOL`` x max |g_ref|; the kernels launch in the auto run
+    and not in the ref run."""
+    m = get_model(cfg)
+    params = m.init(cfg, generator=torch.Generator(dev.torch_device).manual_seed(0),
+                    device=dev.torch_device)
+    batch = make_batch(cfg, batch_shape, seed=2, device=dev.torch_device)
+    pairs, treedef = tree_flatten_with_path(params)
+    runs = {}
+    for impl in ("auto", "ref"):
+        masters = [p.detach().requires_grad_(True) for _, p in pairs]
+        reset_launch_counts()
+        loss = m.loss_fn(cfg, tree_unflatten(treedef, masters), batch, impl=impl)
+        grads = torch.autograd.grad(loss, masters)
+        torch.cuda.synchronize()
+        runs[impl] = (float(loss.detach()), grads, launch_counts())
+    ratios = {}
+    for (path, _), ga, gr in zip(pairs, runs["auto"][1], runs["ref"][1]):
+        ratios["/".join(map(str, path))] = float((ga - gr).abs().max() / gr.abs().max())
+    worst = max(ratios, key=ratios.get)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    auto_n, ref_n = runs["auto"][2][kernel], runs["ref"][2][kernel]
+    require(ratios[worst] <= GRAD_PARITY_TOL,
+            f"grad parity {cfg.name}: leaf {worst} differs by {ratios[worst]} of its max")
+    require(auto_n == cfg.num_layers and ref_n == 0,
+            f"grad parity {cfg.name}: {kernel} launched {auto_n} (auto) / {ref_n} (ref) times")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch_shape.global_batch,
+            "seq": batch_shape.seq_len, "loss_auto": runs["auto"][0], "loss_ref": runs["ref"][0],
+            "worst_leaf": worst, "worst_ratio": ratios[worst], "tol": GRAD_PARITY_TOL,
+            "leaves": len(ratios), "kernel": kernel, "launches_auto": auto_n,
+            "launches_ref": ref_n}
+
+
+def phase_grad_parity(dev) -> dict:
+    """The autograd fault's own check, in f32 on the card: OLMo-1B at full
+    width with 2 layers, and Mamba2-130M whole."""
+    shape = ShapeConfig("parity", seq_len=PARITY_SEQ, global_batch=PARITY_BATCH, kind="train")
+    olmo = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    return {"olmo": grad_parity(dev, olmo, shape),
+            "mamba2": grad_parity(dev, get_config(TRAIN_SSM_ARCH), shape)}
+
+
+# ---------------------------------------------------------------------------
 # fleet: partition_map through run_on_any over logical devices (fig6)
 # ---------------------------------------------------------------------------
 
@@ -2851,6 +3064,48 @@ def main() -> int:
                   flush=True)
         print(f"{phase}: " + json.dumps(r), flush=True)
 
+    trains = {}
+    for phase, fn in (("train", phase_train), ("train_ssm", phase_train_ssm),
+                      ("grad_parity", phase_grad_parity)):
+        dev.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{phase}: starts with {torch.cuda.memory_allocated()} bytes allocated, "
+              f"{torch.cuda.memory_reserved()} reserved", flush=True)
+        t0 = time.perf_counter()
+        r = trains[phase] = fn(dev)
+        r["seconds"] = time.perf_counter() - t0
+        if phase == "grad_parity":
+            for g in r.values():
+                if isinstance(g, dict):
+                    print(f"grad_parity {g['arch']} ({g['layers']} layers, {g['batch']} x "
+                          f"{g['seq']}, f32): worst leaf {g['worst_leaf']} at "
+                          f"{g['worst_ratio']:.3e} of its largest gradient (limit {g['tol']}); "
+                          f"{g['kernel']} {g['launches_auto']} launches (auto) / "
+                          f"{g['launches_ref']} (ref); losses {g['loss_auto']:.6f} / "
+                          f"{g['loss_ref']:.6f}", flush=True)
+        else:
+            kernel = "flash_attention" if phase == "train" else "ssd_scan"
+            print(f"{phase}: {r['arch']} ({r['params']} parameters, remat {r['remat']}, "
+                  f"{r['compute_dtype']} compute) {r['steps']} steps of {r['batch']} x "
+                  f"{r['seq']} tokens: step ms p50/p99 {r['step_ms_p50']:.1f} / "
+                  f"{r['step_ms_p99']:.1f} (first {r['first_step_ms']:.1f}), "
+                  f"{r['tokens_per_s']:.0f} tokens/s; {kernel} {r[kernel + '_per_step']:.0f} a "
+                  f"step (plan {r[kernel + '_per_step_plan']}); peak allocated / reserved "
+                  f"{r['max_memory_allocated'] / 1e9:.2f} / {r['max_memory_reserved'] / 1e9:.2f} "
+                  f"GB; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; {r['seconds']:.1f} s",
+                  flush=True)
+            if phase == "train":
+                o = r["overfit"]
+                print(f"train overfit: {o['steps']} steps on one batch, loss {o['losses'][0]:.4f} "
+                      f"-> {o['losses'][-1]:.4f}", flush=True)
+            else:
+                o = r["resume"]
+                print(f"train_ssm resume: final loss {o['resumed'][-1]:.6f} resumed against "
+                      f"{o['straight'][-1]:.6f} straight (relative {o['relative_difference']:.3e},"
+                      f" rtol {o['rtol']})", flush=True)
+        print(f"{phase}: " + json.dumps(r), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -2917,6 +3172,19 @@ def main() -> int:
                 check_ssd(hyb, hyb_launches["ssd_scan"], hyb_launches["ssd_scan_kernels"],
                           dev.torch_device, name="ssd_scan_hybrid", prompts=hyb_lens),
                 check_paged_hybrid(hyb_launches["paged_attention_on_device"], dev.torch_device)]
+    # the train phases' shapes: flash in bf16 at OLMo-1B's 4 x 2048, ssd_scan
+    # at Mamba2-130M's, each with the launches of its phase's measured run
+    olmo = get_config(TRAIN_ARCH)
+    kernels += [check_flash("flash_attention_train",
+                            (TRAIN_BATCH, TRAIN_SEQ, olmo.num_heads, olmo.num_kv_heads, olmo.hd),
+                            torch.bfloat16, trains["train"]["launches"]["flash_attention"],
+                            dev.torch_device,
+                            overfit_launches=trains["train"]["overfit"]["flash_attention"],
+                            grad_parity_launches=trains["grad_parity"]["olmo"]["launches_auto"]),
+                check_ssd(get_config(TRAIN_SSM_ARCH), trains["train_ssm"]["launches"]["ssd_scan"],
+                          trains["train_ssm"]["ssd_scan_kernels"], dev.torch_device,
+                          name="ssd_scan_train", prompts=(min(SSM_PROMPTS), TRAIN_SEQ))]
+    kernels[-1]["grad_parity_launches"] = trains["grad_parity"]["mamba2"]["launches_auto"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

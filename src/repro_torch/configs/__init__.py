@@ -19,6 +19,8 @@ _MODULES = {
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
+ALL_ARCHS: "tuple[str, ...]" = tuple(_MODULES)
+
 # short aliases accepted by --arch
 _ALIASES = {
     "qwen2-vl": "qwen2-vl-72b",
@@ -42,4 +44,23 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(mod).CONFIG
 
 
-__all__ = ["SHAPES", "ArchConfig", "ShapeConfig", "get_config", "smoke"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape '{name}'; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def cells() -> "list[tuple[str, str]]":
+    """All (arch, shape) cells, with the reference's documented skips."""
+    out = []
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.subquadratic:
+                continue  # full-attention archs skip 524k decode
+            out.append((arch, shape.name))
+    return out
+
+
+__all__ = ["ALL_ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "cells", "get_config",
+           "get_shape", "smoke"]

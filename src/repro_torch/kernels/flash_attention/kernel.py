@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, note_launch
+from repro_torch.kernels._autograd import refuse_grad
 
 launches = 0
 noncausal_launches = 0
@@ -76,8 +77,11 @@ def flash_attention(q: "torch.Tensor", k: "torch.Tensor", v: "torch.Tensor", *,
                     causal: bool = True) -> "torch.Tensor":
     """q (B, Sq, H, D), k/v (B, Skv, K, D), H % K == 0, f32 or bf16 CUDA
     tensors, D in (16, 32, 64, 128) -> o (B, Sq, H, D), contiguous, of q's
-    dtype.  ``causal`` masks to kpos <= qpos, both counted from 0."""
+    dtype.  ``causal`` masks to kpos <= qpos, both counted from 0.  Raises
+    ``RuntimeError`` when grad mode is on and an input requires grad (the
+    kernel has no backward: ``kernels._autograd``)."""
     global launches, noncausal_launches
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     lib = _build.load("flash_attention")
     fn = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")

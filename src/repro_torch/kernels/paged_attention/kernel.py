@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, note_launch
+from repro_torch.kernels._autograd import refuse_grad
 
 launches = 0
 kernel_launches = 0
@@ -101,6 +102,8 @@ def splits() -> int:
 
 def _launch(q, k_pages, v_pages, page_table, lengths) -> "torch.Tensor":
     global launches, kernel_launches, last_load_width, last_blocks, last_cluster
+    # decode only: the kernel has no backward (kernels._autograd)
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, page_table, lengths)
     lib = _lib()
     fn = getattr(lib, f"paged_attention_{_SUFFIX[q.dtype]}")

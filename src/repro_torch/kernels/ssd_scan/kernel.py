@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, note_launch
+from repro_torch.kernels._autograd import refuse_grad
 
 launches = 0
 kernel_launches = 0
@@ -92,8 +93,11 @@ def ssd_scan(x: "torch.Tensor", dt: "torch.Tensor", A: "torch.Tensor", B: "torch
     -> y (Bz, S, H, P) and the final state (Bz, H, N, P), both f32 and
     contiguous; the state starts at zero.  No D term (the caller adds it).
     ``lib`` is a build of ``csrc/ssd_scan.cu``, by default the main one,
-    built after the inputs pass their checks."""
+    built after the inputs pass their checks.  Raises ``RuntimeError`` when
+    grad mode is on and an input requires grad (the kernel has no backward:
+    ``kernels._autograd``)."""
     global launches, kernel_launches
+    refuse_grad("ssd_scan", x, dt, A, B, C)
     _check(x, dt, A, B, C)
     lib = _bind(lib or _build.load("ssd_scan"))
     Bz, S, H, P = x.shape

@@ -1,4 +1,5 @@
-"""Model zoo on PyTorch: the dense decoder and ssm (Mamba-2) families so far."""
-from repro_torch.models.model import get_model
+"""Model zoo on PyTorch: the dense, moe, vlm, ssm (Mamba-2), encdec and
+hybrid families."""
+from repro_torch.models.model import batch_logical_specs, get_model, make_batch
 
-__all__ = ["get_model"]
+__all__ = ["batch_logical_specs", "get_model", "make_batch"]

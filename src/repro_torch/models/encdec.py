@@ -100,12 +100,18 @@ def _mlp_block(cfg, lp, x):
     return x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, x, lp["ln2"]))
 
 
-def encode(cfg, params, frames, *, impl: str = "auto"):
-    """frames: (B, S_enc, D) stub embeddings -> encoder states."""
+def encode(cfg, params, frames, *, remat: str = "none", impl: str = "auto"):
+    """frames: (B, S_enc, D) stub embeddings -> encoder states.  ``remat``
+    dots or full recomputes each layer whole in the backward, as the
+    reference does."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
-    for lp in params["enc_layers"]:
+
+    def enc_layer(x, lp):
         x, _ = _self_block(cfg, lp, x, causal=False, q_block=None, impl=impl)
-        x = _mlp_block(cfg, lp, x)
+        return _mlp_block(cfg, lp, x)
+
+    for lp in params["enc_layers"]:
+        x = L.remat_call(L.remat_whole(remat), enc_layer, x, lp)
     return L.apply_norm(cfg, x, params["enc_norm"])
 
 
@@ -123,14 +129,16 @@ def _cross_kv(cfg, params, enc):
     return out
 
 
-def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bool = False,
-            last_only: bool = False, impl: str = "auto"):
+def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = "none",
+            return_kv: bool = False, last_only: bool = False, impl: str = "auto"):
     """batch: {'frames': (B, S_enc, D) stub, 'tokens': (B, S_dec)}.
 
     Returns (logits, aux) or, with ``return_kv``, (logits, aux, {"self":
     [(k, v)] a decoder layer, "cross": [(k, v)] a decoder layer}); aux is
-    0.  ``impl="ref"`` keeps every attention on the plain path."""
-    enc = encode(cfg, params, batch["frames"], impl=impl)
+    0.  ``remat`` dots or full recomputes each encoder and decoder layer
+    whole in the backward, as the reference does.  ``impl="ref"`` keeps
+    every attention on the plain path."""
+    enc = encode(cfg, params, batch["frames"], remat=remat, impl=impl)
     xkv = _cross_kv(cfg, params, enc)
 
     tokens = batch["tokens"]
@@ -140,11 +148,14 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bo
     idx = torch.arange(S, device=tokens.device) % pos_tab.shape[0]  # cells may exceed 448
     x = x + pos_tab[idx][None].to(x.dtype)
 
-    kvs = []
-    for lp, (ek, ev) in zip(params["dec_layers"], xkv):
+    def dec_layer(x, lp, ek, ev):
         x, kv = _self_block(cfg, lp, x, causal=True, q_block=q_block, impl=impl)
         x = _cross(cfg, lp, x, ek, ev, impl=impl)
-        x = _mlp_block(cfg, lp, x)
+        return _mlp_block(cfg, lp, x), kv
+
+    kvs = []
+    for lp, (ek, ev) in zip(params["dec_layers"], xkv):
+        x, kv = L.remat_call(L.remat_whole(remat), dec_layer, x, lp, ek, ev)
         kvs.append(kv)
 
     x = L.apply_norm(cfg, x, params["final_norm"])
@@ -155,6 +166,12 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bo
     if return_kv:
         return logits, aux, {"self": kvs, "cross": xkv}
     return logits, aux
+
+
+def loss_fn(cfg, params, batch, **kw):
+    """Mean next-token cross-entropy (f32); ``kw`` goes to ``forward``."""
+    logits, _ = forward(cfg, params, batch, **kw)
+    return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------

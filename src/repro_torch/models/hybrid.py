@@ -149,7 +149,8 @@ def _prefill_attend(cfg, l: int, q, k, v, *, q_block, impl):
     return L.local_block_attention(_pad_to(q, w), _pad_to(k, w), _pad_to(v, w), window=w)[:, :S_]
 
 
-def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: bool):
+def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: bool,
+             remat: str = "none"):
     """The stack over meta + tokens -> (final-normed content positions
     (B, T, D), {producer: (k, v)} if ``keep_kv``, per-layer SSM caches if
     ``keep_state``)."""
@@ -160,18 +161,25 @@ def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: b
         x = torch.cat([meta, x], dim=1)
     S_ = x.shape[1]
     cos, sin = _rope(cfg, torch.arange(S_, device=x.device)[None].expand(B, S_))
+    remat = L.remat_whole(remat)
     shared, kvs, caches = None, {}, []
-    for l, lp in enumerate(params["layers"]):
+
+    def block(x, lp, l, shared):
         h = L.apply_norm(cfg, x, lp["ln1"])
+        cache = None
         if keep_state:
             y_ssm, cache = S.ssm_prefill(cfg, lp["ssm"], h, impl=impl)
-            caches.append(cache)
         else:
             y_ssm = S.ssm_block(cfg, lp["ssm"], h, impl=impl)
         q = _q(cfg, lp["attn"], h, cos, sin)
         k, v = _kv(cfg, lp["attn"], h, cos, sin) if "wk" in lp["attn"] else shared
         o = _prefill_attend(cfg, l, q, k, v, q_block=q_block, impl=impl)
-        x = _fuse_mlp(cfg, lp, x, L.out_proj(cfg, lp["attn"], o), y_ssm)
+        return _fuse_mlp(cfg, lp, x, L.out_proj(cfg, lp["attn"], o), y_ssm), (k, v), cache
+
+    for l, lp in enumerate(params["layers"]):
+        x, (k, v), cache = L.remat_call(remat, block, x, lp, l, shared)
+        if keep_state:
+            caches.append(cache)
         if _kv_producer(cfg, l) == l:
             shared = (k, v)
             if keep_kv:
@@ -180,21 +188,29 @@ def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: b
     return x[:, cfg.meta_tokens:], kvs, caches
 
 
-def forward(cfg, params, batch, *, q_block: int = 512, return_kv: bool = False,
-            last_only: bool = False, impl: str = "auto"):
+def forward(cfg, params, batch, *, q_block: int = 512, remat: str = "none",
+            return_kv: bool = False, last_only: bool = False, impl: str = "auto"):
     """Teacher-forcing forward. batch["tokens"]: (B, S) int.
 
     Returns (logits (B, S, V), aux_loss) or, with ``return_kv``, (logits,
     aux_loss, {producer layer: (k, v)}), each (B, meta + S, K, hd).  The
     meta positions are dropped before the unembedding; ``aux_loss`` is 0.
-    ``impl="ref"`` keeps attention and the scans on the plain path."""
+    ``remat`` dots or full recomputes each block whole in the backward, as
+    the reference does.  ``impl="ref"`` keeps attention and the scans on
+    the plain path."""
     x, kvs, _ = _prefill(cfg, params, batch["tokens"], q_block=q_block, impl=impl,
-                         keep_kv=return_kv, keep_state=False)
+                         keep_kv=return_kv, keep_state=False, remat=remat)
     if last_only:
         x = x[:, -1:]
     logits = L.unembed(cfg, params["embed"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (logits, aux, kvs) if return_kv else (logits, aux)
+
+
+def loss_fn(cfg, params, batch, **kw):
+    """Mean next-token cross-entropy (f32); ``kw`` goes to ``forward``."""
+    logits, _ = forward(cfg, params, batch, **kw)
+    return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------

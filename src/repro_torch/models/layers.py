@@ -23,20 +23,34 @@ Conventions
   paged-attention kernel (``repro_torch.kernels.paged_attention``); a CPU
   tensor, or ``impl="ref"``, gathers the pages into a contiguous cache and
   runs the plain ``attention``, as the reference always does.
+* Training: ``xent_loss`` is the reference's f32 cross-entropy;
+  ``remat_call`` maps the reference's remat policies (none, full, dots)
+  to ``torch.utils.checkpoint``; ``unstack`` splits stacked layer params
+  so their gradients are stacked once.  Under grad the flash kernel
+  computes attention's forward and its backward differentiates the plain
+  path (``kernels._autograd``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.pytree import tree_flatten, tree_unflatten
 
 F32 = torch.float32
 NEG_INF = -1e30
+# The flash kernel's backward recomputes the plain attention in query blocks
+# of this size, so its peak score tensor is (B, H, GRAD_Q_BLOCK, Skv).
+GRAD_Q_BLOCK = 512
 
 
 def tree_map(fn, tree):
@@ -52,6 +66,15 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def unstack(tree, n: int):
+    """A tree of leaves stacked on a leading axis of ``n`` (a model's layer
+    params) -> n trees: one ``unbind`` a leaf, whose backward stacks the
+    gradients of the n parts once."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
 
 def ninit(shape, *, generator: "torch.Generator", device, dtype=F32,
           scale: "Optional[float]" = None):
@@ -260,13 +283,18 @@ def attention(
     0, no ``valid_len``, no window) through the flash kernel; the kernel has
     no softcap and no window (nor has the Pallas one), so a call with
     either takes the plain path.  ``ref`` keeps every case on the plain
-    path."""
+    path.  Under grad the flash kernel computes the forward and the
+    backward differentiates the plain path in query blocks of
+    ``GRAD_Q_BLOCK`` (``kernels._autograd``)."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     B, Sq, H, D = q.shape
     if (impl == "auto" and q.is_cuda and q_offset == 0 and Sq == k.shape[1]
             and valid_len is None and softcap is None and window is None):
-        return flash_attention(q, k, v, causal=causal)
+        return kernel_with_plain_grad(
+            functools.partial(flash_attention, causal=causal),
+            functools.partial(attention, causal=causal, q_block=GRAD_Q_BLOCK, impl="ref"),
+            q, k, v)
     K = k.shape[2]
     qr = q.reshape(B, Sq, K, H // K, D)
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -363,6 +391,62 @@ def unembed(cfg, p, x):
     their sums are f32 as in the reference."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
     return torch.matmul(x.float(), w.float())
+
+
+def xent_loss(logits, labels, mask=None):
+    """Mean next-token cross-entropy in f32: logsumexp minus the gold
+    logit; with ``mask``, the mask-weighted mean (at least 1 in the
+    denominator)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization (the reference's jax.checkpoint policies)
+# ---------------------------------------------------------------------------
+
+REMATS = ("none", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products without batch dims (``mm``/``addmm``: the projections),
+    recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_whole(remat: str) -> str:
+    """The policy for a family whose reference checkpoints each layer whole
+    under both ``full`` and ``dots`` (encdec, hybrid)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}: use one of {REMATS}")
+    return "none" if remat == "none" else "full"
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the ``remat`` policy: ``none`` keeps every
+    activation for the backward; ``full`` keeps the inputs and recomputes
+    the rest in the backward (``jax.checkpoint``); ``dots`` also keeps the
+    projections' outputs (selective checkpointing).  A kernel inside ``fn``
+    launches again in each recompute."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
+    raise ValueError(f"remat={remat!r}: use one of {REMATS}")
 
 
 # ---------------------------------------------------------------------------

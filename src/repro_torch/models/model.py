@@ -14,11 +14,16 @@ Every ported family also exposes the paged serving contract consumed by
     k_pages, v_pages, state, logits = m.paged_decode_step(
         cfg, params, k_pages, v_pages, state, tokens, positions, tables, lengths)
 
+Every family's ``loss_fn(cfg, params, batch, remat=, q_block=, impl=)``
+is the reference's (mean next-token cross-entropy in f32; transformer adds
+the MoE router loss), with ``forward``'s ``remat`` policies none, full and
+dots mapped to ``torch.utils.checkpoint``.
+
 ``make_batch`` builds a random batch for an (arch x shape) cell, with the
 modality STUBS (whisper frames, qwen2-vl patch embeddings and M-RoPE
-positions) drawn as the reference draws them.  ``input_specs`` and
-``batch_logical_specs`` come with the sharding tooling (ROADMAP.md Queue
-1 item 11).
+positions) drawn as the reference draws them; ``batch_logical_specs``
+names each batch input's logical axes.  ``input_specs`` comes with the
+sharding tooling (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
-__all__ = ["get_model", "make_batch", "paged_surface"]
+__all__ = ["batch_logical_specs", "get_model", "make_batch", "paged_surface"]
 
 
 def get_model(cfg: ArchConfig) -> ModuleType:
@@ -72,6 +77,19 @@ def _batch_shapes(cfg: ArchConfig, shape: ShapeConfig, *, dtype=torch.bfloat16):
         d["patch_embeds"] = ((B, cfg.num_patches, cfg.d_model), dtype)
         d["positions"] = ((3, B, S), torch.int32)
     return d
+
+
+def batch_logical_specs(cfg: ArchConfig, shape: ShapeConfig) -> "dict[str, tuple]":
+    """Logical axis names for each batch input (``_split_micro`` finds the
+    batch axis by them)."""
+    names = {
+        "tokens": ("batch", "seq"),
+        "labels": ("batch", "seq"),
+        "frames": ("batch", None, "embed"),
+        "patch_embeds": ("batch", None, "embed"),
+        "positions": (None, "batch", "seq"),
+    }
+    return {k: names[k] for k in _batch_shapes(cfg, shape)}
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0, *, device="cuda") -> dict:

@@ -7,18 +7,22 @@ send the scan of a CUDA tensor through the hand-written ``ssd_scan``
 kernel (``repro_torch.kernels.ssd_scan``), with the final state; on the
 CPU, and with ``impl="ref"``, they run ``ssd_chunked``, this module's
 plain version of the same math.  (The reference model never calls its
-Pallas kernel: it always runs its ``ssd_chunked``.)
+Pallas kernel: it always runs its ``ssd_chunked``.)  Under grad the
+kernel computes the forward and the backward differentiates
+``ssd_chunked`` (``kernels._autograd``).
 
 Params keep the reference's layout: separate z / xBC / dt projections
 (identical math to one fused in_proj).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
 
@@ -108,10 +112,14 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int):
     for c0 in range(0, S + pad, Lc):
         xc, dtc, Bc, Cc = (t[:, c0:c0 + Lc] for t in (xf, dtf, Bh, Ch))
         cum = torch.cumsum(dtc * A, dim=1)  # (B, L, H)
-        # intra-chunk: att[b,h,i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i
+        # intra-chunk: att[b,h,i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i.
+        # The exponent is masked, not the product: for j > i it is positive
+        # and may overflow, and a masked inf would give a 0 * inf = NaN
+        # gradient (the reference masks the product and has that fault).
         scores = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
-        att = torch.where(mask, scores * decay * dtc.transpose(1, 2)[:, :, None, :], 0.0)
+        seg = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        decay = torch.exp(seg.masked_fill(~mask, float("-inf")))
+        att = scores * decay * dtc.transpose(1, 2)[:, :, None, :]
         y_intra = torch.einsum("bhij,bjhp->bihp", att, xc)
         # inter-chunk: contribution of the incoming state
         y_inter = torch.einsum("bihn,bhnp->bihp", Cc * torch.exp(cum)[..., None], state)
@@ -144,7 +152,10 @@ def _mixer(cfg, p, x, impl: str):
     A = -torch.exp(p["A_log"].float())  # (H,)
 
     if impl == "auto" and xs.is_cuda:
-        y, state = ssd_ops.ssd(xs, dt, A, Bg, Cg, impl="cuda", return_state=True)
+        # under grad: the kernel's forward, the gradient of ssd_chunked
+        y, state = kernel_with_plain_grad(
+            functools.partial(ssd_ops.ssd, impl="cuda", return_state=True),
+            functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg)
     else:
         y, state = ssd_chunked(xs, dt, A, Bg, Cg, s.chunk)
     y = y + xs * p["D"].float()[:, None]

@@ -5,8 +5,7 @@ Params keep the JAX tree's names and shapes, layer params stacked with a
 leading L axis; ``forward``/``decode_step`` walk the layers in a Python
 loop where the reference scans.  The paged serving contract
 (``paged_spec``/``paged_prefill``/``paged_decode_step``) is the
-reference's; ``loss_fn`` and the hybrid family come with later slices
-(ROADMAP.md Queue 1 item 7).
+reference's, and so is ``loss_fn`` (mean next-token cross-entropy in f32).
 """
 from __future__ import annotations
 
@@ -47,12 +46,8 @@ def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     }
 
 
-def _layer(params, i: int):
-    return tree_map(lambda t: t[i], params["layers"])
-
-
-def forward(cfg, params, batch, *, return_kv: bool = False, last_only: bool = False,
-            impl: str = "auto"):
+def forward(cfg, params, batch, *, remat: str = "none", q_block=None, return_kv: bool = False,
+            last_only: bool = False, impl: str = "auto"):
     """Teacher-forcing forward. batch["tokens"]: (B, S) int.
 
     Returns (logits, aux_loss) or, with ``return_kv``, (logits, aux_loss,
@@ -61,20 +56,25 @@ def forward(cfg, params, batch, *, return_kv: bool = False, last_only: bool = Fa
     computed per layer as ``ssm_prefill`` computes it and laid out as
     ``decode_step`` consumes it.  This differs on purpose from the
     reference's ``forward``, which returns an all-zero ``init_cache`` there
-    (its greedy oracle uses ``paged_prefill`` instead).  ``impl="ref"`` keeps
-    every scan on ``ssd_chunked``; ``aux_loss`` is 0."""
+    (its greedy oracle uses ``paged_prefill`` instead).  ``remat`` (none,
+    full, dots) applies to each layer (``layers.remat_call``); ``q_block``
+    is unused (no attention).  ``impl="ref"`` keeps every scan on
+    ``ssd_chunked``; ``aux_loss`` is 0."""
     x = L.embed(cfg, params["embed"], batch["tokens"])
     states, convs = [], []
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+
+    def layer(x, lp):
         h = L.apply_norm(cfg, x, lp["ln"])
         if return_kv:
             y, cache = S.ssm_prefill(cfg, lp["ssm"], h, impl=impl)
+            return x + y, cache
+        return x + S.ssm_block(cfg, lp["ssm"], h, impl=impl), None
+
+    for lp in L.unstack(params["layers"], cfg.num_layers):
+        x, cache = L.remat_call(remat, layer, x, lp)
+        if return_kv:
             states.append(cache["state"])
             convs.append(cache["conv"])
-        else:
-            y = S.ssm_block(cfg, lp["ssm"], h, impl=impl)
-        x = x + y
     x = L.apply_norm(cfg, x, params["final_norm"])
     if last_only:  # prefill: only the final position feeds sampling
         x = x[:, -1:]
@@ -83,6 +83,12 @@ def forward(cfg, params, batch, *, return_kv: bool = False, last_only: bool = Fa
     if return_kv:
         return logits, aux, {"state": torch.stack(states), "conv": torch.stack(convs)}
     return logits, aux
+
+
+def loss_fn(cfg, params, batch, **kw):
+    """Mean next-token cross-entropy (f32); ``kw`` goes to ``forward``."""
+    logits, _ = forward(cfg, params, batch, **kw)
+    return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
@@ -97,8 +103,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     positions).  Returns (logits (B, 1, V), cache); the cache is updated
     in place."""
     x = L.embed(cfg, params["embed"], tokens)
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = L.apply_norm(cfg, x, lp["ln"])
         y, new = S.ssm_decode_step(cfg, lp["ssm"], h,
                                    {"state": cache["state"][i], "conv": cache["conv"][i]})

@@ -30,6 +30,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.layers import tree_map
 
+AUX_LOSS_COEF = 0.01
+
 
 # ---------------------------------------------------------------------------
 # params
@@ -58,10 +60,6 @@ def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     Drawn from ``generator`` (on ``device``) leaf by leaf in a fixed order."""
     return tree_map(lambda leaf: L.init_leaf(leaf, generator=generator, device=device,
                                              dtype=dtype), _layout(cfg))
-
-
-def _layer(params, i: int):
-    return tree_map(lambda t: t[i], params["layers"])
 
 
 # ---------------------------------------------------------------------------
@@ -119,23 +117,30 @@ def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl, moe_groups=None):
     return x + L.mlp(cfg, lp["mlp"], h), None, (k, v)
 
 
-def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bool = False,
-            last_only: bool = False, impl: str = "auto", moe_groups: "Optional[int]" = None):
+def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = "none",
+            return_kv: bool = False, last_only: bool = False, impl: str = "auto",
+            moe_groups: "Optional[int]" = None):
     """Teacher-forcing forward. batch["tokens"]: (B, S) int; a vlm batch
     may add "patch_embeds" (B, P, D) and "positions" (3, B, S).
 
     Returns (logits, aux_loss) or (logits, aux_loss, kv_cache) with
     ``return_kv`` (prefill: kv_cache is {'k','v'}: (L, B, S, K, hd)).
     ``aux_loss`` is the layers' router losses summed in f32 (0 without
-    MoE).  ``impl`` goes to ``layers.attention``: ``ref`` keeps attention on
-    the plain path.  ``moe_groups`` goes to ``moe_block`` as ``groups``."""
+    MoE).  ``remat`` (none, full, dots) applies to each layer
+    (``layers.remat_call``).  ``impl`` goes to ``layers.attention``:
+    ``ref`` keeps attention on the plain path.  ``moe_groups`` goes to
+    ``moe_block`` as ``groups``."""
     x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     cos, sin = _rope(cfg, _positions(cfg, batch, S))
     kv, auxs = None, []
-    for i in range(cfg.num_layers):
-        x, aux, (k, v) = _attn_mlp_layer(cfg, _layer(params, i), x, cos, sin, q_block=q_block,
-                                         impl=impl, moe_groups=moe_groups)
+
+    def layer(x, lp):
+        return _attn_mlp_layer(cfg, lp, x, cos, sin, q_block=q_block, impl=impl,
+                               moe_groups=moe_groups)
+
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.num_layers)):
+        x, aux, (k, v) = L.remat_call(remat, layer, x, lp)
         if aux is not None:
             auxs.append(aux)
         if return_kv:  # written layer by layer into the stacked cache: no second copy
@@ -151,6 +156,14 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, return_kv: bo
     if return_kv:
         return logits, aux, kv
     return logits, aux
+
+
+def loss_fn(cfg, params, batch, **kw):
+    """Mean next-token cross-entropy (f32) + ``AUX_LOSS_COEF`` x the MoE
+    router loss; ``kw`` goes to ``forward``."""
+    logits, aux = forward(cfg, params, batch, **kw)
+    xent = L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return xent + AUX_LOSS_COEF * aux
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +188,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     B = x.shape[0]
     shape = (3, B, 1) if cfg.rope_type == "mrope" else (B, 1)
     cos, sin = _rope(cfg, torch.full(shape, pos, dtype=torch.int64, device=x.device))
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = L.apply_norm(cfg, x, lp["ln1"])
         q, k, v = L.qkv_proj(cfg, lp["attn"], h)
         if cos is not None:
@@ -239,8 +251,7 @@ def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, t
     B = x.shape[0]
     p = positions[:, None]
     cos, sin = _rope(cfg, p[None].expand(3, B, 1) if cfg.rope_type == "mrope" else p)
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.num_layers)):
         h = L.apply_norm(cfg, x, lp["ln1"])
         q, k, v = L.qkv_proj(cfg, lp["attn"], h)
         if cos is not None:

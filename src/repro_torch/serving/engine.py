@@ -60,6 +60,7 @@ import torch
 from repro_torch.core.buffer import _host_tensor, _to_host, _to_host_value, torch_dtype
 from repro_torch.core.executor import coalesce
 from repro_torch.core.futures import Future, Promise
+from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["RequestEngine", "QueueFull", "EngineClosed", "LanePolicy"]
 
@@ -92,54 +93,6 @@ class LanePolicy:
     max_batch: "int | None" = None
     max_delay_s: "float | None" = None
     token_budget: "int | None" = None
-
-
-# ---------------------------------------------------------------------------
-# pytrees: dict (keys sorted, as JAX sorts them), list, tuple and None
-# ---------------------------------------------------------------------------
-
-_LEAF = "*"
-
-
-def tree_flatten(tree) -> "tuple[list, Any]":
-    """(leaves, treedef).  The treedef is nested tuples, hashable and
-    comparable: two dicts built in different key orders flatten alike.
-    ``None`` is a node without leaves; anything else is a leaf."""
-    leaves: list = []
-
-    def walk(node):
-        if node is None:
-            return None
-        if type(node) is dict:
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if type(node) in (list, tuple):
-            return (type(node).__name__, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return _LEAF
-
-    return leaves, walk(tree)
-
-
-def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == _LEAF:
-            return next(it)
-        if d[0] == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[1]]
-        return children if d[0] == "list" else tuple(children)
-
-    return build(treedef)
-
-
-def tree_map(fn: Callable, tree):
-    leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(a) for a in leaves])
 
 
 # ---------------------------------------------------------------------------

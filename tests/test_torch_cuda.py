@@ -2105,3 +2105,145 @@ def test_torch_cuda_make_serve_engine_matches_per_request_eager_decode():
         np.testing.assert_allclose(g["logits"], logits.cpu().numpy(), rtol=0, atol=2e-4)
         for k, v in cache_to_rows(cache).items():
             np.testing.assert_allclose(g["cache"][k], v.cpu().numpy(), rtol=0, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels inside autograd (kernels._autograd)
+# ---------------------------------------------------------------------------
+
+# loss_fn gradients with the kernels in the forward against the plain path,
+# in f32: every leaf within 1e-3 of its largest gradient (chip_smoke's
+# grad_parity bound; the forwards differ by the kernels' f32 rounding).
+GRAD_PARITY_TOL = 1e-3
+
+
+def _grad_run(cfg, params, batch, impl, **kw):
+    from repro_torch.pytree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(params)
+    masters = [p.detach().requires_grad_(True) for p in leaves]
+    reset_launch_counts()
+    loss = get_model(cfg).loss_fn(cfg, tree_unflatten(treedef, masters), batch, impl=impl, **kw)
+    grads = torch.autograd.grad(loss, masters)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch,seq,kernel", [("olmo-1b", 64, "flash_attention"),
+                                             ("mamba2-130m", 100, "ssd_scan"),
+                                             ("hymba-1.5b", 12, "flash_attention")])
+def test_torch_cuda_loss_fn_grads_kernel_vs_plain(arch, seq, kernel, remat):
+    """Smoke configs in f32 on the card (hymba: 12 tokens + 4 meta fit its
+    window of 16, so every layer takes flash; its SSM heads take ssd_scan
+    too): loss within 1e-5, every gradient leaf within ``GRAD_PARITY_TOL``
+    of its largest; the kernel launches once a layer in the forward (and
+    again in each recompute under full remat), never on the plain path."""
+    _need_cuda()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_batch
+
+    cfg = smoke(get_config(arch))
+    params = get_model(cfg).init(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+    batch = make_batch(cfg, ShapeConfig("t", seq_len=seq, global_batch=2, kind="train"), seed=1,
+                       device="cuda")
+    la, ga, ca = _grad_run(cfg, params, batch, "auto", remat=remat)
+    lr, gr, cr = _grad_run(cfg, params, batch, "ref", remat=remat)
+    np.testing.assert_allclose(la, lr, rtol=1e-5)
+    for a, b in zip(ga, gr):
+        assert float((a - b).abs().max()) <= GRAD_PARITY_TOL * float(b.abs().max())
+    per_layer = 1 if remat == "none" else 2
+    assert ca[kernel] == per_layer * cfg.num_layers and cr[kernel] == 0, (ca, cr)
+    if arch == "hymba-1.5b":
+        assert ca["ssd_scan"] == per_layer * cfg.num_layers and cr["ssd_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_torch_cuda_train_step_kernel_vs_plain():
+    """One ``make_train_step`` step of smoke olmo-1b (f32 compute, remat
+    full) with the kernels against the plain path: loss within 1e-5; params
+    within rtol 2e-4 atol 2e-6 but where AdamW's denominator is within 10
+    eps (the update is then rounding noise over eps; at most 1 in 1000)."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.recipes import plan_for
+    from repro_torch.models import make_batch
+    from repro_torch.pytree import tree_flatten
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import make_init, make_train_step
+
+    cfg = smoke(get_config("olmo-1b"))
+    shape = ShapeConfig("t", seq_len=128, global_batch=4, kind="train")
+    plan = dataclasses.replace(plan_for(cfg, shape), remat="full", compute_dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = make_batch(cfg, shape, seed=3, device="cuda")
+    out = {}
+    for impl in ("auto", "ref"):
+        params, state = make_init(cfg, opt, device="cuda")(0)
+        reset_launch_counts()
+        p2, s2, metrics = make_train_step(cfg, shape, opt, plan, impl=impl)(params, state, batch)
+        torch.cuda.synchronize()
+        out[impl] = (float(metrics["loss"]), tree_flatten(p2)[0], tree_flatten(s2["v"])[0],
+                     launch_counts()["flash_attention"])
+    np.testing.assert_allclose(out["auto"][0], out["ref"][0], rtol=1e-5)
+    assert out["auto"][3] == 2 * cfg.num_layers and out["ref"][3] == 0
+    n_ill = n = 0
+    for a, b, v in zip(out["auto"][1], out["ref"][1], out["ref"][2]):
+        ill = torch.sqrt(v / (1 - opt.b2)) < 10 * opt.eps
+        torch.testing.assert_close(a[~ill], b[~ill], rtol=2e-4, atol=2e-6)
+        n_ill += int((~torch.isclose(a, b, rtol=2e-4, atol=2e-6) & ill).sum())
+        n += a.numel()
+    assert n_ill <= n // 1000
+
+
+@pytest.mark.cuda
+def test_torch_cuda_raw_wrappers_raise_under_grad():
+    """The raw kernel wrappers refuse an input that requires grad (they
+    have no backward), and run it under ``no_grad``."""
+    _need_cuda()
+    q = torch.randn(1, 64, 2, 16, device="cuda")
+    k, v = torch.randn(1, 64, 2, 16, device="cuda"), torch.randn(1, 64, 2, 16, device="cuda")
+    x = torch.randn(1, 64, 2, 16, device="cuda")
+    dt = torch.rand(1, 64, 2, device="cuda") * 0.1
+    A = -torch.ones(2, device="cuda")
+    Bm, Cm = torch.randn(1, 64, 1, 8, device="cuda"), torch.randn(1, 64, 1, 8, device="cuda")
+    qd = torch.randn(2, 2, 16, device="cuda")
+    kp, vp = torch.randn(4, 16, 2, 16, device="cuda"), torch.randn(4, 16, 2, 16, device="cuda")
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
+    calls = [(lambda t: flash_kernel.flash_attention(t, k, v), q),
+             (lambda t: ssd_kernel.ssd_scan(t, dt, A, Bm, Cm), x),
+             (lambda t: paged_kernel.paged_attention(t, kp, vp, table, lengths), qd)]
+    for call, t in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(t.clone().requires_grad_())
+        with torch.no_grad():
+            call(t.clone().requires_grad_())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_train_driver_and_resume():
+    """``launch.train.train`` on the card at smoke size: finite losses, flash
+    once a layer and again in each recompute (the plan's dots), and a
+    kill-and-resume equal to the straight run within 1e-5."""
+    _need_cuda()
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    kw = dict(use_smoke=True, batch=4, seq=64, lr=1e-3, log_every=0, seed=5, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        full = train("olmo-1b", steps=6, ckpt_dir=os.path.join(tmp, "a"), ckpt_every=100, **kw)
+        assert launch_counts()["flash_attention"] == 6 * 2 * 2
+        train("olmo-1b", steps=3, ckpt_dir=os.path.join(tmp, "b"), ckpt_every=3,
+              schedule_total=6, **kw)
+        resumed = train("olmo-1b", steps=6, ckpt_dir=os.path.join(tmp, "b"), resume=True,
+                        ckpt_every=100, **kw)
+    assert all(np.isfinite(full["losses"]))
+    np.testing.assert_allclose(resumed["final_loss"], full["final_loss"], rtol=1e-5)
