@@ -113,6 +113,17 @@ with ``Dim3`` geometry, ``enqueue_read``):
   grad_parity  ``loss_fn`` gradients in f32 with the kernels in the forward
         against the plain path: OLMo-1B at full width with 2 layers, and
         Mamba2-130M whole; every leaf within 1e-3 of its largest gradient.
+  train_elastic  ``training.elastic.ElasticTrainer``, each shard's forward
+        and backward captured once as a CUDA graph and replayed every step.
+        OLMo-1B whole through ``train(workers=2, chaos=1)``, both workers
+        on the card's first device: a seeded kill inside step 4 of 8
+        reshards 2 shards of 2 rows into 1 of 4 (a second capture); 8
+        finite losses, one recovery, step 0 within 1e-3 of train's, flash
+        16 + 16 a replay.  Then Mamba2-130M over 4 logical devices, one row
+        each: a kill inside step 4, and the tail held bit-identical to a
+        clean 3-worker run from the snapshot on the survivors' devices;
+        ssd_scan 3 x (24 + 24) kernels a replay.  ``reset_runtime()`` after
+        each gives the graphs' memory back.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -123,12 +134,14 @@ Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 ``nvcc`` per source, all started together).  The launch counters are set to
 0 just before each main-path run (the three fig phases; each serve and
 paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
-phases, each run of the moe and encdec phases, each train run and each
-grad_parity run) and read just after; a
-kernel the run did not launch fails it.  Then each
+phases, each run of the moe and encdec phases, each train run, each
+grad_parity run and each part of train_elastic) and read just after; a
+kernel the run did not launch fails it (train_elastic's replays run their
+kernels without the wrappers: the wrappers count the warm-ups and captures,
+and each graph's recorded kernels times its replays the rest).  Then each
 kernel is held against its plain PyTorch version on the card at the main
-path's shapes (whisper-tiny's, Hymba-1.5B's and the train phases' among
-them) and timed
+path's shapes (whisper-tiny's, Hymba-1.5B's, the train phases' and the
+elastic shards' among them) and timed
 beside its bound.  The script prints the
 ``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -160,7 +173,8 @@ from torch.profiler import record_function  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distribution.recipes import plan_for  # noqa: E402
-from repro_torch.core import Dim3, Scheduler, async_, dataflow, get_all_devices, wait_all  # noqa: E402
+from repro_torch.core import (Dim3, Scheduler, async_, dataflow, get_all_devices,  # noqa: E402
+                              reset_runtime, wait_all)
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref  # noqa: E402
@@ -187,6 +201,8 @@ from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, Req
                                  rows_to_cache)
 from repro_torch.pytree import tree_flatten_with_path, tree_unflatten  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
+from repro_torch.training import elastic  # noqa: E402
+from repro_torch.training.elastic import ElasticTrainer  # noqa: E402
 from repro_torch.training.optimizer import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.training.train_step import make_train_step  # noqa: E402
 
@@ -291,6 +307,17 @@ TRAIN_ARCH, TRAIN_SSM_ARCH = "olmo-1b", "mamba2-130m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 10
 OVERFIT_STEPS, OVERFIT_LR = 8, 3e-4
 RESUME_STEPS, RESUME_AT, RESUME_RTOL = 8, 4, 1e-5
+# train_elastic: (a) OLMo-1B through train(workers=2, chaos=ELASTIC_CHAOS): both
+# workers on the card's first device, the seeded kill at step 4 of 8 reshards 2
+# shards of 2 rows into 1 of 4; (b) Mamba2-130M over 4 logical devices, 4 steps
+# 4-way, a kill inside step 4, 4 more steps, then a clean 3-way run of those 4
+# from the snapshot on the survivors' devices.  Step 0 of (a) against train's.
+# Each step time is a median over ELASTIC_MIN_STEPS steps at least: those after
+# a capture (step 0, the kill's step) and before the kill, or after it.
+ELASTIC_STEPS, ELASTIC_CHAOS, ELASTIC_DEVICES = 8, 1, 4
+ELASTIC_SSM_STEPS, ELASTIC_SSM_KILL_AT, ELASTIC_SSM_VICTIM = 8, 4, 1
+ELASTIC_MIN_STEPS = 3
+ELASTIC_LOSS0_RTOL = 1e-3
 # grad_parity: loss_fn gradients with the kernels in the forward against the
 # plain path, in f32, per leaf relative to the leaf's largest gradient.
 PARITY_BATCH, PARITY_SEQ, GRAD_PARITY_TOL = 2, 1024, 1e-3
@@ -1846,6 +1873,176 @@ def phase_grad_parity(dev) -> dict:
             "mamba2": grad_parity(dev, get_config(TRAIN_SSM_ARCH), shape)}
 
 
+def elastic_graphs(arch: str) -> dict:
+    """The elastic trainer's captured shard graphs of ``arch``: for each
+    (device, rows), the kernels a replay runs, the replays, the CUDA graphs."""
+    return {f"{k[1]} r{k[2]}": {"recorded": e[0].recorded_launches, "replays": e[0].graph_replays,
+                                "cuda_graphs": e[0].cuda_graphs}
+            for k, e in elastic._GEXECS.items() if k[0][0] == arch}
+
+
+def graphs_on_device(graphs: dict, kernel: str) -> int:
+    """The launches of ``kernel`` the replays ran: recorded x replays."""
+    return sum(g["recorded"].get(kernel, 0) * g["replays"] for g in graphs.values())
+
+
+def release_runtime() -> dict:
+    """``reset_runtime()`` (the elastic trainer's shard graphs and their
+    memory pools go with it): allocated bytes before and after."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_runtime()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"allocated_before": before, "allocated_after": torch.cuda.memory_allocated(),
+            "reserved_after": torch.cuda.memory_reserved()}
+
+
+def median_ms(secs) -> "float | None":
+    return float(np.median(secs)) * 1e3 if len(secs) else None
+
+
+def phase_train_elastic(dev, train_loss0: float) -> dict:
+    """Elastic data-parallel training, each shard's forward and backward
+    replayed as one CUDA graph.  (a) OLMo-1B at full width and depth
+    through ``train(workers=2, chaos=ELASTIC_CHAOS)``, both workers on the
+    card's first device: 8 finite losses, one recovery (2 shards of 2 rows
+    resharded into 1 of 4, a second capture), step 0 within
+    ``ELASTIC_LOSS0_RTOL`` of the train phase's (same seed, batch, init),
+    flash recorded in each graph once a layer and once in the recompute.
+    (b) Mamba2-130M over ``ELASTIC_DEVICES`` logical devices, one worker
+    and one row each: 4 steps, a snapshot, worker ``ELASTIC_SSM_VICTIM``
+    killed inside step 4, 4 more steps; then a clean 3-worker run of those
+    4 steps from the snapshot on the survivors' devices, in order: the
+    tails equal (``==``), ssd_scan's 3 kernels a call recorded once a layer
+    and once in the recompute in every shard graph.  After each part
+    ``reset_runtime()`` gives the graphs' memory back."""
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")
+    per_replay = train_kernel_layers(cfg, plan_for(cfg, shape))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = train(TRAIN_ARCH, use_smoke=False, steps=ELASTIC_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, workers=2, chaos=ELASTIC_CHAOS, log_every=0, seed=0,
+                device=dev.torch_device)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    graphs = elastic_graphs(TRAIN_ARCH)
+    losses, secs = run["losses"], run["step_seconds"]
+    kill = run["recoveries"][0][1] if run["recoveries"] else None
+    require(len(losses) == ELASTIC_STEPS and all(np.isfinite(losses)),
+            f"train_elastic olmo: losses {losses}")
+    require(len(run["recoveries"]) == 1, f"train_elastic olmo: recoveries {run['recoveries']}")
+    rel0 = abs(losses[0] - train_loss0) / abs(train_loss0)
+    require(rel0 <= ELASTIC_LOSS0_RTOL, f"train_elastic olmo: step 0 loss {losses[0]} against "
+                                        f"train's {train_loss0} (relative {rel0})")
+    require(sorted(graphs) == [f"{dev.key} r2", f"{dev.key} r4"]
+            and all(g["cuda_graphs"] == 1 and g["recorded"] == {"flash_attention": per_replay}
+                    for g in graphs.values()),
+            f"train_elastic olmo: shard graphs {graphs}, {per_replay} flash a replay planned")
+    others = {k: n for k, n in launches.items() if k != "flash_attention" and n}
+    require(launches["flash_attention"] == 2 * len(graphs) * per_replay and not others,
+            f"train_elastic olmo: launched by the host {launches} (warm-up and capture of "
+            f"{len(graphs)} graphs, {per_replay} each)")
+    before, after = secs[1:kill], secs[kill + 1:]
+    require(min(len(before), len(after)) >= ELASTIC_MIN_STEPS,
+            f"train_elastic olmo: kill at step {kill} of {len(secs)} leaves {len(before)} / "
+            f"{len(after)} replayed steps before / after it, {ELASTIC_MIN_STEPS} needed")
+    out["olmo"] = {
+        "arch": cfg.name, "params": cfg.param_count(), "workers": 2, "steps": ELASTIC_STEPS,
+        "chaos": ELASTIC_CHAOS, "killed_at_step": kill, "recoveries": len(run["recoveries"]),
+        "losses": losses, "train_loss0": train_loss0, "loss0_relative_difference": rel0,
+        "step_ms": [x * 1e3 for x in secs], "step_ms_p50_before_kill": median_ms(before),
+        "step_ms_p50_after_kill": median_ms(after), "p50_steps": [len(before), len(after)],
+        "tokens_per_s_before_kill": TRAIN_BATCH * TRAIN_SEQ / np.median(before) if before else None,
+        "tokens_per_s_after_kill": TRAIN_BATCH * TRAIN_SEQ / np.median(after) if after else None,
+        "graphs": graphs, "captures": len(graphs),
+        "replays": sum(g["replays"] for g in graphs.values()),
+        "flash_attention_host": launches["flash_attention"],
+        "flash_attention_on_device": graphs_on_device(graphs, "flash_attention"),
+        "flash_attention_per_replay_plan": per_replay,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    del run
+    out["olmo"]["release"] = release_runtime()
+
+    ssm = get_config(TRAIN_SSM_ARCH)
+    ssm_per_replay = train_kernel_layers(ssm, plan_for(ssm, shape))
+    devs = logical_devices(ELASTIC_DEVICES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    kw = dict(use_smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=ELASTIC_SSM_STEPS,
+              device=dev.torch_device)
+    t = ElasticTrainer(TRAIN_SSM_ARCH, workers=ELASTIC_DEVICES, devices=devs, **kw)
+    try:
+        head = t.run(ELASTIC_SSM_KILL_AT)
+        snap = t.snapshot()
+        t.workers[ELASTIC_SSM_VICTIM].kill_at_step(t.cursor)
+        tail = t.run(ELASTIC_SSM_STEPS - ELASTIC_SSM_KILL_AT)
+    finally:
+        t.close()
+    survivors = [d for i, d in enumerate(devs) if i != ELASTIC_SSM_VICTIM]
+    ref = ElasticTrainer(TRAIN_SSM_ARCH, workers=len(survivors), devices=survivors,
+                         state=(snap["params"], snap["opt_state"]), start_step=snap["step"], **kw)
+    try:
+        clean = ref.run(ELASTIC_SSM_STEPS - ELASTIC_SSM_KILL_AT)
+    finally:
+        ref.close()
+    torch.cuda.synchronize()
+    del snap
+    launches = launch_counts()
+    graphs = elastic_graphs(TRAIN_SSM_ARCH)
+    deaths = [(e[1], e[2]) for e in t.events if e[0] == "death"]
+    require(deaths == [(ELASTIC_SSM_KILL_AT, ELASTIC_SSM_VICTIM)] and not ref.events,
+            f"train_elastic mamba2: events {t.events} / clean {ref.events}")
+    require(all(np.isfinite(head["losses"] + tail["losses"])),
+            f"train_elastic mamba2: losses {head['losses']} {tail['losses']}")
+    require(min(len(head["step_seconds"]) - 1, len(clean["step_seconds"])) >= ELASTIC_MIN_STEPS,
+            f"train_elastic mamba2: {len(head['step_seconds']) - 1} / {len(clean['step_seconds'])}"
+            f" replayed steps 4-way / 3-way, {ELASTIC_MIN_STEPS} needed")
+    require(tail["losses"] == clean["losses"],
+            f"train_elastic mamba2: the tail after the kill {tail['losses']} is not the clean "
+            f"3-worker run's {clean['losses']}")
+    want = sorted([f"{d.key} r1" for d in devs] + [f"{devs[0].key} r2"])
+    require(sorted(graphs) == want and all(
+        g["cuda_graphs"] == 1 and g["recorded"] == {"ssd_scan": ssm_per_replay}
+        for g in graphs.values()),
+        f"train_elastic mamba2: shard graphs {graphs} (want {want}, {ssm_per_replay} ssd_scan "
+        "calls a replay)")
+    require(ssd_kernel.kernel_launches == len(SSD_KERNELS) * launches["ssd_scan"]
+            and launches["ssd_scan"] == 2 * len(graphs) * ssm_per_replay,
+            f"train_elastic mamba2: ssd_scan {launches['ssd_scan']} calls, "
+            f"{ssd_kernel.kernel_launches} kernels by the host")
+    out["mamba2"] = {
+        "arch": ssm.name, "params": ssm.param_count(), "workers": ELASTIC_DEVICES,
+        "devices": [d.key for d in devs], "steps": ELASTIC_SSM_STEPS,
+        "killed": [ELASTIC_SSM_KILL_AT, ELASTIC_SSM_VICTIM],
+        "losses": head["losses"] + tail["losses"], "clean_tail": clean["losses"],
+        "tail_bit_identical": True,
+        "step_ms_4way": [x * 1e3 for x in head["step_seconds"]],
+        "step_ms_after_kill": [x * 1e3 for x in tail["step_seconds"]],
+        "step_ms_3way_clean": [x * 1e3 for x in clean["step_seconds"]],
+        "step_ms_p50_4way": median_ms(head["step_seconds"][1:]),
+        "p50_steps": [len(head["step_seconds"]) - 1, len(clean["step_seconds"])],
+        "step_ms_p50_3way": median_ms(clean["step_seconds"]),
+        "tokens_per_s_3way": TRAIN_BATCH * TRAIN_SEQ / np.median(clean["step_seconds"]),
+        "graphs": graphs, "captures": len(graphs),
+        "replays": sum(g["replays"] for g in graphs.values()),
+        "ssd_scan_host": launches["ssd_scan"], "ssd_scan_kernels_host": ssd_kernel.kernel_launches,
+        "ssd_scan_on_device": graphs_on_device(graphs, "ssd_scan"),
+        "ssd_scan_kernels_on_device": len(SSD_KERNELS) * graphs_on_device(graphs, "ssd_scan"),
+        "ssd_scan_per_replay_plan": ssm_per_replay,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    del t, ref, head, tail, clean
+    out["mamba2"]["release"] = release_runtime()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # fleet: partition_map through run_on_any over logical devices (fig6)
 # ---------------------------------------------------------------------------
@@ -2585,13 +2782,14 @@ def ssd_bound(nbytes: float, Bz: int, H: int, S: int, P: int, N: int
     return min(routes, key=lambda r: r[0])
 
 
-def ssd_inputs(cfg, device, S: int = max(SSM_PROMPTS)) -> "list[torch.Tensor]":
+def ssd_inputs(cfg, device, S: int = max(SSM_PROMPTS), Bz: int = SERVE_BATCH
+               ) -> "list[torch.Tensor]":
     """x, dt, A, B, C at a serve shape (by default serve_ssm's longer
-    prompt) like the model's: x, B and C strided views of one xBC tensor,
-    the init's dt range and A = -(1..H), from a seed."""
+    prompt, ``SERVE_BATCH`` rows) like the model's: x, B and C strided
+    views of one xBC tensor, the init's dt range and A = -(1..H), from a
+    seed."""
     s = cfg.ssm
     H, P, G, N, di = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.d_state, s.d_inner(cfg.d_model)
-    Bz = SERVE_BATCH
     rng = np.random.default_rng(7)
     xbc = torch.from_numpy(rng.standard_normal((Bz, S, di + 2 * G * N), dtype=np.float32)).to(device)
     x = xbc[..., :di].reshape(Bz, S, H, P)
@@ -2604,16 +2802,17 @@ def ssd_inputs(cfg, device, S: int = max(SSM_PROMPTS)) -> "list[torch.Tensor]":
 
 
 def check_ssd(cfg, launches: int, kernel_launches: int, device, *, name: str = "ssd_scan",
-              prompts=SSM_PROMPTS) -> dict:
+              prompts=SSM_PROMPTS, batch: int = SERVE_BATCH, **extra) -> dict:
     """ssd_scan at the serve shape (``cfg``'s heads, the longer of
     ``prompts``) on ``ssd_inputs``.  y and the final state against
     ``ssd_chunked`` and against ``ssd_three_pass`` at the kernel's own chunk
     length, and against the sequential recurrence at the shorter prompt (a
     ragged last chunk).  ``launches`` and ``kernel_launches`` are the main
     path's calls and the CUDA kernels they launched, three a call.  The
-    bound is ``ssd_bound``'s.  The kernels-line entry ``name``."""
+    bound is ``ssd_bound``'s.  The kernels-line entry ``name``, with
+    ``batch`` rows and ``extra`` keys."""
     s = cfg.ssm
-    x, dt, A, B, C = ssd_inputs(cfg, device, max(prompts))
+    x, dt, A, B, C = ssd_inputs(cfg, device, max(prompts), batch)
     Bz, S, H, P = x.shape
     G, N = B.shape[2:]
     require(kernel_launches == len(SSD_KERNELS) * launches,
@@ -2656,7 +2855,7 @@ def check_ssd(cfg, launches: int, kernel_launches: int, device, *, name: str = "
                  max_abs_err_vs_three_pass=err_three,
                  max_abs_err_vs_sequential={"S": S1, "y": err_seq, "state": err_seq_state},
                  limit={"max_abs": SSD_TOL},
-                 library="none: no single PyTorch call computes the SSD scan")
+                 library="none: no single PyTorch call computes the SSD scan", **extra)
 
 
 def paged_bytes(q: "torch.Tensor", k_pages: "torch.Tensor", page_table: "torch.Tensor",
@@ -3106,6 +3305,42 @@ def main() -> int:
                       f" rtol {o['rtol']})", flush=True)
         print(f"{phase}: " + json.dumps(r), flush=True)
 
+    dev.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_elastic: starts with {torch.cuda.memory_allocated()} bytes allocated, "
+          f"{torch.cuda.memory_reserved()} reserved", flush=True)
+    t0 = time.perf_counter()
+    te = phase_train_elastic(dev, trains["train"]["losses"][0])
+    te["seconds"] = time.perf_counter() - t0
+    o, m = te["olmo"], te["mamba2"]
+    print(f"train_elastic olmo: {o['arch']} ({o['params']} parameters) through train(workers=2, "
+          f"chaos={o['chaos']}): killed at step {o['killed_at_step']}, {o['recoveries']} recovery; "
+          f"step ms p50 {o['step_ms_p50_before_kill']} before the kill / "
+          f"{o['step_ms_p50_after_kill']} after, over {o['p50_steps'][0]} / "
+          f"{o['p50_steps'][1]} steps ({o['tokens_per_s_before_kill']} / "
+          f"{o['tokens_per_s_after_kill']} tokens/s); steps {o['step_ms']}; {o['captures']} "
+          f"captures, {o['replays']} replays; flash {o['flash_attention_on_device']} on the "
+          f"device ({o['flash_attention_per_replay_plan']} a replay), "
+          f"{o['flash_attention_host']} by the host; step 0 loss {o['losses'][0]:.6f} against "
+          f"train's {o['train_loss0']:.6f} (relative {o['loss0_relative_difference']:.3e}); peak "
+          f"allocated / reserved {o['max_memory_allocated'] / 1e9:.2f} / "
+          f"{o['max_memory_reserved'] / 1e9:.2f} GB; reset_runtime: allocated "
+          f"{o['release']['allocated_before']} -> {o['release']['allocated_after']} bytes",
+          flush=True)
+    print(f"train_elastic mamba2: {m['arch']} over {m['workers']} logical devices, worker "
+          f"{m['killed'][1]} killed inside step {m['killed'][0]}: tail equal to the clean 3-worker "
+          f"run {m['tail_bit_identical']}; step ms p50 4-way {m['step_ms_p50_4way']}, 3-way "
+          f"{m['step_ms_p50_3way']}, over {m['p50_steps'][0]} / {m['p50_steps'][1]} steps "
+          f"({m['tokens_per_s_3way']:.0f} tokens/s); {m['captures']} "
+          f"captures, {m['replays']} replays; ssd_scan kernels on the device "
+          f"{m['ssd_scan_kernels_on_device']} ({len(SSD_KERNELS)} x {m['ssd_scan_per_replay_plan']}"
+          f" a replay); peak allocated / reserved {m['max_memory_allocated'] / 1e9:.2f} / "
+          f"{m['max_memory_reserved'] / 1e9:.2f} GB; reset_runtime: allocated "
+          f"{m['release']['allocated_before']} -> {m['release']['allocated_after']} bytes; "
+          f"{te['seconds']:.1f} s", flush=True)
+    print("train_elastic: " + json.dumps(te), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -3185,6 +3420,20 @@ def main() -> int:
                           trains["train_ssm"]["ssd_scan_kernels"], dev.torch_device,
                           name="ssd_scan_train", prompts=(min(SSM_PROMPTS), TRAIN_SEQ))]
     kernels[-1]["grad_parity_launches"] = trains["grad_parity"]["mamba2"]["launches_auto"]
+    # train_elastic's shard shapes: flash in bf16 at a 2-row shard of OLMo-1B
+    # (the 4-row shard after the kill is flash_attention_train's shape), ssd_scan
+    # at a 1-row shard of Mamba2-130M (the 2-row one after the kill apart); the
+    # wrapper counted the warm-ups and captures, the replays ran the rest
+    o, m = te["olmo"], te["mamba2"]
+    kernels += [check_flash("flash_attention_elastic",
+                            (TRAIN_BATCH // 2, TRAIN_SEQ, olmo.num_heads, olmo.num_kv_heads,
+                             olmo.hd), torch.bfloat16, o["flash_attention_host"],
+                            dev.torch_device, launches_on_device=o["flash_attention_on_device"]),
+                check_ssd(get_config(TRAIN_SSM_ARCH), m["ssd_scan_host"],
+                          m["ssd_scan_kernels_host"], dev.torch_device, name="ssd_scan_elastic",
+                          prompts=(min(SSM_PROMPTS), TRAIN_SEQ), batch=1,
+                          launches_on_device=m["ssd_scan_on_device"],
+                          kernels_on_device=m["ssd_scan_kernels_on_device"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

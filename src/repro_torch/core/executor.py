@@ -665,6 +665,16 @@ class Runtime:
 
 _runtime: Optional[Runtime] = None
 _runtime_lock = threading.Lock()
+# Called by reset_runtime after the device and scheduler caches are
+# dropped: a layer above the core that caches runtime objects registers
+# its own reset here when it is imported (on_runtime_reset).
+_reset_hooks: "list[Callable[[], None]]" = []
+
+
+def on_runtime_reset(fn: "Callable[[], None]") -> "Callable[[], None]":
+    """Register ``fn`` to run at every ``reset_runtime``; returns ``fn``."""
+    _reset_hooks.append(fn)
+    return fn
 
 
 def get_runtime() -> Runtime:
@@ -698,3 +708,5 @@ def reset_runtime() -> None:
 
     _device._on_runtime_reset()
     _scheduler._on_runtime_reset()
+    for hook in list(_reset_hooks):
+        hook()

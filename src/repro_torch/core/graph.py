@@ -746,7 +746,7 @@ class GraphExec:
         cap.wait_stream(caller)
         graph = torch.cuda.CUDAGraph()
         env = dict(static_in)
-        with torch.cuda.device(dev), torch.cuda.stream(cap), tally_launches() as recorded:
+        with torch.cuda.device(dev), torch.cuda.stream(cap), tally_launches(cap) as recorded:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self._run_segment(seg, env)

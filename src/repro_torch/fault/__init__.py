@@ -1,1 +1,2 @@
-"""Heartbeats and straggler detection (``src/repro/fault/monitor.py``)."""
+"""Heartbeats, straggler detection and seeded fault injection
+(``src/repro/fault``)."""

@@ -45,9 +45,9 @@ class Heartbeat:
 
     def force_expire(self) -> None:
         """Backdate the last tick past the deadline so the next ``check()``
-        reads dead — the fault injector's heartbeat-corruption hook (its
-        port comes with ROADMAP item 9b).  A subsequent ``tick()`` recovers
-        the worker exactly as a real flap would."""
+        reads dead — the heartbeat-corruption hook of the fault injector
+        (``fault.inject.FaultInjector.corrupt_heartbeat``).  A subsequent
+        ``tick()`` recovers the worker exactly as a real flap would."""
         with self._lock:
             self._last = time.monotonic() - 2.0 * self.timeout_s
 

@@ -6,9 +6,12 @@ reference package's order, so importing ``repro_torch.kernels`` stays
 cheap and builds nothing.
 
 Each wrapper counts its launches in its module's ``launches``
-(``launch_counts``) and tells ``note_launch``, which tallies them for the
-calling thread inside a ``tally_launches()`` block: a CUDA-graph capture
-learns there which kernels every replay of the graph runs."""
+(``launch_counts``) and tells ``note_launch``, which tallies them inside a
+``tally_launches(stream)`` block when they launch on that CUDA stream,
+from whatever thread: a CUDA-graph capture learns there which kernels
+every replay of the graph runs, those of a backward among them
+(autograd's device thread issues a backward's kernels, a remat
+recompute's too, on the stream of their forward)."""
 from __future__ import annotations
 
 import contextlib
@@ -49,27 +52,37 @@ def reset_launch_counts() -> None:
                 setattr(mod, extra, 0)
 
 
-_tally = threading.local()
+# CUDA stream (its handle) -> the tally of the block that names it
+_stream_tallies: "dict[int, dict[str, int]]" = {}
+_stream_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def tally_launches():
-    """``{package: launches}`` made by the kernel wrappers on THIS thread
-    inside the block (other threads' launches are not counted)."""
-    prev = getattr(_tally, "counts", None)
+def tally_launches(stream):
+    """``{package: launches}`` made by the kernel wrappers on ``stream``
+    (a ``torch.cuda.Stream``) inside the block, by any thread."""
+    key = stream.cuda_stream
     counts: "dict[str, int]" = {}
-    _tally.counts = counts
+    with _stream_lock:
+        _stream_tallies[key] = counts
     try:
         yield counts
     finally:
-        _tally.counts = prev
+        with _stream_lock:
+            _stream_tallies.pop(key, None)
 
 
 def note_launch(package: str) -> None:
-    """Called by a wrapper where it launches its kernel."""
-    counts = getattr(_tally, "counts", None)
-    if counts is not None:
-        counts[package] = counts.get(package, 0) + 1
+    """Called by a wrapper where it launches its kernel (on the current
+    CUDA stream)."""
+    if not _stream_tallies:
+        return
+    import torch
+
+    with _stream_lock:
+        counts = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
+        if counts is not None:
+            counts[package] = counts.get(package, 0) + 1
 
 
 __all__ = ["all_kernels", "launch_counts", "note_launch", "reset_launch_counts",

@@ -8,12 +8,20 @@ fail-stop resume.  The step updates the params and the optimizer state in
 place (the reference's ``donate_argnums=(0, 1)``).  It runs on the card
 unless the caller asks for another device.
 
-The elastic route (``--workers N`` with N > 1, ``--elastic``, a parcel
-port, ``--chaos``, ``--grad-compression``) comes with ROADMAP item 9b, and
-a device mesh with item 11: both raise ``NotImplementedError``.
+With ``--workers N`` (N > 1) or ``--elastic``, the driver routes through
+``repro_torch.training.elastic.ElasticTrainer`` instead: the batch is
+sharded across local workers, each shard's forward and backward replayed
+as one captured graph, the gradients combined on the driver's device, and
+a worker death mid-run reshards over the survivors (DESIGN.md §16).
+``--chaos SEED`` arms the fault injector with a deterministic mid-run
+worker kill drawn from SEED — the recovery drill.  Parcel workers (a
+parcel port) come with ROADMAP item 10 and a device mesh with item 11:
+both raise ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 10 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --steps 6 --batch 4 --seq 2048 --workers 4 --chaos 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \
         --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt --device cpu
 """
@@ -63,10 +71,28 @@ def train(
     """Train ``arch`` for ``steps`` steps (from the latest checkpoint with
     ``resume``) on ``device``.  Returns {"losses", "final_loss",
     "stragglers", "step_seconds", "params", "opt_state"}: the reference's
-    keys plus each step's wall seconds."""
-    if elastic or workers > 1 or port is not None or chaos is not None or grad_compression:
-        raise NotImplementedError("train: the elastic route (workers > 1, elastic, port, chaos, "
-                                  "grad_compression) comes with ROADMAP item 9b")
+    keys plus each step's wall seconds; the elastic route adds "events"
+    and "recoveries"."""
+    if elastic or workers > 1 or port is not None:
+        return _train_elastic(
+            arch,
+            use_smoke=use_smoke,
+            steps=steps,
+            batch=batch,
+            seq=seq,
+            lr=lr,
+            ckpt_dir=ckpt_dir,
+            ckpt_every=ckpt_every,
+            resume=resume,
+            log_every=log_every,
+            seed=seed,
+            schedule_total=schedule_total,
+            workers=workers,
+            port=port,
+            chaos=chaos,
+            grad_compression=grad_compression,
+            device=device,
+        )
     if mesh is not None:
         raise NotImplementedError("train: a device mesh comes with ROADMAP item 11; the port "
                                   "trains on one device")
@@ -145,6 +171,61 @@ def train(
     }
 
 
+def _train_elastic(
+    arch: str,
+    *,
+    use_smoke: bool,
+    steps: int,
+    batch: int,
+    seq: int,
+    lr: float,
+    ckpt_dir: "str | None",
+    ckpt_every: int,
+    resume: bool,
+    log_every: int,
+    seed: int,
+    schedule_total: "int | None",
+    workers: int,
+    port,
+    chaos: "int | None",
+    grad_compression: bool,
+    device,
+) -> dict:
+    """Elastic data-parallel route (DESIGN.md §16).  ``chaos`` arms a
+    deterministic mid-run worker kill: the run must complete anyway, with
+    the post-kill loss curve bit-identical to a clean survivor-count run
+    from the same state (the property the tests drill)."""
+    from repro_torch.fault.inject import FaultInjector
+    from repro_torch.training.elastic import ElasticTrainer
+
+    trainer = ElasticTrainer(
+        arch,
+        use_smoke=use_smoke,
+        batch=batch,
+        seq=seq,
+        lr=lr,
+        seed=seed,
+        workers=workers,
+        port=port,
+        grad_compression=grad_compression,
+        total_steps=schedule_total or steps,
+        ckpt_dir=ckpt_dir,
+        ckpt_every=ckpt_every,
+        resume=resume,
+        device=device,
+    )
+    try:
+        if chaos is not None:
+            inj = FaultInjector(seed=int(chaos))
+            kill_after, victim = inj.plan_kill(steps - trainer.cursor, trainer.workers)
+            inj.kill_at_step(victim, trainer.cursor + kill_after)
+        out = trainer.run(max(0, steps - trainer.cursor), log_every=log_every)
+    finally:
+        trainer.close()
+    out["recoveries"] = [e for e in trainer.events if e[0] == "death"]
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
@@ -184,6 +265,8 @@ def main():
         device=args.device,
     )
     print(f"final loss: {out['final_loss']:.4f}  stragglers: {out['stragglers']}")
+    for ev in out.get("recoveries", []):
+        print(f"recovered: worker {ev[2]} died at step {ev[1]}, resharded over survivors")
 
 
 if __name__ == "__main__":

@@ -439,13 +439,17 @@ def remat_call(remat: str, fn, *args):
     activation for the backward; ``full`` keeps the inputs and recomputes
     the rest in the backward (``jax.checkpoint``); ``dots`` also keeps the
     projections' outputs (selective checkpointing).  A kernel inside ``fn``
-    launches again in each recompute."""
+    launches again in each recompute.  The layers draw no random numbers,
+    so the recompute does not stash and restore the RNG states (which a
+    CUDA graph capture refuses: the elastic trainer captures the
+    backward)."""
     if remat == "none":
         return fn(*args)
     if remat == "full":
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     if remat == "dots":
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=_dots_context)
     raise ValueError(f"remat={remat!r}: use one of {REMATS}")
 
 

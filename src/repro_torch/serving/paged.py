@@ -1757,7 +1757,7 @@ class _StepGraphs:
         cur = torch.cuda.current_stream(self.lane.device.torch_device)
         self._cap.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self._cap), tally_launches() as recorded:
+        with torch.cuda.stream(self._cap), tally_launches(self._cap) as recorded:
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
                 out = eng.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)

@@ -1,2 +1,2 @@
-"""Single-device training: AdamW, the microbatched train step and int8
-gradient compression (``src/repro/training``)."""
+"""Training: AdamW, the microbatched train step, int8 gradient compression
+and elastic data-parallel training over local workers (``src/repro/training``)."""

@@ -2247,3 +2247,90 @@ def test_torch_cuda_train_driver_and_resume():
                         ckpt_every=100, **kw)
     assert all(np.isfinite(full["losses"]))
     np.testing.assert_allclose(resumed["final_loss"], full["final_loss"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# elastic training over local workers: each shard a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _elastic(arch, workers, devices, **kw):
+    from repro_torch.training.elastic import ElasticTrainer
+
+    return ElasticTrainer(arch, use_smoke=True, batch=4, seq=64, workers=workers,
+                          devices=devices, total_steps=5, device="cuda", **kw)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_elastic_midstep_kill_bit_identical_over_logical_devices():
+    """Smoke olmo-1b over 2 logical devices of the card, worker 1 killed
+    inside step 1: the tail equals, bit for bit, a clean 1-worker run from
+    the snapshot on the survivor's device (every shard a CUDA graph)."""
+    _need_cuda()
+    devs = _logical(2)
+    t = _elastic("olmo-1b", 2, devs)
+    try:
+        t.run(1)
+        snap = t.snapshot()
+        t.workers[1].kill_at_step(t.cursor)
+        tail = t.run(3)["losses"]
+        assert [e[:3] for e in t.events] == [("death", 1, 1)]
+    finally:
+        t.close()
+    ref = _elastic("olmo-1b", 1, [devs[0]], state=(snap["params"], snap["opt_state"]),
+                   start_step=snap["step"])
+    try:
+        assert ref.run(3)["losses"] == tail
+        assert all(np.isfinite(tail))
+    finally:
+        ref.close()
+    reset_runtime()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_elastic_graph_and_jit_routes_agree(monkeypatch):
+    """The replayed shard graphs and the direct eager route give the same
+    losses within rtol 1e-5 on the card, 2 workers on 2 logical devices."""
+    _need_cuda()
+    devs = _logical(2)
+    losses = {}
+    for route in ("graph", "jit"):
+        monkeypatch.setenv("REPRO_ELASTIC_ROUTE", route)
+        t = _elastic("olmo-1b", 2, devs)
+        try:
+            losses[route] = t.run(3)["losses"]
+        finally:
+            t.close()
+    np.testing.assert_allclose(losses["graph"], losses["jit"], rtol=1e-5)
+    reset_runtime()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernel", [("olmo-1b", "flash_attention"),
+                                         ("mamba2-130m", "ssd_scan")])
+def test_torch_cuda_elastic_kernels_counted_inside_shard_graph(arch, kernel):
+    """Each shard's captured graph holds the kernel once a layer in the
+    forward and once in the remat recompute (the backward's recompute runs
+    on autograd's device thread, on the capture stream), and the replays
+    run it without the wrapper: its host count is warm-up + capture only."""
+    _need_cuda()
+    from repro_torch.training import elastic
+
+    reset_runtime()
+    reset_launch_counts()
+    t = _elastic(arch, 2, None)
+    try:
+        t.run(3)
+    finally:
+        t.close()
+    cfg = smoke(get_config(arch))
+    plan = elastic._get_family(arch, True, 64, 4)["plan"]
+    per_replay = cfg.num_layers * (1 if plan.remat == "none" else 2)
+    (gexec, *_), = [e for k, e in elastic._GEXECS.items() if k[0][0] == arch]
+    assert gexec.cuda_graphs == 1
+    assert gexec.recorded_launches == {kernel: per_replay}
+    assert gexec.graph_replays == 3 * 2  # 3 steps x 2 shards of 2 rows, one graph
+    assert launch_counts()[kernel] == 2 * per_replay  # warm-up + capture
+    if kernel == "ssd_scan":
+        assert ssd_kernel.kernel_launches == 3 * launch_counts()[kernel]
+    reset_runtime()

@@ -22,7 +22,8 @@ from repro.kernels.mandelbrot.ref import mandelbrot_ref as jax_mandelbrot_ref
 from repro.kernels.partition_map.kernel import partition_map as pallas_partition_map
 from repro.kernels.stencil.kernel import stencil as pallas_stencil
 from repro.kernels.stencil.ref import stencil_ref as jax_stencil_ref
-from repro_torch.kernels import _build, _launch, all_kernels, launch_counts, reset_launch_counts
+from repro_torch.kernels import (_build, _launch, all_kernels, launch_counts, note_launch,
+                                 reset_launch_counts, tally_launches)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel
 from repro_torch.kernels.mandelbrot import ops as mandel_ops
@@ -357,3 +358,30 @@ def test_torch_check_raises_on_cuda_error():
     _build.check(_Lib, 0, "stencil")
     with pytest.raises(RuntimeError, match="stencil: CUDA error 9 .invalid configuration"):
         _build.check(_Lib, 9, "stencil")
+
+
+def test_torch_tally_launches_counts_the_named_stream_from_any_thread(monkeypatch):
+    """A capture's tally counts the launches made on its stream, by any
+    thread (autograd's device thread issues a backward's kernels on the
+    stream of their forward), and none made on another stream."""
+    import threading
+    import types
+
+    current = threading.local()
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=current.handle))
+    note_launch("stencil")  # no block open: nothing to tally, and no stream asked for
+    cap = types.SimpleNamespace(cuda_stream=7)
+
+    def launch(handle, package):
+        current.handle = handle
+        note_launch(package)
+
+    with tally_launches(cap) as recorded:
+        launch(7, "flash_attention")
+        other = threading.Thread(target=launch, args=(7, "ssd_scan"))
+        other.start()
+        other.join()
+        launch(8, "stencil")  # another stream
+    launch(7, "flash_attention")  # after the block
+    assert recorded == {"flash_attention": 1, "ssd_scan": 1}

@@ -375,11 +375,14 @@ def test_torch_train_step_bf16_compute_keeps_f32_masters():
 
 
 def test_torch_train_refuses_elastic_and_mesh_routes():
+    """What the driver still refuses: the elastic route over parcel
+    workers (a port; item 10: the local elastic route is
+    ``tests/test_torch_elastic_train.py``'s) and a device mesh (item 11)."""
     from repro_torch.launch.train import train
 
-    for kw in (dict(workers=2), dict(elastic=True), dict(chaos=3), dict(grad_compression=True),
-               dict(port=object())):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+    for kw in (dict(port=object()), dict(workers=2, port=object()),
+               dict(elastic=True, port=object())):
+        with pytest.raises(NotImplementedError, match="item 10"):
             train("olmo-1b", steps=1, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 11"):
         train("olmo-1b", steps=1, device="cpu", mesh=object())

@@ -1,6 +1,7 @@
 """Where a training step's time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--arch olmo-1b] [--batch 4] [--seq 2048]
+        [--workers N [--devices K]]
 
 Builds the step ``chip_smoke.py``'s train phases run (``plan_for`` the
 shape, ``make_train_step`` with ``donate=True``, seeded random weights at
@@ -13,11 +14,21 @@ their count and the kernels that take most of it; the step's device ms
 and its device idle share (1 - device ms / host ms), peak memory, and the
 device ms by kind of kernel (products, the hand-written kernels,
 elementwise and the rest, by name).
+
+With ``--workers N`` it profiles one step of the elastic trainer instead
+(``training.elastic.ElasticTrainer``, as ``chip_smoke.py``'s
+``train_elastic`` phase builds it): N local workers on the card's first
+device, or spread over ``--devices K`` logical devices of it, each shard
+replayed as a captured graph.  The warm-up steps capture the graphs; the
+parts are ``elastic.ELASTIC_SPANS`` (the shards' dispatch, replays and
+their wait; the gradient combine; AdamW), and the line adds the graphs
+captured and the kernels their replays ran.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -35,9 +46,12 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from profile_torch_serve import span_device_ms  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core import get_all_devices  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.distribution.recipes import plan_for  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.training import elastic  # noqa: E402
+from repro_torch.training.elastic import ELASTIC_SPANS, ElasticTrainer  # noqa: E402
 from repro_torch.training.optimizer import OptConfig  # noqa: E402
 from repro_torch.training.train_step import TRAIN_SPANS, make_init, make_train_step  # noqa: E402
 
@@ -58,11 +72,25 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def logical_devices(n: int) -> list:
+    """``n`` logical devices of the first card (``REPRO_LOGICAL_DEVICES``,
+    set around this one discovery)."""
+    os.environ["REPRO_LOGICAL_DEVICES"] = str(n)
+    try:
+        return get_all_devices(1, 0).get()[:n]
+    finally:
+        os.environ.pop("REPRO_LOGICAL_DEVICES")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="profile an elastic step over this many local workers")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="spread the workers over this many logical devices of the card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -73,16 +101,26 @@ def main() -> int:
     cfg = get_config(args.arch)
     shape = ShapeConfig("profile", seq_len=args.seq, global_batch=args.batch, kind="train")
     plan = plan_for(cfg, shape)
-    opt = OptConfig(warmup_steps=1, total_steps=100)
-    params, state = make_init(cfg, opt, device="cuda")(0)
-    step = make_train_step(cfg, shape, opt, plan, donate=True)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in SyntheticTokens(cfg.vocab_size, args.seq, args.batch).batch(0).items()}
+    extra = {}
+    if args.workers:
+        spans_of = ELASTIC_SPANS
+        trainer = ElasticTrainer(args.arch, use_smoke=False, batch=args.batch, seq=args.seq,
+                                 workers=args.workers, total_steps=100, device="cuda",
+                                 devices=logical_devices(args.devices) if args.devices else None)
+        extra = {"workers": args.workers, "logical_devices": args.devices or 1}
+        run = trainer.step
+    else:
+        spans_of = TRAIN_SPANS
+        opt = OptConfig(warmup_steps=1, total_steps=100)
+        params, state = make_init(cfg, opt, device="cuda")(0)
+        step = make_train_step(cfg, shape, opt, plan, donate=True)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in SyntheticTokens(cfg.vocab_size, args.seq, args.batch).batch(0).items()}
 
-    def run():
-        nonlocal params, state
-        params, state, metrics = step(params, state, batch)
-        return float(metrics["loss"])
+        def run():
+            nonlocal params, state
+            params, state, metrics = step(params, state, batch)
+            return float(metrics["loss"])
 
     for _ in range(2):
         run()
@@ -94,10 +132,10 @@ def main() -> int:
         host.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    spans = span_device_ms(prof, TRAIN_SPANS, top=8)
+    spans = span_device_ms(prof, spans_of, top=8)
     kinds = Counter()
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in TRAIN_SPANS:
+        if e.device_type == DeviceType.CUDA and e.name not in spans_of:
             kinds[kind_of(e.name)] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(s["device_ms"] for s in spans.values())
     host_ms = sorted(host)[1]
@@ -108,8 +146,16 @@ def main() -> int:
                       "tokens_per_s": args.batch * args.seq / host_ms * 1e3,
                       "max_memory_allocated": torch.cuda.max_memory_allocated(),
                       "max_memory_reserved": torch.cuda.max_memory_reserved(),
-                      "device_ms_by_kind": dict(kinds.most_common()), "spans": spans}),
+                      "device_ms_by_kind": dict(kinds.most_common()), "spans": spans,
+                      **extra}),
           flush=True)
+    if args.workers:
+        gexecs = [e[0] for e in elastic._GEXECS.values()]
+        print(json.dumps({"graphs_captured": len(gexecs),
+                          "graph_replays": sum(g.graph_replays for g in gexecs),
+                          "recorded_launches": [g.recorded_launches for g in gexecs]}),
+              flush=True)
+        trainer.close()
     return 0
 
 
