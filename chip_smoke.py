@@ -124,6 +124,25 @@ with ``Dim3`` geometry, ``enqueue_read``):
         clean 3-worker run from the snapshot on the survivors' devices;
         ssd_scan 3 x (24 + 24) kernels a replay.  ``reset_runtime()`` after
         each gives the graphs' memory back.
+  cluster  the paper's "any (local or remote) GPU device" across processes:
+        after ``reset_runtime()``, a ``LocalClusterParcelport(n_workers=2,
+        platform="cuda")`` spawns two worker processes, each with its own
+        CUDA context on the card, so ``get_all_localities(cluster=port)``
+        gives three localities.  fig3's flow runs on L1 and fig5's on L2 at
+        full size through ``RemoteDevice``/``RemoteBuffer``/``RemoteProgram``
+        (kernels by name), bit-equal to the fig phases' local results; fig4's
+        4 partitions are placed by ``run_on_any`` over the port's scheduler
+        (percolation) and are bit-equal to local; the remote-launch overhead
+        by ``benchmarks/fig7_remote.py``'s protocol (n 2^14, 11 iterations,
+        the first discarded, serial and 8 in flight) local, loopback and
+        cluster, on the hand-written partition_map; a plan over L0 (a CUDA
+        graph) and L1 (one ``run_segment`` parcel) bit-equal to the eager
+        chain; then Mamba2-130M trained through ``train(port=port)``, worker
+        1 SIGKILLed inside step 4 of 8, held against the same run on the
+        local route (2 ``LocalWorker``s on the card).  The workers' counters
+        are read through the ``invoke`` action.  After the port's shutdown
+        and ``reset_runtime()``: no child process, no new ``/dev/shm``
+        segment, the proxies' AGAS records retired.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -173,8 +192,10 @@ from torch.profiler import record_function  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distribution.recipes import plan_for  # noqa: E402
-from repro_torch.core import (Dim3, Scheduler, async_, dataflow, get_all_devices,  # noqa: E402
-                              reset_runtime, wait_all)
+from repro_torch.core import (Dim3, LocalClusterParcelport, LoopbackParcelport,  # noqa: E402
+                              Program, Scheduler, async_, dataflow, get_all_devices,
+                              get_all_localities, registry, reset_runtime, wait_all)
+from repro_torch.core import parcel  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import bf16_bound, flash_attention_ref  # noqa: E402
@@ -321,6 +342,17 @@ ELASTIC_LOSS0_RTOL = 1e-3
 # grad_parity: loss_fn gradients with the kernels in the forward against the
 # plain path, in f32, per leaf relative to the leaf's largest gradient.
 PARITY_BATCH, PARITY_SEQ, GRAD_PARITY_TOL = 2, 1024, 1e-3
+# cluster: two worker processes on the card (three localities); the
+# remote-launch overhead by benchmarks/fig7_remote.py's protocol (n, the
+# iterations of which the first is discarded, the launches in flight); the
+# two-locality plan's replays; Mamba2-130M trained through the workers, the
+# kill planned by ELASTIC_CHAOS (worker 1 inside step 4 of 8), held to the
+# local route at the losses' and the params' tolerances of the train phases.
+CLUSTER_WORKERS = 2
+OVERHEAD_N, OVERHEAD_ITERS, OVERHEAD_DEPTH = 1 << 14, 11, 8
+CLUSTER_PLAN_REPLAYS = 3
+CLUSTER_LOSS_RTOL = 1e-5
+CLUSTER_PARAM_TOL = dict(rtol=2e-4, atol=2e-6)
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
 # takes about 230 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
@@ -1876,9 +1908,8 @@ def phase_grad_parity(dev) -> dict:
 def elastic_graphs(arch: str) -> dict:
     """The elastic trainer's captured shard graphs of ``arch``: for each
     (device, rows), the kernels a replay runs, the replays, the CUDA graphs."""
-    return {f"{k[1]} r{k[2]}": {"recorded": e[0].recorded_launches, "replays": e[0].graph_replays,
-                                "cuda_graphs": e[0].cuda_graphs}
-            for k, e in elastic._GEXECS.items() if k[0][0] == arch}
+    return {k: {f: g[f] for f in ("recorded", "replays", "cuda_graphs")}
+            for k, g in elastic.graph_stats().items() if g["arch"] == arch}
 
 
 def graphs_on_device(graphs: dict, kernel: str) -> int:
@@ -2040,6 +2071,368 @@ def phase_train_elastic(dev, train_loss0: float) -> dict:
         "max_memory_reserved": torch.cuda.max_memory_reserved()}
     del t, ref, head, tail, clean
     out["mamba2"]["release"] = release_runtime()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cluster: parcels to worker processes on the card (Listings 1-2 remote,
+# fig7's overhead protocol, a plan over two localities, elastic training)
+# ---------------------------------------------------------------------------
+
+
+def shm_segments() -> set:
+    """POSIX shared-memory segments of the parcel lane now in /dev/shm."""
+    import glob
+
+    return set(glob.glob("/dev/shm/psm_*"))
+
+
+def shm_df() -> str:
+    """``df -B1 /dev/shm``: the room the shared-memory lane has."""
+    r = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True, timeout=60)
+    return (r.stdout or r.stderr).strip()
+
+
+def mem_info() -> dict:
+    """The card's free and total bytes (``torch.cuda.mem_get_info``) and the
+    processes ``nvidia-smi`` lists on it with their memory."""
+    free, total = torch.cuda.mem_get_info()
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return {"free": free, "total": total, "apps": r.stdout.strip().splitlines()}
+
+
+class MemSampler:
+    """Samples the card's free bytes every ``interval`` seconds on a thread,
+    and whether the process ``proc`` is alive: around a worker's death the
+    trace shows its memory coming back to the card (``nvidia-smi`` in a
+    container does not list a process's own memory)."""
+
+    def __init__(self, proc, interval: float = 0.05):
+        self.proc, self.interval = proc, interval
+        self.samples: "list[tuple[float, int, bool]]" = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="mem-sampler", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        t0 = time.perf_counter()
+        while not self._stop.wait(self.interval):
+            self.samples.append((time.perf_counter() - t0, torch.cuda.mem_get_info()[0],
+                                 self.proc.is_alive()))
+
+    def stop(self) -> dict:
+        """The last free bytes while the process lived, the most free in the
+        2 s after its death, and the jump between them."""
+        self._stop.set()
+        self._thread.join()
+        alive = [x for x in self.samples if x[2]]
+        dead = [x for x in self.samples if not x[2]]
+        if not alive or not dead:
+            return {"samples": len(self.samples), "death_seen": bool(dead)}
+        t_death = dead[0][0]
+        after = max(f for t, f, _ in dead if t <= t_death + 2.0)
+        return {"samples": len(self.samples), "death_seen": True, "death_s": t_death,
+                "free_before_death": alive[-1][1], "free_after_death_max_2s": after,
+                "released_bytes": after - alive[-1][1]}
+
+
+def worker_counts(port) -> dict:
+    """Each live worker's own counters, read by name through ``invoke``:
+    kernel wrapper launches, kernels launched by the wrappers that count
+    them apart, and the arrays it encoded by lane."""
+    out = {}
+    for d in port.devices():
+        if not (port.alive(d.locality_id) and port.process(d.locality_id).is_alive()):
+            continue
+        ask = lambda fn: port.call(d.locality_id, "invoke", {"fn": fn}).get()  # noqa: E731
+        out[d.key] = {"launches": ask("repro_torch.kernels:launch_counts"),
+                      "kernel_launches": ask("repro_torch.kernels:kernel_launches"),
+                      "lanes": ask("repro_torch.core.parcel:lane_counts")}
+    return out
+
+
+def fig7_seconds(fn, iters: int = OVERHEAD_ITERS) -> float:
+    """``benchmarks/common.timeit``'s protocol: the mean of ``iters - 1``
+    runs, the first discarded."""
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return sum(ts[1:]) / (len(ts) - 1)
+
+
+def launch_overhead(progs: dict, x: np.ndarray) -> dict:
+    """fig7_remote's rows on the hand-written partition_map: a launch waited
+    on alone (serial), and ``OVERHEAD_DEPTH`` launches in flight, through
+    each transport's program; µs a launch and the multiple of local."""
+    out = {}
+    for name, prog in progs.items():
+        def serial(prog=prog):
+            prog.run([x], "partition_map").get()
+
+        def burst(prog=prog):
+            futs = [prog.run([x], "partition_map") for _ in range(OVERHEAD_DEPTH)]
+            for f in futs:
+                f.get()
+
+        serial()  # warm-up: builds and remote programs outside the clock
+        burst()
+        out[name] = {"serial_us": fig7_seconds(serial) * 1e6,
+                     "inflight_us": fig7_seconds(burst) / OVERHEAD_DEPTH * 1e6}
+    for name, row in out.items():
+        row["serial_x_local"] = row["serial_us"] / out["local"]["serial_us"]
+        row["inflight_x_local"] = row["inflight_us"] / out["local"]["inflight_us"]
+    return out
+
+
+def host_array(r) -> np.ndarray:
+    """A launch's result as a host array: a remote launch replies with a
+    list of host arrays, a local one resolves to its tensor."""
+    if isinstance(r, list):
+        r = r[0]
+    return r.cpu().numpy() if isinstance(r, torch.Tensor) else np.asarray(r)
+
+
+def params_within(got: dict, want: dict, opt_state: dict) -> dict:
+    """The parity of whole train steps: every param within rtol 2e-4,
+    atol 2e-6, but those whose AdamW denominator sqrt(v_hat) is within 10
+    eps (the update is rounding noise over eps there), of which at most one
+    in 1000 may differ more."""
+    from repro_torch.pytree import tree_flatten
+
+    cfg = OptConfig()
+    step = int(opt_state["step"])
+    worst, exempt_off, n = 0.0, 0, 0
+    for a, b, v in zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                       tree_flatten(opt_state["v"])[0]):
+        a, b = a.detach().float().cpu().numpy(), b.detach().float().cpu().numpy()
+        ill = np.sqrt(v.detach().cpu().numpy() / (1 - cfg.b2 ** step)) < 10 * cfg.eps
+        close = np.isclose(a, b, **CLUSTER_PARAM_TOL)
+        require(bool(close[~ill].all()), "cluster: parcel-route params differ from the local "
+                                         f"route's beyond {CLUSTER_PARAM_TOL}")
+        exempt_off += int((~close & ill).sum())
+        worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+        n += a.size
+    require(exempt_off <= n // 1000, f"cluster: {exempt_off} of {n} params off at AdamW's eps")
+    return {"max_abs_difference": worst, "eps_exempt_differing": exempt_off, "params": n}
+
+
+def phase_cluster(fig3_hosts, fig4_hosts, main_image) -> dict:
+    """Parcels to two worker processes on the card: see the module
+    docstring's ``cluster`` entry.  Every part holds its result to the
+    same work done in this process."""
+    out = {"shm_df": shm_df()}
+    print("cluster: /dev/shm\n" + out["shm_df"], flush=True)
+    out["release"] = release_runtime()  # the earlier phases' graphs and pools
+    dev = get_all_devices().get()[0]
+    progs = {name: dev.create_program_with_file(str(KERNEL_DIR / name / "ops.py")).get()
+             for name in FIG_KERNELS}
+    # This process's results of the same work, for the bit-equality checks.
+    want3 = fig3_flow(dev, progs["stencil"], fig3_hosts)
+    want4 = [host_array(progs["partition_map"].run([h.numpy()], "partition_map",
+                                                     block=MAP_BLOCK).get()) for h in fig4_hosts]
+    gc.collect()
+    torch.cuda.empty_cache()
+    segs0 = shm_segments()
+    out["mem_before_spawn"] = mem_info()
+    reset_launch_counts()
+    parcel.reset_lane_counts()
+    t_phase = t0 = time.perf_counter()
+    port = LocalClusterParcelport(n_workers=CLUSTER_WORKERS, platform="cuda")
+    out["spawn_s"] = time.perf_counter() - t0
+    killed_pid = None
+    try:
+        locs = get_all_localities(cluster=port).get()
+        require(len(locs) == 1 + CLUSTER_WORKERS and locs[0].is_local
+                and not any(loc.is_local for loc in locs[1:]),
+                f"cluster: localities {locs}")
+        l1, l2 = locs[1].devices[0], locs[2].devices[0]
+        require(l1.platform == l2.platform == "cuda" and l1.capability() >= (9, 0),
+                f"cluster: remote devices {l1} {l2} ({l1.capability()})")
+        out["localities"] = [repr(loc) for loc in locs]
+        out["worker_pids"] = [port._workers[d.locality_id].os_pid for d in (l1, l2)]
+        out["mem_after_spawn"] = mem_info()
+
+        # Listing 1-2 on L1: fig3's flow at full size, by name.
+        t0 = time.perf_counter()
+        got3 = fig3_flow(l1, l1.create_program(["stencil"], name="fig3@L1").get(), fig3_hosts)
+        out["fig3_L1_s"] = time.perf_counter() - t0
+        out["fig3_L1_bit_equal"] = all(g.tobytes() == w.tobytes() for g, w in zip(got3, want3))
+        require(out["fig3_L1_bit_equal"], "cluster: fig3 on L1 differs from the local run")
+        del got3, want3
+
+        # fig5's flow on L2: 4 images of 4096^2, each bit-equal to fig5's.
+        t0 = time.perf_counter()
+        mandel = l2.create_program(["mandelbrot"], name="fig5@L2").get()
+        size_buf = l2.create_buffer_from(np.array([FIG5_SIZE, FIG5_SIZE], np.int32)).get()
+        imgs = [l2.create_buffer((FIG5_SIZE, FIG5_SIZE), np.int32).get()
+                for _ in range(FIG5_IMAGES)]
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_cluster_fig5_")
+        try:
+            got5 = fig5_flow(l2, mandel, size_buf, imgs, out_dir)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        out["fig5_L2_s"] = time.perf_counter() - t0
+        out["fig5_L2_bit_equal"] = all(np.array_equal(g, main_image) for g in got5)
+        require(out["fig5_L2_bit_equal"], "cluster: fig5 on L2 differs from the fig5 phase's")
+        wait_all([b.free() for b in [size_buf, *imgs]])
+        del got5
+
+        # fig4's partitions placed by run_on_any over the cluster's scheduler.
+        sched = port.scheduler()  # percolation over L0 + the remote devices
+        t0 = time.perf_counter()
+        futs, where = [], []
+        for h in fig4_hosts:
+            seen = sched.stats()
+            futs.append(progs["partition_map"].run_on_any([h.numpy()], "partition_map",
+                                                          block=MAP_BLOCK, scheduler=sched))
+            where += [k for k, v in sched.stats().items() if v > seen.get(k, 0)]
+        got4 = [host_array(f.get()) for f in futs]
+        out["fig4_s"] = time.perf_counter() - t0
+        out["fig4_placed"] = sched.stats()
+        out["fig4_partition_devices"] = where
+        out["fig4_bit_equal"] = all(np.array_equal(g, w) for g, w in zip(got4, want4))
+        require(out["fig4_bit_equal"], "cluster: fig4's partitions differ from local")
+        require(len(out["fig4_placed"]) == 1 + CLUSTER_WORKERS,
+                f"cluster: fig4's partitions went to {out['fig4_placed']}, not 3 localities")
+        del got4, want4, futs
+
+        # Remote-launch overhead, fig7_remote's protocol.
+        x = np.random.default_rng(0).normal(size=(OVERHEAD_N,)).astype(np.float32)
+        loop = LoopbackParcelport(1)
+        try:
+            out["overhead"] = launch_overhead({
+                "local": Program(dev, {"partition_map": map_ops.partition_map}, "fig7"),
+                "loopback": loop.devices()[0].create_program(["partition_map"],
+                                                             name="fig7@loop").get(),
+                "cluster": l1.create_program(["partition_map"], name="fig7@L1").get()}, x)
+        finally:
+            loop.shutdown()
+
+        # A plan over L0 (stencil, one CUDA graph) and L1 (partition_map,
+        # one run_segment parcel), replayed through one future.
+        src, mid, res_buf = (dev.create_buffer(GRAPH_N, np.float32).get() for _ in range(3))
+        rmap = l1.create_program(["partition_map"], name="plan@L1").get()
+        with dev.capture("two-localities") as g:
+            w = src.enqueue_write(0, fig3_hosts[0])
+            progs["stencil"].run([src], "stencil", block=STENCIL_BLOCK, out=[mid])
+            rmap.run([mid], "partition_map", block=MAP_BLOCK, out=[res_buf])
+            r = res_buf.enqueue_read()
+        exe = g.instantiate()
+        modes = sorted(seg.exec_mode for seg in exe._segments)
+        require(exe._fanout and modes == ["fused", "remote"] and exe.cuda_graphs == 1,
+                f"cluster: plan {exe!r}")
+        plan_s, plan_equal = [], []
+        for i in range(CLUSTER_PLAN_REPLAYS):
+            h = fig3_hosts[i % len(fig3_hosts)]
+            t0 = time.perf_counter()
+            fut = exe.replay(feeds={w: h})
+            got = fut.get()[r]
+            plan_s.append(time.perf_counter() - t0)
+            eager = map_ops.partition_map(stencil_ops.stencil(
+                torch.from_numpy(h).to(dev.torch_device), block=STENCIL_BLOCK.as_tuple()),
+                block=MAP_BLOCK.as_tuple()).cpu().numpy()
+            plan_equal.append(got.tobytes() == eager.tobytes())
+        require(all(plan_equal), f"cluster: the two-locality plan differs from eager {plan_equal}")
+        out["plan"] = {"repr": repr(exe), "replay_s": plan_s, "bit_equal": plan_equal,
+                       "local_graph_replays": exe.graph_replays,
+                       "recorded": exe.recorded_launches}
+        del exe, g, src, mid, res_buf
+        out["here"] = launch_counts()
+        out["workers_before_training"] = worker_counts(port)
+        wl1 = out["workers_before_training"][l1.key]["launches"]
+        wl2 = out["workers_before_training"][l2.key]["launches"]
+        require(wl1["stencil"] > 0 and wl2["mandelbrot"] > 0
+                and wl1["partition_map"] + wl2["partition_map"] > 0,
+                f"cluster: the workers' launches {out['workers_before_training']}")
+
+        # Mamba2-130M trained through the parcel workers, worker 1 SIGKILLed
+        # inside step 4 (the chaos seed's plan).
+        out["mem_before_training"] = mem_info()
+        parcel.reset_lane_counts()
+        sampler = MemSampler(port.process(l2.locality_id))
+        t0 = time.perf_counter()
+        run = train(TRAIN_SSM_ARCH, use_smoke=False, steps=ELASTIC_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, port=port, chaos=ELASTIC_CHAOS, log_every=0, seed=0,
+                    device=dev.torch_device)
+        out["train_s"] = time.perf_counter() - t0
+        out["killed_worker_memory"] = sampler.stop()
+        lanes_here = parcel.lane_counts()
+        deaths = [(e[1], e[2]) for e in run["recoveries"]]
+        require(deaths == [(ELASTIC_SSM_KILL_AT, ELASTIC_SSM_VICTIM)],
+                f"cluster: recoveries {run['recoveries']}")
+        killed_pid = port.process(l2.locality_id).pid
+        require(not port.process(l2.locality_id).is_alive() and port.alive(l1.locality_id),
+                "cluster: the killed worker is alive, or the survivor is not")
+        out["mem_after_kill"] = mem_info()
+        survivor = worker_counts(port)[l1.key]
+        stats = port.call(l1.locality_id, "invoke",
+                          {"fn": "repro_torch.training.elastic:graph_stats"}).get()
+        on_device = sum(v["recorded"].get("ssd_scan", 0) * v["replays"] for v in stats.values())
+        require(survivor["launches"]["ssd_scan"] > 0 and on_device > 0,
+                f"cluster: ssd_scan in the survivor {survivor}, graphs {stats}")
+        secs, kill = run["step_seconds"], ELASTIC_SSM_KILL_AT
+        before, after = secs[1:kill], secs[kill + 1:]
+        require(min(len(before), len(after)) >= ELASTIC_MIN_STEPS,
+                f"cluster: {len(before)} / {len(after)} steps around the kill")
+        parcel_losses, parcel_params = run["losses"], run["params"]
+        out["train"] = {
+            "arch": TRAIN_SSM_ARCH, "steps": ELASTIC_STEPS, "killed": deaths[0],
+            "losses": parcel_losses, "step_ms": [t * 1e3 for t in secs],
+            "step_ms_p50_before_kill": median_ms(before), "step_ms_p50_after_kill": median_ms(after),
+            "p50_steps": [len(before), len(after)],
+            "bytes_shipped_per_step": {k: lanes_here[k] / ELASTIC_STEPS
+                                       for k in ("shm_bytes", "inline_bytes", "shm_refused_bytes")},
+            "arrays_by_lane": lanes_here, "survivor_lanes": survivor["lanes"],
+            "survivor_ssd_scan_host": survivor["launches"]["ssd_scan"],
+            "survivor_ssd_scan_kernels_host": survivor["kernel_launches"].get("ssd_scan"),
+            "survivor_graphs": stats, "survivor_ssd_scan_on_device": on_device,
+            "survivor_ssd_scan_kernels_on_device": len(SSD_KERNELS) * on_device}
+        del run
+    finally:
+        port.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mem_after_shutdown"] = mem_info()
+    out["phase_s"] = time.perf_counter() - t_phase
+    reset_runtime()
+    import multiprocessing
+
+    children = multiprocessing.active_children()
+    leaked = shm_segments() - segs0
+    proxies_left = [d for _, d in registry.by_kind("device") if getattr(d, "is_remote_proxy", False)]
+    require(not children and not leaked and not proxies_left,
+            f"cluster: after reset_runtime children {children}, shm {sorted(leaked)}, "
+            f"proxies {proxies_left}")
+    require(out["mem_after_shutdown"]["free"] > out["mem_after_kill"]["free"],
+            "cluster: the survivor's memory did not come back to the card")
+    kw = out["killed_worker_memory"]
+    require(killed_pid is not None and kw.get("released_bytes", 0) > 256 << 20,
+            f"cluster: the killed worker's memory did not come back to the card: {kw}")
+    out["leaks"] = {"children": len(children), "shm_segments": len(leaked),
+                    "remote_proxies": len(proxies_left)}
+
+    # The same run on the local route: 2 LocalWorkers on the card.
+    ref = train(TRAIN_SSM_ARCH, use_smoke=False, steps=ELASTIC_STEPS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, workers=CLUSTER_WORKERS, chaos=ELASTIC_CHAOS, log_every=0, seed=0,
+                device=dev.torch_device)
+    require([(e[1], e[2]) for e in ref["recoveries"]] == deaths,
+            f"cluster: the local route's recoveries {ref['recoveries']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(parcel_losses, ref["losses"])]
+    require(len(rel) == ELASTIC_STEPS and max(rel) <= CLUSTER_LOSS_RTOL,
+            f"cluster: losses {parcel_losses} against the local route's {ref['losses']}")
+    t = out["train"]
+    rsecs = ref["step_seconds"]
+    t.update({"local_losses": ref["losses"], "losses_bit_equal": parcel_losses == ref["losses"],
+              "loss_max_relative_difference": max(rel),
+              "local_step_ms": [s * 1e3 for s in rsecs],
+              "local_step_ms_p50_before_kill": median_ms(rsecs[1:kill]),
+              "local_step_ms_p50_after_kill": median_ms(rsecs[kill + 1:]),
+              "params_vs_local": params_within(parcel_params, ref["params"], ref["opt_state"])})
+    del ref, parcel_params
+    out["release_after"] = release_runtime()
     return out
 
 
@@ -3341,6 +3734,40 @@ def main() -> int:
           f"{te['seconds']:.1f} s", flush=True)
     print("train_elastic: " + json.dumps(te), flush=True)
 
+    print(f"cluster: starts with {torch.cuda.memory_allocated()} bytes allocated, "
+          f"{torch.cuda.memory_reserved()} reserved", flush=True)
+    cl = phase_cluster(fig3_hosts, fig4_hosts, main_image)
+    ov, ct = cl["overhead"], cl["train"]
+    print(f"cluster: {len(cl['localities'])} localities ({cl['localities']}), workers spawned in "
+          f"{cl['spawn_s']:.1f} s; mem_get_info free {cl['mem_before_spawn']['free']} before the "
+          f"spawn, {cl['mem_after_spawn']['free']} after, {cl['mem_after_kill']['free']} after the "
+          f"kill, {cl['mem_after_shutdown']['free']} after the shutdown (of "
+          f"{cl['mem_before_spawn']['total']}); around the kill {cl['killed_worker_memory']}",
+          flush=True)
+    print(f"cluster listings: fig3 on L1 {cl['fig3_L1_s']:.2f} s bit-equal "
+          f"{cl['fig3_L1_bit_equal']}; fig5 on L2 {cl['fig5_L2_s']:.2f} s bit-equal "
+          f"{cl['fig5_L2_bit_equal']}; fig4 by run_on_any {cl['fig4_s']:.2f} s, partitions on "
+          f"{cl['fig4_partition_devices']}, bit-equal {cl['fig4_bit_equal']}; launches here "
+          f"{cl['here']}, in "
+          f"the workers {({k: v['launches'] for k, v in cl['workers_before_training'].items()})}",
+          flush=True)
+    print("cluster overhead (us a launch, serial / 8 in flight, x local): " + "; ".join(
+        f"{k} {v['serial_us']:.1f} / {v['inflight_us']:.1f} ({v['serial_x_local']:.2f}x / "
+        f"{v['inflight_x_local']:.2f}x)" for k, v in ov.items()), flush=True)
+    print(f"cluster plan: {cl['plan']['repr']}; replays {cl['plan']['replay_s']} s, bit-equal to "
+          f"eager {cl['plan']['bit_equal']}", flush=True)
+    print(f"cluster train: {ct['arch']} through 2 parcel workers, worker {ct['killed'][1]} "
+          f"SIGKILLed inside step {ct['killed'][0]}: step ms p50 {ct['step_ms_p50_before_kill']} "
+          f"before / {ct['step_ms_p50_after_kill']} after over {ct['p50_steps']} steps (local route "
+          f"{ct['local_step_ms_p50_before_kill']} / {ct['local_step_ms_p50_after_kill']}); losses "
+          f"within {ct['loss_max_relative_difference']:.3e} of the local route's, bit-equal "
+          f"{ct['losses_bit_equal']}; params {ct['params_vs_local']}; bytes a step "
+          f"{ct['bytes_shipped_per_step']}; survivor ssd_scan {ct['survivor_ssd_scan_host']} calls "
+          f"by its host, {ct['survivor_ssd_scan_on_device']} on the device "
+          f"({ct['survivor_ssd_scan_kernels_on_device']} kernels); leaks after reset_runtime "
+          f"{cl['leaks']}; phase {cl['phase_s']:.1f} s", flush=True)
+    print("cluster: " + json.dumps(cl), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -3434,6 +3861,22 @@ def main() -> int:
                           prompts=(min(SSM_PROMPTS), TRAIN_SEQ), batch=1,
                           launches_on_device=m["ssd_scan_on_device"],
                           kernels_on_device=m["ssd_scan_kernels_on_device"])]
+    # the cluster phase's launches: by this process (fig4's local partition,
+    # the overhead's local and loopback rows, the plan's local segment) and
+    # by each worker process (read through invoke before the kill), and
+    # ssd_scan in the surviving worker of the parcel-route training
+    workers = cl["workers_before_training"]
+    for k in kernels[:3]:
+        k["cluster_phase_launches"] = {"here": cl["here"][k["name"]],
+                                       "workers": {w: c["launches"][k["name"]]
+                                                   for w, c in workers.items()}}
+    kernels[1]["cluster_phase_launches"]["plan_local_graph_replays"] = cl["plan"][
+        "local_graph_replays"]
+    kernels[-1]["cluster_phase_launches"] = {
+        "survivor_host": ct["survivor_ssd_scan_host"],
+        "survivor_kernels_host": ct["survivor_ssd_scan_kernels_host"],
+        "survivor_on_device": ct["survivor_ssd_scan_on_device"],
+        "survivor_kernels_on_device": ct["survivor_ssd_scan_kernels_on_device"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

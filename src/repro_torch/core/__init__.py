@@ -36,10 +36,28 @@ several chains or devices):
         r = out.enqueue_read()
     exe = g.instantiate()
     result = exe.replay(feeds={w: new_data}).get()[r]
+
+Any (local or remote) device: a parcel port's localities hold
+``RemoteDevice``s, whose buffers, programs (kernels by name) and streams
+travel as parcels to worker processes, each with its own CUDA context:
+
+    port = LocalClusterParcelport(n_workers=2)          # platform="cuda"
+    locs = get_all_localities(cluster=port).get()       # L0 + 2 remote
+    rdev = locs[1].devices[0]
+    prog = rdev.create_program(["stencil"]).get()
+    rbuf = rdev.create_buffer_from(host).get()
+    prog.run([rbuf], "stencil", out=[rbuf]).get()
 """
 from repro_torch.core.agas import GID, HOST_KEY, Placement, Registry, locality_of, registry, set_locality_id
 from repro_torch.core.buffer import Buffer
-from repro_torch.core.device import Device, Locality, get_all_devices, get_all_localities
+from repro_torch.core.device import (
+    Device,
+    Locality,
+    RemoteBuffer,
+    RemoteDevice,
+    get_all_devices,
+    get_all_localities,
+)
 from repro_torch.core.executor import (
     Lane,
     LaneDispatcher,
@@ -64,7 +82,15 @@ from repro_torch.core.futures import (
     when_any,
 )
 from repro_torch.core.graph import GraphExec, GraphResult, TaskGraph, capture, current_graph
-from repro_torch.core.program import Dim3, Program
+from repro_torch.core.parcel import (
+    LocalClusterParcelport,
+    LoopbackParcelport,
+    Parcel,
+    Parcelport,
+    RemoteError,
+    register_kernel,
+)
+from repro_torch.core.program import Dim3, Program, RemoteProgram
 from repro_torch.core.scheduler import (
     POLICIES,
     AffinityPolicy,
@@ -92,6 +118,8 @@ __all__ = [
     "Buffer",
     "Device",
     "Locality",
+    "RemoteDevice",
+    "RemoteBuffer",
     "get_all_devices",
     "get_all_localities",
     "Runtime",
@@ -117,6 +145,13 @@ __all__ = [
     "when_any",
     "Dim3",
     "Program",
+    "RemoteProgram",
+    "Parcel",
+    "Parcelport",
+    "LoopbackParcelport",
+    "LocalClusterParcelport",
+    "RemoteError",
+    "register_kernel",
     "Scheduler",
     "PlacementPolicy",
     "StaticPolicy",

@@ -3,9 +3,9 @@
 Every runtime object (device, buffer, program) is registered under a GID;
 client handles hold the GID and resolve through the registry, which makes
 them location-transparent: moving the backing data to another device only
-updates the placement record, never the handle.  In this package every
-device is local to the process (``process_index`` 0); the registry does
-not care where an object lives.
+updates the placement record, never the handle.  A ``Device`` is local
+to the process (``process_index`` 0); the devices of other processes are
+reached through a parcel port's ``RemoteDevice`` proxies.
 
 Locality-scoped GIDs (DESIGN.md §10): every process is one *locality*;
 parcelport workers call ``set_locality_id`` at startup, and every GID they

@@ -368,7 +368,19 @@ class Buffer:
     def copy_to(self, target_device) -> Future:
         """Copy the contents to ``target_device``; future of the *new*
         Buffer, registered there (the percolation primitive).  Runs on this
-        buffer's default stream, after the work already enqueued there."""
+        buffer's default stream, after the work already enqueued there.
+
+        A remote target turns the move into explicit transfer parcels: a
+        D2H read here, then a ``create_buffer_from`` parcel to the owning
+        locality (future of the new ``RemoteBuffer``)."""
+        if getattr(target_device, "is_remote_proxy", False):
+            from repro_torch.core.executor import get_runtime
+
+            return self.enqueue_read().then(
+                lambda host: target_device.create_buffer_from(host).get(),
+                executor=get_runtime().pool,
+                name=f"copy:gid{self.gid}",
+            )
 
         def _copy():
             src = self._use()

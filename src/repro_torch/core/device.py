@@ -35,12 +35,25 @@ Scheduler surface: ``Device.load()`` and ``Device.resident_bytes()`` are
 the signals the placement policies read, and ``Device.memory_limit`` (seeded
 from ``REPRO_SPILL_BYTES``, 0 = unlimited) the threshold of the memory veto
 and LRU spill.  ``get_all_localities()`` groups devices by owning process
-(``hpx::find_all_localities``); every device of this package is local.
+(``hpx::find_all_localities``); ``get_all_localities(cluster=port)``
+appends the remote localities a parcel port reaches.
+
+Remote proxies (DESIGN.md §10): ``RemoteDevice``/``RemoteBuffer`` are the
+parcel-backed twins of ``Device``/``Buffer`` — same async surface, but
+``create_buffer`` / ``enqueue_write`` / ``enqueue_read`` / ``free`` (and
+launches, through ``RemoteProgram``) travel as parcels to the owning
+locality and resolve the caller's futures from reply parcels.  A proxy's
+``ops_queue`` is a real local ``WorkQueue``: it orders parcel submission
+per remote device and feeds the same ``load()`` signal the placement
+policies read for local devices.  Each stream of a remote device is its
+own ordered parcel channel.  Values bound for a remote device are staged
+in host memory (``RemoteDevice.torch_device`` is the CPU).
 """
 from __future__ import annotations
 
 import os
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -50,13 +63,12 @@ from repro_torch.core.executor import LaneDispatcher, QueueLoad, WorkQueue, get_
 from repro_torch.core.futures import Future
 from repro_torch.core.stream import Stream
 
-__all__ = ["Device", "Locality", "get_all_devices", "get_all_localities"]
+__all__ = ["Device", "Locality", "RemoteDevice", "RemoteBuffer", "get_all_devices",
+           "get_all_localities"]
 
 # A CPU device has no compute capability; (1, 0) keeps the Listing-1
 # filter meaningful for the CPU devices the tests ask for explicitly.
 _CPU_CAPABILITY = (1, 0)
-
-_ITEM10 = "ROADMAP.md Queue 1 item 10"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -285,7 +297,385 @@ class Locality:
         return iter(self.devices)
 
     def __repr__(self) -> str:
-        return f"Locality(process={self.process_index}, local, {len(self.devices)} device(s))"
+        where = "local" if self.is_local else "remote"
+        return f"Locality(process={self.process_index}, {where}, {len(self.devices)} device(s))"
+
+
+# ---------------------------------------------------------------------------
+# remote proxies (parcel-backed; DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def _release_remote(port, locality_id: int, gid: int, proxied: bool) -> None:
+    """GC finalizer for RemoteBuffer: retire the local proxy record (the
+    resident-bytes accounting must not outlive the handle) and queue a
+    best-effort free parcel.  A collection can run on a thread that holds
+    the AGAS registry's lock or the port's: so the record is retired
+    (queued, no lock) and the parcel only queued (``defer_free``)."""
+    if proxied:
+        agas.registry.retire(gid)
+    try:
+        port.defer_free(locality_id, gid)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+class RemoteDevice:
+    """Parcel-backed handle to a device owned by another locality.
+
+    Duck-types ``Device`` everywhere the runtime reads it: ``key``,
+    ``ops_queue``/``compile_queue`` (real local queues — parcel submission
+    order per remote device, and the scheduler's ``load()`` signal),
+    ``load()``, ``resident_bytes()``, ``capability()``, plus ``alive()``
+    (heartbeat-fed; a dead locality is excluded from placement).
+    ``torch_device`` is the host, where values bound for this device are
+    staged before they are shipped in a parcel.
+    """
+
+    is_remote_proxy = True
+    is_cuda = False
+    logical = 0
+
+    def __init__(self, port, locality_id: int, remote_key: str, platform: str = "cpu",
+                 capability: "tuple[int, int]" = (1, 0)):
+        self._port = port
+        self.locality_id = locality_id
+        self.remote_key = remote_key
+        self.key = f"L{locality_id}/{remote_key}"
+        self._platform = platform
+        self._capability = tuple(capability)
+        self.torch_device = torch.device("cpu")  # staging anchor, not the executor
+        rt = get_runtime()
+        self.ops_queue: WorkQueue = rt.queue(f"parcel-ops:{self.key}")
+        self.compile_queue: WorkQueue = rt.queue(f"parcel-compile:{self.key}")
+        # Streams on a remote device are ordered parcel *channels*: each
+        # stream gets its own submission queue, so parcels of one stream
+        # stay strictly ordered while different streams' parcels may be
+        # in flight concurrently.
+        self._stream_lock = threading.Lock()
+        self._streams: "list[Stream]" = [Stream(self, self.ops_queue, name=f"{self.key}/default")]
+        self.memory_limit: int = _default_memory_limit()
+        self.spills = 0
+        self.refetches = 0
+        self.gid: agas.GID = agas.registry.register(
+            self, agas.Placement(self.key, locality_id), kind="device"
+        )
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def platform(self) -> str:
+        return self._platform
+
+    @property
+    def process_index(self) -> int:
+        return self.locality_id
+
+    @property
+    def is_local(self) -> bool:
+        return False
+
+    def capability(self) -> "tuple[int, int]":
+        return self._capability
+
+    # -- streams (ordered parcel channels) -----------------------------------
+
+    @property
+    def default_stream(self) -> Stream:
+        return self._streams[0]
+
+    def create_stream(self, name: "str | None" = None) -> Stream:
+        """A new ordered parcel channel to this remote device: stream verbs
+        become parcels submitted through the channel's own queue, so each
+        stream's parcels keep submission order while channels overlap."""
+        rt = get_runtime()
+        with self._stream_lock:
+            idx = len(self._streams)
+            label = name if name is not None else f"s{idx}"
+            # Index-prefixed queue key: rt.queue() memoizes by name, and
+            # two channels must never share a queue.
+            chan = rt.queue(f"parcel-ops:{self.key}:{idx}.{label}")
+            s = Stream(self, chan, name=f"{self.key}/{label}")
+            self._streams.append(s)
+            return s
+
+    def streams(self) -> "list[Stream]":
+        with self._stream_lock:
+            return list(self._streams)
+
+    def _replay_lane(self, chain: int):
+        # A remote segment replays as ONE parcel; every chain rides the
+        # default channel, so run_segment parcels keep their order.
+        return self.ops_queue
+
+    # -- scheduler signals ---------------------------------------------------
+
+    def load(self) -> QueueLoad:
+        """Backlog summed across every parcel channel of this device."""
+        loads = [s.lane.load() for s in self.streams()]
+        return QueueLoad(
+            depth=sum(l.depth for l in loads),
+            inflight=sum(l.inflight for l in loads),
+            busy_for=max((l.busy_for for l in loads), default=0.0),
+            busy_time=sum(l.busy_time for l in loads),
+            submitted=sum(l.submitted for l in loads),
+            completed=sum(l.completed for l in loads),
+            busy_ewma=sum(l.busy_ewma for l in loads),
+        )
+
+    def resident_bytes(self) -> int:
+        return agas.registry.resident_bytes(self.key)
+
+    def alive(self) -> bool:
+        """Heartbeat verdict for the owning locality (scheduler exclusion)."""
+        return self._port.alive(self.locality_id)
+
+    # -- parcel plumbing -----------------------------------------------------
+
+    def _call(self, action: str, lane=None, **payload) -> "Future":
+        """Send one action parcel, ordered through this device's default
+        channel — or, when ``lane`` is given, through that stream's own
+        parcel channel.
+
+        On a non-pipelined port the channel worker blocks on each reply.
+        On a pipelined port the channel task only *stages and flushes* the
+        parcel — the reply resolves the returned future asynchronously, and
+        the channel ships the next parcel at once (same-channel order still
+        holds: staging order is wire order is the worker's execution
+        order).  A drained lane then proves dispatch, not remote
+        completion: completion fences go through ``synchronize()`` (a
+        ``barrier`` parcel) or the returned future itself."""
+        payload.setdefault("device", self.remote_key)
+        port, loc = self._port, self.locality_id
+        if not port.alive(loc):
+            return Future.failed(RuntimeError(
+                f"parcel {action!r} to locality L{loc} failed fast: the locality is dead "
+                "(missed heartbeat or worker exit) and is excluded from placement"
+            ))
+        q = self.ops_queue if lane is None else lane
+        if getattr(port, "pipelined", False):
+            from repro_torch.core.futures import Promise, forward_failure
+
+            promise: "Promise" = Promise(name=f"parcel:{action}:L{loc}")
+
+            def _ship():
+                port.stage(loc, action, payload, promise)
+                port.flush(loc)
+
+            forward_failure(q.submit(_ship), promise)
+            return promise.get_future()
+        return q.submit(lambda: port.call_sync(loc, action, payload))
+
+    # -- factory surface -----------------------------------------------------
+
+    def create_buffer(self, shape, dtype=np.float32, fill=None) -> "Future":
+        """Allocate a buffer on the remote locality (async; the
+        ``create_buffer`` action parcel)."""
+        from repro_torch.core.parcel import wire_dtype
+
+        shape_p = list(shape) if isinstance(shape, (tuple, list)) else int(shape)
+        fut = self._call("create_buffer", shape=shape_p, dtype=wire_dtype(dtype), fill=fill)
+        return fut.then(lambda rep: RemoteBuffer(self, rep["gid"], rep["shape"], rep["dtype"]),
+                        executor="inline")
+
+    def create_buffer_from(self, data) -> "Future":
+        fut = self._call("create_buffer_from", data=_host_payload(data))
+        return fut.then(lambda rep: RemoteBuffer(self, rep["gid"], rep["shape"], rep["dtype"]),
+                        executor="inline")
+
+    def create_program(self, kernels, name: str = "program") -> "Future":
+        """Create a program on the remote locality.  ``kernels`` are
+        *names* (str or list of str) resolved by the remote's kernel
+        registry, or a ``{name: callable}`` dict whose callables stay
+        local as shape-inference shadows (percolation by reference)."""
+        from repro_torch.core.program import RemoteProgram
+
+        return self.compile_queue.submit(lambda: RemoteProgram(self, kernels, name=name))
+
+    # -- graph capture -------------------------------------------------------
+
+    def capture(self, name: str = "captured"):
+        from repro_torch.core.graph import capture as _capture
+
+        return _capture(name)
+
+    # -- synchronization -----------------------------------------------------
+
+    def synchronize(self) -> None:
+        """Drain EVERY parcel channel of this device plus the compile
+        queue; on a pipelined port a ``barrier`` parcel (executed on the
+        worker's action pool after everything shipped before it) closes
+        the gap to remote completion."""
+        for s in self.streams():
+            s.lane.drain()
+        self.compile_queue.drain()
+        if getattr(self._port, "pipelined", False) and self._port.alive(self.locality_id):
+            self._call("barrier").get()
+
+    def __repr__(self) -> str:
+        state = "alive" if self.alive() else "DEAD"
+        return f"RemoteDevice({self.key}, {state}, gid={self.gid})"
+
+
+def _host_payload(data):
+    """``data`` as a parcel payload: a tensor on the host (``np.ndarray``,
+    or a CPU tensor for bfloat16), anything else through ``np.asarray``."""
+    if isinstance(data, torch.Tensor):
+        from repro_torch.core.parcel import host_value
+
+        return host_value(data)
+    return np.asarray(data)
+
+
+class RemoteBuffer:
+    """Location-transparent handle to a buffer owned by another locality.
+
+    The remote-minted GID is proxied into the local AGAS registry (with
+    ``nbytes``), so placement policies score remote-resident bytes exactly
+    like local ones.  Transfers are parcels: ``enqueue_write`` ships host
+    data out, ``enqueue_read`` brings it back, ``copy_to`` chains the two.
+    ``dtype`` is a torch dtype, as a ``Buffer``'s.
+    """
+
+    is_remote_proxy = True
+    is_remote_buffer = True
+
+    def __init__(self, device: RemoteDevice, gid: int, shape, dtype):
+        from repro_torch.core.parcel import torch_dtype_of
+
+        self.device = device
+        self.gid = gid
+        self.shape = tuple(shape)
+        self.dtype = dtype if isinstance(dtype, torch.dtype) else torch_dtype_of(
+            dtype if isinstance(dtype, str) else np.dtype(dtype).str)
+        self._freed = False
+        self._free_future: "Future | None" = None
+        self._proxied = agas.registry.register_proxy(
+            self, gid, agas.Placement(device.key, device.locality_id),
+            kind="buffer", nbytes=self.nbytes,
+        )
+        self._finalizer = weakref.finalize(
+            self, _release_remote, device._port, device.locality_id, gid, self._proxied
+        )
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    # -- async transfer surface ----------------------------------------------
+
+    def enqueue_write(self, offset: int, data, count: "int | None" = None,
+                      stream=None) -> "Future":
+        from repro_torch.core.graph import current_graph
+
+        if current_graph() is not None:
+            raise NotImplementedError(
+                "graph capture writes to local buffers only; stage remote "
+                "transfers outside the capture region (remote buffers may be "
+                "read as extern inputs)"
+            )
+        lane = None if stream is None else stream._lane_for(self.device)
+        fut = self.device._call("enqueue_write", lane=lane, gid=self.gid, offset=offset,
+                                data=_host_payload(data), count=count)
+        if stream is not None:
+            # Pipelined ports resolve the reply AFTER the lane task ends —
+            # note it so record()/synchronize() mean remote completion.
+            stream._note_completion(fut)
+        return fut
+
+    def enqueue_read(self, offset: int = 0, count: "int | None" = None,
+                     stream=None) -> "Future":
+        from repro_torch.core.graph import current_graph
+
+        g = current_graph()
+        if g is not None:
+            return g.read(self, offset=offset, count=count)
+        lane = None if stream is None else stream._lane_for(self.device)
+        fut = self.device._call("enqueue_read", lane=lane, gid=self.gid,
+                                offset=offset, count=count)
+        if stream is not None:
+            stream._note_completion(fut)
+        return fut
+
+    def enqueue_read_sync(self, offset: int = 0, count: "int | None" = None, stream=None):
+        from repro_torch.core.graph import current_graph
+
+        if current_graph() is not None:
+            raise RuntimeError(
+                "enqueue_read_sync inside a graph-capture region: the value "
+                "does not exist until replay. Use enqueue_read()."
+            )
+        return self.enqueue_read(offset, count, stream=stream).get()
+
+    def _read_now(self):
+        """Synchronous read bypassing the proxy queue — for callers already
+        running ON this device's ops queue (graph extern reads), where an
+        ``enqueue_read`` would deadlock behind the calling task."""
+        return self.device._port.call_sync(
+            self.device.locality_id,
+            "enqueue_read",
+            {"device": self.device.remote_key, "gid": self.gid, "offset": 0, "count": None},
+        )
+
+    def copy_to(self, target_device) -> "Future":
+        """Percolation across localities: one read parcel here, one write
+        on the target — future of the *new* buffer on ``target_device``."""
+        if target_device is self.device:
+            return Future.ready(self)
+        pool = get_runtime().pool
+        return self.enqueue_read().then(
+            lambda host: target_device.create_buffer_from(host).get(),
+            executor=pool,
+            name=f"copy:gid{self.gid}",
+        )
+
+    # -- lifetime --------------------------------------------------------------
+
+    def free(self) -> "Future":
+        """Release the remote storage (idempotent; future of None).
+
+        The free parcel is gated on a barrier across ALL of the device's
+        parcel channels: channels are mutually unordered, so a free sent
+        straight down the default channel could execute on the owning
+        locality before writes/launches still in flight on a stream
+        channel (the same all-lanes rule as the local ``Buffer.free``)."""
+        if self._free_future is None:
+            self._freed = True
+            if self._finalizer is not None:
+                self._finalizer.detach()
+                self._finalizer = None
+            if self._proxied:
+                agas.registry.unregister(self.gid)
+            dev = self.device
+            others = [s.lane for s in dev.streams() if s.lane is not dev.ops_queue]
+            if not others:
+                self._free_future = dev._call("free", gid=self.gid)
+            else:
+                from repro_torch.core.futures import when_all
+
+                barrier = when_all([ch.submit(lambda: None) for ch in others])
+                self._free_future = barrier.then(
+                    lambda _: dev._call("free", gid=self.gid).get(),
+                    executor=get_runtime().pool,
+                    name=f"free:gid{self.gid}",
+                )
+        return self._free_future
+
+    # -- kernel-facing view ----------------------------------------------------
+
+    def array(self):
+        raise RuntimeError(
+            f"RemoteBuffer gid={self.gid} lives on locality "
+            f"L{self.device.locality_id}; its value is not addressable here — "
+            "use enqueue_read() (or launch through a RemoteProgram on that locality)"
+        )
+
+    def __repr__(self) -> str:
+        return f"RemoteBuffer(gid={self.gid}, {self.dtype}{list(self.shape)} @ {self.device.key})"
 
 
 _device_cache: "dict[str, Device]" = {}
@@ -348,16 +738,18 @@ def get_all_devices(major: int = 0, minor: int = 0, platform: str = "cuda") -> "
 def get_all_localities(major: int = 0, minor: int = 0, platform: str = "cuda",
                        cluster=None) -> "Future[list[Locality]]":
     """Group capability-filtered devices by owning process
-    (``hpx::find_all_localities``); future of the list.  Every device of
-    this package is local, so the list holds one locality.  ``cluster``
-    (remote localities over parcels) is refused until the parcelport is
-    ported."""
-    if cluster is not None:
-        return Future.failed(NotImplementedError(
-            f"localities across a cluster need the parcelport, not ported yet ({_ITEM10})"))
+    (``hpx::find_all_localities``); future of the list, this process's
+    locality first.  With ``cluster`` (a parcel port), the port's remote
+    localities are appended — the cluster-wide discovery surface."""
 
     def _group() -> "list[Locality]":
         devs = get_all_devices(major, minor, platform).get()
-        return [Locality(0, devs)] if devs else []
+        locs = [Locality(0, devs)] if devs else []
+        if cluster is not None:
+            for loc in cluster.localities():
+                rdevs = [d for d in loc if d.capability() >= (major, minor)]
+                if rdevs:
+                    locs.append(Locality(loc.process_index, rdevs))
+        return locs
 
     return get_runtime().async_(_group)

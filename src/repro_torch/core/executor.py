@@ -695,8 +695,18 @@ def reset_runtime() -> None:
     dead queue ("WorkQueue ... is shut down").  The device cache is
     therefore dropped with the runtime — the next discovery re-registers
     devices against the fresh runtime's queues.
+
+    Live parcel ports are drained and shut down FIRST, before the runtime
+    and the registered resets: their remote-device proxy queues belong to
+    the runtime being torn down, and their cluster worker *processes* must
+    never outlive the runtime that spawned them.
     """
+    import sys
+
     flush_coalesced()  # staged submissions must not straddle the reset
+    _parcel = sys.modules.get("repro_torch.core.parcel")
+    if _parcel is not None:  # never import the transport just to reset it
+        _parcel._shutdown_all_ports()
     global _runtime
     with _runtime_lock:
         if _runtime is not None:

@@ -69,8 +69,15 @@ replayed any number of times.  Values the graph hands out (a kept
 buffer's value, an out-less launch's result) are copies out of the
 graph's memory: a later replay does not change them.
 
-Not ported, and refused: remote buffers and remote segments (ROADMAP.md
-Queue 1 item 10).
+Localities (DESIGN.md §10): a launch recorded through a ``RemoteProgram``
+makes a segment on a remote locality.  It has no CUDA graph here: each
+replay ships its plan (kernel names, argument refs, geometry) with its
+input values as ONE ``run_segment`` parcel, and the reply's arrays are its
+outputs, staged in host memory; a remote segment never donates.  A remote
+buffer may be read as an extern input, fetched at each replay by one read
+parcel; graph capture writes, and launches write results, to local
+buffers only.  A plan with a remote piece always fans out: its local
+segments stay CUDA graphs, and the plan still resolves through one future.
 """
 from __future__ import annotations
 
@@ -90,8 +97,6 @@ from repro_torch.kernels import tally_launches
 
 __all__ = ["TaskGraph", "GraphExec", "GraphResult", "LaunchNode", "ReadNode", "WriteNode",
            "capture", "current_graph"]
-
-_PARCELS = "ROADMAP.md Queue 1 item 10"
 
 _tls = threading.local()
 
@@ -230,10 +235,6 @@ class TaskGraph:
     def _sym_of(self, buf: Buffer) -> _SymRef:
         """Current SSA value of a buffer; first touch binds an extern input
         (read live from the buffer at every replay)."""
-        if getattr(buf, "is_remote_buffer", False):
-            raise NotImplementedError(
-                f"graph capture reads local buffers only; remote buffers come with the "
-                f"parcel port ({_PARCELS})")
         s = self._cur.get(id(buf))
         if s is None:
             s = self._new_sym(buf.shape, buf.dtype)
@@ -249,7 +250,7 @@ class TaskGraph:
         if getattr(buf, "is_remote_buffer", False):
             raise NotImplementedError(
                 "graph capture writes to local buffers only; stage remote "
-                f"transfers outside the capture region ({_PARCELS})"
+                "transfers outside the capture region"
             )
         if offset != 0 or (count is not None and count != buf.size):
             raise NotImplementedError(
@@ -281,12 +282,15 @@ class TaskGraph:
             raise KeyError(f"no kernel '{name}' in {program.name}")
         if out is not None and any(getattr(b, "is_remote_buffer", False) for b in out):
             raise NotImplementedError(
-                f"captured graphs write results to local buffers only ({_PARCELS})")
+                "captured graphs write results to local buffers only; a "
+                "remote launch with local out buffers ships the values back "
+                "at replay (remote buffers may still be read as extern inputs)"
+            )
         bound = program._bind(name, grid, block)
         arg_refs: list = []
         shape_args: list = []
         for a in args:
-            if isinstance(a, Buffer):
+            if isinstance(a, Buffer) or getattr(a, "is_remote_buffer", False):
                 ref = self._sym_of(a)
                 arg_refs.append(ref)
                 spec = self._sym_spec[ref.sym]
@@ -345,7 +349,8 @@ class TaskGraph:
 
 class _Segment:
     __slots__ = ("device", "nodes", "chain", "queue", "in_syms", "out_syms", "donated_ixs",
-                 "transfer_ixs", "exec_mode", "graph", "static_in", "outs", "recorded", "replays")
+                 "transfer_ixs", "exec_mode", "graph", "static_in", "outs", "recorded", "replays",
+                 "remote_plan")
 
     def __init__(self, device, nodes, chain: int = 0):
         self.device = device
@@ -365,6 +370,8 @@ class _Segment:
         self.outs: "dict[int, torch.Tensor]" = {}
         self.recorded: "dict[str, int]" = {}
         self.replays = 0
+        # A remote segment's launch plan, shipped in each run_segment parcel.
+        self.remote_plan: "list | None" = None
 
 
 class _FastPlan:
@@ -404,6 +411,10 @@ def _current_stream(device) -> "torch.cuda.Stream | None":
     return torch.cuda.current_stream(device.torch_device) if device.is_cuda else None
 
 
+def _is_remote(device) -> bool:
+    return getattr(device, "is_remote_proxy", False)
+
+
 def _record(stream) -> "torch.cuda.Event | None":
     if stream is None:
         return None
@@ -438,6 +449,9 @@ class GraphExec:
         placements.update(b.device.key for b in graph._extern.values())
         placements.update(n.buf.device.key for n in self._writes)
         self._multi_device = len(placements) > 1
+        # A remote segment or extern: every replay fans out.
+        self._remote = (any(_is_remote(s.device) for s in self._segments)
+                        or any(_is_remote(b.device) for b in graph._extern.values()))
         self._fast = self._build_fast_plan()
         self._compile_segments()
         # Replays serialize.  The single-lane path holds the lock while
@@ -457,15 +471,12 @@ class GraphExec:
     # -- planning ----------------------------------------------------------
 
     def _route_device(self):
-        """The route device (the first launch's, else the first buffer's);
-        a plan with a remote piece is refused."""
+        """The route device (the first launch's, else the first buffer's)."""
         g = self.graph
         devices = [n.device for n in g._nodes if isinstance(n, LaunchNode)]
         devices += [b.device for b in g._buffers.values()]
         if not devices:
             raise ValueError(f"TaskGraph '{g.name}' is empty")
-        if any(getattr(d, "is_remote_proxy", False) for d in devices):
-            raise NotImplementedError(f"remote graph segments are not ported yet ({_PARCELS})")
         return devices[0]
 
     def _build_plan(self) -> None:
@@ -553,7 +564,9 @@ class GraphExec:
                 s for n in seg.nodes for s in n.res_syms
                 if s in keep or any(u > si for u in launch_use_segs.get(s, ()))
             ]
-            if self._donate:
+            # Remote segments never donate: their inputs are shipped in a
+            # parcel, not handed to a local graph.
+            if self._donate and not _is_remote(seg.device):
                 donated = []
                 for pos, s in enumerate(in_syms):
                     if s in g._extern:
@@ -703,11 +716,19 @@ class GraphExec:
         """Build every kernel; on CUDA warm up, capture and choose each
         segment's executor (``REPRO_SEGMENT_COMPILE``, read once here)."""
         for seg in self._segments:
+            if _is_remote(seg.device):
+                # Replays as ONE run_segment parcel (the owning locality
+                # builds its kernels at the first): no local build, no graph.
+                seg.exec_mode = "remote"
+                seg.remote_plan = _remote_plan(seg)
+                continue
             for n in seg.nodes:  # nvcc / load, on the compile queue
                 n.program.build(n.kernel, grid=n.grid, block=n.block).get()
         mode_env = os.environ.get("REPRO_SEGMENT_COMPILE", "auto").lower()
         streams: dict = {}  # card -> (warm-up stream, capture stream), shared by its segments
         for seg in self._segments:
+            if seg.exec_mode == "remote":
+                continue
             if not seg.device.is_cuda or mode_env == "staged":
                 seg.exec_mode = "staged"
                 continue
@@ -887,6 +908,11 @@ class GraphExec:
 
         for buf, s, prod in p.commit_sets:
             t = handed(s)
+            if prod is not None and _is_remote(prod):
+                # A remote producer's value came back in the reply parcel:
+                # the data is local, so the buffer stays home.
+                buf._set_tensor(t.to(buf.device.torch_device))
+                continue
             with on(env[s]):
                 buf._set_tensor(t)
             if prod is not None and prod is not buf.device:
@@ -916,7 +942,11 @@ class GraphExec:
         """Task on the extern's owning lane (after the eager work there):
         its live value on its planned device.  A spilled buffer is
         refetched (``_use``); one that moved since instantiate is copied
-        back."""
+        back.  A remote extern is fetched by one read parcel (this task
+        already runs on the proxy's channel, so an ``enqueue_read`` would
+        queue behind it) and stays in host memory."""
+        if _is_remote(buf.device):
+            return _Val(_host_tensor(buf._read_now()), None, None, True)
         t = buf._use()
         planned = self._prod_dev[s]
         moved = buf.device.key != planned.key
@@ -950,7 +980,9 @@ class GraphExec:
                 stream.wait_event(v.event)
                 v.tensor.record_stream(stream)
         env = {s: v.tensor for s, v in zip(seg.in_syms, vals)}
-        if seg.graph is not None:
+        if seg.remote_plan is not None:
+            self._run_remote_segment(seg, env)
+        elif seg.graph is not None:
             self._replay_graph(seg, env)
             seg.replays += 1
         else:
@@ -960,6 +992,35 @@ class GraphExec:
             self._run_segment(seg, env)
         ends[si] = end = _record(stream)
         return {s: _Val(env[s], stream, end, seg.graph is None) for s in seg.out_syms}
+
+    @staticmethod
+    def _run_remote_segment(seg: _Segment, env: dict) -> None:
+        """Ship the segment's plan and inputs as one ``run_segment`` parcel
+        (runs on the proxy's channel, so parcels to one remote device keep
+        their order); its outputs come back as host tensors."""
+        from repro_torch.core.parcel import host_value
+
+        dev = seg.device
+        nodes = []
+        for node in seg.remote_plan:
+            prog = node["_program"]
+            gid_f = getattr(prog, "_remote_gid_f", None)
+            pgid = None
+            if gid_f is not None and getattr(prog.device, "locality_id", None) == dev.locality_id:
+                pgid = gid_f.get()  # its create parcel went earlier on this channel
+            wire = {k: v for k, v in node.items() if k != "_program"}
+            wire["program"] = pgid
+            nodes.append(wire)
+        outs = dev._port.call_sync(dev.locality_id, "run_segment", {
+            "device": dev.remote_key,
+            "nodes": nodes,
+            "in_syms": list(seg.in_syms),
+            "out_syms": list(seg.out_syms),
+            "inputs": [host_value(env[s]) if isinstance(env[s], torch.Tensor) else env[s]
+                       for s in seg.in_syms],
+        })
+        for s, o in zip(seg.out_syms, outs):
+            env[s] = _host_tensor(o)
 
     def _replay_fanout(self, feeds, block: bool, lane=None) -> "Future[GraphResult]":
         """Everything lane-bound is submitted synchronously, in capture
@@ -1064,6 +1125,8 @@ class GraphExec:
                 "single-segment graphs only"
             )
         queue = self._queue if stream is None else stream._lane_for(self._route_dev)
+        if self._remote:
+            return self._replay_fanout(feeds, block, None if stream is None else queue)
         if self._multi_device or any(b.device is not self._route_dev
                                      for b in self._fast.extern_bufs):
             # Several devices, or an extern moved off the route device: its
@@ -1098,6 +1161,34 @@ class GraphExec:
             f"on {nlanes} stream(s), {len(self._transfers)} transfer(s), "
             f"{len(self._event_edges)} event edge(s), {mode}, {where}, compile={comp} [{per}])"
         )
+
+
+def _remote_plan(seg: _Segment) -> list:
+    """A remote segment's launch plan, encoded once at instantiate: kernel
+    names, SSA argument refs and literal values, geometry, and the
+    recording program (its remote GID is read at the first replay)."""
+    from repro_torch.core.parcel import host_value
+    from repro_torch.core.program import _normalize_dim
+
+    plan = []
+    for n in seg.nodes:
+        args = []
+        for a in n.arg_refs:
+            if isinstance(a, _SymRef):
+                args.append(("sym", a.sym))
+            elif isinstance(a, torch.Tensor):
+                args.append(("val", host_value(a)))
+            else:
+                args.append(("val", a))
+        plan.append({
+            "kernel": n.kernel,
+            "args": args,
+            "res": list(n.res_syms),
+            "grid": _normalize_dim(n.grid),
+            "block": _normalize_dim(n.block),
+            "_program": n.program,
+        })
+    return plan
 
 
 _CAL_TRIALS = 3

@@ -26,11 +26,18 @@ buffers living on other devices are first copied there (futures, never
 blocking the caller), and a host ``np.ndarray`` argument is copied to the
 device at launch.
 
-Any kernel on any device: ``run_on_any`` lets a placement scheduler
-(``repro_torch.core.scheduler``) pick the device and launches through the
-program's sibling there (``for_device``: one program object, and one build
-cache, a device key; siblings on logical devices of one card share the
-loaded CUDA library).
+Any kernel on any (local or remote) device: ``run_on_any`` lets a
+placement scheduler (``repro_torch.core.scheduler``) pick the device and
+launches through the program's sibling there (``for_device``: one program
+object, and one build cache, a device key; siblings on logical devices of
+one card share the loaded CUDA library; a sibling on a remote locality is
+a ``RemoteProgram``).  ``cluster`` (a parcel port) widens the fleet to
+every locality the port reaches.
+
+Remote programs (DESIGN.md §10): ``RemoteProgram`` is the proxy of a
+program owned by another locality.  Its kernels travel by name; a launch
+is one ``launch`` parcel whose buffer arguments on that locality go as GID
+references and everything else as host values.
 """
 from __future__ import annotations
 
@@ -41,13 +48,16 @@ from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.buffer import Buffer, _current_event, _host_tensor, _settle
 from repro_torch.core.futures import Future, dataflow
 
-__all__ = ["Dim3", "Program"]
+__all__ = ["Dim3", "Program", "RemoteProgram"]
 
-_ITEM10 = "ROADMAP.md Queue 1 item 10"
+
+def _is_remote_buffer(a: Any) -> bool:
+    return getattr(a, "is_remote_buffer", False)
 
 
 @dataclass
@@ -121,7 +131,8 @@ class Program:
             return self
         sib = self._siblings.get(device.key)
         if sib is None:
-            sib = Program(device, self._kernels, name=f"{self.name}@{device.key}")
+            cls = RemoteProgram if getattr(device, "is_remote_proxy", False) else Program
+            sib = cls(device, self._kernels, name=f"{self.name}@{device.key}")
             sib = self._siblings.setdefault(device.key, sib)  # a racing creator loses
         return sib
 
@@ -218,9 +229,11 @@ class Program:
         queue = home.ops_queue if stream is None else stream._lane_for(home)
 
         # Percolation: move foreign buffers to the program's device first.
+        # A RemoteBuffer is always foreign to a local program: its move is
+        # an explicit cross-locality transfer (a read parcel, then a copy).
         moved: "dict[int, Future] | None" = None
         for i, a in enumerate(args):
-            if isinstance(a, Buffer) and a.device is not home:
+            if (isinstance(a, Buffer) and a.device is not home) or _is_remote_buffer(a):
                 if moved is None:
                     moved = {}
                 moved[i] = a.copy_to(home)
@@ -316,16 +329,231 @@ class Program:
         one device, the launch parks in the scheduler's steal pool, where an
         idle sibling may take it (never under graph capture: a recorded node
         binds its device at capture time).  Otherwise as ``run``.
-        ``cluster`` (remote localities) is refused until the parcelport is
-        ported."""
+
+        ``cluster`` (a parcel port) widens the fleet to every locality the
+        port reaches — ``hpx::async(locality, action)`` as a placement
+        decision: the policy scores the localities x devices grid
+        (``percolation`` by default), and a remote pick routes the launch
+        through a ``RemoteProgram`` sibling as parcels."""
         from repro_torch.core.graph import current_graph
         from repro_torch.core.scheduler import get_scheduler
 
-        if cluster is not None:
-            raise NotImplementedError(
-                f"run_on_any over a cluster needs the parcelport, not ported yet ({_ITEM10})")
-        sched = scheduler if scheduler is not None else get_scheduler()
+        if scheduler is not None:
+            sched = scheduler
+        elif cluster is not None:
+            sched = cluster.scheduler()
+        else:
+            sched = get_scheduler()
         if current_graph() is None and getattr(sched, "steals", False):
             return sched.submit(self, args, name, grid=grid, block=block, out=out, sync=sync)
         dev = sched.select(args=args, program=self)
         return self.for_device(dev).run(args, name, grid=grid, block=block, out=out, sync=sync)
+
+
+def _release_remote_program(port, locality_id: int, gid_future: "Future") -> None:
+    """GC finalizer for RemoteProgram: a best-effort free parcel, queued
+    (``defer_free``: a collection may run on a thread holding the port's
+    locks), so the worker's object table does not grow without bound.
+    Skips when the create reply never arrived."""
+    try:
+        if gid_future.done() and gid_future.exception() is None:
+            port.defer_free(locality_id, gid_future.get())
+    except Exception:  # noqa: BLE001 - teardown is best-effort
+        pass
+
+
+class RemoteProgram(Program):
+    """Proxy for a program owned by a remote locality (DESIGN.md §10).
+
+    Kernels percolate **by name**: construction sends a ``create_program``
+    parcel listing kernel names, which the owning locality resolves
+    through its own registry and builds there (the NVRTC-at-the-device
+    analogue, across a process boundary).  The callables kept here are
+    *shadows* — used only for shape inference (graph capture runs them on
+    ``meta`` tensors) and geometry binding; they never execute locally
+    through this class.
+
+    ``run`` turns into a ``launch`` parcel: buffer arguments on the target
+    locality travel as GID references (zero copy), everything else is read
+    back to the host and shipped inline; ``out`` buffers on the target
+    locality keep results remote, local ``out`` buffers receive the reply
+    arrays.  The reply parcel resolves the returned future — completion on
+    the remote device, i.e. ``sync="ready"`` semantics.
+    """
+
+    def __init__(self, device, kernels, name: str = "program"):
+        from repro_torch.core.parcel import resolve_kernel
+
+        if isinstance(kernels, str):
+            kernels = [kernels]
+        if callable(kernels) and not isinstance(kernels, dict):
+            kernels = {getattr(kernels, "__name__", "kernel"): kernels}
+        elif not isinstance(kernels, dict):
+            kernels = {n: resolve_kernel(n) for n in kernels}
+        super().__init__(device, kernels, name=name)
+        self._remote_gid_f: Future = device._call(
+            "create_program", kernels=list(self._kernels), name=name
+        ).then(lambda rep: rep["gid"], executor="inline")
+        # The owning locality holds its Program strongly in the action
+        # server's object table; retire it when this proxy is collected.
+        self._remote_finalizer = weakref.finalize(
+            self, _release_remote_program, device._port, device.locality_id, self._remote_gid_f
+        )
+
+    def remote_gid(self) -> int:
+        """GID of the program object on the owning locality (blocks on the
+        create reply the first time)."""
+        return self._remote_gid_f.get()
+
+    def build(self, name: str, *specs, grid=None, block=None) -> Future:
+        """Remote build (async): ships shape/dtype specs, the owning
+        locality builds and caches the kernel there."""
+        from repro_torch.core.parcel import wire_dtype
+
+        if name not in self._kernels:
+            return Future.failed(KeyError(f"no kernel '{name}' in {self.name}"))
+        spec_p = [(tuple(s.shape), wire_dtype(s.dtype)) for s in specs]
+        dev = self.device
+        port, loc = dev._port, dev.locality_id
+        gid_f = self._remote_gid_f
+        grid_n, block_n = _normalize_dim(grid), _normalize_dim(block)
+
+        def _send():
+            return port.call_sync(loc, "build", {
+                "device": dev.remote_key, "program": gid_f.get(), "kernel": name,
+                "specs": spec_p, "grid": grid_n, "block": block_n,
+            })
+
+        return dev.compile_queue.submit(_send)
+
+    def run(
+        self,
+        args: "Sequence[Buffer | Any]",
+        name: str,
+        grid=None,
+        block=None,
+        out: "Sequence[Buffer] | None" = None,
+        sync: str = "ready",
+        stream=None,
+    ):
+        from repro_torch.core.executor import get_runtime
+        from repro_torch.core.graph import current_graph
+        from repro_torch.core.parcel import host_value
+
+        g = current_graph()
+        if g is not None:
+            return g.run(self, args, name, grid=grid, block=block, out=out)
+        if name not in self._kernels:
+            return Future.failed(KeyError(f"no kernel '{name}' in {self.name}"))
+
+        dev = self.device
+        port, loc = dev._port, dev.locality_id
+        # Stream-scoped remote launch: the parcel rides that stream's
+        # ordered channel instead of the default one.
+        lane = dev.ops_queue if stream is None else stream._lane_for(dev)
+
+        # Argument descriptors: locality-resident buffers go as GID refs;
+        # everything else materializes on the host and ships inline.
+        descs: "list" = [None] * len(args)
+        fetch_ix: "list[int]" = []
+        fetch_futs: "list[Future]" = []
+        for i, a in enumerate(args):
+            if _is_remote_buffer(a) and a.device.locality_id == loc:
+                descs[i] = ("gid", a.gid)
+            elif isinstance(a, Buffer) or _is_remote_buffer(a):
+                fetch_ix.append(i)
+                fetch_futs.append(a.enqueue_read())
+            elif isinstance(a, torch.Tensor):
+                descs[i] = ("val", host_value(a))
+            else:
+                descs[i] = ("val", a)
+
+        if out is None:
+            out_gids, mode = None, "none"
+        elif all(_is_remote_buffer(b) and b.device.locality_id == loc for b in out):
+            out_gids, mode = [b.gid for b in out], "remote"
+        elif all(isinstance(b, Buffer) for b in out):
+            out_gids, mode = None, "local"
+        else:
+            raise ValueError(
+                "out buffers of a remote launch must either all live on the "
+                "target locality (results stay remote) or all be local "
+                "buffers (results ship back)"
+            )
+
+        grid_n, block_n = _normalize_dim(grid), _normalize_dim(block)
+        gid_f = self._remote_gid_f
+
+        def _land(b, v):
+            b._set_tensor(_host_tensor(v).to(b.device.torch_device))
+
+        def _post(rep):
+            if mode == "remote":
+                return list(out)
+            if mode == "local":
+                for b, v in zip(out, rep):
+                    b.device.ops_queue.submit(_land, b, v).get()
+                return list(out)
+            return rep
+
+        def _payload(vals):
+            for i, v in zip(fetch_ix, vals):
+                descs[i] = ("val", v)
+            return {
+                "device": dev.remote_key, "program": gid_f.get(), "kernel": name,
+                "args": descs, "out": out_gids, "grid": grid_n, "block": block_n,
+            }
+
+        pool = get_runtime().pool
+        # Pipelined port: the channel task stages+flushes the launch parcel
+        # and releases the lane at once — the reply resolves the result
+        # future asynchronously, so back-to-back remote launches overlap on
+        # the wire instead of serializing on round trips.
+        if getattr(port, "pipelined", False):
+            from repro_torch.core.futures import Promise, forward_failure
+
+            inner: "Promise" = Promise(name=f"parcel:launch:L{loc}")
+
+            def _ship(*vals):
+                port.stage(loc, "launch", _payload(vals), inner)
+                port.flush(loc)
+
+            if not fetch_futs:
+                forward_failure(lane.submit(_ship), inner)
+            else:
+                forward_failure(dataflow(
+                    lambda *vals: lane.submit(lambda: _ship(*vals)).get(),
+                    *fetch_futs,
+                    executor=pool,
+                    name=f"remote-run:{name}",
+                ), inner)
+            # "local" mode copies onto local devices — post-process on the
+            # host pool, never inline on the port's reply-listener thread.
+            result = inner.get_future().then(
+                _post,
+                executor="inline" if mode != "local" else pool,
+                name=f"remote-run:{name}",
+            )
+            if stream is not None:
+                stream._note_completion(result)
+            return result
+
+        def _send(*vals):
+            return _post(port.call_sync(loc, "launch", _payload(vals)))
+
+        # Ordering: the launch parcel goes through the remote device's ops
+        # queue, after any previously submitted writes there.  Pending host
+        # fetches join off-queue first (a queue worker must not wait on its
+        # own queue).
+        if not fetch_futs:
+            result = lane.submit(_send)
+        else:
+            result = dataflow(
+                lambda *vals: lane.submit(lambda: _send(*vals)).get(),
+                *fetch_futs,
+                executor=pool,
+                name=f"remote-run:{name}",
+            )
+        if stream is not None:
+            stream._note_completion(result)
+        return result

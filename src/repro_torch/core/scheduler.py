@@ -41,9 +41,14 @@ as a candidate; when every candidate is over, the pick goes through and the
 least-recently-used buffers on it are spilled to host memory
 (``Buffer.spill``; the next use refetches them).
 
-Not ported: a fleet over several localities (remote devices, steals that
-cross a parcel boundary, ``steal_fetch``), ROADMAP.md Queue 1 item 10.  A
-scheduler refuses a remote device, and a stolen launch a remote buffer.
+Localities: a fleet may hold remote devices (``RemoteDevice`` proxies of
+a parcel port).  Liveness is re-read on every decision (``alive()``): a
+locality whose worker died takes no new placements until it recovers.
+``percolation`` charges a move across a locality boundary
+``cross_locality_cost`` times an intra-locality copy.  A steal across
+localities takes only tasks whose argument bytes are at most
+``REPRO_STEAL_MAX_BYTES`` over that penalty, and fetches the task's remote
+buffers in one ``steal_fetch`` parcel before it runs.
 """
 from __future__ import annotations
 
@@ -70,8 +75,6 @@ __all__ = [
     "locality_of_key",
     "POLICIES",
 ]
-
-_ITEM10 = "ROADMAP.md Queue 1 item 10"
 
 
 def locality_of_key(key: "str | None") -> int:
@@ -387,9 +390,7 @@ class Scheduler:
                  spill_bytes: "int | None" = None,
                  steal_max_bytes: "int | None" = None):
         self.policy = make_policy(policy)
-        self._devices: "list | None" = None
-        if devices is not None:
-            self._devices = self._local_fleet(devices)
+        self._devices: "list | None" = list(devices) if devices is not None else None
         self._placements: "dict[str, int]" = {}
         self._lock = threading.Lock()
         if steal is None:
@@ -405,6 +406,8 @@ class Scheduler:
         self._pending: "dict[str, deque]" = {}
         self._pumping: "set[str]" = set()
         self._steals = 0
+        self._cross_steals = 0
+        self._cross_penalty = 8  # migration-cost multiple of a parcel-pair move
         # Cordoned devices take no new placements, unless that would
         # empty the fleet.
         self._cordoned: "set[str]" = set()
@@ -412,23 +415,12 @@ class Scheduler:
         # launch placed a moment ago may not show in its lane yet.
         self._recent: "dict[str, tuple[float, float]]" = {}
 
-    @staticmethod
-    def _local_fleet(devices: Sequence) -> list:
-        devs = list(devices)
-        for d in devs:
-            if (getattr(d, "is_remote_proxy", False)
-                    or locality_of_key(getattr(d, "key", None)) != 0):
-                raise NotImplementedError(
-                    f"device {getattr(d, 'key', d)!r} lives in another locality; a fleet "
-                    f"across localities needs the parcelport, not ported yet ({_ITEM10})")
-        return devs
-
     def devices(self) -> list:
         devs = self._devices
         if devs is None:
             from repro_torch.core.device import get_all_devices
 
-            devs = self._devices = self._local_fleet(get_all_devices().get())
+            devs = self._devices = list(get_all_devices().get())
         if not devs:
             raise RuntimeError("Scheduler has no devices to place on")
         return devs
@@ -710,18 +702,27 @@ class Scheduler:
     def _steal_locked(self, thief) -> "_PendingLaunch | None":
         """Pop the tail of the deepest eligible sibling backlog (the caller
         holds ``_pump_lock``): a task is eligible when its argument bytes
-        are at most ``REPRO_STEAL_MAX_BYTES``."""
+        are at most ``REPRO_STEAL_MAX_BYTES``, divided by the
+        cross-locality penalty when victim and thief live in different
+        localities (a steal there costs a parcel pair per buffer)."""
         if not self._steal:
             return None
+        thief_loc = locality_of_key(getattr(thief, "key", ""))
         for vkey, dq in sorted(self._pending.items(), key=lambda kv: -len(kv[1])):
             if vkey == thief.key or not dq:
                 continue
             task = dq[-1]
-            if task.nbytes > self._steal_max_bytes:
+            limit = self._steal_max_bytes
+            cross = locality_of_key(vkey) != thief_loc
+            if cross:
+                limit //= self._cross_penalty
+            if task.nbytes > limit:
                 continue
             dq.pop()
             task.stolen = True
             self._steals += 1
+            if cross:
+                self._cross_steals += 1
             return task
         return None
 
@@ -742,17 +743,39 @@ class Scheduler:
             except Exception:  # noqa: BLE001 - the consumer cancelled or raced
                 pass
 
-    @staticmethod
-    def _prefetch_stolen_args(dev, args: Sequence) -> Sequence:
-        """Argument fetch before a stolen launch runs.  Local buffers
-        re-home through the launch's own percolation; a remote buffer
-        (fetched in one parcel by the reference) is refused."""
-        for a in args:
-            if getattr(a, "is_remote_buffer", False):
-                raise NotImplementedError(
-                    f"a stolen launch with a remote buffer needs the parcelport, not ported "
-                    f"yet ({_ITEM10})")
-        return args
+    def _prefetch_stolen_args(self, dev, args: Sequence) -> Sequence:
+        """Batch-fetch remote argument buffers before a cross-locality
+        stolen launch runs: one ``steal_fetch`` parcel a locality brings
+        every array over (the shm lane carries large payloads) instead of
+        one percolation round trip an argument inside ``run``.  Local
+        buffers re-home through the launch's own percolation; any failure
+        falls back to it too."""
+        dev_loc = locality_of_key(getattr(dev, "key", ""))
+        groups: "dict[tuple[int, int], tuple[Any, list[int]]]" = {}
+        for i, a in enumerate(args):
+            if not getattr(a, "is_remote_buffer", False):
+                continue
+            rdev = getattr(a, "device", None)
+            port = getattr(rdev, "_port", None)
+            loc = getattr(rdev, "locality_id", None)
+            if port is None or loc is None or loc == dev_loc:
+                continue
+            groups.setdefault((id(port), loc), (port, []))[1].append(i)
+        fetched = None
+        for (_, loc), (port, idxs) in groups.items():
+            if len(idxs) < 2:
+                continue  # one buffer: plain percolation is one parcel anyway
+            try:
+                arrays = port.call(
+                    loc, "steal_fetch", {"gids": [args[i].gid for i in idxs]}
+                ).get()
+            except Exception:  # noqa: BLE001 - fall back to percolation
+                continue
+            if fetched is None:
+                fetched = list(args)
+            for i, arr in zip(idxs, arrays):
+                fetched[i] = arr
+        return fetched if fetched is not None else args
 
     # -- introspection -------------------------------------------------------------
 
@@ -763,11 +786,11 @@ class Scheduler:
 
     def steal_stats(self) -> dict:
         """Rebalancing counters: total steals, the cross-locality subset
-        (always 0 here) and the current pending backlog per device."""
+        and the current pending backlog per device."""
         with self._pump_lock:
             return {
                 "steals": self._steals,
-                "cross_locality": 0,
+                "cross_locality": self._cross_steals,
                 "pending": {k: len(dq) for k, dq in self._pending.items() if dq},
             }
 

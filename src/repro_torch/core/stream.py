@@ -31,6 +31,12 @@ Ordering guarantees:
   on the device, for the event of the buffer's last writer (see
   ``Buffer._use``).
 * **Events are one-shot** — re-recording returns a new event.
+* **Remote streams = parcel channels** — a stream on a ``RemoteDevice``
+  has no CUDA stream here: its lane is its own ordered parcel channel, so
+  parcels of one stream arrive and execute in submission order and those
+  of different streams may interleave.  Its events resolve on the reply
+  parcels of the work noted before them, and a wait on such an event, or
+  by such a stream, waits on the host.
 
 Deadlock rule (CUDA's): ``wait_event`` on an event that will only be
 recorded by LATER work on the same stream deadlocks that stream —

@@ -18,8 +18,9 @@ Hook points:
   parcel; drops fail the sender's future with ``ParcelDropped`` *before*
   the wire (later parcels on the channel are untouched, so channel FIFO
   holds), delays sleep on the sending thread (later parcels queue behind —
-  FIFO again).  The port has no parcel port yet (ROADMAP.md Queue 1 item
-  10): the rules talk to any object with ``set_fault_filter``.
+  FIFO again).  The rules talk to any object with ``set_fault_filter``:
+  ``LoopbackParcelport`` and ``LocalClusterParcelport`` of
+  ``repro_torch.core.parcel``.
 * ``Scheduler.cordon`` — removes a device from placement without touching
   its in-flight work.
 * ``Heartbeat.force_expire`` — backdates the last tick so the next

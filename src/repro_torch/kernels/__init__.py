@@ -34,13 +34,26 @@ def all_kernels() -> "dict[str, callable]":
     return out
 
 
-def launch_counts() -> "dict[str, int]":
-    """Launches made by each kernel wrapper since the last reset."""
+def launch_counts(_payload=None) -> "dict[str, int]":
+    """Launches made by each kernel wrapper since the last reset.  (The
+    ignored argument lets a parcel ``invoke`` read a worker's counts by
+    name, ``repro_torch.kernels:launch_counts``.)"""
     return {pkg: importlib.import_module(f"repro_torch.kernels.{pkg}.kernel").launches
             for pkg in _PACKAGES}
 
 
-def reset_launch_counts() -> None:
+def kernel_launches(_payload=None) -> "dict[str, int]":
+    """Kernels launched by the wrappers that count them apart from their
+    calls (``kernel_launches``: ssd_scan's 3 a call, paged_attention's)."""
+    out = {}
+    for pkg in _PACKAGES:
+        mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
+        if hasattr(mod, "kernel_launches"):
+            out[pkg] = mod.kernel_launches
+    return out
+
+
+def reset_launch_counts(_payload=None) -> None:
     """Zero every wrapper's ``launches``, its ``kernel_launches`` where one
     call launches several kernels, and its ``noncausal_launches`` where it
     counts those apart."""
@@ -85,5 +98,5 @@ def note_launch(package: str) -> None:
             counts[package] = counts.get(package, 0) + 1
 
 
-__all__ = ["all_kernels", "launch_counts", "note_launch", "reset_launch_counts",
-           "tally_launches"]
+__all__ = ["all_kernels", "kernel_launches", "launch_counts", "note_launch",
+           "reset_launch_counts", "tally_launches"]

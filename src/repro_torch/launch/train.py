@@ -14,9 +14,10 @@ sharded across local workers, each shard's forward and backward replayed
 as one captured graph, the gradients combined on the driver's device, and
 a worker death mid-run reshards over the survivors (DESIGN.md §16).
 ``--chaos SEED`` arms the fault injector with a deterministic mid-run
-worker kill drawn from SEED — the recovery drill.  Parcel workers (a
-parcel port) come with ROADMAP item 10 and a device mesh with item 11:
-both raise ``NotImplementedError``.
+worker kill drawn from SEED — the recovery drill.  ``train(port=...)``
+trains over a parcel port's localities instead (``ParcelWorker``s: each
+shard one ``invoke`` parcel to a worker process).  A device mesh comes
+with ROADMAP item 11 and raises ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 10 --batch 4 --seq 2048

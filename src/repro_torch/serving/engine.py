@@ -26,9 +26,13 @@ scheduler, graph replay):
   stream=s)``): on a card, one CUDA graph a (device, route, bucket).  A
   step that cannot be captured (a host sync such as ``.item()``, a
   data-dependent shape) falls back to a direct call on the same stream,
-  with the same results.  Placement on another locality (apply parcels)
-  and steps named by a registered kernel name wait for the parcel port
-  (ROADMAP.md Queue 1 item 10) and are refused.
+  with the same results.  A step may be a registered kernel name
+  (``str``, resolved through ``repro_torch.core.parcel.resolve_kernel``).
+  A batch placed on a cross-process locality (``cluster=`` or a scheduler
+  over a parcel port's devices) travels as ONE ``apply_batched`` parcel —
+  which needs the step to be a kernel name, since a closure cannot cross
+  the process boundary — and the reply carries each member's rows; an
+  in-process (loopback) locality runs the step directly on its channel.
 
 * **Per-request results.**  The batched output's leading axis is sliced
   back per member: every caller's future resolves with exactly its rows,
@@ -63,8 +67,6 @@ from repro_torch.core.futures import Future, Promise
 from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["RequestEngine", "QueueFull", "EngineClosed", "LanePolicy"]
-
-_PARCELS = "ROADMAP.md Queue 1 item 10"
 
 
 class QueueFull(RuntimeError):
@@ -257,8 +259,8 @@ class RequestEngine:
         The step, per request *kind*: a callable, or a ``{kind: callable}``
         dict serving several request kinds (e.g. ``{"decode": ...,
         "prefill": ...}``) from one queue.  A registered kernel name
-        (``str``) is refused until the parcel port (ROADMAP.md Queue 1
-        item 10).
+        (``str``) resolves through the parcel kernel registry, and is what
+        a cross-process locality runs.
     max_batch:
         Micro-batch row bound (also the largest padding bucket).
     max_delay_s:
@@ -267,8 +269,8 @@ class RequestEngine:
     max_queue:
         Admission bound; ``submit`` beyond it raises ``QueueFull``.
     scheduler / cluster:
-        Placement: explicit scheduler, else the process default.
-        ``cluster`` (remote localities) is refused until item 10.
+        Placement: explicit scheduler, else ``cluster.scheduler()`` (a
+        parcel port's localities x devices grid), else the process default.
     graph:
         Replay batches as captured ``TaskGraph``s on an engine-owned
         stream (default).  ``False`` forces the direct call: the right
@@ -295,23 +297,25 @@ class RequestEngine:
         lanes: "dict[str, LanePolicy] | None" = None,
         name: str = "engine",
     ):
+        from repro_torch.core.parcel import resolve_kernel
+
         if not isinstance(fn, dict):
             fn = {fn if isinstance(fn, str) else "step": fn}
-        for f in fn.values():
+        self._fns: "dict[str, Callable]" = {}
+        self._kernel_names: "dict[str, str | None]" = {}
+        for kind, f in fn.items():
             if isinstance(f, str):
-                raise NotImplementedError(
-                    f"a step named by a registered kernel ({f!r}) resolves through the "
-                    f"parcel port's kernel registry, not ported yet ({_PARCELS}); pass "
-                    "the callable")
-        if cluster is not None:
-            raise NotImplementedError(
-                f"an engine over a cluster needs the parcel port, not ported yet ({_PARCELS})")
-        self._fns: "dict[str, Callable]" = dict(fn)
+                self._fns[kind] = resolve_kernel(f)
+                self._kernel_names[kind] = f
+            else:
+                self._fns[kind] = f
+                self._kernel_names[kind] = None
         self.name = name
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_s)
         self.max_queue = int(max_queue)
         self._scheduler = scheduler
+        self._cluster = cluster
         self._graph_enabled = bool(graph)
         if buckets is None:
             b, buckets = 1, []
@@ -576,6 +580,8 @@ class RequestEngine:
     def _scheduler_for(self):
         if self._scheduler is not None:
             return self._scheduler
+        if self._cluster is not None:
+            return self._cluster.scheduler()
         from repro_torch.core.scheduler import get_scheduler
 
         return get_scheduler()
@@ -668,16 +674,26 @@ class RequestEngine:
         from repro_torch.core.executor import get_runtime
 
         pool = get_runtime().pool
-        if getattr(dev, "is_remote_proxy", False):
-            # The reference ships such a batch as one apply_batched parcel
-            # and joins its pre-sliced reply (_join_chunks).
-            self._finish(group, None, NotImplementedError(
-                f"engine placed a micro-batch on {dev.key}, a remote locality: batches "
-                f"travel as apply_batched parcels, not ported yet ({_PARCELS})"), bucket)
+        remote = getattr(dev, "is_remote_proxy", False)
+        if remote and not dev._port.in_process:
+            kernel = self._kernel_names.get(kind)
+            if kernel is None:
+                self._finish(group, None, ValueError(
+                    f"engine placed a micro-batch on {dev.key}, a cross-process "
+                    "locality, but its step is a closure: construct the engine "
+                    "with a registered kernel name (str) so batches can travel "
+                    "as apply_batched parcels"
+                ), bucket)
+                return
+            batch, _total = self._stack(group, bucket, False)
+            fut = dev._call("apply_batched", kernel=kernel, batch=batch,
+                            rows=[r.rows for r in group])
+            pool.submit(self._join_chunks, fut, group, bucket)
             return
 
         pin = bool(getattr(dev, "is_cuda", False))
-        entry = self._graph_route(dev, group[0].key, bucket) if self._graph_enabled else None
+        entry = (self._graph_route(dev, group[0].key, bucket)
+                 if self._graph_enabled and not remote else None)
         if entry is not None:
             metas = group[0].key[2]
             pad = bucket - rows
@@ -694,14 +710,16 @@ class RequestEngine:
             pool.submit(self._join_graph, fut, entry, group, bucket)
             return
 
-        # Direct path: graph=False, or a step that cannot be captured.
+        # Direct path: loopback localities (on the proxy's channel),
+        # graph=False, or a step that cannot be captured.
         batch, _total = self._stack(group, bucket, pin)
         fn = self._fns[kind]
 
         def _run(batch=batch, dev=dev, fn=fn):
             return _host_copies(fn(to_device(batch, dev)))
 
-        fut = self._stream_for(dev).lane.submit(_run)
+        q = dev.ops_queue if remote else self._stream_for(dev).lane
+        fut = q.submit(_run)
         pool.submit(self._join_direct, fut, group, bucket)
 
     # -- execution routes ----------------------------------------------------
@@ -810,6 +828,18 @@ class RequestEngine:
             self._finish(group, None, e, bucket)
             return
         self._finish(group, out, None, bucket)
+
+    def _join_chunks(self, fut, group, bucket) -> None:
+        """Cross-locality reply: one pre-sliced chunk per member request."""
+        try:
+            chunks = fut.get()
+        except BaseException as e:  # noqa: BLE001
+            self._finish(group, None, e, bucket)
+            return
+        done = _now()
+        for req, chunk in zip(group, chunks):
+            req.promise.set_value(chunk)
+        self._note_done(group, done, bucket, failed=False)
 
     def _finish(self, group, out, exc, bucket: "int | None" = None) -> None:
         done = _now()

@@ -60,9 +60,9 @@ position])`` (greedy argmax when ``temperature <= 0``), so tokens do not
 depend on batch composition or fleet size.
 
 Not ported yet: the cross-locality ``export_seq``/``import_seq``/
-``paged_worker_*`` (ROADMAP.md Queue 1 item 10) and the ``"legacy"``
-two-callable contract (with the fig9 port, Queue 1 item 4), which is
-refused.
+``paged_worker_*`` (ROADMAP.md Queue 1 item 10b: an engine over a fleet
+across localities is refused) and the ``"legacy"`` two-callable contract
+(with the fig9 port, Queue 1 item 4), which is refused.
 
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
 default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes a device, default 32
@@ -939,6 +939,15 @@ class PagedServeEngine:
             from repro_torch.core.scheduler import Scheduler
 
             scheduler = Scheduler([p.device for p in kv.pools.values()], policy="least_loaded")
+        from repro_torch.core.scheduler import locality_of_key
+
+        fleet = scheduler.devices() if callable(getattr(scheduler, "devices", None)) else []
+        if any(getattr(d, "is_remote_proxy", False) or locality_of_key(getattr(d, "key", None))
+               for d in fleet):
+            raise NotImplementedError(
+                "PagedServeEngine: a fleet across localities ships sequences' pages between "
+                "processes (export_seq/import_seq, paged_worker_*), not ported yet (ROADMAP.md "
+                "Queue 1 item 10b)")
         self.scheduler = scheduler
         # The device the prefill runs on (the first pool's), on a stream of
         # its own; each decode lane runs on a stream of its own too.

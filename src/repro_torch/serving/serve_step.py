@@ -13,16 +13,16 @@ device's ops queue; ``make_serve_fanout`` specialises it to decode steps.
 
 Continuous batching (DESIGN.md §12): ``make_serve_engine`` builds the
 ``RequestEngine`` that assembles batches from individual decode requests.
-Remote localities and registered kernel names wait for the parcel port
-(ROADMAP.md Queue 1 item 10) and are refused.
+Both take registered kernel names and remote localities: a batch placed on
+a cross-process locality travels as a parcel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import get_model
-from repro_torch.serving.engine import (_PARCELS, RequestEngine, _leaf_tensor, to_device,
-                                        tree_flatten, tree_map)
+from repro_torch.serving.engine import (RequestEngine, _leaf_tensor, to_device, tree_flatten,
+                                        tree_map)
 
 __all__ = ["cache_to_rows", "make_prefill", "make_serve_engine", "make_serve_fanout",
            "make_serve_step", "route_batches", "rows_to_cache"]
@@ -73,30 +73,42 @@ def route_batches(fn, batches, scheduler=None, percolate: bool = True, cluster=N
     device's ops queue.  Returns one future per batch; join with
     ``repro_torch.core.wait_all``.
 
-    A cluster, a registered kernel name (``str``) and a batch placed on a
-    remote locality need the parcel port (ROADMAP.md Queue 1 item 10) and
-    raise ``NotImplementedError``.
+    Cluster fan-out: with ``cluster`` (a parcel port) the fleet widens to
+    every remote locality.  A batch placed on a cross-process locality
+    ships as one ``apply`` parcel — which requires ``fn`` to be a
+    registered **kernel name** (str), since a closure cannot cross the
+    process boundary; in-process transports (loopback) and local devices
+    accept callables as before.
     """
     from repro_torch.core.scheduler import get_scheduler
 
-    if cluster is not None:
-        raise NotImplementedError(
-            f"route_batches over a cluster needs the parcel port, not ported yet ({_PARCELS})")
-    if isinstance(fn, str):
-        raise NotImplementedError(
-            f"route_batches with a registered kernel name ({fn!r}) needs the parcel port's "
-            f"kernel registry, not ported yet ({_PARCELS}); pass the callable")
-    sched = scheduler if scheduler is not None else get_scheduler()
+    if scheduler is not None:
+        sched = scheduler
+    elif cluster is not None:
+        sched = cluster.scheduler()
+    else:
+        sched = get_scheduler()
+    kernel_name = fn if isinstance(fn, str) else None
+    local_fn = fn
+    if kernel_name is not None:
+        from repro_torch.core.parcel import resolve_kernel
+
+        local_fn = resolve_kernel(kernel_name)
     futs = []
     for b in batches:
         dev = sched.select(args=tree_flatten(b)[0])
-        if getattr(dev, "is_remote_proxy", False):
-            raise NotImplementedError(
-                f"route_batches placed a batch on {dev.key}, a remote locality: the work "
-                f"would travel as a parcel, not ported yet ({_PARCELS})")
+        if getattr(dev, "is_remote_proxy", False) and not dev._port.in_process:
+            if kernel_name is None:
+                raise ValueError(
+                    f"route_batches placed a batch on {dev.key}, a cross-process "
+                    "locality, but fn is a closure: pass a registered kernel "
+                    "name (str) so the work can travel as a parcel"
+                )
+            futs.append(dev._call("apply", kernel=kernel_name, batch=b))
+            continue
 
         def _run(b=b, dev=dev):
-            return fn(to_device(b, dev) if percolate else b)
+            return local_fn(to_device(b, dev) if percolate else b)
 
         futs.append(dev.ops_queue.submit(_run))
     return futs

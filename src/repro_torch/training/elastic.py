@@ -18,9 +18,12 @@ update:
   time in the process); replays of different graphs run concurrently.
 * **Parcel workers** ship the shard as ONE ``invoke`` parcel to a remote
   locality, which resolves ``repro_torch.training.elastic:shard_action``
-  by name.  The port has no parcel port yet (ROADMAP.md Queue 1 item 10):
-  ``ParcelWorker`` and ``ElasticTrainer(port=...)`` raise
-  ``NotImplementedError``; ``shard_action`` is here for it.
+  by name — source never crosses the wire — and replays the same captured
+  shard graph there, on its own device.  On this route the params cross
+  as host arrays, one D2H a step on the driver (as the reference's numpy
+  does; large arrays take the shared-memory lane), and the gradients come
+  back the same way.  ``kill()`` SIGKILLs the worker's process on a
+  cluster port and flips the port's fail-fast gate on a loopback one.
 
 Gradients may come back int8-compressed (``grad_compression``): stochastic
 rounding from a ``torch.Generator`` seeded from the task's ``ckey``, one
@@ -78,6 +81,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig, smoke as smoke_cfg
 from repro_torch.core import agas
 from repro_torch.core.executor import get_runtime, on_runtime_reset
+from repro_torch.core.parcel import host_value
 from repro_torch.core.graph import TaskGraph
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.distribution.recipes import plan_for
@@ -89,10 +93,10 @@ from repro_torch.training.grad_compression import compress
 from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
 from repro_torch.training.train_step import make_init
 
-__all__ = ["ElasticTrainer", "LocalWorker", "ParcelWorker", "WorkerDied", "shard_action"]
+__all__ = ["ElasticTrainer", "LocalWorker", "ParcelWorker", "WorkerDied", "graph_stats",
+           "shard_action"]
 
 F32 = torch.float32
-_PARCELS = "ROADMAP.md Queue 1 item 10"
 # profiler ranges of an elastic step's parts, read by tools/profile_torch_train.py
 ELASTIC_SPANS = ("elastic.shards", "elastic.combine", "elastic.update")
 
@@ -239,22 +243,33 @@ def shard_action(payload: dict) -> dict:
     """The remote half of one data-parallel shard step.
 
     Resolved BY NAME (``repro_torch.training.elastic:shard_action``)
-    through the parcel ``invoke`` action once the port has one (ROADMAP.md
-    Queue 1 item 10) — source never crosses the wire.  The payload carries
-    flat param leaves + the shard's tokens/labels + config knobs, and may
-    name the ``device`` to compute on (default: the card); the reply
-    carries ``{loss, grads | (q, scales)}`` as tensors on that device."""
-    fam = _get_family(
-        payload["arch"], payload["smoke"], int(payload["seq"]), int(payload["global_batch"])
-    )
-    device = torch.device(payload.get("device", "cuda"))
-    params = tree_unflatten(fam["treedef"], [_as_tensor(a, device) for a in payload["params"]])
-    batch = {
-        "tokens": _as_tensor(payload["tokens"], device),
-        "labels": _as_tensor(payload["labels"], device),
-    }
-    loss, grads = fam["grad_step"](params, batch)
-    return _pack_grads(tree_flatten(grads)[0], loss, payload)
+    through the parcel ``invoke`` action — source never crosses the wire.
+    The payload carries flat param leaves + the shard's tokens/labels +
+    config knobs, and may name the ``device`` platform to compute on
+    (default: the card).  The shard runs on that platform's first device
+    of this process by the route of ``REPRO_ELASTIC_ROUTE`` (default
+    ``graph``: the captured shard graph, replayed, as a ``LocalWorker``
+    runs it); the reply carries ``{loss, grads | (q, scales)}`` as tensors
+    on that device (the parcel codec brings them to the host)."""
+    from repro_torch.core.device import get_all_devices
+
+    platform = torch.device(payload.get("device", "cuda")).type
+    devs = get_all_devices(platform=platform).get()
+    if not devs:
+        raise RuntimeError(f"shard_action: this process has no {platform} device")
+    return _run_shard_local(payload, devs[0], os.environ.get("REPRO_ELASTIC_ROUTE", "graph"))
+
+
+def graph_stats(_payload=None) -> dict:
+    """This process's captured shard graphs: for each ``"<device key>
+    r<rows>"``, the kernels a replay runs (by package), its replays and its
+    CUDA graphs.  (The ignored argument lets a parcel ``invoke`` read a
+    worker's by name, ``repro_torch.training.elastic:graph_stats``.)"""
+    with _CACHE_LOCK:
+        entries = list(_GEXECS.items())
+    return {f"{k[1]} r{k[2]}": {"arch": k[0][0], "recorded": e[0].recorded_launches,
+                               "replays": e[0].graph_replays, "cuda_graphs": e[0].cuda_graphs}
+            for k, e in entries}
 
 
 def _fed_buffer(dev, shape, dtype):
@@ -422,16 +437,58 @@ class LocalWorker:
         return self.queue.submit(_run)
 
 
+def _tensors(reply: dict) -> dict:
+    """A shard's reply off the wire (numpy leaves) as tensors."""
+    return tree_map(lambda a: torch.from_numpy(np.asarray(a)) if not isinstance(a, torch.Tensor)
+                    else a, reply)
+
+
 class ParcelWorker:
-    """One data-parallel worker behind a parcel port locality: comes with
-    the port's parcel layer (ROADMAP.md Queue 1 item 10)."""
+    """One data-parallel worker behind a parcel port locality.  The shard
+    ships as ONE ``invoke`` parcel (arrays take the shm lane when large);
+    liveness is the port's (heartbeat monitor / fail-fast gate)."""
 
     kind = "parcel"
 
     def __init__(self, wid: int, port, locality_id: int):
-        raise NotImplementedError(
-            f"ParcelWorker: parcel workers come with the parcel port ({_PARCELS}); use "
-            "LocalWorker")
+        self.wid = int(wid)
+        self.port = port
+        self.lid = int(locality_id)
+        self._dead = False
+        self._kill_at: "Optional[int]" = None
+
+    def alive(self) -> bool:
+        return not self._dead and self.port.alive(self.lid)
+
+    def mark_dead(self) -> None:
+        self._dead = True
+
+    def kill(self) -> None:
+        self._dead = True
+        if hasattr(self.port, "kill"):  # loopback: flip the fail-fast gate
+            self.port.kill(self.lid)
+        else:  # cluster: SIGKILL the worker process
+            w = self.port._workers.get(self.lid)
+            if w is not None and w.proc.is_alive():
+                w.proc.kill()
+
+    def revive(self) -> None:
+        self._dead = False
+        if hasattr(self.port, "revive"):
+            self.port.revive(self.lid)
+
+    def kill_at_step(self, step: int) -> None:
+        self._kill_at = int(step)
+
+    def run_shard(self, task: dict):
+        if self._kill_at is not None and task["step"] >= self._kill_at:
+            self._kill_at = None
+            self.kill()  # the call below fails fast: a mid-step death
+        payload = dict(task, device=getattr(self.port, "platform", "cuda"))
+        return self.port.call(
+            self.lid, "invoke", {"fn": "repro_torch.training.elastic:shard_action",
+                                 "payload": payload}
+        ).then(_tensors, executor="inline")
 
 
 # ---------------------------------------------------------------------------
@@ -483,10 +540,6 @@ class ElasticTrainer:
     ):
         from repro_torch.checkpoint.checkpoint import CheckpointManager
 
-        if port is not None:
-            raise NotImplementedError(
-                f"ElasticTrainer: parcel workers (port=) come with the parcel port ({_PARCELS}); "
-                "the port trains over local workers")
         self.arch = arch
         self.use_smoke = bool(use_smoke)
         self.batch = int(batch)
@@ -529,17 +582,21 @@ class ElasticTrainer:
 
         # -- fleet -----------------------------------------------------------
         self.workers: list = []
-        for i in range(int(workers)):
-            dev = devices[i % len(devices)] if devices else None
-            self.workers.append(
-                LocalWorker(
-                    i,
-                    device=dev,
-                    occupancy_tokens_per_s=occupancy_tokens_per_s,
-                    heartbeat_timeout=heartbeat_timeout,
-                    platform=self.device.type,
+        if port is not None:
+            for i, loc in enumerate(port.localities()):
+                self.workers.append(ParcelWorker(i, port, loc.process_index))
+        else:
+            for i in range(int(workers)):
+                dev = devices[i % len(devices)] if devices else None
+                self.workers.append(
+                    LocalWorker(
+                        i,
+                        device=dev,
+                        occupancy_tokens_per_s=occupancy_tokens_per_s,
+                        heartbeat_timeout=heartbeat_timeout,
+                        platform=self.device.type,
+                    )
                 )
-            )
 
         # The master state is an AGAS-resident cluster object: any locality
         # (or a post-mortem driver) can resolve it by GID — recovery reads
@@ -634,6 +691,10 @@ class ElasticTrainer:
             # copies the params (and before any shard stream reuses memory
             # that this stream still read).
             torch.cuda.current_stream(self.device).synchronize()
+        if any(w.kind == "parcel" for w in self.workers):
+            # Parcel workers get host arrays: one D2H a step, shared by
+            # every parcel shard (and every retry) of the step.
+            flat_params = [host_value(t) for t in flat_params]
 
         with record_function(ELASTIC_SPANS[0]):
             while True:

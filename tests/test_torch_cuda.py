@@ -2334,3 +2334,109 @@ def test_torch_cuda_elastic_kernels_counted_inside_shard_graph(arch, kernel):
     if kernel == "ssd_scan":
         assert ssd_kernel.kernel_launches == 3 * launch_counts()[kernel]
     reset_runtime()
+
+
+# ---------------------------------------------------------------------------
+# parcels: worker processes with CUDA contexts of their own on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_torch_cuda_cluster_remote_stencil_and_bf16_buffer():
+    """A 1-worker cluster on the card: stencil launched by name in the
+    worker is bit-equal to the same launch here, the worker's own counter
+    shows the kernel ran there, and a bfloat16 RemoteBuffer round-trips."""
+    _need_cuda()
+    from repro_torch.core import LocalClusterParcelport
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(1 << 20,)).astype(np.float32))
+    local = stencil_ops.stencil(x.cuda(), block=(256, 1, 1)).cpu().numpy()
+    port = LocalClusterParcelport(n_workers=1, heartbeat_timeout=60.0)
+    try:
+        rdev = port.devices()[0]
+        assert rdev.platform == "cuda" and rdev.capability() >= (9, 0)
+        prog = rdev.create_program(["stencil"], name="cuda-stencil").get()
+        rbuf = rdev.create_buffer_from(x.numpy()).get()
+        prog.run([rbuf], "stencil", block=(256, 1, 1), out=[rbuf]).get()
+        assert rbuf.enqueue_read_sync().tobytes() == local.tobytes()
+        counts = port.call(rdev.locality_id, "invoke",
+                           {"fn": "repro_torch.kernels:launch_counts"}).get()
+        assert counts["stencil"] == 1
+        h = torch.randn(4096, generator=torch.Generator().manual_seed(5)).to(torch.bfloat16)
+        hb = rdev.create_buffer_from(h).get()
+        assert hb.dtype == torch.bfloat16
+        assert torch.equal(hb.enqueue_read_sync().view(torch.int16), h.view(torch.int16))
+        wait_all([rbuf.free(), hb.free()])
+    finally:
+        port.shutdown()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_cluster_sigkilled_worker_fails_fast_and_leaves_placement():
+    """A worker SIGKILLed with a parcel in flight: the pending future fails
+    within the monitor's interval, the scheduler stops placing there, the
+    survivor keeps serving, and the killed worker's memory goes back to
+    the card."""
+    _need_cuda()
+    from repro_torch.core import LocalClusterParcelport
+
+    port = LocalClusterParcelport(n_workers=2, heartbeat_timeout=30.0)
+    try:
+        a, b = port.devices()
+        held = b.create_buffer(64 << 20, np.float32).get()  # 256 MiB on the card
+        del held
+        free0 = torch.cuda.mem_get_info()[0]
+        pending = port.call(b.locality_id, "invoke", {"fn": "time:sleep", "payload": 20.0})
+        port.process(b.locality_id).kill()
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="failed"):
+            pending.get(timeout=15)
+        assert time.monotonic() - t0 < 10
+        sched = Scheduler([a, b], policy="round_robin")
+        assert {sched.select().key for _ in range(4)} == {a.key}
+        prog = a.create_program(["partition_map"], name="survivor").get()
+        x = np.linspace(-3.0, 3.0, 1 << 16, dtype=np.float32)
+        res = np.asarray(prog.run([x], "partition_map").get()[0])
+        np.testing.assert_allclose(res, np.ones_like(x), rtol=1e-5)
+        deadline = time.monotonic() + 10
+        while torch.cuda.mem_get_info()[0] <= free0 and time.monotonic() < deadline:
+            time.sleep(0.2)
+        assert torch.cuda.mem_get_info()[0] > free0  # its context left the card
+    finally:
+        port.shutdown()
+
+
+@pytest.mark.cuda
+def test_torch_cuda_engine_serves_over_2_process_cluster_bit_equal():
+    """``RequestEngine("partition_map")`` over two worker processes on the
+    card: every micro-batch one apply_batched parcel, each request's rows
+    bit-equal to the plain version on the card.  The kernel takes a 1-D
+    tensor, so a request is 4096 rows of one element and a batch up to 4
+    requests."""
+    _need_cuda()
+    from repro_torch.core import LocalClusterParcelport
+    from repro_torch.serving import RequestEngine
+
+    n = 4096
+    port = LocalClusterParcelport(n_workers=2, heartbeat_timeout=60.0)
+    try:
+        sched = Scheduler(port.devices(), policy="round_robin")
+        eng = RequestEngine("partition_map", max_batch=4 * n, max_delay_s=0.01, scheduler=sched,
+                            name="t-cuda-cluster")
+        try:
+            rng = np.random.default_rng(5)
+            payloads = [(rng.normal(size=(n,)) * 10).astype(np.float32) for _ in range(8)]
+            futs = [eng.submit(p) for p in payloads]
+            for p, f in zip(payloads, futs):
+                got = f.get(timeout=300)
+                want = partition_map_ref(torch.from_numpy(p).cuda()).cpu().numpy()
+                assert got.dtype == want.dtype and np.array_equal(got, want)
+            assert len(sched.stats()) == 2  # both worker processes served
+            counts = [port.call(d.locality_id, "invoke",
+                                {"fn": "repro_torch.kernels:launch_counts"}).get()
+                      for d in port.devices()]
+            assert all(c["partition_map"] > 0 for c in counts)
+        finally:
+            eng.close()
+    finally:
+        port.shutdown()

@@ -20,12 +20,22 @@ by ``params_from_numpy``), f32 compute pinned in both by patching each
 * ``shard_action`` on one payload: loss rtol 1e-5, grads rtol 1e-4 atol
   1e-6 (the same f32 math summed in other orders).
 
+The parcel route (``ElasticTrainer(port=...)``, one ``ParcelWorker`` a
+locality, each shard one ``invoke`` parcel): the reference's loopback
+tests (a kill mid-step, recovery, revive, nothing leaked; dropped parcels
+retried, then a reshard), the port's loopback route against the
+reference's ``ElasticTrainer(port=LoopbackParcelport(3))`` through a kill
+at the tolerances above, and a 2-process CPU cluster with one worker
+SIGKILLed mid-step, whose tail is bit-identical to the local route's.
+
 The port's own: the int8 lane's kill tail bit-identical to a clean run and
 its gradient within the int8 bound; the ``graph`` and ``jit`` routes equal;
-parcel workers refused naming item 10; ``reset_runtime`` dropping the
-captured shard graphs.
+what is still refused around parcel workers; ``reset_runtime`` dropping
+the captured shard graphs.
 """
 import dataclasses
+import glob
+import multiprocessing
 
 import jax
 import numpy as np
@@ -40,10 +50,11 @@ except ImportError:  # hypothesis not installed: deterministic fallback shim
 import repro.training.elastic as jel
 from repro.training import optimizer as jax_opt
 from repro_torch.configs import get_config, smoke
-from repro_torch.core import agas, reset_runtime
+from repro_torch.core import LocalClusterParcelport, LoopbackParcelport, agas, reset_runtime
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.pytree import tree_flatten
 from repro_torch.training import elastic as tel
+from repro_torch.fault.inject import FaultInjector
 from repro_torch.training.elastic import ElasticTrainer, LocalWorker, ParcelWorker
 
 ARCH, BATCH, SEQ, TOTAL = "olmo-1b", 6, 8, 5
@@ -362,10 +373,170 @@ def test_torch_graph_and_jit_routes_give_equal_losses(monkeypatch):
 
 
 def test_torch_parcel_workers_refused_naming_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _trainer(workers=2, port=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ParcelWorker(0, object(), 1)
+    """Parcel workers train (the parcel-route tests); what is still
+    refused around them: a port of CUDA localities without a card (a
+    locality never takes the CPU instead), a shard to a killed locality
+    (it fails fast), and a device mesh (item 11)."""
+    from repro_torch.launch.train import train
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="found no cuda device"):
+            LoopbackParcelport(2)
+    port = LoopbackParcelport(1, platform="cpu")
+    try:
+        w = ParcelWorker(0, port, port.localities()[0].process_index)
+        assert w.alive()
+        w.kill()
+        assert not w.alive() and not port.alive(w.lid)
+        with pytest.raises(RuntimeError, match="failed fast"):
+            w.run_shard({"step": 0}).get()
+    finally:
+        port.shutdown()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train(ARCH, steps=1, device="cpu", mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# the parcel route (tests/test_elastic_train.py:131,161, then the reference
+# and a 2-process cluster)
+# ---------------------------------------------------------------------------
+
+
+def test_torch_parcel_route_kill_recovers_and_leaks_nothing():
+    before = set(glob.glob("/dev/shm/psm_*"))
+    port = LoopbackParcelport(n_localities=3, platform="cpu")
+    try:
+        t = _trainer(workers=3, seed=1, port=port)
+        try:
+            assert [w.kind for w in t.workers] == ["parcel"] * 3
+            t.run(1)
+            snap = t.snapshot()
+            t.workers[2].kill_at_step(t.cursor)  # parcel fails fast mid-step
+            tail = t.run(2)["losses"]
+            assert [e[0] for e in t.events].count("death") == 1
+            assert len(t.active_workers()) == 2
+            t.workers[2].revive()  # recovered locality re-admitted
+            t.run(1)
+            assert len(t.active_workers()) == 3
+        finally:
+            t.close()
+        # remote (loopback) gradients match the local route bit-for-bit
+        ref = _trainer(workers=2, seed=1, state=(snap["params"], snap["opt_state"]),
+                       start_step=snap["step"])
+        try:
+            assert tail == ref.run(2)["losses"]
+        finally:
+            ref.close()
+    finally:
+        port.shutdown()
+    leaked = set(glob.glob("/dev/shm/psm_*")) - before
+    assert not leaked, f"shm segments leaked past shutdown: {sorted(leaked)}"
+
+
+def test_torch_dropped_parcels_retry_then_reshard_after_link_death():
+    port = LoopbackParcelport(n_localities=2, platform="cpu")
+    try:
+        inj = FaultInjector(seed=0)
+        t = _trainer(workers=2, port=port, max_retries=2)
+        try:
+            lid0 = t.workers[0].lid
+            # one transient drop: re-sent to the SAME worker, not a death
+            inj.drop_parcels(port, actions=["invoke"], localities=[lid0], count=1)
+            t.step()
+            assert [e[0] for e in t.events] == ["retry"]
+            assert len(t.active_workers()) == 2
+            # persistent drops: retries exhaust, link declared dead, reshard
+            inj.drop_parcels(port, actions=["invoke"], localities=[lid0], p=1.0)
+            t.step()
+            kinds = [e[0] for e in t.events]
+            assert kinds.count("retry") == 1 + t.max_retries
+            assert kinds.count("death") == 1
+            assert [w.wid for w in t.active_workers()] == [1]
+        finally:
+            inj.clear_parcel_faults(port)
+            t.close()
+    finally:
+        port.shutdown()
+
+
+def test_torch_parcel_route_matches_reference_through_a_midstep_kill(f32_families):
+    """The port's loopback parcel route against the reference's
+    ``ElasticTrainer(port=LoopbackParcelport(3))`` from the same state: a
+    kill inside step 1 of 4; losses, params and events as in
+    ``test_torch_elastic_matches_reference_through_a_midstep_kill``."""
+    from repro.core.parcel import LoopbackParcelport as JaxLoopback
+
+    np_params, np_state = _reference_state()
+    steps, kill_at, victim = 4, 1, 1
+    jport, tport = JaxLoopback(3), LoopbackParcelport(3, platform="cpu")
+    ref = got = None
+    try:
+        ref = jel.ElasticTrainer(ARCH, use_smoke=True, batch=BATCH, seq=SEQ, port=jport,
+                                 total_steps=steps, state=(np_params, np_state))
+        got = ElasticTrainer(ARCH, use_smoke=True, batch=BATCH, seq=SEQ, port=tport,
+                             total_steps=steps, state=_port_state(np_params, np_state),
+                             device="cpu")
+        ill = None
+        for t in (ref, got):
+            t.run(kill_at)
+            t.workers[victim].kill_at_step(t.cursor)
+        for i in range(kill_at, steps):
+            ref.step()
+            got.step()
+            b2, eps = ref._opt_cfg.b2, ref._opt_cfg.eps
+            vhat = [np.sqrt(np.asarray(v) / (1 - b2 ** (i + 1)))
+                    for v in jax.tree.leaves(ref.opt_state["v"])]
+            now = [x < 10 * eps for x in vhat]
+            ill = now if ill is None else [a | b for a, b in zip(ill, now)]
+        np.testing.assert_allclose(got.history, ref.history, **LOSS_TOL)
+        assert [e[:3] for e in got.events] == [e[:3] for e in ref.events]
+        assert [e[0] for e in got.events] == ["death"]
+        n_ill = 0
+        for a, b, eps_bound in zip(tree_flatten(got.params)[0], jax.tree.leaves(ref.params), ill):
+            a, b = a.numpy(), np.asarray(b)
+            np.testing.assert_allclose(a[~eps_bound], b[~eps_bound], **PARAM_TOL)
+            n_ill += int((~np.isclose(a, b, **PARAM_TOL) & eps_bound).sum())
+        n = sum(x.size for x in ill)
+        assert n_ill <= n // 1000, (n_ill, n)
+    finally:
+        for t in (ref, got):
+            if t is not None:
+                t.close()
+        jport.shutdown()
+        tport.shutdown()
+
+
+def test_torch_cluster_parcel_route_sigkill_tail_bit_identical():
+    """Two worker processes on the CPU; worker 1 SIGKILLed inside step 2:
+    the step reshards onto the survivor, and the tail equals a clean
+    1-worker local run from the snapshot, bit for bit (the worker replays
+    the same shard graph a LocalWorker does).  No worker process and no
+    shm segment outlives the port."""
+    before = set(glob.glob("/dev/shm/psm_*"))
+    port = LocalClusterParcelport(n_workers=2, heartbeat_timeout=60.0, platform="cpu")
+    try:
+        t = _trainer(port=port, seed=2)
+        try:
+            t.run(2)
+            snap = t.snapshot()
+            pid = port.process(t.workers[1].lid).pid
+            t.workers[1].kill_at_step(t.cursor)
+            tail = t.run(2)["losses"]
+            assert [e[:3] for e in t.events] == [("death", 2, 1)]
+            assert not port.process(t.workers[1].lid).is_alive()
+            assert [w.wid for w in t.active_workers()] == [0]
+        finally:
+            t.close()
+    finally:
+        port.shutdown()
+    assert pid not in [p.pid for p in multiprocessing.active_children()]
+    assert not set(glob.glob("/dev/shm/psm_*")) - before
+    ref = _trainer(workers=1, seed=2, state=(snap["params"], snap["opt_state"]),
+                   start_step=snap["step"])
+    try:
+        assert ref.run(2)["losses"] == tail
+    finally:
+        ref.close()
 
 
 def test_torch_reset_runtime_drops_shard_graphs():

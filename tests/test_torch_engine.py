@@ -10,10 +10,11 @@ and ``smoke(mamba2-130m)`` (weights carried across by
 reference test's 2e-5), ``cache_to_rows``/``rows_to_cache`` (bit-equal, f32
 and bf16), ``make_serve_fanout`` and ``route_batches``.
 
-Parcels (loopback localities, the 2-process cluster, ``apply_batched``,
-kernel names) wait for ROADMAP.md Queue 1 item 10: those reference tests
-stand here skipped, each beside a test of the port's refusal.  Every
-``get`` has a timeout and every engine is closed in a ``finally``.
+Parcels: loopback localities, the 2-process cluster (CPU workers,
+``platform="cpu"``), ``apply_batched`` and kernel names, each beside a
+test of what is still refused (an unknown kernel name, a closure placed
+on a cross-process locality).  Every ``get`` has a timeout and every
+engine is closed in a ``finally``.
 """
 import os
 import subprocess
@@ -566,10 +567,13 @@ class _RemoteSched:
 
 
 def test_torch_route_batches_closure_on_cross_process_locality_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Scheduler([_Remote()], policy="static")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a closure cannot cross the process boundary: descriptive refusal
+    assert Scheduler([_Remote()], policy="static").select().key == "L9/cpu:0"
+    with pytest.raises(ValueError, match="kernel name"):
         route_batches(lambda b: b, [np.ones(4, np.float32)], scheduler=_RemoteSched())
+    with pytest.raises(ValueError, match="kernel name"):
+        route_batches(lambda b: b, [np.ones(4, np.float32)],
+                      scheduler=Scheduler([_Remote()], policy="static"))
 
 
 def test_torch_route_batches_percolate_false_skips_device_put(device):
@@ -582,7 +586,6 @@ def test_torch_route_batches_percolate_false_skips_device_put(device):
     assert out is not marker and isinstance(out, torch.Tensor) and out.device == device.torch_device
 
 
-@pytest.mark.skip(reason="ROADMAP Queue 1 item 10")
 def test_torch_route_batches_kernel_name_local_matches_loopback():
     from repro_torch.core import LoopbackParcelport
 
@@ -590,7 +593,7 @@ def test_torch_route_batches_kernel_name_local_matches_loopback():
     dev = get_all_devices(platform="cpu").get(timeout=T)[0]
     [local] = route_batches("partition_map_ref", [x], scheduler=Scheduler([dev], policy="static"))
     local_val = np.asarray(local.get(timeout=T))
-    port = LoopbackParcelport(n_localities=1)
+    port = LoopbackParcelport(n_localities=1, platform="cpu")
     try:
         [remote] = route_batches("partition_map_ref", [x],
                                  scheduler=Scheduler(port.devices(), policy="static"))
@@ -601,11 +604,24 @@ def test_torch_route_batches_kernel_name_local_matches_loopback():
 
 
 def test_torch_route_batches_refuses_kernel_names_and_clusters(device):
+    """Kernel names resolve through the parcel registry; what is refused is
+    a name no registry knows, and a closure a cluster would have to ship."""
+    from repro_torch.core import LoopbackParcelport
+
     sched = Scheduler([device], policy="static")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        route_batches("partition_map_ref", [np.ones(4, np.float32)], scheduler=sched)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        route_batches(lambda b: b, [np.ones(4, np.float32)], cluster=object())
+    [f] = route_batches("partition_map_ref", [np.ones(4, np.float32)], scheduler=sched)
+    np.testing.assert_allclose(np.asarray(f.get(timeout=T)), np.ones(4), rtol=1e-6)
+    with pytest.raises(KeyError, match="not resolvable"):
+        route_batches("no_such_kernel_anywhere", [np.ones(4, np.float32)], scheduler=sched)
+    port = LoopbackParcelport(n_localities=1, platform="cpu")
+    try:
+        futs = route_batches(lambda b: b * 2.0, [np.ones(4, np.float32)],
+                             scheduler=Scheduler(port.devices(), policy="static"))
+        np.testing.assert_allclose(np.asarray(futs[0].get(timeout=T)), np.full(4, 2.0))
+        futs = route_batches("partition_map_ref", [np.ones(4, np.float32)], cluster=port)
+        np.testing.assert_allclose(np.asarray(futs[0].get(timeout=T)), np.ones(4), rtol=1e-6)
+    finally:
+        port.shutdown()
 
 
 def test_torch_route_batches_places_every_batch(device):
@@ -633,32 +649,33 @@ def test_torch_route_batches_matches_reference(device):
 
 
 # ---------------------------------------------------------------------------
-# parcels: the reference's loopback / cluster tests wait for item 10
+# parcels: the reference's loopback / cluster tests
 # ---------------------------------------------------------------------------
 
 
 def test_torch_engine_refuses_kernel_names_clusters_and_remote_placement():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RequestEngine("partition_map_ref")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RequestEngine({"a": _linear_step, "b": "partition_map_ref"})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RequestEngine(_linear_step, cluster=object())
+    """What is still refused: a kernel name no registry knows, and a
+    closure step placed on a cross-process locality (it cannot travel as
+    an apply_batched parcel)."""
+    with pytest.raises(KeyError, match="not resolvable"):
+        RequestEngine("no_such_kernel_anywhere")
+    with pytest.raises(KeyError, match="not resolvable"):
+        RequestEngine({"a": _linear_step, "b": "no_such_kernel_anywhere"})
+    RequestEngine({"a": _linear_step, "b": "partition_map_ref"}, name="t-names").close()
     eng = RequestEngine(_linear_step, max_delay_s=0.001, scheduler=_RemoteSched(), name="t-rem")
     try:
         f = eng.submit(np.ones((1, 4), np.float32))
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(ValueError, match="kernel name"):
             f.get(timeout=T)
         assert eng.metrics()["requests_failed"] == 1
     finally:
         eng.close()
 
 
-@pytest.mark.skip(reason="ROADMAP Queue 1 item 10")
 def test_torch_engine_spreads_micro_batches_over_loopback_localities():
     from repro_torch.core import LoopbackParcelport
 
-    port = LoopbackParcelport(n_localities=2)
+    port = LoopbackParcelport(n_localities=2, platform="cpu")
     try:
         sched = Scheduler(port.devices(), policy="round_robin")
         eng = RequestEngine(_linear_step, max_batch=2, max_delay_s=0.005, scheduler=sched,
@@ -675,11 +692,10 @@ def test_torch_engine_spreads_micro_batches_over_loopback_localities():
         port.shutdown()
 
 
-@pytest.mark.skip(reason="ROADMAP Queue 1 item 10")
 def test_torch_apply_batched_action_slices_rows_per_request():
     from repro_torch.core import LoopbackParcelport
 
-    port = LoopbackParcelport(n_localities=1)
+    port = LoopbackParcelport(n_localities=1, platform="cpu")
     try:
         lid = port.localities()[0].process_index
         batch = np.arange(12, dtype=np.float32).reshape(4, 3)  # 3 real + 1 pad row
@@ -691,24 +707,29 @@ def test_torch_apply_batched_action_slices_rows_per_request():
         port.shutdown()
 
 
-@pytest.mark.skip(reason="ROADMAP Queue 1 item 10")
 def test_torch_engine_serves_over_2_process_cluster_bit_equal():
     from repro_torch.core import LocalClusterParcelport
     from repro_torch.kernels.partition_map.ref import partition_map_ref
 
-    port = LocalClusterParcelport(n_workers=2, heartbeat_timeout=60.0)
+    port = LocalClusterParcelport(n_workers=2, heartbeat_timeout=60.0, platform="cpu")
     try:
         sched = Scheduler(port.devices(), policy="round_robin")
-        eng = RequestEngine(partition_map_ref, max_batch=4, max_delay_s=0.01, scheduler=sched,
+        eng = RequestEngine("partition_map_ref", max_batch=4, max_delay_s=0.01, scheduler=sched,
                             name="t-cluster")
         try:
             rng = np.random.default_rng(5)
             payloads = [rng.normal(size=(1, 16)).astype(np.float32) for _ in range(8)]
             futs = [eng.submit(p) for p in payloads]
             for p, f in zip(payloads, futs):
+                got = f.get(timeout=300)
+                # the worker runs the registry kernel eagerly over the padded
+                # batch; rows are independent, so each request's slice is
+                # bit-equal to unbatched execution
                 want = partition_map_ref(torch.from_numpy(p)).numpy()
-                assert np.array_equal(f.get(timeout=300), want)
-            assert len(sched.stats()) == 2
+                assert got.dtype == want.dtype and np.array_equal(got, want)
+            assert len(sched.stats()) == 2  # both worker processes served
+            m = eng.metrics()
+            assert m["requests_completed"] == 8 and m["batches"] < 8
         finally:
             eng.close()
     finally:

@@ -7,16 +7,21 @@ worker kills on the elastic trainer's ``LocalWorker`` with the log in
 firing order, and the retry half of the reference's dropped-parcel test
 without a transport: a stand-in port holds the injector's fault filter, and
 a worker consults it before each shard, as a parcel port would before
-each send.  The loopback forms of the parcel tests wait for the port's
-parcel layer (ROADMAP.md Queue 1 item 10).
+each send.  Then the reference's loopback tests against the port's
+``LoopbackParcelport`` (CPU localities): drops that fail the sender's
+future before the wire and keep the surviving parcels' order, drops by
+locality and action, seeded drop scenarios, delays that never reorder,
+a killed locality failing fast until revived, and the log's order.
 """
+import time
+
 import numpy as np
 import pytest
 
 from repro_torch.core import Future, get_all_devices
 from repro_torch.core.executor import QueueLoad
 from repro_torch.core.scheduler import Scheduler, make_policy
-from repro_torch.fault.inject import FaultInjector, InjectedFault
+from repro_torch.fault.inject import FaultInjector, InjectedFault, ParcelDropped
 from repro_torch.fault.monitor import Heartbeat
 from repro_torch.training.elastic import ElasticTrainer, LocalWorker
 
@@ -198,3 +203,143 @@ def test_torch_dropped_parcels_retry_then_reshard_without_transport():
         inj.clear_parcel_faults(port)
         t.close()
     assert port.filter is None
+
+
+# ---------------------------------------------------------------------------
+# the parcel rules on the port's loopback transport (tests/test_fault_inject.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def port():
+    from repro_torch.core import LoopbackParcelport
+
+    p = LoopbackParcelport(n_localities=2, platform="cpu")
+    yield p
+    p.shutdown()
+
+
+def _lid(port, i=0):
+    return port.localities()[i].process_index
+
+
+def test_torch_drop_fails_future_with_parcel_dropped(port):
+    inj = FaultInjector(seed=0)
+    inj.drop_parcels(port, actions=["ping"], count=1)
+    lid = _lid(port)
+    with pytest.raises(ParcelDropped):
+        port.call(lid, "ping", {}).get()
+    # count exhausted: the channel works again
+    assert port.call(lid, "ping", {}).get() == "pong"
+    assert [f.kind for f in inj.log] == ["drop"]
+
+
+def test_torch_drop_preserves_ordering_of_surviving_parcels(port):
+    """A dropped write never reaches the wire, so the surviving writes
+    land in submission order — the buffer ends at the LAST surviving
+    write's value."""
+    dev = port.localities()[0].devices[0]
+    buf = dev.create_buffer_from(np.zeros(4, np.float32)).get()
+    inj = FaultInjector(seed=0)
+    inj.drop_parcels(port, actions=["enqueue_write"], count=1)
+    futs = [buf.enqueue_write(0, np.full(4, float(i), np.float32)) for i in range(1, 6)]
+    outcomes = []
+    for f in futs:
+        try:
+            f.get()
+            outcomes.append("ok")
+        except ParcelDropped:
+            outcomes.append("dropped")
+    assert outcomes.count("dropped") == 1  # exactly the injected one
+    last_ok = max(i for i, o in enumerate(outcomes) if o == "ok") + 1
+    np.testing.assert_array_equal(buf.enqueue_read().get(), np.full(4, float(last_ok), np.float32))
+    buf.free()
+
+
+def test_torch_drop_filters_by_locality_and_action(port):
+    l0, l1 = _lid(port, 0), _lid(port, 1)
+    inj = FaultInjector(seed=0)
+    inj.drop_parcels(port, actions=["ping"], localities=[l0])
+    with pytest.raises(ParcelDropped):
+        port.call(l0, "ping", {}).get()
+    assert port.call(l1, "ping", {}).get() == "pong"  # other locality untouched
+    assert port.call(l0, "barrier", {}).get() is None  # other action untouched
+    inj.clear_parcel_faults(port)
+    assert port.call(l0, "ping", {}).get() == "pong"
+
+
+def test_torch_probabilistic_drops_replay_identically():
+    """Same seed, same call sequence -> the same parcels drop; and the
+    same as the reference's injector on its own loopback port."""
+    from repro.core.parcel import LoopbackParcelport as JaxLoopback
+    from repro.fault.inject import FaultInjector as JaxInjector
+    from repro.fault.inject import ParcelDropped as JaxDropped
+    from repro_torch.core import LoopbackParcelport
+
+    def scenario(seed, make=lambda: LoopbackParcelport(1, platform="cpu"),
+                 inj_cls=FaultInjector, dropped=ParcelDropped):
+        p = make()
+        try:
+            inj = inj_cls(seed=seed)
+            inj.drop_parcels(p, actions=["ping"], p=0.5)
+            lid = _lid(p)
+            out = []
+            for _ in range(16):
+                try:
+                    p.call(lid, "ping", {}).get()
+                    out.append(1)
+                except dropped:
+                    out.append(0)
+            return out
+        finally:
+            p.shutdown()
+
+    a, b, c = scenario(3), scenario(3), scenario(4)
+    assert a == b
+    assert 0 < sum(a) < 16  # p=0.5 actually drops some and passes some
+    assert a != c  # a different seed is a different scenario
+    assert a == scenario(3, lambda: JaxLoopback(1), JaxInjector, JaxDropped)
+
+
+def test_torch_delay_slows_but_never_reorders(port):
+    """Delay sleeps on the sender BEFORE the send, so later parcels on the
+    channel queue behind it: FIFO holds, the reply just arrives late."""
+    dev = port.localities()[0].devices[0]
+    buf = dev.create_buffer_from(np.zeros(2, np.float32)).get()
+    inj = FaultInjector(seed=0)
+    inj.delay_parcels(port, seconds=0.15, actions=["enqueue_write"], count=1)
+    t0 = time.monotonic()
+    f1 = buf.enqueue_write(0, np.full(2, 1.0, np.float32))  # delayed
+    f2 = buf.enqueue_write(0, np.full(2, 2.0, np.float32))  # queues behind it
+    f1.get()
+    f2.get()
+    assert time.monotonic() - t0 >= 0.15
+    np.testing.assert_array_equal(buf.enqueue_read().get(), np.full(2, 2.0, np.float32))
+    assert [f.kind for f in inj.log] == ["delay"]
+    buf.free()
+
+
+def test_torch_kill_worker_fails_fast_and_revive_readmits(port):
+    lid = _lid(port)
+    inj = FaultInjector(seed=0)
+    assert port.alive(lid)
+    inj.kill_worker(port, lid)
+    assert not port.alive(lid)
+    with pytest.raises(RuntimeError, match="failed fast"):
+        port.call(lid, "ping", {}).get()
+    assert not port.localities()[0].devices[0].alive()  # scheduler-visible
+    port.revive(lid)
+    assert port.alive(lid)
+    assert port.call(lid, "ping", {}).get() == "pong"
+
+
+def test_torch_injector_log_records_fired_faults_in_order(port):
+    inj = FaultInjector(seed=0)
+    lid = _lid(port)
+    inj.drop_parcels(port, actions=["ping"], count=1)
+    with pytest.raises(ParcelDropped):
+        port.call(lid, "ping", {}).get()
+    inj.delay_parcels(port, seconds=0.01, actions=["ping"], count=1)
+    port.call(lid, "ping", {}).get()
+    assert [(f.kind, f.action) for f in inj.log] == [("drop", "ping"), ("delay", "ping")]
+    assert all(isinstance(f, InjectedFault) for f in inj.log)

@@ -9,8 +9,9 @@ against the reference's replay AND against the port's own eager chain of
 has no CUDA graph: every plan replays ``staged`` with the same bookkeeping
 (the CUDA-graph half is in ``tests/test_torch_cuda.py`` and the smoke's
 ``graph`` phase).  Also: the first result survives a second replay with
-other feeds, a plan over two devices replays (the reference's checks), remote
-buffers are refused, and
+other feeds, a plan over two devices replays (the reference's checks), a
+write to a remote buffer and a launch into one are refused (plans over
+worker processes are in ``tests/test_torch_parcel.py``), and
 ``REPRO_SEGMENT_COMPILE=staged|fused`` give the same values.
 """
 import numpy as np
@@ -408,14 +409,19 @@ def test_torch_multi_device_plan_refused(device, prog):
 
 
 def test_torch_remote_buffer_refused(device, prog):
+    """What capture still refuses of a remote buffer, as the reference
+    does: a write to it and a launch writing into it.  Reading it (an
+    extern input fetched by one read parcel at each replay) is recorded."""
     buf, out = _bufs(device, 8, 2)
     buf.is_remote_buffer = True  # what a parcel port's proxy would say
     for record in (lambda g: g.write(buf, np.zeros(8, np.float32)),
-                   lambda g: g.read(buf),
-                   lambda g: g.run(prog, [buf], "double"),
                    lambda g: g.run(prog, [out], "double", out=[buf])):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="local buffers only"):
             record(TaskGraph("remote"))
+    for record in (lambda g: g.read(buf), lambda g: g.run(prog, [buf], "double")):
+        g = TaskGraph("remote")
+        record(g)
+        assert list(g._extern.values()) == [buf]
 
 
 def test_torch_unrecordable_kernel_raises(device):

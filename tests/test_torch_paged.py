@@ -250,10 +250,10 @@ def test_torch_engine_submit_refusals(device):
 def test_torch_engine_refuses_what_is_not_ported(device):
     with pytest.raises(NotImplementedError, match="fig9 port"):
         _toy_engine(device, contract="legacy")
-    # A fleet across localities (a device keyed in locality 1) and the
-    # cross-locality shipping of sequences wait for the parcelport.
+    # A fleet across localities (a device keyed in locality 1): the
+    # cross-locality shipping of sequences' pages is item 10b.
     remote = types.SimpleNamespace(key="L1/cpu:0")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
         _toy_engine(device, scheduler=Scheduler([device, remote]))
     assert not any(hasattr(PagedKVCache, n) for n in ("export_seq", "import_seq"))
 

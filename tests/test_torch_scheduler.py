@@ -287,10 +287,24 @@ def test_torch_memory_veto_everything_full_still_places():
     assert _both(run) in {"cpu:0", "cpu:1"}  # degraded, not dead
 
 
-def test_torch_scheduler_refuses_a_fleet_across_localities():
-    remote = _FakeDevice(QueueLoad, "L1/cpu:0")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Scheduler([_FakeDevice(QueueLoad, "cpu:0"), remote])
+def test_torch_scheduler_refuses_a_fleet_across_localities(device):
+    """A fleet across localities is placed now, as the reference places it
+    (the data's home wins under ``percolation``); what still refuses one is
+    the paged engine: shipping sequences' pages between processes is
+    ROADMAP item 10b."""
+    from repro_torch.serving.paged import PagedKVCache, PagedServeEngine, PageSpec
+
+    def run(m, Q):
+        local, remote = _FakeDevice(Q, "cpu:0"), _FakeDevice(Q, "L1/cpu:0")
+        s = m.Scheduler([local, remote], policy="percolation", steal=False)
+        return [s.select(args=[_FakeBuf(remote, 1 << 20)]).key,
+                s.select(args=[_FakeBuf(local, 1 << 20)]).key, sorted(s.stats().items())]
+
+    assert _both(run)[:2] == ["L1/cpu:0", "cpu:0"]
+    kv = PagedKVCache(PageSpec(1, 4, 1, 4), devices=[device], pool_pages=8)
+    fleet = Scheduler([device, _FakeDevice(QueueLoad, "L1/cpu:0")])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+        PagedServeEngine(kv, lambda t, e: None, lambda *a: None, max_seq_len=16, scheduler=fleet)
     assert tsched.locality_of_key("L3/cpu:0") == jsched.locality_of_key("L3/cpu:0") == 3
 
 
@@ -417,10 +431,21 @@ def test_torch_default_discovery_is_one_device_a_card(monkeypatch):
 
 
 def test_torch_localities_group_by_process(device):
+    from repro_torch.core import LoopbackParcelport
+
     locs = get_all_localities(1, 0, platform="cpu").get()
     assert len(locs) == 1 and locs[0].is_local and device in list(locs[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_all_localities(cluster=object()).get()
+    port = LoopbackParcelport(2, platform="cpu")
+    try:
+        locs = get_all_localities(1, 0, platform="cpu", cluster=port).get()
+        assert [loc.is_local for loc in locs] == [True, False, False]
+        assert [loc.process_index for loc in locs[1:]] == [d.locality_id for d in port.devices()]
+        # what is still refused: a cluster of CUDA localities without a card
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="found no cuda device"):
+                LoopbackParcelport(1)
+    finally:
+        port.shutdown()
 
 
 def test_torch_run_on_any_single_device(device):
@@ -430,8 +455,25 @@ def test_torch_run_on_any_single_device(device):
     prog.run_on_any([np.arange(4, dtype=np.float32)], "double", out=[out], scheduler=sched).get()
     np.testing.assert_allclose(out.enqueue_read_sync(), [0.0, 2.0, 4.0, 6.0])
     assert sched.stats() == {device.key: 1}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        prog.run_on_any([np.ones(4, np.float32)], "double", cluster=object())
+    # over a cluster: the port's scheduler places on the localities grid,
+    # and a remote pick runs the sibling RemoteProgram as parcels; a
+    # closure kernel runs there by its shadow (loopback shares this
+    # process), a name unknown to the registry is still refused
+    from repro_torch.core import LoopbackParcelport, register_kernel
+
+    register_kernel("double", lambda x: x * 2.0)
+    port = LoopbackParcelport(1, platform="cpu")
+    try:
+        rdev = port.devices()[0]
+        res = prog.run_on_any([np.ones(4, np.float32)], "double",
+                              scheduler=Scheduler([rdev], policy="static")).get()
+        np.testing.assert_allclose(np.asarray(res[0]), np.full(4, 2.0))
+        bad = device.create_program({"no_such_kernel_anywhere": lambda x: x}).get()
+        with pytest.raises(KeyError, match="not resolvable"):
+            bad.run_on_any([np.ones(4, np.float32)], "no_such_kernel_anywhere",
+                           scheduler=Scheduler([rdev], policy="static")).get()
+    finally:
+        port.shutdown()
 
 
 def test_torch_select_batch_places_every_batch(device):

@@ -363,3 +363,68 @@ def test_torch_stream_fifo_matches_reference_runtime():
     want = run(ref.get_all_devices().get()[0], lambda x: x * jnp.float32(2.0))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# remote streams over the loopback parcel port (tests/test_stream.py:323-380)
+# ---------------------------------------------------------------------------
+
+
+def test_torch_remote_stream_ordering_loopback():
+    from repro_torch.core import LoopbackParcelport
+
+    port = LoopbackParcelport(n_localities=1, platform="cpu")
+    try:
+        rdev = port.localities()[0].devices[0]
+        s = rdev.create_stream()
+        assert s in rdev.streams() and s is not rdev.default_stream
+
+        n = 128
+        buf = rdev.create_buffer(n, np.float32).get()
+        # write -> overwrite -> read, all on one channel: FIFO end-to-end
+        s.enqueue_write(buf, 0, np.zeros(n, np.float32))
+        s.enqueue_write(buf, 0, np.arange(n, dtype=np.float32))
+        got = s.enqueue_read(buf).get()
+        np.testing.assert_array_equal(got, np.arange(n, dtype=np.float32))
+
+        # launch ordered on the channel behind the write it consumes
+        rprog = rdev.create_program(["partition_map_ref"], "stream-loop").get()
+        rout = rdev.create_buffer(n, np.float32).get()
+        host = np.linspace(0.0, 1.0, n).astype(np.float32)
+        s.enqueue_write(buf, 0, host)
+        rprog.run([buf], "partition_map_ref", out=[rout], stream=s)
+        got = s.enqueue_read(rout).get()
+        assert got.shape == (n,)
+
+        # event recorded on a remote stream; another channel waits on it
+        s2 = rdev.create_stream()
+        s2.wait_event(s.record())
+        s2.enqueue_write(buf, 0, np.zeros(n, np.float32))
+        assert float(s2.enqueue_read(buf).get().sum()) == 0.0
+
+        rdev.synchronize()  # drains EVERY channel
+        assert all(st_.query() for st_ in rdev.streams())
+    finally:
+        port.shutdown()
+
+
+@settings(max_examples=5, deadline=None)
+@given(n_writes=st.integers(min_value=1, max_value=8), seed=st.integers(min_value=0, max_value=999))
+def test_torch_remote_stream_last_write_wins_property(n_writes, seed):
+    """Property: N racing writes on ONE remote channel resolve to the
+    LAST one — parcel-channel FIFO holds for any count."""
+    from repro_torch.core import LoopbackParcelport
+
+    port = LoopbackParcelport(n_localities=1, platform="cpu")
+    try:
+        rdev = port.localities()[0].devices[0]
+        s = rdev.create_stream()
+        buf = rdev.create_buffer(16, np.float32).get()
+        rng = np.random.default_rng(seed)
+        last = None
+        for _ in range(n_writes):
+            last = rng.normal(size=(16,)).astype(np.float32)
+            s.enqueue_write(buf, 0, last)
+        np.testing.assert_array_equal(s.enqueue_read(buf).get(), last)
+    finally:
+        port.shutdown()

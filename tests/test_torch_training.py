@@ -375,17 +375,21 @@ def test_torch_train_step_bf16_compute_keeps_f32_masters():
 
 
 def test_torch_train_refuses_elastic_and_mesh_routes():
-    """What the driver still refuses: the elastic route over parcel
-    workers (a port; item 10: the local elastic route is
-    ``tests/test_torch_elastic_train.py``'s) and a device mesh (item 11)."""
+    """What the driver still refuses: a device mesh (item 11).  A parcel
+    port takes the elastic route over its localities (one ParcelWorker a
+    locality; ``tests/test_torch_elastic_train.py`` holds that route)."""
+    from repro_torch.core import LoopbackParcelport
     from repro_torch.launch.train import train
 
-    for kw in (dict(port=object()), dict(workers=2, port=object()),
-               dict(elastic=True, port=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            train("olmo-1b", steps=1, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 11"):
         train("olmo-1b", steps=1, device="cpu", mesh=object())
+    port = LoopbackParcelport(2, platform="cpu")
+    try:
+        out = train("olmo-1b", use_smoke=True, steps=2, batch=4, seq=8, device="cpu", port=port)
+        assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+        assert out["recoveries"] == []
+    finally:
+        port.shutdown()
 
 
 def test_torch_failstop_resume_is_deterministic(tmp_path):
