@@ -143,6 +143,24 @@ with ``Dim3`` geometry, ``enqueue_read``):
         are read through the ``invoke`` action.  After the port's shutdown
         and ``reset_runtime()``: no child process, no new ``/dev/shm``
         segment, the proxies' AGAS records retired.
+  serve_paged_ship  prefill here, decode in another process: one
+        ``LocalClusterParcelport(n_workers=1, platform="cuda")`` worker on
+        the card; the first 1000- and 2000-token prompts of serve_paged
+        (OLMo-1B whole, seeded f32) and the first 1000- and 4000-token ones
+        of serve_paged_ssm (Mamba2-130M, whose state ships), each
+        prefilled through the port's paged prefill (the first token
+        sampled on the host), paged in, ``export_seq``'d and decoded for
+        32 tokens in the worker by one ``invoke`` of
+        ``paged_worker_decode`` (a one-row CUDA graph of the decode step,
+        paged_attention 16 a step on the worker's device, read back by
+        ``invoke``); the tokens equal a single-locality
+        ``PagedServeEngine``'s run of each prompt alone.
+  train_mesh  the train phase's first 4 steps again through
+        ``train(mesh=make_host_mesh(1, 1))``: OLMo-1B's params, moments
+        and batch as ``DTensor``s over a one-rank NCCL group (every
+        placement replicated), flash through the ``DTensor`` wrapper on
+        the whole tensors (32 a step, as train's); losses within 1e-5 of
+        train's; ``reset_runtime()`` destroys the group.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -154,7 +172,9 @@ Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 0 just before each main-path run (the three fig phases; each serve and
 paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
 phases, each run of the moe and encdec phases, each train run, each
-grad_parity run and each part of train_elastic) and read just after; a
+grad_parity run, each part of train_elastic, each ship path of
+serve_paged_ship, here and in the worker, and train_mesh's run) and read
+just after; a
 kernel the run did not launch fails it (train_elastic's replays run their
 kernels without the wrappers: the wrappers count the warm-ups and captures,
 and each graph's recorded kernels times its replays the rest).  Then each
@@ -221,6 +241,7 @@ from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, Req
                                  cache_to_rows, make_serve_engine, make_serve_fanout,
                                  rows_to_cache)
 from repro_torch.pytree import tree_flatten_with_path, tree_unflatten  # noqa: E402
+from repro_torch.serving.paged import sample_token  # noqa: E402
 from repro_torch.serving.serve_step import make_prefill, make_serve_step  # noqa: E402
 from repro_torch.training import elastic  # noqa: E402
 from repro_torch.training.elastic import ElasticTrainer  # noqa: E402
@@ -353,6 +374,17 @@ OVERHEAD_N, OVERHEAD_ITERS, OVERHEAD_DEPTH = 1 << 14, 11, 8
 CLUSTER_PLAN_REPLAYS = 3
 CLUSTER_LOSS_RTOL = 1e-5
 CLUSTER_PARAM_TOL = dict(rtol=2e-4, atol=2e-6)
+# serve_paged_ship: the first prompt of each length the serve_paged and
+# serve_paged_ssm phases use, on their seeded f32 weights, prefilled here,
+# shipped to one worker process on the card and decoded there, SHIP_NEW
+# tokens each (the first, sampled here, included); held to a single-locality
+# PagedServeEngine's run of each prompt alone.
+SHIP_NEW = SERVE_NEW
+SHIP_DECODE = "repro_torch.serving.paged:paged_worker_decode"
+# train_mesh: OLMo-1B whole under a one-rank ("data", "model") mesh on the
+# card (NCCL takes one rank a GPU): the train phase's first steps (its batch,
+# length, seed and LR horizon), losses held to that phase's.
+TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 4, 1e-5
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
 # takes about 230 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
@@ -2437,6 +2469,231 @@ def phase_cluster(fig3_hosts, fig4_hosts, main_image) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve_paged_ship: prefill here, decode in a worker process from shipped pages
+# ---------------------------------------------------------------------------
+
+
+def host_nbytes(tree) -> int:
+    """Bytes of the arrays and tensors of a payload tree."""
+    if isinstance(tree, dict):
+        return sum(host_nbytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return tree.nbytes if isinstance(tree, np.ndarray) else 0
+
+
+def ship_arch(dev, port, lid: int, arch: str, prompt_lens) -> dict:
+    """``arch`` whole on the serve phase's seeded f32 weights: each prompt
+    alone through a single-locality ``PagedServeEngine`` (the reference
+    tokens), then the ship path with the launch counters at 0 here and in
+    the worker: the port's paged prefill here (the first token sampled on
+    the host), ``append``, ``export_seq`` and one ``invoke`` of
+    ``paged_worker_decode`` a prompt, which decodes in the worker on a
+    one-row CUDA graph of ``paged_decode_step``.  Tokens equal; the prefill
+    kernel once a layer a prompt here; in the worker paged_attention once
+    a layer a decode step on the device (an attention family)."""
+    cfg = get_config(arch)
+    params, rng = paged_params(dev, cfg)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, s), dtype=np.int32)[0]
+               for s in prompt_lens]
+    spec = get_model(cfg).paged_spec(cfg)
+    longest = max(prompt_lens) + SHIP_NEW
+    max_seq_len = 1 << (longest - 1).bit_length()
+    # page 0, the longest sequence's pages and the page of headroom
+    # admission asks for
+    pool_pages = spec.pages_for(longest) + 2
+    eng = PagedServeEngine.from_config(cfg, params=params, devices=[dev], max_seq_len=max_seq_len,
+                                       pool_pages=pool_pages, name=f"smoke-ship-{arch}")
+    try:
+        want = [np.asarray(eng.submit(p, SHIP_NEW, request_id=i).get(timeout=600))
+                for i, p in enumerate(prompts)]
+        max_pages = eng.max_pages
+    finally:
+        eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_fn = get_model(cfg).paged_prefill
+    kv = PagedKVCache(spec, devices=[dev], pool_pages=pool_pages)
+    name = f"ship-{arch}"
+    ask = lambda fn, payload=None: port.call(lid, "invoke", {  # noqa: E731
+        "fn": fn, "payload": payload}).get(timeout=600)
+    ask("repro_torch.kernels:reset_launch_counts")
+    ask("repro_torch.core.parcel:reset_lane_counts")
+    parcel.reset_lane_counts()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seqs = []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            k, v, state, logits = prefill_fn(cfg, params, torch.from_numpy(p)[None].to(
+                dev.torch_device), None)
+        first = sample_token(logits[0].float().cpu().numpy(), None, i, 0)
+        seq = kv.new_seq(dev)
+        kv.append(seq, k[0], v[0])
+        if state is not None:
+            seq.set_state({n: t[0] for n, t in state.items()})
+        del k, v, state, logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        payload = kv.export_seq(seq)
+        export_s = time.perf_counter() - t0
+        kv.free_seq(seq)
+        t0 = time.perf_counter()
+        got = port.call(lid, "invoke", {"fn": SHIP_DECODE, "payload": {
+            "name": name, "config": arch, "smoke": False, "seed": 0, "device_index": 0,
+            "pool_pages": pool_pages, "seq": payload, "first_token": first,
+            "max_new": SHIP_NEW, "max_pages": max_pages, "sampling": None,
+            "request_id": i, "device": dev.torch_device.type}}).get(timeout=900)
+        invoke_s = time.perf_counter() - t0
+        got = np.asarray(got)
+        require(got.shape == (SHIP_NEW,) and bool(((got >= 0) & (got < cfg.vocab_size)).all()),
+                f"serve_paged_ship {arch} S={len(p)}: tokens {got}")
+        require(np.array_equal(got, want[i]),
+                f"serve_paged_ship {arch} S={len(p)}: the worker decoded {got.tolist()}, the "
+                f"single-locality engine {want[i].tolist()}")
+        seqs.append({"prompt": len(p), "prefill_s": prefill_s, "export_ms": export_s * 1e3,
+                     "payload_bytes": host_nbytes(payload), "pages": len(payload["k"]),
+                     "state_bytes": host_nbytes(payload["state"] or {}), "invoke_s": invoke_s,
+                     "tokens_equal": True})
+        del payload
+    torch.cuda.synchronize()
+    here = launch_counts()
+    lanes = parcel.lane_counts()
+    worker = {"launches": ask("repro_torch.kernels:launch_counts"),
+              "kernel_launches": ask("repro_torch.kernels:kernel_launches"),
+              "lanes": ask("repro_torch.core.parcel:lane_counts"),
+              "decoder": ask("repro_torch.serving.paged:paged_worker_stats", {"name": name})[name]}
+    ask("repro_torch.serving.paged:paged_worker_reset", {"name": name})  # its params and pool
+    del params, kv
+    d = worker["decoder"]
+    steps = len(d["step_s"])
+    require(steps == len(prompts) * (SHIP_NEW - 1),
+            f"serve_paged_ship {arch}: {steps} decode steps in the worker")
+    require(d["eager_steps"] == d["graphs_captured"] == 1 and d["replayed_steps"] == steps - 1,
+            f"serve_paged_ship {arch}: worker steps {d['eager_steps']} eager, "
+            f"{d['replayed_steps']} replayed, {d['graphs_captured']} graphs captured")
+    prefill_kernel = "flash_attention" if cfg.family != "ssm" else "ssd_scan"
+    want_prefill = sum(prefill_kernel_layers(cfg, s) for s in prompt_lens)
+    require(here[prefill_kernel] == want_prefill
+            and not any(n for k, n in here.items() if k != prefill_kernel),
+            f"serve_paged_ship {arch}: launched here {here}, not {prefill_kernel} "
+            f"{want_prefill}")
+    counted = worker["launches"]["paged_attention"]
+    on_device = (counted - d["captured_launches"].get("paged_attention", 0)
+                 + d["replayed_launches"].get("paged_attention", 0))
+    want_paged = paged_attention_layers(cfg) * steps
+    require(on_device == want_paged and (want_paged == 0 or on_device > 0),
+            f"serve_paged_ship {arch}: paged_attention {on_device} on the worker's device "
+            f"(counted {counted}, graphs {d}), not {want_paged}")
+    others = {k: n for k, n in worker["launches"].items() if k != "paged_attention" and n}
+    require(not others, f"serve_paged_ship {arch}: the worker launched {others}")
+    step_ms = [s * 1e3 for s in d["step_s"]]
+    p50, p99 = percentiles(step_ms[1:])
+    return {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "new_tokens": SHIP_NEW, "pool_pages": pool_pages, "max_pages": max_pages,
+            "sequences": seqs, "bytes_by_lane_here": lanes, "worker_lanes": worker["lanes"],
+            "worker_step_ms_first": step_ms[0], "worker_step_ms_p50": p50,
+            "worker_step_ms_p99": p99, "worker_steps": steps,
+            "launches_here": {prefill_kernel: here[prefill_kernel]},
+            "worker_launches": worker["launches"], "worker_kernel_launches":
+            worker["kernel_launches"], "worker_paged_attention_on_device": on_device,
+            "worker_graphs": {k: d[k] for k in ("eager_steps", "replayed_steps",
+                                                "graphs_captured", "captured_launches",
+                                                "replayed_launches")}}
+
+
+def phase_serve_paged_ship() -> dict:
+    """One worker process on the card (``LocalClusterParcelport(n_workers=1,
+    platform="cuda")``): OLMo-1B's and Mamba2-130M's prompts prefilled here
+    and decoded there from shipped pages (``ship_arch``)."""
+    out = {"release": release_runtime()}
+    dev = get_all_devices().get()[0]
+    t0 = time.perf_counter()
+    port = LocalClusterParcelport(n_workers=1, platform="cuda")
+    out["spawn_s"] = time.perf_counter() - t0
+    try:
+        lid = port.localities()[0].process_index
+        for key, arch, lens in (("olmo", SERVE_ARCH, SERVE_PROMPTS),
+                                ("mamba2", SSM_ARCH, SSM_PROMPTS)):
+            t0 = time.perf_counter()
+            out[key] = ship_arch(dev, port, lid, arch, lens)
+            out[key]["seconds"] = time.perf_counter() - t0
+    finally:
+        port.shutdown()
+    out["release_after"] = release_runtime()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_mesh: the train phase's OLMo-1B under a one-rank device mesh
+# ---------------------------------------------------------------------------
+
+
+def phase_train_mesh(train_out: dict) -> dict:
+    """``launch.train.train(mesh=make_host_mesh(1, 1))``: OLMo-1B whole on
+    ``DTensor``s over a one-rank NCCL group on the card (the params and
+    moments placed by ``param_specs``, the batch by the pipeline), the
+    train phase's first ``TRAIN_MESH_STEPS`` steps.  Losses within
+    ``TRAIN_MESH_RTOL`` of that phase's, flash launched as many times a
+    step (through the ``DTensor`` wrapper; one rank replicates every
+    placement, so each kernel reads the whole tensors; no plain fallback); then
+    ``reset_runtime()`` destroys the group the mesh started."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {"release": release_runtime()}
+    dev = get_all_devices().get()[0]
+    mesh = make_host_mesh(1, 1)
+    out["backend"] = dist.get_backend()
+    out["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+                   "device_type": mesh.device_type}
+    require(out["backend"] == "nccl" and dist.get_world_size() == 1,
+            f"train_mesh: the group is {out['backend']} of {dist.get_world_size()} ranks")
+    cfg = get_config(TRAIN_ARCH)
+    plan = plan_for(cfg, ShapeConfig("train_mesh", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                     kind="train"))
+    run = train_run(dev, TRAIN_ARCH, TRAIN_MESH_STEPS, mesh=mesh, schedule_total=TRAIN_STEPS)
+    table = run["params"]["embed"]["table"]
+    out["param_placements"] = [str(p) for p in table.placements]
+    require(isinstance(table, DTensor) and isinstance(run["opt_state"]["m"]["embed"]["table"],
+                                                      DTensor),
+            "train_mesh: the params or moments are not DTensors")
+    del run["params"], run["opt_state"]
+    want = train_out["losses"][:TRAIN_MESH_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+    require(len(rel) == TRAIN_MESH_STEPS and max(rel) <= TRAIN_MESH_RTOL,
+            f"train_mesh: losses {run['losses']} against the train phase's {want}")
+    per_step = train_kernel_layers(cfg, plan)
+    launched = run["launches"]["flash_attention"]
+    require(launched == TRAIN_MESH_STEPS * per_step
+            and launched / TRAIN_MESH_STEPS == train_out["flash_attention_per_step"],
+            f"train_mesh: flash launched {launched} times in {TRAIN_MESH_STEPS} steps, the "
+            f"unsharded route {train_out['flash_attention_per_step']} a step")
+    others = {k: n for k, n in run["launches"].items() if k != "flash_attention" and n}
+    require(not others, f"train_mesh: other kernels launched: {others}")
+    secs = run["step_seconds"]
+    p50, p99 = percentiles(secs[1:])
+    out.update({"arch": cfg.name, "steps": TRAIN_MESH_STEPS, "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ, "losses": run["losses"], "train_losses": want,
+                "losses_bit_equal": run["losses"] == want, "loss_max_relative_difference":
+                max(rel), "flash_attention": launched, "flash_attention_per_step":
+                launched / TRAIN_MESH_STEPS, "first_step_ms": secs[0] * 1e3,
+                "step_ms_p50": p50 * 1e3, "step_ms_p99": p99 * 1e3,
+                "train_step_ms_p50": train_out["step_ms_p50"],
+                "max_memory_allocated": run["max_memory_allocated"],
+                "max_memory_reserved": run["max_memory_reserved"]})
+    del run
+    out["release_after"] = release_runtime()
+    out["group_destroyed"] = not dist.is_initialized()
+    require(out["group_destroyed"], "train_mesh: reset_runtime() left the process group up")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # fleet: partition_map through run_on_any over logical devices (fig6)
 # ---------------------------------------------------------------------------
 
@@ -3768,6 +4025,42 @@ def main() -> int:
           f"{cl['leaks']}; phase {cl['phase_s']:.1f} s", flush=True)
     print("cluster: " + json.dumps(cl), flush=True)
 
+    t0 = time.perf_counter()
+    ship = phase_serve_paged_ship()
+    ship["seconds"] = time.perf_counter() - t0
+    for key in ("olmo", "mamba2"):
+        r = ship[key]
+        for s in r["sequences"]:
+            print(f"serve_paged_ship {r['arch']} S={s['prompt']}: prefill {s['prefill_s']:.3f} s "
+                  f"here, export {s['export_ms']:.1f} ms of {s['payload_bytes']} payload bytes "
+                  f"({s['pages']} pages, state {s['state_bytes']}), invoke {s['invoke_s']:.3f} s "
+                  f"(ship + {SHIP_NEW - 1} steps), tokens equal to the single-locality engine's "
+                  f"{s['tokens_equal']}", flush=True)
+        print(f"serve_paged_ship {r['arch']}: worker one-row step ms p50/p99 "
+              f"{r['worker_step_ms_p50']:.3f} / {r['worker_step_ms_p99']:.3f} (first, eager then "
+              f"captured, {r['worker_step_ms_first']:.1f}); graphs {r['worker_graphs']}; "
+              f"paged_attention {r['worker_paged_attention_on_device']} on the worker's device; "
+              f"here {r['launches_here']}; bytes by lane here {r['bytes_by_lane_here']}",
+              flush=True)
+    print(f"serve_paged_ship: worker spawned in {ship['spawn_s']:.1f} s; "
+          f"{ship['seconds']:.1f} s", flush=True)
+    print("serve_paged_ship: " + json.dumps(ship), flush=True)
+
+    t0 = time.perf_counter()
+    tm = phase_train_mesh(trains["train"])
+    tm["seconds"] = time.perf_counter() - t0
+    print(f"train_mesh: {tm['arch']} under a {tm['mesh']['shape']} {tm['mesh']['names']} mesh "
+          f"({tm['backend']}, params {tm['param_placements']}): {tm['steps']} steps of "
+          f"{tm['batch']} x {tm['seq']}, step ms p50/p99 {tm['step_ms_p50']:.1f} / "
+          f"{tm['step_ms_p99']:.1f} (first {tm['first_step_ms']:.1f}; the train phase's p50 "
+          f"{tm['train_step_ms_p50']:.1f}); losses within {tm['loss_max_relative_difference']:.3e} "
+          f"of the train phase's, bit-equal {tm['losses_bit_equal']}; flash "
+          f"{tm['flash_attention_per_step']:.0f} a step; peak allocated / reserved "
+          f"{tm['max_memory_allocated'] / 1e9:.2f} / {tm['max_memory_reserved'] / 1e9:.2f} GB; "
+          f"group destroyed by reset_runtime {tm['group_destroyed']}; {tm['seconds']:.1f} s",
+          flush=True)
+    print("train_mesh: " + json.dumps(tm), flush=True)
+
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)
     kernels = [check_stencil(x3, launches["stencil"]),
@@ -3877,6 +4170,16 @@ def main() -> int:
         "survivor_kernels_host": ct["survivor_ssd_scan_kernels_host"],
         "survivor_on_device": ct["survivor_ssd_scan_on_device"],
         "survivor_kernels_on_device": ct["survivor_ssd_scan_kernels_on_device"]}
+    # serve_paged_ship's: the prefill kernels here, paged_attention in the
+    # worker (on its device, from its one-row graph's replays); train_mesh's
+    # flash at the train phase's shape
+    by_name = {k["name"]: k for k in kernels}
+    by_name["paged_attention"]["ship_phase_launches_on_device"] = ship["olmo"][
+        "worker_paged_attention_on_device"]
+    by_name["flash_attention"]["ship_phase_launches"] = ship["olmo"]["launches_here"][
+        "flash_attention"]
+    by_name["ssd_scan"]["ship_phase_launches"] = ship["mamba2"]["launches_here"]["ssd_scan"]
+    by_name["flash_attention_train"]["mesh_phase_launches"] = tm["flash_attention"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,12 @@ shapes, dtypes, the caller's ``extra``).  A save is written to
 mid-save never leaves a torn step visible; a new manager sweeps such
 staging directories.  Restore loads on the host and places each leaf like
 the matching leaf of ``like`` (its dtype and device).
+
+Under a device mesh a ``DTensor`` leaf is saved as its full value (every
+rank takes part in gathering it; in a process group of several ranks only
+rank 0 writes, and the others wait for it before a restore), and
+``restore(shardings=...)`` distributes each leaf onto the target mesh's
+placements, which may be another mesh than the one saved from.
 """
 from __future__ import annotations
 
@@ -47,8 +53,21 @@ def _key(path) -> str:
     return _SEP.join(str(p) for p in path)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: every process but the
+    ranks other than 0 of a process group."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a device tensor is copied back)."""
+    """A leaf as a host numpy array (a device tensor is copied back; a
+    ``DTensor`` gathered whole)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("CheckpointManager: bfloat16 leaves have no numpy dtype here; "
@@ -57,8 +76,20 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _like(arr: np.ndarray, ref):
-    """``arr`` in the dtype and on the device of ``ref``."""
+def _like(arr: np.ndarray, ref, sharding=None):
+    """``arr`` in the dtype and on the device of ``ref``: on ``sharding``'s
+    mesh and placements where one is given, else on a ``DTensor`` ref's."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if sharding is not None or isinstance(ref, DTensor):
+        t = torch.from_numpy(np.array(arr))
+        t = t.to(dtype=ref.dtype if isinstance(ref, torch.Tensor) else torch.as_tensor(
+            np.asarray(ref)).dtype)
+        if sharding is None:
+            return distribute_tensor(t.to(ref.device), ref.device_mesh, ref.placements,
+                                     src_data_rank=None)
+        t = t.to(sharding.mesh.device_type)
+        return sharding.distribute(t, src_data_rank=None)
     if isinstance(ref, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=ref.device, dtype=ref.dtype)
     return np.asarray(arr).astype(np.asarray(ref).dtype)
@@ -103,6 +134,8 @@ class CheckpointManager:
 
         # 2) serialize on the writer queue (off the training thread)
         def _write():
+            if not _writes():
+                return {"step": step, "seconds": 0.0, "path": str(self.dir / f"step_{step:08d}")}
             t0 = time.time()
             step_dir = self.dir / f"step_{step:08d}"
             tmp = step_dir.with_suffix(".tmp")
@@ -164,13 +197,12 @@ class CheckpointManager:
 
     def restore(self, like: Any, step: "Optional[int]" = None, shardings: Any = None):
         """Load a checkpoint into the structure of ``like``: each leaf takes
-        the dtype and device of ``like``'s (a numpy leaf stays numpy).
-        ``shardings`` (restore onto a device mesh) comes with ROADMAP item
-        11.  Returns (state, extra).
+        the dtype and device of ``like``'s (a numpy leaf stays numpy; a
+        ``DTensor`` leaf keeps its mesh and placements).  ``shardings``, a
+        pytree of ``distribution.sharding.NamedSharding``s matching
+        ``like``, restores each leaf onto its mesh and placements instead.
+        Returns (state, extra).
         """
-        if shardings is not None:
-            raise NotImplementedError("CheckpointManager.restore: shardings over a device mesh "
-                                      "come with ROADMAP item 11")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -180,10 +212,13 @@ class CheckpointManager:
             host = {k: z[k] for k in z.files}
 
         pairs, treedef = tree_flatten_with_path(like)
+        shards = [None] * len(pairs) if shardings is None else tree_flatten_with_path(shardings)[0]
+        if len(shards) != len(pairs):
+            raise ValueError(f"restore: {len(shards)} shardings for {len(pairs)} leaves")
         new_leaves = []
-        for path, ref in pairs:
+        for (path, ref), sh in zip(pairs, shards):
             k = _key(path)
             if k not in host:
                 raise KeyError(f"checkpoint {step_dir} missing leaf {k}")
-            new_leaves.append(_like(host[k], ref))
+            new_leaves.append(_like(host[k], ref, None if sh is None else sh[1]))
         return tree_unflatten(treedef, new_leaves), manifest.get("extra", {})

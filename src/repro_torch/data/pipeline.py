@@ -8,7 +8,8 @@ dedicated work queue.  A straggling producer is absorbed by the prefetch
 depth.  On a card, each batch is pinned on the host and copied with
 ``non_blocking=True`` on the current stream of the producing thread (the
 device's default stream), so the step that reads it is ordered after the
-copy.
+copy.  Under a device mesh (``shardings``) each batch key becomes a
+``DTensor`` on its sharding.
 """
 from __future__ import annotations
 
@@ -60,8 +61,12 @@ class Pipeline:
     ``get()`` returns the next device-resident batch (a dict of tensors on
     ``device``, the card unless the caller asks for another), while
     ``depth`` future batches are already in flight on the
-    ``data-pipeline`` work queue.  ``shardings`` (a mesh's placements)
-    comes with ROADMAP item 11.
+    ``data-pipeline`` work queue.  ``shardings`` maps batch keys to
+    ``distribution.sharding.NamedSharding``s: such a key is placed with
+    ``distribute_tensor`` on its mesh, each rank slicing its shard out of
+    its own copy of the batch (the source is a pure function of the index,
+    so every rank builds the same one), with no communication on the
+    prefetch thread.
     """
 
     def __init__(
@@ -74,9 +79,7 @@ class Pipeline:
         transform: "Optional[Callable]" = None,
         device="cuda",
     ):
-        if shardings:
-            raise NotImplementedError("Pipeline: shardings over a device mesh come with "
-                                      "ROADMAP item 11")
+        self.shardings = dict(shardings or {})
         self.source = source
         self.cursor = start
         self.depth = depth
@@ -96,7 +99,10 @@ class Pipeline:
             host = self.source.batch(idx)
             if self.transform is not None:
                 host = self.transform(host)
-            return {k: _to_device(v, self.device) for k, v in host.items()}
+            out = {k: _to_device(v, self.device) for k, v in host.items()}
+            for k, sh in self.shardings.items():
+                out[k] = sh.distribute(out[k], src_data_rank=None)
+            return out
 
         self._inflight.append((idx, self._queue.submit(produce)))
 

@@ -1,2 +1,2 @@
 """Distribution recipes and logical-axis rules (``src/repro/distribution``);
-the mesh half of the sharding tooling comes with ROADMAP item 11."""
+the mesh half of the sharding tooling maps them onto a ``DeviceMesh``."""

@@ -4,8 +4,8 @@ recipes.py``, copied: pure Python).
 A ``CellPlan`` fixes everything the launcher needs: logical->mesh rules,
 remat policy, attention q-block, microbatch count, cache dtype.  On one
 device only the remat policy, the q-block, the microbatch count and the
-compute dtype act; the rules wait for a mesh (ROADMAP item 11), and the
-shape-aware resolver that drops a rule not dividing its dim comes with it.
+compute dtype act; the rules act under a mesh (``launch.train``'s
+``mesh=``, ``distribution.sharding``).
 
 Decode KV-cache strategy (the reference's, for a mesh):
   * kv_heads divides the model axis -> shard cache on kv_heads;

@@ -12,10 +12,20 @@ no backward kernel.
 ``refuse_grad`` is the raw wrappers' guard: called where an input requires
 grad and grad mode is on, they raise instead of returning a tensor outside
 the graph.
+
+Under a device mesh the inputs are ``DTensor``s, which a kernel cannot
+read.  ``kernel_with_plain_grad`` then runs the kernel (and its plain
+gradient) through ``distribution.sharding.on_local_shards``: on each
+rank's local shards wherever the inputs are sharded only along dims the
+function treats independently, which the caller names (``shard_dims``:
+batch rows, attention heads), on gathered tensors along every other mesh
+dim.  The kernel launches either way: there is no fallback to the plain
+version.
 """
 from __future__ import annotations
 
-from typing import Callable
+import functools
+from typing import Callable, Mapping, Sequence
 
 import torch
 
@@ -65,12 +75,24 @@ class _PlainGrad(torch.autograd.Function):
         return (None, None, *[next(it) if n else None for n in needs])
 
 
-def kernel_with_plain_grad(kernel: Callable, plain: Callable, *inputs: "torch.Tensor"):
+ShardDims = Mapping[str, "tuple[Sequence[int | None], Sequence[int | None]]"]
+
+
+def kernel_with_plain_grad(kernel: Callable, plain: Callable, *inputs: "torch.Tensor",
+                           shard_dims: "ShardDims | None" = None):
     """``kernel(*inputs)``, inside autograd when grad mode is on and an
     input requires grad: the backward is that of ``plain(*inputs)``, which
     computes the same function (a tensor or a tuple of tensors, of the
     kernel's shapes) in plain PyTorch.  Otherwise the kernel is called
-    directly."""
+    directly.  ``shard_dims`` matters only for ``DTensor`` inputs, as
+    ``on_local_shards`` reads it."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(x, DTensor) for x in inputs):
+        from repro_torch.distribution.sharding import on_local_shards
+
+        return on_local_shards(functools.partial(kernel_with_plain_grad, kernel, plain), inputs,
+                               shard_dims or {})
     if _needs_grad(inputs):
         return _PlainGrad.apply(kernel, plain, *inputs)
     return kernel(*inputs)

@@ -32,7 +32,7 @@ last_cluster = 0
 
 MAX_D = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 13
          + [ctypes.c_void_p])
 _GRID_YZ_MAX = 65535  # B and L are the grid's y and z extents (x: splits x kv heads)
 

@@ -16,8 +16,17 @@ a worker death mid-run reshards over the survivors (DESIGN.md §16).
 ``--chaos SEED`` arms the fault injector with a deterministic mid-run
 worker kill drawn from SEED — the recovery drill.  ``train(port=...)``
 trains over a parcel port's localities instead (``ParcelWorker``s: each
-shard one ``invoke`` parcel to a worker process).  A device mesh comes
-with ROADMAP item 11 and raises ``NotImplementedError``.
+shard one ``invoke`` parcel to a worker process).
+
+``train(mesh=...)`` trains over a ``DeviceMesh`` (``launch.mesh``) under
+the plan's logical-axis rules (or ``rules``): the params and AdamW
+moments are ``DTensor``s placed by ``tree_sharding`` of the family's
+``param_specs`` (each rank holds its shards), the batch is placed by
+``batch_logical_specs`` through the pipeline, and the step runs on the
+``DTensor``s; the kernels run on local shards
+(``kernels._autograd.kernel_with_plain_grad``).  The losses are
+replicated scalars.  The elastic route shards the batch over workers, not
+over a mesh, and refuses one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 10 --batch 4 --seq 2048
@@ -29,6 +38,7 @@ with ROADMAP item 11 and raises ``NotImplementedError``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import replace
 
@@ -39,7 +49,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig, smoke as smoke_cfg
 from repro_torch.data.pipeline import Pipeline, SyntheticTokens
 from repro_torch.distribution.recipes import plan_for
+from repro_torch.distribution.sharding import axis_rules, sharding_for, tree_sharding
 from repro_torch.fault.monitor import StepMonitor
+from repro_torch.models import batch_logical_specs, get_model
+from repro_torch.pytree import tree_flatten, tree_unflatten
 from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.train_step import make_init, make_train_step
 
@@ -73,8 +86,14 @@ def train(
     ``resume``) on ``device``.  Returns {"losses", "final_loss",
     "stragglers", "step_seconds", "params", "opt_state"}: the reference's
     keys plus each step's wall seconds; the elastic route adds "events"
-    and "recoveries"."""
+    and "recoveries".  With ``mesh`` the step runs on ``DTensor``s over it
+    (``device`` is then the mesh's device on this rank) and "params" and
+    "opt_state" are ``DTensor``s."""
     if elastic or workers > 1 or port is not None:
+        if mesh is not None:
+            raise ValueError("train: the elastic route shards the batch over workers, not over "
+                             "a device mesh (the reference's elastic route ignores mesh=); pass "
+                             "one or the other")
         return _train_elastic(
             arch,
             use_smoke=use_smoke,
@@ -94,9 +113,6 @@ def train(
             grad_compression=grad_compression,
             device=device,
         )
-    if mesh is not None:
-        raise NotImplementedError("train: a device mesh comes with ROADMAP item 11; the port "
-                                  "trains on one device")
     cfg = smoke_cfg(get_config(arch)) if use_smoke else get_config(arch)
     shape = ShapeConfig("custom", seq_len=seq, global_batch=batch, kind="train")
     plan = plan_for(cfg, shape)
@@ -105,9 +121,55 @@ def train(
     horizon = schedule_total or steps  # LR schedule horizon survives restarts
     opt_cfg = OptConfig(lr=lr, warmup_steps=min(100, horizon // 10 + 1), total_steps=horizon)
 
-    device = torch.device(device)
+    if mesh is not None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+        rules = rules or plan.rules
+        ctx = axis_rules(rules, mesh)
+    else:
+        device = torch.device(device)
+        ctx = contextlib.nullcontext()
+    with ctx:
+        return _train_loop(cfg, shape, opt_cfg, plan, mesh, rules, device, steps=steps,
+                           ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
+                           log_every=log_every, seed=seed)
+
+
+def _place(mesh, cfg, shape, rules, params, opt_state):
+    """Params and moments as ``DTensor``s on ``mesh`` by the family's
+    ``param_specs``; the step counter replicated; and the batch keys'
+    shardings by ``batch_logical_specs``."""
+    psh = tree_flatten(tree_sharding(mesh, get_model(cfg).param_specs(cfg), rules, params))[0]
+
+    def put(tree):
+        flat, tdef = tree_flatten(tree)
+        return tree_unflatten(tdef, [s.distribute(x) for x, s in zip(flat, psh)])
+
+    params = put(params)
+    opt_state = {"m": put(opt_state["m"]), "v": put(opt_state["v"]),
+                 "step": sharding_for(mesh, (), rules).distribute(opt_state["step"])}
+    dims = {"tokens": (shape.global_batch, shape.seq_len),
+            "labels": (shape.global_batch, shape.seq_len)}
+    bsh = {k: sharding_for(mesh, names, rules, shape=dims[k])
+           for k, names in batch_logical_specs(cfg, shape).items() if k in dims}
+    return params, opt_state, bsh
+
+
+def _scalar(x) -> float:
+    """A metric as a float (a ``DTensor`` metric gathered whole first)."""
+    from torch.distributed.tensor import DTensor
+
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+
+def _train_loop(cfg, shape, opt_cfg, plan, mesh, rules, device, *, steps, ckpt_dir, ckpt_every,
+                resume, log_every, seed) -> dict:
+    seq, batch = shape.seq_len, shape.global_batch
     step_fn = make_train_step(cfg, shape, opt_cfg, plan, donate=True)
     params, opt_state = make_init(cfg, opt_cfg, device=device)(seed)
+    bsh = None
+    if mesh is not None:
+        params, opt_state, bsh = _place(mesh, cfg, shape, rules, params, opt_state)
 
     start_step = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -119,7 +181,7 @@ def train(
         cursor = 0
 
     source = SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed)
-    pipe = Pipeline(source, start=cursor, depth=2, device=device)
+    pipe = Pipeline(source, start=cursor, depth=2, device=device, shardings=bsh)
     monitor = StepMonitor()
 
     losses, step_seconds = [], []
@@ -129,15 +191,15 @@ def train(
             t0 = time.perf_counter()
             idx, dev_batch = pipe.get()  # overlapped host->device feed
             params, opt_state, metrics = step_fn(params, opt_state, dev_batch)
-            loss = float(metrics["loss"])  # waits for the step
+            loss = _scalar(metrics["loss"])  # waits for the step
             dt = time.perf_counter() - t0
             monitor.record(step, dt)
             losses.append(loss)
             step_seconds.append(dt)
             if log_every and step % log_every == 0:
                 print(
-                    f"step {step:5d} loss {loss:8.4f} gnorm {float(metrics['gnorm']):7.3f} "
-                    f"lr {float(metrics['lr']):.2e} {dt * 1000:7.1f} ms",
+                    f"step {step:5d} loss {loss:8.4f} gnorm {_scalar(metrics['gnorm']):7.3f} "
+                    f"lr {_scalar(metrics['lr']):.2e} {dt * 1000:7.1f} ms",
                     flush=True,
                 )
             if mgr and ckpt_every and (step + 1) % ckpt_every == 0:

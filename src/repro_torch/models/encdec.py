@@ -64,6 +64,27 @@ def param_shapes(cfg):
     return tree_map(lambda leaf: leaf[0], _layout(cfg))
 
 
+def _block_specs(cfg, cross: bool):
+    s = {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_specs(cfg),
+         "mlp": L.mlp_specs(cfg)}
+    if cross:
+        s["ln_x"] = L.norm_specs(cfg)
+        s["xattn"] = L.attn_specs(cfg)
+    return s
+
+
+def param_specs(cfg):
+    """Logical sharding names for every param."""
+    return {
+        "embed": L.embed_specs(cfg),
+        "dec_pos": ("p_none", "p_embed"),
+        "enc_layers": [_block_specs(cfg, False) for _ in range(cfg.encdec.encoder_layers)],
+        "dec_layers": [_block_specs(cfg, True) for _ in range(cfg.num_layers)],
+        "enc_norm": L.norm_specs(cfg),
+        "final_norm": L.norm_specs(cfg),
+    }
+
+
 def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     """Truncated-normal ([-2, 2]) weights scaled by 1/sqrt(fan-in), like
     the reference's ``ninit``; embeddings and decoder positions at 0.02;

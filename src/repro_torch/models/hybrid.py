@@ -82,6 +82,23 @@ def param_shapes(cfg):
     }
 
 
+def param_specs(cfg):
+    """Logical sharding names for every param; a consumer layer has no K/V
+    projections."""
+    def layer(l):
+        attn = L.attn_specs(cfg)
+        if _kv_producer(cfg, l) != l:
+            for n in _KV_KEYS:
+                attn.pop(n, None)
+        return {"ln1": L.norm_specs(cfg), "attn": attn, "ssm": S.ssm_specs(cfg),
+                "fuse_attn": ("p_none",), "fuse_ssm": ("p_none",), "ln2": L.norm_specs(cfg),
+                "mlp": L.mlp_specs(cfg)}
+
+    return {"embed": L.embed_specs(cfg), "meta": ("p_none", "p_embed"),
+            "layers": [layer(l) for l in range(cfg.num_layers)],
+            "final_norm": L.norm_specs(cfg)}
+
+
 def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     """The reference's distributions (fan-in scaled truncated normals,
     embeddings and meta tokens at 0.02, ``ssm.init_ssm`` per layer, norm and

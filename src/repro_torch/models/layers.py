@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distribution.sharding import constrain
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -51,6 +52,11 @@ NEG_INF = -1e30
 # The flash kernel's backward recomputes the plain attention in query blocks
 # of this size, so its peak score tensor is (B, H, GRAD_Q_BLOCK, Skv).
 GRAD_Q_BLOCK = 512
+# Under a mesh the flash kernel runs on local shards of batch rows and of
+# heads (GQA: a rank's query heads use its own kv heads when both shard
+# evenly), the dims of q, k, v and the output (B, S, H, D) attention treats
+# independently.
+ATTENTION_SHARD_DIMS = {"batch": ((0, 0, 0), (0,)), "heads": ((2, 2, 2), (2,))}
 
 
 def tree_map(fn, tree):
@@ -144,6 +150,55 @@ def norm_layout(cfg, lead=()):
     if cfg.norm_type == "layernorm":
         return {"scale": (d, "ones"), "bias": (d, "zeros")}
     return {}  # nonparam
+
+
+# ---------------------------------------------------------------------------
+# logical sharding names (``distribution.sharding`` maps them onto a mesh)
+# ---------------------------------------------------------------------------
+
+def norm_specs(cfg):
+    if cfg.norm_type in ("rmsnorm", "layernorm_nobias"):
+        return {"scale": ("p_none",)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": ("p_none",), "bias": ("p_none",)}
+    return {}
+
+
+def attn_specs(cfg):
+    s = {"wq": ("p_embed", "p_heads"), "wk": ("p_embed", "p_kv_heads"),
+         "wv": ("p_embed", "p_kv_heads"), "wo": ("p_heads", "p_embed")}
+    if cfg.attn_qkv_bias:
+        s.update({"bq": ("p_heads",), "bk": ("p_kv_heads",), "bv": ("p_kv_heads",)})
+    if cfg.attn_out_bias:
+        s["bo"] = ("p_none",)
+    return s
+
+
+def mlp_specs(cfg):
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        s = {"wi_gate": ("p_embed", "p_mlp"), "wi_up": ("p_embed", "p_mlp"),
+             "wo": ("p_mlp", "p_embed")}
+        if cfg.mlp_bias:
+            s.update({"bi_gate": ("p_mlp",), "bi_up": ("p_mlp",), "bo": ("p_none",)})
+        return s
+    s = {"wi": ("p_embed", "p_mlp"), "wo": ("p_mlp", "p_embed")}
+    if cfg.mlp_bias:
+        s.update({"bi": ("p_mlp",), "bo": ("p_none",)})
+    return s
+
+
+def embed_specs(cfg):
+    s = {"table": ("p_vocab", "p_embed")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = ("p_embed", "p_vocab")
+    return s
+
+
+def stack_specs(tree):
+    """Layer specs gain a leading "layers" dim (params stacked over layers)."""
+    if isinstance(tree, dict):
+        return {k: stack_specs(v) for k, v in tree.items()}
+    return ("layers",) + tree
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +349,7 @@ def attention(
         return kernel_with_plain_grad(
             functools.partial(flash_attention, causal=causal),
             functools.partial(attention, causal=causal, q_block=GRAD_Q_BLOCK, impl="ref"),
-            q, k, v)
+            q, k, v, shard_dims=ATTENTION_SHARD_DIMS)
     K = k.shape[2]
     qr = q.reshape(B, Sq, K, H // K, D)
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -347,7 +402,10 @@ def qkv_proj(cfg, p, x):
     v = torch.matmul(x, p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return q.reshape(B, S, H, hd), k.reshape(B, S, K, hd), v.reshape(B, S, K, hd)
+    q = constrain(q.reshape(B, S, H, hd), "batch", "seq", "heads", "head_dim")
+    k = constrain(k.reshape(B, S, K, hd), "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v.reshape(B, S, K, hd), "batch", "seq", "kv_heads", "head_dim")
+    return q, k, v
 
 
 def out_proj(cfg, p, o):
@@ -355,7 +413,7 @@ def out_proj(cfg, p, o):
     y = torch.matmul(o.reshape(B, S, -1), p["wo"])
     if cfg.attn_out_bias:
         y = y + p["bo"]
-    return y
+    return constrain(y, "batch", "seq", "embed")
 
 
 def mlp(cfg, p, x):
@@ -364,6 +422,8 @@ def mlp(cfg, p, x):
         u = torch.matmul(x, p["wi_up"])
         if cfg.mlp_bias:
             g, u = g + p["bi_gate"], u + p["bi_up"]
+        g = constrain(g, "batch", "seq", "mlp")
+        u = constrain(u, "batch", "seq", "mlp")
         # jax.nn.gelu is the tanh approximation by default
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
@@ -371,11 +431,11 @@ def mlp(cfg, p, x):
         h = torch.matmul(x, p["wi"])
         if cfg.mlp_bias:
             h = h + p["bi"]
-        h = F.gelu(h, approximate="tanh")
+        h = F.gelu(constrain(h, "batch", "seq", "mlp"), approximate="tanh")
     y = torch.matmul(h, p["wo"])
     if cfg.mlp_bias:
         y = y + p["bo"]
-    return y
+    return constrain(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -383,21 +443,22 @@ def mlp(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 def embed(cfg, p, tokens):
-    return p["table"][tokens]
+    return constrain(p["table"][tokens], "batch", "seq", "embed")
 
 
 def unembed(cfg, p, x):
     """f32 logits; bf16 operands are widened exactly, so the products and
     their sums are f32 as in the reference."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
-    return torch.matmul(x.float(), w.float())
+    return constrain(torch.matmul(x.float(), w.float()), "batch", "seq", "vocab")
 
 
 def xent_loss(logits, labels, mask=None):
     """Mean next-token cross-entropy in f32: logsumexp minus the gold
     logit; with ``mask``, the mask-weighted mean (at least 1 in the
-    denominator)."""
-    logits = logits.float()
+    denominator).  Under a mesh the gold logit is gathered from whole vocab
+    rows: the logits are first redistributed unsharded over the vocab."""
+    logits = constrain(logits.float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - gold

@@ -22,8 +22,10 @@ dots mapped to ``torch.utils.checkpoint``.
 ``make_batch`` builds a random batch for an (arch x shape) cell, with the
 modality STUBS (whisper frames, qwen2-vl patch embeddings and M-RoPE
 positions) drawn as the reference draws them; ``batch_logical_specs``
-names each batch input's logical axes.  ``input_specs`` comes with the
-sharding tooling (ROADMAP.md Queue 1 item 11).
+names each batch input's logical axes, and ``input_specs`` gives the
+inputs as meta-device tensors (shapes and dtypes, no allocation).  Each
+family's ``param_specs`` names its params' logical axes, which
+``distribution.sharding.tree_sharding`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
-__all__ = ["batch_logical_specs", "get_model", "make_batch", "paged_surface"]
+__all__ = ["batch_logical_specs", "get_model", "input_specs", "make_batch", "paged_surface"]
 
 
 def get_model(cfg: ArchConfig) -> ModuleType:
@@ -77,6 +79,13 @@ def _batch_shapes(cfg: ArchConfig, shape: ShapeConfig, *, dtype=torch.bfloat16):
         d["patch_embeds"] = ((B, cfg.num_patches, cfg.d_model), dtype)
         d["positions"] = ((3, B, S), torch.int32)
     return d
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> "dict[str, torch.Tensor]":
+    """Meta-device stand-ins for every model input: the reference's shapes
+    and dtypes, no allocation."""
+    return {k: torch.empty(s, dtype=dt, device="meta")
+            for k, (s, dt) in _batch_shapes(cfg, shape).items()}
 
 
 def batch_logical_specs(cfg: ArchConfig, shape: ShapeConfig) -> "dict[str, tuple]":

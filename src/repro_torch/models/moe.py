@@ -40,6 +40,18 @@ def layout(cfg, lead=()):
     return p
 
 
+def specs(cfg):
+    """The MoE block's logical sharding names."""
+    s = {"router": ("p_embed", "p_experts"),
+         "wi_gate": ("p_experts", "p_embed", "p_expert_mlp"),
+         "wi_up": ("p_experts", "p_embed", "p_expert_mlp"),
+         "wo": ("p_experts", "p_expert_mlp", "p_embed")}
+    if cfg.moe.num_shared_experts:
+        s["shared"] = {"wi_gate": ("p_embed", "p_mlp"), "wi_up": ("p_embed", "p_mlp"),
+                       "wo": ("p_mlp", "p_embed"), "gate": ("p_embed", "p_none")}
+    return s
+
+
 def route(x2d, wr, top_k: int, renormalize: bool):
     """x2d: (T, D) -> (weights (T, k) f32, idx (T, k) int64, aux_loss).
 
@@ -132,4 +144,4 @@ def moe_block(cfg, p, x, *, groups=None):
     return y.reshape(B, S, D), aux
 
 
-__all__ = ["CAPACITY_FACTOR", "layout", "moe_block", "route"]
+__all__ = ["CAPACITY_FACTOR", "layout", "moe_block", "route", "specs"]

@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import constrain, on_local_shards
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
@@ -43,6 +44,15 @@ def ssm_param_shapes(cfg):
     return {"w_z": (d, di), "w_xbc": (d, conv_dim), "w_dt": (d, H),
             "conv_w": (s.d_conv, conv_dim), "conv_b": (conv_dim,), "A_log": (H,), "D": (H,),
             "dt_bias": (H,), "norm_scale": (di,), "w_out": (di, d)}
+
+
+def ssm_specs(cfg):
+    """One layer's logical sharding names."""
+    return {"w_z": ("p_embed", "p_ssm_inner"), "w_xbc": ("p_embed", "p_ssm_inner"),
+            "w_dt": ("p_embed", "p_ssm_heads"), "conv_w": ("p_none", "p_ssm_inner"),
+            "conv_b": ("p_ssm_inner",), "A_log": ("p_ssm_heads",), "D": ("p_ssm_heads",),
+            "dt_bias": ("p_ssm_heads",), "norm_scale": ("p_ssm_inner",),
+            "w_out": ("p_ssm_inner", "p_embed")}
 
 
 def init_ssm(cfg, *, generator: "torch.Generator", device, dtype=F32):
@@ -74,9 +84,19 @@ def init_ssm(cfg, *, generator: "torch.Generator", device, dtype=F32):
     }
 
 
+# batch rows and channels of the depthwise conv are independent: under a
+# mesh it runs on the local shards of both (DTensor's own convolution
+# handles shards of the last dim, here the sequence, and no others)
+_CONV_SHARD_DIMS = {"batch": ((0, None, None), (0,)), "channels": ((2, 1, 0), (2,))}
+
+
 def _causal_depthwise_conv(x, w, b):
     """x: (B, S, C); w: (W, C) depthwise causal conv; returns (B, S, C),
     contiguous."""
+    return on_local_shards(_depthwise_conv, (x, w, b), _CONV_SHARD_DIMS)
+
+
+def _depthwise_conv(x, w, b):
     W, C = w.shape
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))
     return F.conv1d(xp, w.t().unsqueeze(1), b, groups=C).transpose(1, 2).contiguous()
@@ -131,6 +151,16 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int):
     return torch.cat(ys, dim=1)[:, :S], state
 
 
+def _ssd_shard_dims(G: int) -> dict:
+    """The dims of (xs, dt, A, Bg, Cg) -> (y, state) the SSD scan treats
+    independently, for its kernel under a mesh: batch rows, and heads when
+    every head reads the one group's B and C (G == 1)."""
+    dims = {"batch": ((0, 0, None, 0, 0), (0, 0))}
+    if G == 1:
+        dims["heads"] = ((2, 2, 0, None, None), (2, 1))
+    return dims
+
+
 def _mixer(cfg, p, x, impl: str):
     """proj -> conv -> SSD -> gated norm -> out proj, shared by
     ``ssm_block`` and ``ssm_prefill``.  Returns (out, final state, raw xBC)."""
@@ -138,8 +168,8 @@ def _mixer(cfg, p, x, impl: str):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     s, di, H, P, G, N = _dims(cfg)
     B_, S, _ = x.shape
-    z = torch.matmul(x, p["w_z"])
-    xbc_raw = torch.matmul(x, p["w_xbc"])
+    z = constrain(torch.matmul(x, p["w_z"]), "batch", "seq", "ssm_inner")
+    xbc_raw = constrain(torch.matmul(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
     dt_raw = torch.matmul(x.float(), p["w_dt"].float())
 
     # f32 for the scan (no copy in f32); x, B and C are views of it
@@ -155,7 +185,8 @@ def _mixer(cfg, p, x, impl: str):
         # under grad: the kernel's forward, the gradient of ssd_chunked
         y, state = kernel_with_plain_grad(
             functools.partial(ssd_ops.ssd, impl="cuda", return_state=True),
-            functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg)
+            functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg,
+            shard_dims=_ssd_shard_dims(G))
     else:
         y, state = ssd_chunked(xs, dt, A, Bg, Cg, s.chunk)
     y = y + xs * p["D"].float()[:, None]
@@ -163,7 +194,7 @@ def _mixer(cfg, p, x, impl: str):
 
     # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return torch.matmul(y, p["w_out"]), state, xbc_raw
+    return constrain(torch.matmul(y, p["w_out"]), "batch", "seq", "embed"), state, xbc_raw
 
 
 def ssm_block(cfg, p, x, *, return_state: bool = False, impl: str = "auto"):

@@ -28,6 +28,13 @@ def param_shapes(cfg):
     }
 
 
+def param_specs(cfg):
+    """Logical sharding names for every param; layer params gain a 'layers' dim."""
+    return {"embed": L.embed_specs(cfg),
+            "layers": L.stack_specs({"ln": L.norm_specs(cfg), "ssm": S.ssm_specs(cfg)}),
+            "final_norm": L.norm_specs(cfg)}
+
+
 def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
     """The reference's distributions (``ssm.init_ssm`` per layer, stacked;
     embeddings at 0.02; norm scales 1), drawn from ``generator`` (on

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distribution.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.layers import tree_map
@@ -52,6 +53,17 @@ def _layout(cfg):
 def param_shapes(cfg):
     """The params' names and shapes, as the JAX ``init`` makes them."""
     return tree_map(lambda leaf: leaf[0], _layout(cfg))
+
+
+def param_specs(cfg):
+    """Logical sharding names for every param; layer params gain a 'layers' dim."""
+    layer = {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_specs(cfg)}
+    if cfg.moe is not None:
+        layer["moe"] = M.specs(cfg)
+    else:
+        layer["mlp"] = L.mlp_specs(cfg)
+    return {"embed": L.embed_specs(cfg), "layers": L.stack_specs(layer),
+            "final_norm": L.norm_specs(cfg)}
 
 
 def init(cfg, *, generator: "torch.Generator", device, dtype=torch.float32):
@@ -113,8 +125,8 @@ def _attn_mlp_layer(cfg, lp, x, cos, sin, *, q_block, impl, moe_groups=None):
     h = L.apply_norm(cfg, x, lp["ln2"])
     if cfg.moe is not None:
         y, aux = M.moe_block(cfg, lp["moe"], h, groups=moe_groups)
-        return x + y, aux, (k, v)
-    return x + L.mlp(cfg, lp["mlp"], h), None, (k, v)
+        return constrain(x + y, "batch", "seq", "embed"), aux, (k, v)
+    return constrain(x + L.mlp(cfg, lp["mlp"], h), "batch", "seq", "embed"), None, (k, v)
 
 
 def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = "none",

@@ -59,10 +59,18 @@ Sampling is host-side and bit-reproducible: token ``position`` of request
 position])`` (greedy argmax when ``temperature <= 0``), so tokens do not
 depend on batch composition or fleet size.
 
-Not ported yet: the cross-locality ``export_seq``/``import_seq``/
-``paged_worker_*`` (ROADMAP.md Queue 1 item 10b: an engine over a fleet
-across localities is refused) and the ``"legacy"`` two-callable contract
-(with the fig9 port, Queue 1 item 4), which is refused.
+* Prefill on one locality, decode on another, as the reference does it:
+  ``PagedKVCache.export_seq`` snapshots a sequence (its pages as ONE
+  coalesced gather, its length and resident state) into host values,
+  ``paged_worker_decode`` is the parcel ``invoke`` target that imports
+  them into a cache of its own locality (``import_seq``: ONE coalesced
+  scatter) and decodes there, with params re-derived from the config name
+  and seed, so nothing but pages crosses the wire.  An engine serves the
+  devices of one locality, as the reference's does, and refuses a fleet
+  across localities.
+
+Not ported yet: the ``"legacy"`` two-callable contract (with the fig9
+port, ROADMAP.md Queue 1 item 4), which is refused.
 
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
 default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes a device, default 32
@@ -85,7 +93,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import agas
-from repro_torch.core.buffer import _to_host, torch_dtype
+from repro_torch.core.buffer import _to_host, _to_host_value, torch_dtype
+from repro_torch.core.executor import on_runtime_reset
 from repro_torch.core.futures import Future, Promise
 from repro_torch.kernels import tally_launches
 from repro_torch.serving.engine import EngineClosed, LanePolicy, QueueFull
@@ -98,6 +107,9 @@ __all__ = [
     "SamplingParams",
     "SeqPages",
     "OutOfPages",
+    "paged_worker_decode",
+    "paged_worker_reset",
+    "paged_worker_stats",
     "sample_token",
     "warm_rows",
 ]
@@ -843,6 +855,52 @@ class PagedKVCache:
             seq._account()
             seq._last_use = _now()
 
+    # -- cross-locality shipping (prefill -> decode disaggregation) ----------
+
+    def export_seq(self, seq: SeqPages) -> dict:
+        """Ship-ready snapshot of one sequence: ``{"k", "v", "length",
+        "state"}``.  The pages leave the slabs as ONE coalesced gather
+        (``read_pages``, ordered after the sequence's last device work) and
+        come to the host: f32 pages and state leaves as numpy arrays, as
+        the reference's, bf16 ones as CPU bfloat16 tensors (the parcel
+        codec's ``B`` tag carries them bit-exactly).  Over a parcel
+        ``invoke`` the big arrays take the shm lane where there is room."""
+        with seq._lock, self.gate.shared():
+            seq.ensure_resident()
+            dev = seq.pool.device.torch_device
+            seq._wait_ready()
+            k, v = seq.pool.read_pages(seq.pages)
+            k, v = _to_host(k), _to_host(v)
+            state = None if seq.state is None else _tree_map(_to_host, seq.state)
+            _sync_current(dev)
+            return {"k": _to_host_value(k), "v": _to_host_value(v), "length": int(seq.length),
+                    "state": None if state is None else _tree_map(_to_host_value, state)}
+
+    def import_seq(self, device, payload: dict) -> SeqPages:
+        """Inverse of ``export_seq``, usually on another locality's cache:
+        a new sequence on ``device``, its pages allocated and written as
+        ONE coalesced scatter, its length set and its state re-attached
+        (its bytes declared against THIS device); the sequence's event is
+        recorded after the write, so a decode step's stream waits on it.
+        Decode resumes from the shipped table as if the prompt had
+        prefilled here."""
+        seq = self.new_seq(device)
+        k, v = torch.as_tensor(payload["k"]), torch.as_tensor(payload["v"])
+        with seq._lock, self.gate.shared():
+            pool = seq.pool
+            dev = pool.device.torch_device
+            pages = pool.alloc(len(k))
+            pool.write_pages(pages, k, v)
+            seq.pages = pages
+            seq.length = int(payload["length"])
+            if payload.get("state") is not None:
+                seq.set_state(_tree_map(lambda a: torch.as_tensor(a).to(dev),
+                                        payload["state"]))
+            seq._mark_ready()
+            seq._account()
+            seq._last_use = _now()
+        return seq
+
     def stats(self) -> dict:
         out = {}
         for key, pool in self.pools.items():
@@ -945,9 +1003,10 @@ class PagedServeEngine:
         if any(getattr(d, "is_remote_proxy", False) or locality_of_key(getattr(d, "key", None))
                for d in fleet):
             raise NotImplementedError(
-                "PagedServeEngine: a fleet across localities ships sequences' pages between "
-                "processes (export_seq/import_seq, paged_worker_*), not ported yet (ROADMAP.md "
-                "Queue 1 item 10b)")
+                "PagedServeEngine: an engine serves the devices of one locality, as the "
+                "reference's does; to decode on another locality, export_seq the prefilled "
+                "sequence and invoke repro_torch.serving.paged:paged_worker_decode there over "
+                "a parcel port")
         self.scheduler = scheduler
         # The device the prefill runs on (the first pool's), on a stream of
         # its own; each decode lane runs on a stream of its own too.
@@ -1339,6 +1398,22 @@ class PagedServeEngine:
                 f"{self._submitted} sequences)")
 
 
+def _eager_step(decode_fn, pool: PagePool, W: int, tokens, lens, tbl, rows):
+    """One eager step of ``decode_fn`` at ``W`` rows over ``pool``'s slabs
+    on the current stream, its tokens, lengths and tables going to the
+    device as one copy -> (host logits (W, V), stacked state or None)."""
+    step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
+                         pool.device.torch_device)
+    tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
+    state = None
+    if rows[0] is not None:
+        state = _tree_map(lambda *xs: torch.stack(xs), *rows)
+    ks, vs = pool.arrays()
+    _, _, state, logits = decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
+    pool.mark_written()
+    return logits.float().cpu().numpy(), state
+
+
 _LANE_COUNTS = ("eager_steps", "replayed_steps", "graphs_captured", "capture_s", "stalls",
                 "deferred_rows", "migrations_out")
 
@@ -1398,7 +1473,8 @@ class _DecodeLane:
         # graphs and replayed from them.
         self.stats: Counter = Counter()
         self.launches = {"captured": Counter(), "replayed": Counter()}
-        self._graphs = _StepGraphs(self) if device.is_cuda else None
+        self._graphs = (_StepGraphs(engine.decode_fn, engine.kv, self.pool, device, self._tally)
+                        if device.is_cuda else None)
         self._thread = threading.Thread(
             target=self._loop, name=f"paged:{engine.name}:decode:{device.key}", daemon=True)
         self._thread.start()
@@ -1564,18 +1640,8 @@ class _DecodeLane:
     def _eager(self, W: int, tokens, lens, tbl, rows):
         """One eager step of ``decode_fn`` at ``W`` rows on the current
         stream -> (host logits (W, V), stacked state or None)."""
-        eng = self.engine
         self._tally({"eager_steps": 1})
-        step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
-                             self.device.torch_device)
-        tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
-        state = None
-        if rows[0] is not None:
-            state = _tree_map(lambda *xs: torch.stack(xs), *rows)
-        ks, vs = self.pool.arrays()
-        _, _, state, logits = eng.decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
-        self.pool.mark_written()
-        return logits.float().cpu().numpy(), state
+        return _eager_step(self.engine.decode_fn, self.pool, W, tokens, lens, tbl, rows)
 
     def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state,
                  t0: float) -> "list[_PagedRequest]":
@@ -1693,8 +1759,12 @@ class _CountGraph:
 
 
 class _StepGraphs:
-    """The decode lane's CUDA graphs: one per warm row count, all in one
-    memory pool, each captured against the pool's slabs by address.
+    """A decode lane's CUDA graphs (a ``_DecodeLane``'s, or a worker's at
+    one row): one per warm row count, all in one memory pool, each captured
+    against the pool's slabs by address.  ``decode_fn`` is the engine's
+    seven-argument step, ``kv`` the cache whose gate a capture holds,
+    ``pool`` the device's page pool and ``tally(counts, launches)`` the
+    owner's counter.
 
     The first step at a count runs ``decode_fn`` eagerly on the count's
     static tensors and uses its result; after the step (``capture_pending``)
@@ -1710,36 +1780,36 @@ class _StepGraphs:
     outputs are consumed before the next, so no replay sees another's
     outputs overwritten."""
 
-    def __init__(self, lane: _DecodeLane):
-        self.lane = lane
-        self.engine = lane.engine
+    def __init__(self, decode_fn: Callable, kv: PagedKVCache, pool: PagePool, device,
+                 tally: Callable):
+        self.decode_fn, self.kv, self.pool, self.tally = decode_fn, kv, pool, tally
+        self._dev = device.torch_device
         self._counts: "dict[int, _CountGraph]" = {}
         self._pool = None
         self._slabs: "tuple[int, int] | None" = None
         self._pending = None  # (count graph, slabs, state) to capture after the step
         # High priority: the port's other streams come from PyTorch's
         # normal-priority pool, so no other thread's work lands on it.
-        self._cap = torch.cuda.Stream(lane.device.torch_device, priority=-1)
+        self._cap = torch.cuda.Stream(self._dev, priority=-1)
 
     def step(self, W: int, tokens, lens, tbl, rows):
         """One step at ``W`` rows on the lane's stream -> (host logits
         (W, V), the stacked state cloned out of the graph, or None)."""
-        eng, lane = self.engine, self.lane
-        ks, vs = lane.pool.arrays()
+        ks, vs = self.pool.arrays()
         if self._slabs is not None and self._slabs != (ks.data_ptr(), vs.data_ptr()):
             self._counts, self._pool, self._slabs = {}, None, None  # stale: drop every graph
         c = self._counts.get(W)
         if c is None:
-            c = self._counts[W] = _CountGraph(W, tbl.shape[1], lane.device.torch_device)
+            c = self._counts[W] = _CountGraph(W, tbl.shape[1], self._dev)
         state = c.load(tokens, lens, tbl, rows)
         if c.graph is None:
-            self.lane._tally({"eager_steps": 1})
-            out = eng.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
+            self.tally({"eager_steps": 1})
+            out = self.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
         else:
             c.graph.replay()
-            self.lane._tally({"replayed_steps": 1}, ("replayed", c.recorded))
+            self.tally({"replayed_steps": 1}, ("replayed", c.recorded))
             out = c.outs
-        lane.pool.mark_written()
+        self.pool.mark_written()
         _, _, out_state, logits = out
         host = logits.float().cpu().numpy()
         if out_state is not None:
@@ -1755,21 +1825,20 @@ class _StepGraphs:
             return
         c, ks, vs, state = self._pending
         self._pending = None
-        with self.engine.kv.gate.exclusive():
+        with self.kv.gate.exclusive():
             self._capture(c, ks, vs, state)
 
     def _capture(self, c: _CountGraph, ks, vs, state) -> None:
-        eng = self.engine
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(self.lane.device.torch_device)
+        cur = torch.cuda.current_stream(self._dev)
         self._cap.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self._cap), tally_launches(self._cap) as recorded:
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
-                out = eng.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
+                out = self.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -1780,5 +1849,182 @@ class _StepGraphs:
         cur.wait_stream(self._cap)
         c.graph, c.outs, c.recorded = graph, out, dict(recorded)
         self._slabs = (ks.data_ptr(), vs.data_ptr())
-        self.lane._tally({"graphs_captured": 1, "capture_s": time.perf_counter() - t0},
-                         ("captured", c.recorded))
+        self.tally({"graphs_captured": 1, "capture_s": time.perf_counter() - t0},
+                   ("captured", c.recorded))
+
+
+# ---------------------------------------------------------------------------
+# cross-locality disaggregation: parcel "invoke" actions
+# ---------------------------------------------------------------------------
+#
+# Prefill on one locality, decode on another: the prefill side runs
+# ``paged_prefill`` + ``PagedKVCache.append`` locally, then ships
+# ``export_seq``'s payload (pages as ONE coalesced gather, plus length
+# and resident state) as a parcel,
+#
+#     port.call(lid, "invoke", {
+#         "fn": "repro_torch.serving.paged:paged_worker_decode",
+#         "payload": {...}})
+#
+# where the big arrays take the shm lane.  The decode side re-derives the
+# weights from the config name and seed (bit-identical params: nothing but
+# pages crosses the wire), imports the sequence into its own pool and
+# resumes decoding from the shipped table.  Sampling stays keyed by (seed,
+# request_id, position), so the shipped continuation is the tokens a
+# single-locality engine decodes.
+
+_WORKER_LOCK = threading.Lock()
+_WORKERS: "dict[str, _WorkerDecoder]" = {}
+
+
+class _WorkerDecoder:
+    """One locality's decode of shipped sequences for one ``name``: the
+    config, seeded params, a single-device ``PagedKVCache`` and a one-row
+    step of the family's ``paged_decode_step``.  On a CUDA device the step
+    runs on a stream of its own and is a CUDA graph (a decode lane's
+    ``_StepGraphs`` at one row: the first step eager, then captured, every
+    later step replayed), launching the paged-attention kernel; on the CPU
+    it runs eagerly.  ``lock`` serialises the decodes of one context."""
+
+    def __init__(self, cfg, params, kv: PagedKVCache, device, decode_fn):
+        def dec(ks, vs, state, tokens, positions, tables, lengths):
+            return decode_fn(cfg, params, ks, vs, state, tokens, positions, tables, lengths)
+
+        self.cfg = cfg
+        self.kv = kv
+        self.device = device
+        self.pool = kv.pool_of(device)
+        self.decode_fn = dec
+        self.lock = threading.Lock()
+        self.stats: Counter = Counter()
+        self.launches = {"captured": Counter(), "replayed": Counter()}
+        self.step_s: "list[float]" = []
+        self._stream = torch.cuda.Stream(device.torch_device) if device.is_cuda else None
+        self._graphs = (_StepGraphs(dec, kv, self.pool, device, self._tally)
+                        if device.is_cuda else None)
+
+    def _tally(self, counts: dict, launches: "tuple[str, dict] | None" = None) -> None:
+        self.stats.update(counts)
+        if launches is not None:
+            self.launches[launches[0]].update(launches[1])
+
+    def step(self, seq: SeqPages, token: int, max_pages: int):
+        """One decode step of ``seq`` -> its host logits (V,)."""
+        kv = self.kv
+        t0 = time.perf_counter()
+        with seq._lock, kv.gate.shared():
+            kv.ensure_slot(seq)
+            tbl, lens = kv.table([seq], max_pages)
+            tokens = np.asarray([token], np.int32)
+            ctx = torch.cuda.stream(self._stream) if self._stream is not None \
+                else contextlib.nullcontext()
+            with ctx:
+                seq._wait_ready()
+                if self._graphs is not None:
+                    logits, state = self._graphs.step(1, tokens, lens, tbl, [seq.state])
+                else:
+                    self._tally({"eager_steps": 1})
+                    logits, state = _eager_step(self.decode_fn, self.pool, 1, tokens,
+                                                lens, tbl, [seq.state])
+                seq._ready = _record(self.device.torch_device)
+            if state is not None:
+                seq.set_state(_tree_map(lambda t: t[0], state))
+            kv.note_decoded(seq)
+        if self._graphs is not None:
+            with torch.cuda.stream(self._stream):
+                self._graphs.capture_pending()
+        self.step_s.append(time.perf_counter() - t0)
+        return logits[0]
+
+
+def _worker_ctx(payload: dict) -> _WorkerDecoder:
+    """The decode-side context for one shipped-page stream, built once per
+    ``name`` on this locality and cached: the registry's config (smoked
+    unless ``smoke`` is false), params from the family's ``init`` drawn
+    from a generator seeded with ``seed`` on the device, as
+    ``PagedServeEngine.from_config(seed=...)`` draws them, and a cache of
+    ``pool_pages`` pages on device ``device_index`` of the ``device``
+    platform ("cuda" unless the payload asks for "cpu")."""
+    name = payload["name"]
+    with _WORKER_LOCK:
+        ctx = _WORKERS.get(name)
+        if ctx is not None:
+            return ctx
+        from repro_torch.configs import get_config, smoke
+        from repro_torch.core.device import get_all_devices
+        from repro_torch.models.model import get_model, paged_surface
+
+        cfg = get_config(payload["config"])
+        if payload.get("smoke", True):
+            cfg = smoke(cfg)
+        spec_fn, _, decode_fn = paged_surface(cfg)
+        platform = payload.get("device", "cuda")
+        devs = list(get_all_devices(platform=platform).get())
+        if not devs:
+            raise RuntimeError(f"paged_worker_decode: this locality has no {platform} device")
+        dev = devs[int(payload.get("device_index", 0)) % len(devs)]
+        gen = torch.Generator(device=dev.torch_device).manual_seed(int(payload.get("seed", 0)))
+        params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device)
+        kv = PagedKVCache(spec_fn(cfg), devices=[dev], pool_pages=payload.get("pool_pages"))
+        ctx = _WORKERS[name] = _WorkerDecoder(cfg, params, kv, dev, decode_fn)
+        return ctx
+
+
+def paged_worker_decode(payload: dict) -> np.ndarray:
+    """Parcel ``invoke`` target: resume decoding a shipped sequence.
+
+    payload keys: ``name`` (worker cache key), ``config`` (registry
+    name), ``smoke``, ``seed``, ``device_index``, ``pool_pages``,
+    ``seq`` (an ``export_seq`` payload), ``first_token`` (the
+    prefill-sampled token), ``max_new``, ``max_pages`` (table width: the
+    prefill side's, so the attention geometry is identical),
+    ``sampling`` (SamplingParams fields or None) and ``request_id``; and,
+    the port's own, ``device`` (the platform, "cuda" unless it says
+    "cpu").  Returns all generated tokens (np.int32), first token
+    included."""
+    ctx = _worker_ctx(payload)
+    sp = payload.get("sampling")
+    if sp is not None and not isinstance(sp, SamplingParams):
+        sp = SamplingParams(**sp)
+    rid = int(payload.get("request_id", 0))
+    max_pages = int(payload["max_pages"])
+    out = [int(payload["first_token"])]
+    with ctx.lock:
+        seq = ctx.kv.import_seq(ctx.device, payload["seq"])
+        try:
+            for _ in range(int(payload["max_new"]) - 1):
+                logits = ctx.step(seq, out[-1], max_pages)
+                out.append(sample_token(logits, sp, rid, len(out)))
+        finally:
+            ctx.kv.free_seq(seq)
+    return np.asarray(out, np.int32)
+
+
+def paged_worker_stats(payload=None) -> dict:
+    """Per cached context (or the one ``payload`` names): the one-row step
+    seconds, the steps run eagerly and replayed, the graphs captured and
+    the kernel launches captured into and replayed from them."""
+    name = (payload or {}).get("name")
+    with _WORKER_LOCK:
+        ctxs = {n: c for n, c in _WORKERS.items() if name is None or n == name}
+    return {n: {"step_s": list(c.step_s), **{k: c.stats[k] for k in _LANE_COUNTS},
+                "captured_launches": dict(c.launches["captured"]),
+                "replayed_launches": dict(c.launches["replayed"])}
+            for n, c in ctxs.items()}
+
+
+def paged_worker_reset(payload=None) -> bool:
+    """Drop cached worker contexts (``payload`` may name one)."""
+    with _WORKER_LOCK:
+        name = (payload or {}).get("name")
+        if name is None:
+            _WORKERS.clear()
+        else:
+            _WORKERS.pop(name, None)
+    return True
+
+
+@on_runtime_reset
+def _on_runtime_reset() -> None:
+    """The contexts' devices belong to the runtime torn down: drop them."""
+    paged_worker_reset()

@@ -13,8 +13,16 @@ reference scans), each gradient added into f32 buffers, then divided by
 n.  On a CUDA tensor the model's attention and SSD scans run the
 hand-written kernels in the forward and the plain versions' gradients in
 the backward (``kernels._autograd``).
+
+Under a device mesh the params, moments and batch are ``DTensor``s
+(``launch.train``'s ``mesh=``) and the step runs on them unchanged, inside
+``implicit_replication``: a plain tensor the model makes (positions,
+masks, a constant) counts as replicated on the mesh.  The kernels run on
+local shards (``kernels._autograd``); the metrics are ``DTensor``s.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.profiler import record_function
@@ -70,6 +78,10 @@ def make_train_step(cfg, shape, opt_cfg: OptConfig, plan, *, impl: str = "auto",
 
     def train_step(params, opt_state, batch):
         flat, treedef = tree_flatten(params)
+        with _mesh_context(flat):
+            return _step(params, flat, treedef, opt_state, batch)
+
+    def _step(params, flat, treedef, opt_state, batch):
         masters = [p.detach().requires_grad_(True) for p in flat]
 
         def loss_and_grads(mb):
@@ -86,7 +98,7 @@ def make_train_step(cfg, shape, opt_cfg: OptConfig, plan, *, impl: str = "auto",
         else:
             stacked = _split_micro(batch, logical, n)
             loss = torch.zeros((), dtype=F32, device=flat[0].device)
-            grads = [torch.zeros(p.shape, dtype=F32, device=p.device) for p in flat]
+            grads = [torch.zeros_like(p, dtype=F32) for p in flat]
             for i in range(n):
                 l, g = loss_and_grads({k: v[i] for k, v in stacked.items()})
                 loss = loss + l
@@ -103,6 +115,16 @@ def make_train_step(cfg, shape, opt_cfg: OptConfig, plan, *, impl: str = "auto",
         return new_params, new_state, {"loss": loss, **om}
 
     return train_step
+
+
+def _mesh_context(leaves):
+    """``implicit_replication`` when the params' ``leaves`` are ``DTensor``s."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    if leaves and isinstance(leaves[0], DTensor):
+        return implicit_replication()
+    return contextlib.nullcontext()
 
 
 def make_init(cfg, opt_cfg: OptConfig, dtype=F32, *, device="cuda"):

@@ -2440,3 +2440,98 @@ def test_torch_cuda_engine_serves_over_2_process_cluster_bit_equal():
             eng.close()
     finally:
         port.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_torch_cuda_paged_ship_decode_in_a_worker(arch):
+    """Prefill here, ship the sequence to a worker process on the card and
+    decode there on a one-row CUDA graph: the tokens equal the
+    single-locality engine's, the graph is captured once and replayed, and
+    an attention family's decode runs paged_attention on the worker's
+    device (its own counters, read through ``invoke``)."""
+    _need_cuda()
+    from repro_torch.core import LocalClusterParcelport
+    from repro_torch.serving.paged import sample_token
+
+    cfg = smoke(get_config(arch))
+    dev = get_all_devices().get()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(cfg, generator=gen, device=dev.torch_device)
+    prompts = [np.random.default_rng(3).integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (17, 40)]
+    new = 8
+    eng = PagedServeEngine.from_config(cfg, params=params, devices=[dev], max_seq_len=64,
+                                       pool_pages=16, name=f"t-cuda-ship-{arch}")
+    try:
+        want = [list(np.asarray(eng.submit(p, new, request_id=i).get(timeout=300)))
+                for i, p in enumerate(prompts)]
+        max_pages = eng.max_pages
+    finally:
+        eng.close()
+    m = get_model(cfg)
+    kv = PagedKVCache(m.paged_spec(cfg), devices=[dev], pool_pages=16)
+    port = LocalClusterParcelport(n_workers=1, heartbeat_timeout=60.0)
+    try:
+        lid = port.localities()[0].process_index
+        got = []
+        for i, p in enumerate(prompts):
+            with torch.no_grad():
+                k, v, state, logits = m.paged_prefill(cfg, params,
+                                                      torch.from_numpy(p)[None].cuda())
+            seq = kv.new_seq(dev)
+            kv.append(seq, k[0], v[0])
+            if state is not None:
+                seq.set_state({n: t[0] for n, t in state.items()})
+            payload = kv.export_seq(seq)
+            kv.free_seq(seq)
+            got.append(list(np.asarray(port.call(lid, "invoke", {
+                "fn": "repro_torch.serving.paged:paged_worker_decode", "payload": {
+                    "name": "ship", "config": arch, "smoke": True, "seed": 0,
+                    "pool_pages": 16, "seq": payload,
+                    "first_token": sample_token(logits[0].cpu().numpy(), None, i, 0),
+                    "max_new": new, "max_pages": max_pages, "request_id": i}}).get(
+                timeout=300))))
+        stats = port.call(lid, "invoke", {"fn": "repro_torch.serving.paged:paged_worker_stats",
+                                          "payload": {"name": "ship"}}).get()["ship"]
+        counts = port.call(lid, "invoke", {"fn": "repro_torch.kernels:launch_counts"}).get()
+    finally:
+        port.shutdown()
+    assert got == want
+    steps = len(prompts) * (new - 1)
+    assert stats["eager_steps"] == stats["graphs_captured"] == 1
+    assert stats["replayed_steps"] == steps - 1
+    layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    on_device = (counts["paged_attention"] - stats["captured_launches"].get("paged_attention", 0)
+                 + stats["replayed_launches"].get("paged_attention", 0))
+    assert on_device == layers * steps
+
+
+@pytest.mark.cuda
+def test_torch_cuda_train_under_a_one_rank_mesh():
+    """``train(mesh=make_host_mesh(1, 1))`` on the card: a one-rank NCCL
+    group of its own, params as DTensors, the flash kernel launched on the
+    local shards as often as the unsharded route launches it, the losses
+    the unsharded route's; ``reset_runtime()`` destroys the group."""
+    _need_cuda()
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+
+    reset_launch_counts()
+    want = train("olmo-1b", steps=3, batch=2, seq=64, log_every=0)
+    want_flash = launch_counts()["flash_attention"]
+    mesh = make_host_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        reset_launch_counts()
+        got = train("olmo-1b", steps=3, batch=2, seq=64, log_every=0, mesh=mesh)
+        flash = launch_counts()["flash_attention"]
+        assert isinstance(got["params"]["layers"]["attn"]["wq"], DTensor)
+    finally:
+        reset_runtime()
+    assert not dist.is_initialized()
+    assert flash == want_flash > 0
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)

@@ -376,7 +376,7 @@ def test_torch_parcel_workers_refused_naming_item_10():
     """Parcel workers train (the parcel-route tests); what is still
     refused around them: a port of CUDA localities without a card (a
     locality never takes the CPU instead), a shard to a killed locality
-    (it fails fast), and a device mesh (item 11)."""
+    (it fails fast), and a device mesh on the elastic route."""
     from repro_torch.launch.train import train
 
     if not torch.cuda.is_available():
@@ -392,8 +392,8 @@ def test_torch_parcel_workers_refused_naming_item_10():
             w.run_shard({"step": 0}).get()
     finally:
         port.shutdown()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train(ARCH, steps=1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not over a device mesh"):
+        train(ARCH, steps=1, device="cpu", elastic=True, mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,46 @@ def test_torch_ops_name_their_cuda_library():
         assert (_build.CSRC / f"{lib}.cu").is_file()
 
 
+_CTYPES = {"p": "c_void_p", "i": "c_int", "L": "c_longlong", "f": "c_float"}
+
+
+def _c_params(source: str, fn: str) -> list:
+    """The ctypes types of a C entry's parameters, read off its definition."""
+    import ctypes
+    import re
+
+    m = re.search(r"\bint " + fn + r"\((.*?)\)\s*\{", source, re.S)
+    assert m, fn
+    kinds = []
+    for a in (x.strip() for x in m.group(1).split(",")):
+        kinds.append("p" if "*" in a else "L" if a.startswith("long long")
+                     else "i" if a.startswith("int") else "f" if a.startswith("float") else a)
+    return [getattr(ctypes, _CTYPES[k]) for k in kinds]
+
+
+@pytest.mark.parametrize("pkg,attr,lib,fns", [
+    ("flash_attention", "_ARGS", "flash_attention", ("flash_attention_f32",
+                                                     "flash_attention_bf16")),
+    ("ssd_scan", "_ARGS", "ssd_scan", ("ssd_scan_f32",)),
+    ("paged_attention", "_ARGS", "paged_attention", ("paged_attention_f32",
+                                                     "paged_attention_bf16")),
+    ("mandelbrot", "_ARGS", "mandelbrot", ("mandelbrot_i32",)),
+    ("mandelbrot", "_ROUNDS_ARGS", "mandelbrot", ("mandelbrot_warp_rounds",)),
+])
+def test_torch_wrapper_argtypes_match_the_c_entry(pkg, attr, lib, fns):
+    """Each wrapper's ctypes ``argtypes`` are its C entry's parameters, one
+    for one: a missing one makes ctypes pass the last arguments by its
+    default rule, a C int, which cut paged_attention's stream pointer to 32
+    bits (a segfault in a worker process, whose streams lie above 4 GiB)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
+    got = list(getattr(mod, attr))
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    for fn in fns:
+        assert got == _c_params(source, fn), fn
+
+
 # ---------------------------------------------------------------------------
 # stencil
 # ---------------------------------------------------------------------------

@@ -250,12 +250,13 @@ def test_torch_engine_submit_refusals(device):
 def test_torch_engine_refuses_what_is_not_ported(device):
     with pytest.raises(NotImplementedError, match="fig9 port"):
         _toy_engine(device, contract="legacy")
-    # A fleet across localities (a device keyed in locality 1): the
-    # cross-locality shipping of sequences' pages is item 10b.
+    # A fleet across localities (a device keyed in locality 1): an engine
+    # serves one locality's devices, as the reference's; decode elsewhere
+    # goes through export_seq and a paged_worker_decode parcel.
     remote = types.SimpleNamespace(key="L1/cpu:0")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+    with pytest.raises(NotImplementedError, match="paged_worker_decode"):
         _toy_engine(device, scheduler=Scheduler([device, remote]))
-    assert not any(hasattr(PagedKVCache, n) for n in ("export_seq", "import_seq"))
+    assert all(callable(getattr(PagedKVCache, n, None)) for n in ("export_seq", "import_seq"))
 
 
 def test_torch_paged_modules_import_without_jax():
@@ -265,6 +266,12 @@ def test_torch_paged_modules_import_without_jax():
         sys.modules["jax"] = None  # any import of jax now raises
         import repro_torch.serving, repro_torch.serving.paged, repro_torch.serving.engine
         import repro_torch.kernels.paged_attention.ops, repro_torch.kernels.paged_attention.kernel
+        import repro_torch.launch.mesh, repro_torch.distribution.sharding
+        from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+        from repro_torch.distribution.sharding import constrain, spec_for, tree_sharding
+        from repro_torch.serving.paged import (paged_worker_decode, paged_worker_reset,
+                                               paged_worker_stats)
+        from repro_torch.models import input_specs
         from repro_torch.models.model import paged_surface
         from repro_torch.configs import get_config
         for arch in ("olmo-1b", "mamba2-130m"):

@@ -497,3 +497,204 @@ def test_torch_decode_shapes_pad_rows_change_no_real_row(device, arch):
         for a, b, c in [(pk, jk, ek), (pv, jv, ev)] + [(ps[n], js[n], es[n]) for n in (ps or {})]:
             np.testing.assert_allclose(a, b, **TOL)
             np.testing.assert_allclose(a, c, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# cross-locality: prefill here, ship pages, decode THERE, same tokens
+# ---------------------------------------------------------------------------
+
+
+def test_torch_export_import_roundtrip_matches_jax(device):
+    """``export_seq`` against the reference's on the same appended pages and
+    state: the same keys, the pages and state bit-equal; ``import_seq``
+    gives a twin whose export is the same and whose bytes are the same."""
+    from repro.core import get_all_devices as jax_devices
+    from repro.serving import PagedKVCache as JaxPagedKVCache, PageSpec as JaxPageSpec
+    from repro_torch.serving import PagedKVCache, PageSpec
+
+    rng = np.random.default_rng(4)
+    k = rng.normal(size=(2, 7, 1, 2)).astype(np.float32)
+    st = {"s": rng.normal(size=(3, 5)).astype(np.float32)}
+    jdev = jax_devices(1, 0).get()[0]
+    jkv = JaxPagedKVCache(JaxPageSpec(layers=2, page_size=4, kv_heads=1, head_dim=2),
+                          devices=[jdev], pool_pages=16)
+    jseq = jkv.new_seq(jdev)
+    jkv.append(jseq, k, -k)
+    jseq.set_state(st)
+    want = jkv.export_seq(jseq)
+    jkv.free_seq(jseq)
+
+    kv = PagedKVCache(PageSpec(layers=2, page_size=4, kv_heads=1, head_dim=2),
+                      devices=[device], pool_pages=16)
+    seq = kv.new_seq(device)
+    kv.append(seq, torch.from_numpy(k), torch.from_numpy(-k))
+    seq.set_state({"s": torch.from_numpy(st["s"])})
+    payload = kv.export_seq(seq)
+    assert set(payload) == set(want) and payload["length"] == want["length"] == 7
+    for key in ("k", "v"):
+        assert isinstance(payload[key], np.ndarray) and payload[key].dtype == np.float32
+        np.testing.assert_array_equal(payload[key], np.asarray(want[key]))
+    np.testing.assert_array_equal(payload["state"]["s"], np.asarray(want["state"]["s"]))
+
+    twin = kv.import_seq(device, payload)
+    assert twin.length == 7 and twin.pages != seq.pages
+    again = kv.export_seq(twin)
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(again[key], payload[key])
+    np.testing.assert_array_equal(twin.state["s"].numpy(), st["s"])
+    assert twin.nbytes == seq.nbytes  # identical accounting on the far side
+    kv.free_seq(seq)
+    kv.free_seq(twin)
+    assert kv.stats()[device.key]["used_pages"] == 0
+
+
+def test_torch_export_carries_bf16_pages_bit_exactly(device):
+    """bf16 pages and state leave as CPU bfloat16 tensors, cross the parcel
+    codec (its ``B`` tag) and import bit-equal."""
+    from repro_torch.core.parcel import dumps, loads
+    from repro_torch.serving import PagedKVCache, PageSpec
+
+    kv = PagedKVCache(PageSpec(layers=2, page_size=4, kv_heads=1, head_dim=2,
+                               dtype=torch.bfloat16), devices=[device], pool_pages=16)
+    g = torch.Generator().manual_seed(5)
+    k = torch.randn(2, 6, 1, 2, generator=g).to(torch.bfloat16)
+    seq = kv.new_seq(device)
+    kv.append(seq, k, -k)
+    seq.set_state({"h": torch.randn(3, generator=g).to(torch.bfloat16)})
+    payload = loads(dumps(kv.export_seq(seq)))
+    assert payload["k"].dtype == torch.bfloat16 and payload["state"]["h"].dtype == torch.bfloat16
+    twin = kv.import_seq(device, payload)
+    again = kv.export_seq(twin)
+    assert torch.equal(again["k"], payload["k"]) and torch.equal(again["v"], payload["v"])
+    assert torch.equal(again["k"][0, :, :4], k[:, :4]) and torch.equal(twin.state["h"],
+                                                                         seq.state["h"])
+    kv.free_seq(seq)
+    kv.free_seq(twin)
+
+
+def _ship_from_here(tc, params, prompt, device):
+    """Prefill side: the port's paged prefill of ``prompt`` appended to a
+    cache, exported as one payload -> (payload, greedy first token)."""
+    from repro_torch.serving import PagedKVCache
+
+    spec_fn, prefill_fn, _ = paged_surface(tc)
+    kv = PagedKVCache(spec_fn(tc), devices=[device], pool_pages=32)
+    with torch.no_grad():
+        k, v, state, logits = prefill_fn(tc, params, torch.from_numpy(prompt)[None], None)
+    seq = kv.new_seq(device)
+    kv.append(seq, k[0], v[0])
+    if state is not None:
+        seq.set_state({n: t[0] for n, t in state.items()})
+    shipped = kv.export_seq(seq)
+    kv.free_seq(seq)
+    return shipped, int(np.argmax(logits[0].float().numpy()))
+
+
+def _jax_ship_and_decode(arch, jc, jparams, prompt, max_pages):
+    """The JAX package's side on the same weights: its engine's tokens, its
+    prefill's ``export_seq`` payload and first token, and the tokens its
+    ``paged_worker_decode`` resumes from that payload (the worker draws
+    ``jax.random.key(seed)``'s init: ``_pair``'s weights)."""
+    from repro.core import get_all_devices as jax_devices
+    from repro.serving import PagedKVCache as JaxPagedKVCache
+    from repro.serving.paged import paged_worker_decode as jax_worker_decode
+    from repro.serving.paged import paged_worker_reset as jax_worker_reset
+
+    jdev = jax_devices(1, 0).get()[0]
+    eng = JaxPagedServeEngine.from_config(jc, params=jparams, devices=[jdev],
+                                          max_seq_len=MAX_SEQ, name=f"t-ship-jax-{arch}")
+    try:
+        want = list(np.asarray(eng.submit(prompt, MAX_NEW).get(timeout=600)))
+        assert eng.max_pages == max_pages
+    finally:
+        eng.close()
+    spec_fn, prefill_fn, _ = jax_paged_surface(jc)
+    kv = JaxPagedKVCache(spec_fn(jc), devices=[jdev], pool_pages=32)
+    k, v, state, logits = jax.jit(functools.partial(prefill_fn, jc, jparams))(
+        jnp.asarray(prompt)[None], None)
+    seq = kv.new_seq(jdev)
+    kv.append(seq, np.asarray(k)[0], np.asarray(v)[0])
+    if state is not None:
+        seq.set_state(jax.tree_util.tree_map(lambda a: np.asarray(a)[0], state))
+    first = int(np.argmax(np.asarray(logits)[0]))
+    shipped = kv.export_seq(seq)
+    kv.free_seq(seq)
+    jax_worker_reset({})
+    try:
+        decoded = list(np.asarray(jax_worker_decode({
+            "name": f"t-ship-jax-{arch}", "config": arch, "smoke": True, "seed": 0,
+            "pool_pages": 32, "seq": shipped, "first_token": first, "max_new": MAX_NEW,
+            "max_pages": max_pages, "sampling": None, "request_id": 0})))
+    finally:
+        jax_worker_reset({})
+    return want, shipped, first, decoded
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_torch_cross_locality_page_ship_decode_parity(arch, device, monkeypatch):
+    """Prefill on this locality, ship the page set and state over the
+    parcel ``invoke`` action of the port's loopback port, resume decode on
+    the other locality.  With the seeded weights the worker re-derives
+    (bit-identical to ``from_config(seed=0)``'s), the tokens equal the
+    port's single-locality engine's, as ``tests/test_paged_models.py``
+    asserts for the JAX package.  With the JAX package's weights (the
+    worker's init drawing them in this process), the port's payload holds
+    the reference prefill's pages and state within 1e-4, and the worker's
+    tokens, from the port's payload and from the reference's, equal the
+    reference engine's and its ``paged_worker_decode``'s."""
+    from repro_torch.core.parcel import LoopbackParcelport
+    from repro_torch.serving.paged import paged_worker_reset, paged_worker_stats
+
+    tc = tcfg.smoke(tcfg.get_config(arch))
+    prompt = _prompts(tc)[2]  # page-straddling prefill
+    eng = PagedServeEngine.from_config(tc, seed=0, devices=[device], max_seq_len=MAX_SEQ,
+                                       name=f"t-ship-ref-{arch}")
+    try:
+        want = list(np.asarray(eng.submit(prompt, MAX_NEW).get(timeout=600)))
+        max_pages = eng.max_pages
+    finally:
+        eng.close()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    shipped, first = _ship_from_here(tc, get_model(tc).init(tc, generator=gen, device="cpu"),
+                                     prompt, device)
+
+    jc, _, jparams, tparams = _pair(arch)
+    jwant, jshipped, jfirst, jdecoded = _jax_ship_and_decode(arch, jc, jparams, prompt, max_pages)
+    assert jdecoded == jwant  # the reference's own shipped decode
+    tshipped, tfirst = _ship_from_here(tc, tparams, prompt, device)
+    assert tfirst == jfirst and tshipped["length"] == jshipped["length"] == len(prompt)
+    assert set(tshipped) == set(jshipped)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tshipped[key], np.asarray(jshipped[key]), **TOL)
+    assert (tshipped["state"] is None) == (jshipped["state"] is None)
+    for n in tshipped["state"] or {}:
+        np.testing.assert_allclose(tshipped["state"][n], np.asarray(jshipped["state"][n]), **TOL)
+
+    def payload(name, seq, first_token):
+        return {"name": name, "config": arch, "smoke": True, "seed": 0, "pool_pages": 32,
+                "seq": seq, "first_token": first_token, "max_new": MAX_NEW,
+                "max_pages": max_pages, "sampling": None, "request_id": 0, "device": "cpu"}
+
+    port = LoopbackParcelport(n_localities=2, platform="cpu")
+    try:
+        lid = port.localities()[1].process_index
+        paged_worker_reset({})
+        got = port.call(lid, "invoke", {"fn": "repro_torch.serving.paged:paged_worker_decode",
+                                        "payload": payload(f"t-ship-{arch}", shipped, first)}
+                        ).get(timeout=600)
+        assert list(np.asarray(got)) == want, (arch, list(np.asarray(got)), want)
+        stats = paged_worker_stats({"name": f"t-ship-{arch}"})[f"t-ship-{arch}"]
+        assert stats["eager_steps"] == len(stats["step_s"]) == MAX_NEW - 1
+        assert stats["graphs_captured"] == 0  # a CPU device steps eagerly
+
+        # the worker's seeded init draws the JAX package's weights instead
+        monkeypatch.setattr(get_model(tc), "init", lambda cfg, **kw: tparams)
+        for name, seq, first_token in ((f"t-ship-jw-{arch}", tshipped, tfirst),
+                                       (f"t-ship-jp-{arch}", jshipped, jfirst)):
+            got = port.call(lid, "invoke", {
+                "fn": "repro_torch.serving.paged:paged_worker_decode",
+                "payload": payload(name, seq, first_token)}).get(timeout=600)
+            assert list(np.asarray(got)) == jwant, (arch, name, list(np.asarray(got)), jwant)
+    finally:
+        paged_worker_reset({})
+        port.shutdown()

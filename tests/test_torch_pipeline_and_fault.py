@@ -67,8 +67,25 @@ def test_torch_pipeline_prefetch_overlaps_slow_producer():
 
 
 def test_torch_pipeline_refuses_mesh_shardings():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Pipeline(SyntheticTokens(100, 8, 2), shardings={"tokens": object()}, device="cpu")
+    """A key with a sharding is placed by it, each rank slicing its own
+    copy (``src_data_rank=None``: no collective on the prefetch thread);
+    the other keys stay plain tensors."""
+    calls = []
+
+    class Sharding:
+        def distribute(self, x, *, src_data_rank=0):
+            calls.append((tuple(x.shape), src_data_rank))
+            return ("placed", x)
+
+    src = SyntheticTokens(100, 8, 2)
+    pipe = Pipeline(src, shardings={"tokens": Sharding()}, depth=1, device="cpu")
+    try:
+        idx, batch = pipe.get()
+    finally:
+        pipe.close()
+    assert batch["tokens"][0] == "placed" and calls[0] == ((2, 8), None)
+    np.testing.assert_array_equal(batch["tokens"][1].numpy(), src.batch(idx)["tokens"])
+    np.testing.assert_array_equal(batch["labels"].numpy(), src.batch(idx)["labels"])
 
 
 def test_torch_heartbeat_detects_death():

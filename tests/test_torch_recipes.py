@@ -2,8 +2,9 @@
 (``repro_torch.distribution``) and the config helpers ``get_shape``/
 ``cells`` and ``batch_logical_specs``, held equal to the JAX package's for
 every (arch, shape) cell, plus the port of ``tests/test_sharding.py``'s
-``test_plans_materialize_for_all_cells``.  The mesh half of the sharding
-tooling comes with ROADMAP item 11: activating a mesh raises.
+``test_plans_materialize_for_all_cells``.  ``axis_rules`` activates a
+mesh beside the rules, thread-locally (``tests/test_torch_sharding.py``
+holds the mesh half).
 """
 import dataclasses
 
@@ -80,6 +81,11 @@ def test_torch_axis_rules_is_thread_local_and_refuses_a_mesh():
             assert current_rules() == {"batch": None}
         assert current_rules() is rules
     assert current_rules() is None and seen == [None]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        with axis_rules(rules, mesh=object()):
-            pass
+    # a mesh activates beside the rules, for this thread only
+    mesh, seen = object(), []
+    with axis_rules(rules, mesh=mesh):
+        assert current_mesh() is mesh and current_rules() is rules
+        t = threading.Thread(target=lambda: seen.append(current_mesh()))
+        t.start()
+        t.join()
+    assert current_mesh() is None and seen == [None]

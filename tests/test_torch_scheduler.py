@@ -290,8 +290,9 @@ def test_torch_memory_veto_everything_full_still_places():
 def test_torch_scheduler_refuses_a_fleet_across_localities(device):
     """A fleet across localities is placed now, as the reference places it
     (the data's home wins under ``percolation``); what still refuses one is
-    the paged engine: shipping sequences' pages between processes is
-    ROADMAP item 10b."""
+    the paged engine, which serves one locality's devices as the
+    reference's does (decode elsewhere is a ``paged_worker_decode``
+    parcel)."""
     from repro_torch.serving.paged import PagedKVCache, PagedServeEngine, PageSpec
 
     def run(m, Q):
@@ -303,7 +304,7 @@ def test_torch_scheduler_refuses_a_fleet_across_localities(device):
     assert _both(run)[:2] == ["L1/cpu:0", "cpu:0"]
     kv = PagedKVCache(PageSpec(1, 4, 1, 4), devices=[device], pool_pages=8)
     fleet = Scheduler([device, _FakeDevice(QueueLoad, "L1/cpu:0")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+    with pytest.raises(NotImplementedError, match="paged_worker_decode"):
         PagedServeEngine(kv, lambda t, e: None, lambda *a: None, max_seq_len=16, scheduler=fleet)
     assert tsched.locality_of_key("L3/cpu:0") == jsched.locality_of_key("L3/cpu:0") == 3
 

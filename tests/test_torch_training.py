@@ -375,14 +375,17 @@ def test_torch_train_step_bf16_compute_keeps_f32_masters():
 
 
 def test_torch_train_refuses_elastic_and_mesh_routes():
-    """What the driver still refuses: a device mesh (item 11).  A parcel
-    port takes the elastic route over its localities (one ParcelWorker a
-    locality; ``tests/test_torch_elastic_train.py`` holds that route)."""
+    """What the driver still refuses: the elastic route over a device mesh
+    (it shards the batch over workers; ``train(mesh=...)`` is
+    ``tests/test_torch_multidevice_train.py``'s).  A parcel port takes the
+    elastic route over its localities (one ParcelWorker a locality;
+    ``tests/test_torch_elastic_train.py`` holds that route)."""
     from repro_torch.core import LoopbackParcelport
     from repro_torch.launch.train import train
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train("olmo-1b", steps=1, device="cpu", mesh=object())
+    for route in (dict(workers=2), dict(elastic=True), dict(port=object())):
+        with pytest.raises(ValueError, match="not over a device mesh"):
+            train("olmo-1b", steps=1, device="cpu", mesh=object(), **route)
     port = LoopbackParcelport(2, platform="cpu")
     try:
         out = train("olmo-1b", use_smoke=True, steps=2, batch=4, seq=8, device="cpu", port=port)

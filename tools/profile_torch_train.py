@@ -1,7 +1,7 @@
 """Where a training step's time goes in the PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--arch olmo-1b] [--batch 4] [--seq 2048]
-        [--workers N [--devices K]]
+        [--workers N [--devices K] | --mesh]
 
 Builds the step ``chip_smoke.py``'s train phases run (``plan_for`` the
 shape, ``make_train_step`` with ``donate=True``, seeded random weights at
@@ -23,10 +23,15 @@ replayed as a captured graph.  The warm-up steps capture the graphs; the
 parts are ``elastic.ELASTIC_SPANS`` (the shards' dispatch, replays and
 their wait; the gradient combine; AdamW), and the line adds the graphs
 captured and the kernels their replays ran.
+
+With ``--mesh`` the same step runs as ``train(mesh=make_host_mesh(1, 1))``
+runs it: params, moments and batch as ``DTensor``s over a one-rank
+("data", "model") mesh, under the plan's rules.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -91,6 +96,8 @@ def main() -> int:
                     help="profile an elastic step over this many local workers")
     ap.add_argument("--devices", type=int, default=0,
                     help="spread the workers over this many logical devices of the card")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the step on DTensors over a one-rank device mesh")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -102,6 +109,7 @@ def main() -> int:
     shape = ShapeConfig("profile", seq_len=args.seq, global_batch=args.batch, kind="train")
     plan = plan_for(cfg, shape)
     extra = {}
+    ctx = contextlib.nullcontext()
     if args.workers:
         spans_of = ELASTIC_SPANS
         trainer = ElasticTrainer(args.arch, use_smoke=False, batch=args.batch, seq=args.seq,
@@ -116,39 +124,52 @@ def main() -> int:
         step = make_train_step(cfg, shape, opt, plan, donate=True)
         batch = {k: torch.from_numpy(v).cuda()
                  for k, v in SyntheticTokens(cfg.vocab_size, args.seq, args.batch).batch(0).items()}
+        if args.mesh:
+            from repro_torch.distribution.sharding import axis_rules
+            from repro_torch.launch.mesh import make_host_mesh
+            from repro_torch.launch.train import _place
+
+            mesh = make_host_mesh(1, 1)
+            ctx = axis_rules(plan.rules, mesh)
+            params, state, bsh = _place(mesh, cfg, shape, plan.rules, params, state)
+            batch = {k: bsh[k].distribute(v) if k in bsh else v for k, v in batch.items()}
+            extra = {"mesh": list(mesh.shape)}
 
         def run():
             nonlocal params, state
             params, state, metrics = step(params, state, batch)
-            return float(metrics["loss"])
+            loss = metrics["loss"]
+            return float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss)
 
-    for _ in range(2):
-        run()
-    torch.cuda.reset_peak_memory_stats()
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        host.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    spans = span_device_ms(prof, spans_of, top=8)
-    kinds = Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in spans_of:
-            kinds[kind_of(e.name)] += e.time_range.elapsed_us() / 1e3
-    device_ms = sum(s["device_ms"] for s in spans.values())
-    host_ms = sorted(host)[1]
-    print(json.dumps({"arch": cfg.name, "params": cfg.param_count(), "batch": args.batch,
-                      "seq": args.seq, "remat": plan.remat, "compute_dtype": plan.compute_dtype,
-                      "host_ms_per_step": host, "device_ms_per_step": device_ms,
-                      "device_idle_share": 1 - device_ms / host_ms,
-                      "tokens_per_s": args.batch * args.seq / host_ms * 1e3,
-                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                      "max_memory_reserved": torch.cuda.max_memory_reserved(),
-                      "device_ms_by_kind": dict(kinds.most_common()), "spans": spans,
-                      **extra}),
-          flush=True)
+    with ctx:
+        for _ in range(2):
+            run()
+        torch.cuda.reset_peak_memory_stats()
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        spans = span_device_ms(prof, spans_of, top=8)
+        kinds = Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name not in spans_of:
+                kinds[kind_of(e.name)] += e.time_range.elapsed_us() / 1e3
+        device_ms = sum(s["device_ms"] for s in spans.values())
+        host_ms = sorted(host)[1]
+        print(json.dumps({"arch": cfg.name, "params": cfg.param_count(), "batch": args.batch,
+                          "seq": args.seq, "remat": plan.remat,
+                          "compute_dtype": plan.compute_dtype,
+                          "host_ms_per_step": host, "device_ms_per_step": device_ms,
+                          "device_idle_share": 1 - device_ms / host_ms,
+                          "tokens_per_s": args.batch * args.seq / host_ms * 1e3,
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                          "device_ms_by_kind": dict(kinds.most_common()), "spans": spans,
+                          **extra}),
+              flush=True)
     if args.workers:
         gexecs = [e[0] for e in elastic._GEXECS.values()]
         print(json.dumps({"graphs_captured": len(gexecs),
@@ -156,6 +177,10 @@ def main() -> int:
                           "recorded_launches": [g.recorded_launches for g in gexecs]}),
               flush=True)
         trainer.close()
+    if args.mesh:
+        from repro_torch.core.executor import reset_runtime
+
+        reset_runtime()  # destroys the mesh's one-rank group
     return 0
 
 
