@@ -161,6 +161,15 @@ with ``Dim3`` geometry, ``enqueue_read``):
         placement replicated), flash through the ``DTensor`` wrapper on
         the whole tensors (32 a step, as train's); losses within 1e-5 of
         train's; ``reset_runtime()`` destroys the group.
+  dryrun  ``python -m repro_torch.launch.dryrun`` in child processes:
+        OLMo-1B's train_4k and decode_32k cells over a fake world of 256
+        ranks and train_4k over 512, each step traced once on fake tensors
+        (``impl="ref"``; no kernel, nothing allocated): per-device memory,
+        FLOPs, HBM bytes, collectives and H100 roofline terms, no error,
+        collective traffic in the train cells.  Then the train phase's own
+        step traced here on one device: its roofline step against the
+        measured step, the measured step's MFU, its argument + temporary
+        bytes against the measured peak.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -234,6 +243,8 @@ from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil.ref import stencil_ref  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.models import get_model, make_batch  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -385,6 +396,11 @@ SHIP_DECODE = "repro_torch.serving.paged:paged_worker_decode"
 # card (NCCL takes one rank a GPU): the train phase's first steps (its batch,
 # length, seed and LR horizon), losses held to that phase's.
 TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 4, 1e-5
+# the dryrun phase: production cells traced in a child process over a fake
+# world of 256 ranks (and 512 with --multi-pod), each call's time limit
+DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k")
+DRYRUN_MULTI_POD_CELLS = ("olmo-1b:train_4k",)
+DRYRUN_TIMEOUT_S = 400
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
 # takes about 230 s; the limit it runs under is 1200).
 WATCHDOG_S = 900
@@ -2693,6 +2709,81 @@ def phase_train_mesh(train_out: dict) -> dict:
     return out
 
 
+def dryrun_summary(rec: dict) -> dict:
+    """A dry-run record's per-device numbers and its roofline terms."""
+    t = roofline.roofline_terms(rec)
+    mem, h = rec["memory"], rec["hlo"]
+    return {"devices": rec["devices"], "mesh": rec["mesh"], "plan": rec["plan"],
+            "argument_gb": mem["argument_bytes"] / 1e9, "temp_gb": mem["temp_bytes"] / 1e9,
+            "flops": h["flops"], "hbm_bytes": h["hbm_bytes"],
+            "collective_by_kind": h["collective_by_kind"],
+            "collective_counts": h["collective_counts"],
+            "collective_wire_bytes": h["collective_wire_bytes"], "ops": h["num_computations"],
+            "bound": t["bound"], "step_s": t["step_seconds"], "compute_s": t["compute_s"],
+            "memory_s": t["memory_s"], "collective_s": t["collective_s"], "mfu": t["mfu"],
+            "model_flops_ratio": t["model_flops_ratio"], "lower_s": rec["timing_s"]["lower"]}
+
+
+def phase_dryrun(train_out: dict) -> dict:
+    """The dry run (``python -m repro_torch.launch.dryrun``) of OLMo-1B's
+    train_4k and decode_32k cells over a fake world of 256 ranks, and of
+    train_4k over 512 (``--multi-pod``), in child processes (a fake world
+    cannot share a process with a real group; the mesh's device type is
+    cuda): each record free of errors, the train cells with collective
+    traffic.  Then the train phase's own step (OLMo-1B, 4 x 2048, the
+    plan's remat full, bf16 over f32 masters, ``impl="ref"``) traced here
+    on fake tensors on one device with no mesh: its roofline step against
+    the train phase's measured step, the MFU of that measured step, and
+    its argument + peak temporary bytes against the measured peak."""
+    out = {"cells": {}, "processes": []}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for cells, multi_pod in ((DRYRUN_CELLS, False), (DRYRUN_MULTI_POD_CELLS, True)):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force"]
+        cmd += [f"--cell={c}" for c in cells] + (["--multi-pod"] if multi_pod else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[ok", "[FAIL", "done"))]
+        out["processes"].append({"cells": list(cells), "multi_pod": multi_pod,
+                                 "returncode": proc.returncode, "seconds": secs, "lines": lines})
+        require(proc.returncode == 0, f"dryrun: {' '.join(cmd[1:])} exited "
+                f"{proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
+        for cell in cells:
+            arch, shape_name = cell.split(":")
+            rec = json.loads(dryrun.cell_path(arch, shape_name, multi_pod).read_text())
+            key = f"{cell}:{'multipod' if multi_pod else 'singlepod'}"
+            require("error" not in rec, f"dryrun {key}: {rec.get('error', '')[-2000:]}")
+            r = out["cells"][key] = dryrun_summary(rec)
+            r["process_seconds"] = secs
+            if rec["kind"] == "train":
+                require(r["collective_wire_bytes"] > 0 and sum(r["collective_counts"].values()),
+                        f"dryrun {key}: no collective traffic in a train step")
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")
+    t0 = time.perf_counter()
+    rec = dryrun.trace_step(cfg, shape, plan_for(cfg, shape))
+    h, mem = rec["hlo"], rec["memory"]
+    compute_s, memory_s = h["flops"] / roofline.PEAK_FLOPS, h["hbm_bytes"] / roofline.HBM_BW
+    step_s = max(compute_s, memory_s)
+    measured_s = train_out["step_ms_p50"] / 1e3
+    mf = roofline.model_flops(cfg, shape)
+    out["train_step"] = {
+        "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "plan": rec["plan"],
+        "flops": h["flops"], "hbm_bytes": h["hbm_bytes"], "ops": h["num_computations"],
+        "model_flops": mf, "compute_ms": compute_s * 1e3, "memory_ms": memory_s * 1e3,
+        "roofline_step_ms": step_s * 1e3, "bound": "compute" if compute_s >= memory_s else "memory",
+        "measured_step_ms_p50": measured_s * 1e3, "roofline_fraction": step_s / measured_s,
+        "mfu": mf / (measured_s * roofline.PEAK_FLOPS),
+        "argument_gb": mem["argument_bytes"] / 1e9, "temp_gb": mem["temp_bytes"] / 1e9,
+        "measured_peak_allocated_gb": train_out["max_memory_allocated"] / 1e9,
+        "trace_seconds": time.perf_counter() - t0}
+    require(h["flops"] >= mf, f"dryrun: the traced step counts {h['flops']:.3e} FLOPs, below "
+            f"the model's {mf:.3e}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # fleet: partition_map through run_on_any over logical devices (fig6)
 # ---------------------------------------------------------------------------
@@ -4060,6 +4151,31 @@ def main() -> int:
           f"group destroyed by reset_runtime {tm['group_destroyed']}; {tm['seconds']:.1f} s",
           flush=True)
     print("train_mesh: " + json.dumps(tm), flush=True)
+
+    t0 = time.perf_counter()
+    dr = phase_dryrun(trains["train"])
+    dr["seconds"] = time.perf_counter() - t0
+    for key, r in dr["cells"].items():
+        print(f"dryrun {key}: {r['devices']} ranks {r['mesh']}, plan {r['plan']}: per device "
+              f"argument + temp {r['argument_gb']:.2f} + {r['temp_gb']:.2f} GB, "
+              f"{r['flops']:.4e} FLOP, {r['hbm_bytes']:.4e} HBM bytes, collectives "
+              f"{r['collective_counts']} wire bytes {r['collective_wire_bytes']:.4e} "
+              f"({ {k: f'{v:.3e}' for k, v in r['collective_by_kind'].items()} }); bound "
+              f"{r['bound']}, step {r['step_s']:.4f} s (compute {r['compute_s']:.4f}, memory "
+              f"{r['memory_s']:.4f}, collective {r['collective_s']:.4f}), MFU "
+              f"{r['mfu'] * 100:.2f}%; traced in {r['lower_s']:.1f} s, process "
+              f"{r['process_seconds']:.1f} s", flush=True)
+    t = dr["train_step"]
+    print(f"dryrun train step: {t['arch']} {t['batch']} x {t['seq']} (plan {t['plan']}, impl ref, "
+          f"one device, no mesh): {t['flops']:.4e} FLOP ({t['model_flops']:.4e} model), "
+          f"{t['hbm_bytes']:.4e} HBM bytes; roofline {t['roofline_step_ms']:.1f} ms "
+          f"({t['bound']}: compute {t['compute_ms']:.1f}, memory {t['memory_ms']:.1f}) against "
+          f"the train phase's p50 {t['measured_step_ms_p50']:.1f} ms: fraction "
+          f"{t['roofline_fraction']:.3f}; MFU {t['mfu'] * 100:.2f}% of "
+          f"{roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; argument + temp {t['argument_gb']:.2f} + "
+          f"{t['temp_gb']:.2f} GB against the measured peak allocated "
+          f"{t['measured_peak_allocated_gb']:.2f} GB; {dr['seconds']:.1f} s", flush=True)
+    print("dryrun: " + json.dumps(dr), flush=True)
 
     x3 = torch.from_numpy(fig3_hosts[0]).to(dev.torch_device)
     x4 = fig4_hosts[0].to(dev.torch_device)

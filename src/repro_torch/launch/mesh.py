@@ -13,6 +13,12 @@ cluster).  With no group up, a one-rank mesh starts its own group on a
 ``FileStore`` in a temporary directory: NCCL on the card, gloo on the
 CPU.  ``reset_runtime()`` destroys a group started here.  NCCL takes one
 rank a GPU, so a mesh on one card has one rank.
+
+``fake_world(ranks)`` stands a whole cluster up in this process: the
+``fake`` backend over a ``FakeStore``, this process rank 0 of ``ranks``,
+its collectives answered without communication.  The dry run
+(``launch.dryrun``) lays a production mesh over it and traces a step on
+fake tensors.
 """
 from __future__ import annotations
 
@@ -20,13 +26,14 @@ import os
 import shutil
 import tempfile
 import threading
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.executor import on_runtime_reset
 
-__all__ = ["make_host_mesh", "make_production_mesh"]
+__all__ = ["fake_world", "make_host_mesh", "make_production_mesh"]
 
 _lock = threading.Lock()
 _own_group: "str | None" = None  # the FileStore directory of a group started here
@@ -66,16 +73,44 @@ def _mesh(shape: tuple, names: tuple, device_type: str):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The (16, 16) or (2, 16, 16) mesh over a process group of that many
+    ranks (``fake_world`` makes one in a single process)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, "cuda")
+    return _mesh(shape, axes, device_type)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device_type: str = "cuda"):
     """A (data, model) mesh over this host's ranks: the card's unless the
     caller asks for ``device_type="cpu"``; the production axis names."""
     return _mesh((int(data), int(model)), ("data", "model"), device_type)
+
+
+@contextmanager
+def fake_world(ranks: int, *, device_type: str = "cuda"):
+    """A process group of ``ranks`` ranks of the ``fake`` backend for
+    ``device_type``, this process rank 0, destroyed on exit.  Its
+    collectives return at once, their outputs shaped but their values
+    undefined: it serves tracing (fake tensors), not numbers.  Refuses
+    with ``ValueError`` if a group is already up (one default group a
+    process)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type={device_type!r}: use 'cuda' or 'cpu'")
+    with _lock:
+        if dist.is_initialized():
+            raise ValueError(f"fake_world({ranks}): a process group of "
+                             f"{dist.get_world_size()} ranks is already up")
+        dist.init_process_group(f"{device_type}:fake", store=FakeStore(), rank=0,
+                                world_size=int(ranks))
+    try:
+        yield
+    finally:
+        with _lock:
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 @on_runtime_reset

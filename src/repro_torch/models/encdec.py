@@ -108,12 +108,10 @@ def _self_block(cfg, lp, x, *, causal, q_block, impl):
 
 def _cross(cfg, lp, x, ek, ev, *, impl="auto"):
     h = L.apply_norm(cfg, x, lp["ln_x"])
-    B, S, _ = h.shape
-    H, hd = cfg.num_heads, cfg.hd
     q = torch.matmul(h, lp["xattn"]["wq"])
     if cfg.attn_qkv_bias:
         q = q + lp["xattn"]["bq"]
-    o = L.attention(q.reshape(B, S, H, hd), ek, ev, causal=False, impl=impl)
+    o = L.attention(L.split_heads(q, cfg.num_heads, cfg.hd), ek, ev, causal=False, impl=impl)
     return x + L.out_proj(cfg, lp["xattn"], o)
 
 
@@ -138,7 +136,6 @@ def encode(cfg, params, frames, *, remat: str = "none", impl: str = "auto"):
 
 def _cross_kv(cfg, params, enc):
     """Cross-attention K/V of every decoder layer, from the encoder states."""
-    B, Se, _ = enc.shape
     K, hd = cfg.num_kv_heads, cfg.hd
     out = []
     for lp in params["dec_layers"]:
@@ -146,7 +143,7 @@ def _cross_kv(cfg, params, enc):
         v = torch.matmul(enc, lp["xattn"]["wv"])
         if cfg.attn_qkv_bias:
             k, v = k + lp["xattn"]["bk"], v + lp["xattn"]["bv"]
-        out.append((k.reshape(B, Se, K, hd), v.reshape(B, Se, K, hd)))
+        out.append((L.split_heads(k, K, hd), L.split_heads(v, K, hd)))
     return out
 
 
@@ -210,6 +207,12 @@ def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
             "cross_k": torch.zeros(cross_shape, dtype=dtype, device=device),
             "cross_v": torch.zeros(cross_shape, dtype=dtype, device=device)}
 
+
+
+def cache_specs(cfg):
+    """Logical sharding names of ``init_cache``'s leaves."""
+    kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}
 
 def decode_step(cfg, params, cache, tokens, pos: int):
     """One decoder token against the self cache and the cross K/V.

@@ -130,21 +130,20 @@ def _rope(cfg, positions):
 
 
 def _q(cfg, p, h, cos, sin):
-    B, S_, _ = h.shape
     q = torch.matmul(h, p["wq"])
     if cfg.attn_qkv_bias:
         q = q + p["bq"]
-    return L.apply_rope(q.reshape(B, S_, cfg.num_heads, cfg.hd), cos, sin)
+    return L.apply_rope(L.split_heads(q, cfg.num_heads, cfg.hd), cos, sin)
 
 
 def _kv(cfg, p, h, cos, sin):
-    B, S_, _ = h.shape
     k = torch.matmul(h, p["wk"])
     v = torch.matmul(h, p["wv"])
     if cfg.attn_qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     K = cfg.num_kv_heads
-    return L.apply_rope(k.reshape(B, S_, K, cfg.hd), cos, sin), v.reshape(B, S_, K, cfg.hd)
+    return (L.apply_rope(L.split_heads(k, K, cfg.hd), cos, sin),
+            L.split_heads(v, K, cfg.hd))
 
 
 def _fuse_mlp(cfg, lp, x, y_attn, y_ssm):
@@ -286,6 +285,20 @@ def seed_cache(cfg, cache, k, v, state):
     cache["ssm_conv"].copy_(state["ssm_conv"].movedim(0, 1))
     return cache
 
+
+
+def cache_specs(cfg):
+    """Logical sharding names of ``init_cache``'s leaves (the K/V stacks'
+    first dim counts producers, not layers: unsharded)."""
+    kv = (None, "batch", "seq", "kv_heads", "head_dim")
+    return {
+        "swa_k": kv,
+        "swa_v": kv,
+        "glob_k": kv,
+        "glob_v": kv,
+        "ssm_state": ("layers", "batch", "ssm_heads", "ssm_state", None),
+        "ssm_conv": ("layers", "batch", None, "ssm_inner"),
+    }
 
 def decode_step(cfg, params, cache, tokens, pos: int):
     """tokens: (B, 1) int; ``pos`` counts CONTENT tokens (the meta offset is

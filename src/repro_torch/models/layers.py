@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distribution.sharding import constrain
+from repro_torch.distribution.sharding import constrain, on_local_shards
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -350,6 +350,18 @@ def attention(
             functools.partial(flash_attention, causal=causal),
             functools.partial(attention, causal=causal, q_block=GRAD_Q_BLOCK, impl="ref"),
             q, k, v, shard_dims=ATTENTION_SHARD_DIMS)
+    plain = functools.partial(_plain_attention, causal=causal, window=window, q_offset=q_offset,
+                              q_block=q_block, valid_len=valid_len, softcap=softcap)
+    if isinstance(valid_len, torch.Tensor):  # per-row lengths: the paged decode, no mesh
+        return plain(q, k, v)
+    # under a mesh on the local shards of batch and heads, as the kernel
+    # runs: DTensor would flatten two sharded dims into the products' batch
+    # dim (torch 2.11's DTensor refuses to)
+    return on_local_shards(plain, (q, k, v), ATTENTION_SHARD_DIMS)
+
+
+def _plain_attention(q, k, v, *, causal, window, q_offset, q_block, valid_len, softcap):
+    B, Sq, H, D = q.shape
     K = k.shape[2]
     qr = q.reshape(B, Sq, K, H // K, D)
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -367,7 +379,13 @@ def local_block_attention(q, k, v, *, window: int, q_offset: int = 0):
     to a zero block, masked).  Exact for window-limited causal attention
     when Sq == Skv and Sq % window == 0: the caller pads, and a length that
     is not a whole number of windows raises.  Plain PyTorch, one block at a
-    time, so the peak score tensor is (B, K, R, window, 2 * window) f32."""
+    time, so the peak score tensor is (B, K, R, window, 2 * window) f32.
+    Under a mesh on the local shards of batch and heads, as ``attention``."""
+    return on_local_shards(functools.partial(_local_block_attention, window=window,
+                                             q_offset=q_offset), (q, k, v), ATTENTION_SHARD_DIMS)
+
+
+def _local_block_attention(q, k, v, *, window: int, q_offset: int):
     B, S, H, D = q.shape
     K = k.shape[2]
     if S % window:
@@ -393,24 +411,100 @@ def local_block_attention(q, k, v, *, window: int, q_offset: int = 0):
 # attention block (projections) and MLPs
 # ---------------------------------------------------------------------------
 
+# Splitting or merging a dim of a ``DTensor`` is a view, which ``DTensor``
+# can take only of shards that fall on whole slices of the new dims, and
+# never of an uneven shard (one its own ops may leave, forward or backward).
+# These helpers gather what cannot be viewed first, in the forward and, for
+# the gradient, in the backward (the reference's GSPMD reshards the same
+# way).  A plain tensor is reshaped as is.
+
+def _gathered(t, dims=()):
+    """``t`` with the mesh dims sharding any of ``dims``, and every uneven
+    shard, gathered."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh, pl = t.device_mesh, list(t.placements)
+    keep = [q if not q.is_shard() or (q.dim not in dims and t.shape[q.dim] % mesh.size(i) == 0)
+            else Replicate() for i, q in enumerate(pl)]
+    return t if keep == pl else t.redistribute(mesh, keep)
+
+
+def _splittable(t, n: int, d: int):
+    """``t`` ready to have dim ``d`` split into (n, -1): its shards along
+    ``d`` kept only where their ranks divide n (or n is 1)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    ranks = 1
+    for i, q in enumerate(t.placements):
+        ranks *= t.device_mesh.size(i) if q.is_shard(d) else 1
+    return _gathered(t, () if n == 1 or n % ranks == 0 else (d,))
+
+
+class _GradThrough(torch.autograd.Function):
+    """Identity whose backward passes the gradient through ``fix``, its
+    local shard made contiguous: the view that follows in the backward (a
+    matmul's, a reshape's) is then always a view (torch 2.11's ``DTensor``
+    dispatches a strided gradient's as ``view``, which fails, and its
+    ``contiguous()`` looks at the global strides only)."""
+
+    @staticmethod
+    def forward(ctx, t, fix):
+        ctx.fix = fix
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.fix(g)
+        if not g._local_tensor.is_contiguous():
+            g = g.clone(memory_format=torch.contiguous_format)
+        return g, None
+
+
+def split_heads(t, n: int, hd: int, dim: int = -1):
+    """``t`` with dim ``dim`` (of n * hd) split into (n, hd)."""
+    from torch.distributed.tensor import DTensor
+
+    d = dim % t.ndim
+    out = _splittable(t, n, d)
+    out = out.reshape(*out.shape[:d], n, hd, *out.shape[d + 1:])
+    if isinstance(t, DTensor) and t.requires_grad:  # the backward merges (n, hd) back
+        out = _GradThrough.apply(out, lambda g: _gathered(g, (d + 1,)))
+    return out
+
+
+def merge_heads(t, dim: int):
+    """``t`` with dims ``dim`` and ``dim + 1`` merged into one."""
+    from torch.distributed.tensor import DTensor
+
+    d = dim % t.ndim
+    n = t.shape[d]
+    out = _gathered(t, (d + 1,))
+    out = out.reshape(*out.shape[:d], -1, *out.shape[d + 2:])
+    if isinstance(t, DTensor) and t.requires_grad:  # the backward splits it into (n, -1)
+        out = _GradThrough.apply(out, lambda g: _splittable(g, n, d))
+    return out
+
+
 def qkv_proj(cfg, p, x):
     """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype."""
-    B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
     v = torch.matmul(x, p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = constrain(q.reshape(B, S, H, hd), "batch", "seq", "heads", "head_dim")
-    k = constrain(k.reshape(B, S, K, hd), "batch", "seq", "kv_heads", "head_dim")
-    v = constrain(v.reshape(B, S, K, hd), "batch", "seq", "kv_heads", "head_dim")
+    q = constrain(split_heads(q, H, hd), "batch", "seq", "heads", "head_dim")
+    k = constrain(split_heads(k, K, hd), "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(split_heads(v, K, hd), "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def out_proj(cfg, p, o):
-    B, S = o.shape[:2]
-    y = torch.matmul(o.reshape(B, S, -1), p["wo"])
+    y = torch.matmul(merge_heads(o, 2), p["wo"])
     if cfg.attn_out_bias:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")
@@ -442,8 +536,20 @@ def mlp(cfg, p, x):
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 
+# rows of a lookup are independent; the table has none of them (gathered)
+_EMBED_SHARD_DIMS = {"batch": ((0, None), (0,))}
+
+
+def _lookup(tokens, table):
+    return table[tokens]
+
+
 def embed(cfg, p, tokens):
-    return constrain(p["table"][tokens], "batch", "seq", "embed")
+    """The table's rows at ``tokens``.  Under a mesh on each rank's own
+    rows, the table gathered: ``DTensor``'s strategy for the indexing's
+    backward (``index_put``) fails on torch 2.11."""
+    return constrain(on_local_shards(_lookup, (tokens, p["table"]), _EMBED_SHARD_DIMS),
+                     "batch", "seq", "embed")
 
 
 def unembed(cfg, p, x):
@@ -453,14 +559,24 @@ def unembed(cfg, p, x):
     return constrain(torch.matmul(x.float(), w.float()), "batch", "seq", "vocab")
 
 
+# rows (batch and position) of the cross-entropy are independent
+_XENT_SHARD_DIMS = {"batch": ((0, 0), (0,)), "seq": ((1, 1), (1,))}
+
+
+def _gold_logit(logits, labels):
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
 def xent_loss(logits, labels, mask=None):
     """Mean next-token cross-entropy in f32: logsumexp minus the gold
     logit; with ``mask``, the mask-weighted mean (at least 1 in the
     denominator).  Under a mesh the gold logit is gathered from whole vocab
-    rows: the logits are first redistributed unsharded over the vocab."""
+    rows (the logits are first redistributed unsharded over the vocab), on
+    each rank's own rows: ``DTensor``'s gather backward would hold the
+    gradient of the whole batch's logits on every rank."""
     logits = constrain(logits.float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = on_local_shards(_gold_logit, (logits, labels), _XENT_SHARD_DIMS)
     nll = lse - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -24,8 +24,9 @@ modality STUBS (whisper frames, qwen2-vl patch embeddings and M-RoPE
 positions) drawn as the reference draws them; ``batch_logical_specs``
 names each batch input's logical axes, and ``input_specs`` gives the
 inputs as meta-device tensors (shapes and dtypes, no allocation).  Each
-family's ``param_specs`` names its params' logical axes, which
-``distribution.sharding.tree_sharding`` maps onto a mesh.
+family's ``param_specs`` and ``cache_specs`` name its params' and decode
+cache's logical axes, which ``distribution.sharding.tree_sharding`` maps
+onto a mesh.
 """
 from __future__ import annotations
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
+
 F32 = torch.float32
 CAPACITY_FACTOR = 1.25
 
@@ -81,6 +83,10 @@ def _one_hot(idx, n: int, dtype):
 def moe_block(cfg, p, x, *, groups=None):
     """x: (B, S, D) -> (y, aux_loss). Capacity-based top-k MoE.
 
+    Under a mesh every split or merge of a dim goes through
+    ``layers.split_heads``/``merge_heads``, which gather what ``DTensor``
+    cannot view.
+
     Grouped dispatch (``cfg.moe.dispatch_groups`` = G): routing is global,
     but the scatter/gather stays within token groups, each with its own
     capacity buckets.  G=1 is the single global dispatch buffer.
@@ -96,7 +102,7 @@ def moe_block(cfg, p, x, *, groups=None):
     while T % G:
         G -= 1
     Tg = T // G
-    x2d = x.reshape(T, D)
+    x2d = L.merge_heads(x, 0)  # (T, D)
 
     weights, idx, aux = route(x2d, p["router"], k, e.renormalize)
 
@@ -114,12 +120,14 @@ def moe_block(cfg, p, x, *, groups=None):
 
     # ---- scatter tokens into the (G, E*C, D) dispatch buffer (per group):
     # every slot-request is added, the dropped ones as zeros
-    xrep = x2d.reshape(G, Tg, 1, D).expand(G, Tg, k, D).reshape(G, Tg * k, D)
+    xrep = L.merge_heads(L.split_heads(x2d, G, Tg, dim=0)[:, :, None].expand(G, Tg, k, D), 1)
     contrib = xrep.masked_fill(~keep[..., None], 0)
     flat = (slot + (torch.arange(G, device=x.device) * (E * cap))[:, None]).reshape(-1)
     buf = torch.zeros((G * E * cap, D), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, flat, contrib.reshape(-1, D))
-    xe = buf.reshape(G, E, cap, D)
+    # out of place: under a mesh DTensor re-specs an in-place index_add_'s
+    # destination as sharded without moving its data
+    buf = buf.index_add(0, flat, L.merge_heads(contrib, 0))
+    xe = L.split_heads(L.split_heads(buf, G, E * cap, dim=0), E, cap, dim=1)
 
     # ---- expert products (batched over group x expert)
     g = torch.einsum("gecd,edf->gecf", xe, p["wi_gate"])
@@ -128,10 +136,11 @@ def moe_block(cfg, p, x, *, groups=None):
     ye = torch.einsum("gecf,efd->gecd", h, p["wo"])
 
     # ---- gather back + weighted combine over the k choices
-    y_tk = ye.reshape(G * E * cap, D).index_select(0, flat).reshape(G, Tg * k, D)
+    ye = L.merge_heads(L.merge_heads(ye, 1), 0)  # (G * E * cap, D)
+    y_tk = L.split_heads(ye.index_select(0, flat), G, Tg * k, dim=0)
     y_tk = y_tk.masked_fill(~keep[..., None], 0)
-    w_tk = weights.reshape(G, Tg * k, 1).to(x.dtype)
-    y = torch.sum((y_tk * w_tk).reshape(G, Tg, k, D), dim=2).reshape(T, D)
+    w_tk = L.merge_heads(L.split_heads(weights, G, Tg, dim=0), 1)[..., None].to(x.dtype)
+    y = L.merge_heads(torch.sum(L.split_heads(y_tk * w_tk, Tg, k, dim=1), dim=2), 0)
 
     # ---- always-on shared expert (qwen2-moe), sigmoid-gated
     if e.num_shared_experts:
@@ -141,7 +150,7 @@ def moe_block(cfg, p, x, *, groups=None):
         gate = torch.sigmoid(torch.matmul(x2d.to(F32), sp["gate"].to(F32)))
         y = y + sy * gate.to(x.dtype)
 
-    return y.reshape(B, S, D), aux
+    return L.split_heads(y, B, S, dim=0), aux
 
 
 __all__ = ["CAPACITY_FACTOR", "layout", "moe_block", "route", "specs"]

@@ -97,9 +97,12 @@ def _causal_depthwise_conv(x, w, b):
 
 
 def _depthwise_conv(x, w, b):
+    """The bias is added after the conv, as the reference adds it: a bf16
+    conv and an f32 bias (a layer's 1-D params stay f32 under bf16
+    compute) give f32."""
     W, C = w.shape
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))
-    return F.conv1d(xp, w.t().unsqueeze(1), b, groups=C).transpose(1, 2).contiguous()
+    return (F.conv1d(xp, w.t().unsqueeze(1), groups=C).transpose(1, 2) + b).contiguous()
 
 
 def _expand_groups(t, H):
@@ -167,16 +170,15 @@ def _mixer(cfg, p, x, impl: str):
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     s, di, H, P, G, N = _dims(cfg)
-    B_, S, _ = x.shape
     z = constrain(torch.matmul(x, p["w_z"]), "batch", "seq", "ssm_inner")
     xbc_raw = constrain(torch.matmul(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
     dt_raw = torch.matmul(x.float(), p["w_dt"].float())
 
     # f32 for the scan (no copy in f32); x, B and C are views of it
     xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"], p["conv_b"])).float()
-    xs = xbc[..., :di].reshape(B_, S, H, P)
-    Bg = xbc[..., di:di + G * N].reshape(B_, S, G, N)
-    Cg = xbc[..., di + G * N:].reshape(B_, S, G, N)
+    xs = L.split_heads(xbc[..., :di], H, P)
+    Bg = L.split_heads(xbc[..., di:di + G * N], G, N)
+    Cg = L.split_heads(xbc[..., di + G * N:], G, N)
 
     dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, S, H) f32
     A = -torch.exp(p["A_log"].float())  # (H,)
@@ -190,7 +192,7 @@ def _mixer(cfg, p, x, impl: str):
     else:
         y, state = ssd_chunked(xs, dt, A, Bg, Cg, s.chunk)
     y = y + xs * p["D"].float()[:, None]
-    y = y.reshape(B_, S, di).to(x.dtype)
+    y = L.merge_heads(y, 2).to(x.dtype)
 
     # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
@@ -233,11 +235,18 @@ def init_ssm_cache(cfg, batch: int, *, device, dtype=F32):
                                 device=device)}
 
 
+# rows and heads of the decode's state read are independent
+_DECODE_SHARD_DIMS = {"batch": ((0, 0), (0,)), "heads": ((1, 1), (1,))}
+
+
+def _read_state(C, state):
+    return torch.einsum("bhn,bhnp->bhp", C, state)
+
+
 def ssm_decode_step(cfg, p, x, cache):
     """x: (B, 1, D); cache: {'state', 'conv'} -> (y (B, 1, D), new cache).
     Plain PyTorch: one token's update is a few small products."""
     s, di, H, P, G, N = _dims(cfg)
-    B_ = x.shape[0]
 
     z = torch.matmul(x, p["w_z"])
     xbc_t = torch.matmul(x, p["w_xbc"])
@@ -249,16 +258,19 @@ def ssm_decode_step(cfg, p, x, cache):
     xbc = F.silu(conv_out)[:, None, :].to(x.dtype)  # (B, 1, C)
     new_conv = win[:, 1:]
 
-    xs = xbc[..., :di].reshape(B_, H, P).float()
-    Bg = _expand_groups(xbc[..., di:di + G * N].reshape(B_, 1, G, N), H)[:, 0].float()
-    Cg = _expand_groups(xbc[..., di + G * N:].reshape(B_, 1, G, N), H)[:, 0].float()
+    # per-head operands laid out as the state is: heads over the model axis
+    xs = constrain(L.split_heads(xbc[:, 0, :di], H, P).float(), "batch", "ssm_heads", None)
+    Bg = _expand_groups(L.split_heads(xbc[..., di:di + G * N], G, N), H)[:, 0].float()
+    Cg = _expand_groups(L.split_heads(xbc[..., di + G * N:], G, N), H)[:, 0].float()
+    Bg, Cg = (constrain(t, "batch", "ssm_heads", None) for t in (Bg, Cg))
 
     dt = F.softplus(dt_raw[:, 0] + p["dt_bias"].float())  # (B, H)
     a = torch.exp(dt * -torch.exp(p["A_log"].float()))  # (B, H)
 
     state = cache["state"] * a[:, :, None, None] + (Bg * dt[..., None])[..., None] * xs[:, :, None]
-    y = torch.einsum("bhn,bhnp->bhp", Cg, state) + xs * p["D"].float()[:, None]
-    y = y.reshape(B_, 1, di).to(x.dtype)
+    y = on_local_shards(_read_state, (Cg, state), _DECODE_SHARD_DIMS) + xs * p["D"].float()[:, None]
+    y = L.merge_heads(y, 1)[:, None].to(x.dtype)
 
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return torch.matmul(y, p["w_out"]), {"state": state, "conv": new_conv}
+    out = constrain(torch.matmul(y, p["w_out"]), "batch", "seq", "embed")
+    return out, {"state": state, "conv": new_conv}

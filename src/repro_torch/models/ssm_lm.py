@@ -105,6 +105,14 @@ def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
     return {k: t.expand(cfg.num_layers, *t.shape).clone() for k, t in one.items()}
 
 
+
+def cache_specs(cfg):
+    """Logical sharding names of ``init_cache``'s leaves."""
+    return {
+        "state": ("layers", "batch", "ssm_heads", "ssm_state", None),
+        "conv": ("layers", "batch", None, "ssm_inner"),
+    }
+
 def decode_step(cfg, params, cache, tokens, pos: int):
     """tokens: (B, 1) int; ``pos`` is unused (the recurrence carries no
     positions).  Returns (logits (B, 1, V), cache); the cache is updated

@@ -84,7 +84,9 @@ def _embed_inputs(cfg, params, batch):
         pe = batch["patch_embeds"].to(x.dtype)  # (B, P, D) from the stub
         P, S = pe.shape[1], x.shape[1]
         start = max(0, min(1, S - P))  # positions [1, P+1), clamped as dynamic_update_slice
-        x[:, start:start + P] = pe
+        # spliced, not written in place: under a mesh the in-place write's
+        # gradient is a copy into a partial sum, which DTensor refuses
+        x = torch.cat([x[:, :start], pe, x[:, start + P:]], dim=1)
     return x
 
 
@@ -190,6 +192,12 @@ def init_cache(cfg, batch: int, max_seq: int, *, device, dtype=torch.bfloat16):
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+
+
+def cache_specs(cfg):
+    """Logical sharding names of ``init_cache``'s leaves."""
+    names = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": names, "v": names}
 
 def decode_step(cfg, params, cache, tokens, pos: int):
     """tokens: (B, 1) int; pos: the write position (text decode: M-RoPE's

@@ -40,7 +40,14 @@ TRAIN_SPANS = ("train.forward", "train.backward", "train.adamw")
 
 def _split_micro(batch: dict, logical: dict, n: int) -> dict:
     """Reshape each batch leaf's *batch* axis (found via its logical spec)
-    from (B, ...) to (n, B/n, ...) moved to the front."""
+    from (B, ...) to (n, B/n, ...) moved to the front: microbatch i is
+    rows [i B/n, (i+1) B/n).  A ``DTensor`` leaf, its rows sharded in
+    blocks over ranks, splits as (B/n, n) instead, microbatch i being rows
+    i, n + i, ...: each rank splits its own rows, where the contiguous
+    split would put a microbatch on a few ranks (``DTensor`` cannot view
+    that).  The step's mean over microbatches is the same."""
+    from torch.distributed.tensor import DTensor
+
     out = {}
     for k, v in batch.items():
         names = logical[k]
@@ -49,8 +56,12 @@ def _split_micro(batch: dict, logical: dict, n: int) -> dict:
         if B % n:
             raise ValueError(f"_split_micro: {k} has batch {B}, not a multiple of {n} "
                              "microbatches")
-        r = v.reshape(v.shape[:bi] + (n, B // n) + v.shape[bi + 1:])
-        out[k] = torch.movedim(r, bi, 0)
+        if isinstance(v, DTensor):
+            r = v.reshape(v.shape[:bi] + (B // n, n) + v.shape[bi + 1:])
+            out[k] = torch.movedim(r, bi + 1, 0)
+        else:
+            r = v.reshape(v.shape[:bi] + (n, B // n) + v.shape[bi + 1:])
+            out[k] = torch.movedim(r, bi, 0)
     return out
 
 

@@ -1,0 +1,287 @@
+"""The port's dry run and roofline (``repro_torch.launch.dryrun``,
+``repro_torch.analysis.roofline``/``perf_lab``) against the JAX package's.
+
+* ``model_flops`` and ``hbm_floor_bytes`` equal the reference's for every
+  cell; with the reference's constants patched in, ``roofline_terms``
+  equals the reference's on the same record; ``apply_overrides`` gives a
+  plan field-equal to the reference's for the same ``--set``s (run in the
+  reference child: importing its perf lab forces 512 host devices).
+* each family's ``cache_specs`` is the reference's, leaf for leaf.
+* ``lower_cell`` at ``smoke()`` width over a 2 x 2 fake world on the CPU,
+  for every family and every kind, gives a record with the reference's
+  keys and collective traffic in training; a dense train cell and the ssm
+  decode cell count FLOPs within 2% of the reference's ``lower_cell`` of
+  the same smoke config on a 2 x 2 JAX host mesh (4 forced host devices,
+  in a subprocess, as ``tests/test_multidevice_train.py`` runs them).
+* one production cell, olmo-1b decode_32k, over 256 fake ranks; records
+  go to ``results/torch_dryrun/``, never the reference's directory.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from repro.analysis import roofline as jax_roofline
+from repro.configs import cells as jax_cells, get_config as jax_get_config
+from repro.configs import get_shape as jax_get_shape
+from repro.models import get_model as jax_get_model
+from repro_torch.analysis import roofline
+from repro_torch.analysis.perf_lab import PERF_DIR, apply_overrides
+from repro_torch.configs import ALL_ARCHS, cells, get_config, get_shape, smoke
+from repro_torch.distribution.recipes import plan_for
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+from repro_torch.models import get_model
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# one config a family, the kinds every cell has
+FAMILY_ARCHS = {"dense": "olmo-1b", "moe": "qwen2-moe-a2.7b", "vlm": "qwen2-vl-72b",
+                "ssm": "mamba2-130m", "hybrid": "hymba-1.5b", "encdec": "whisper-tiny"}
+KIND_SHAPES = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
+# the cells whose FLOPs are held to the reference's lower_cell
+PARITY_CELLS = (("olmo-1b", "train_4k"), ("mamba2-130m", "decode_32k"))
+# cut sizes for the smoke lowerings: the op count, not the shapes, costs
+# time on fake tensors, and a chunked SSD scan or a blocked attention runs
+# a loop step a chunk or block
+SMALL = {"train_4k": (64, 8), "prefill_32k": (64, 8)}
+OVERRIDES = (
+    {"remat": "dots", "q_block": "none"},
+    {"num_microbatches": "2", "rules.seq": "data+model", "rules.vocab": "none"},
+    {"moe_strategy": "ep", "moe_groups": "4", "compute_dtype": "float32"},
+)
+
+_REF_CHILD = textwrap.dedent(
+    """
+    import dataclasses, json, os, sys
+    from pathlib import Path
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                               + os.environ.get("XLA_FLAGS", ""))
+    import repro.launch.dryrun as D
+    from repro.analysis.perf_lab import apply_overrides
+    from repro.configs import get_config, get_shape, smoke
+    from repro.distribution.recipes import plan_for
+    from repro.launch.mesh import make_host_mesh
+
+    spec = json.loads(sys.argv[1])
+    D.RESULTS_DIR = Path(spec["tmp"]) / "dryrun"  # its HLO goes beside, not into the repo
+    D.get_config = lambda a: smoke(get_config(a))
+    flops = {f"{a}:{s}": D.lower_cell(a, s, mesh=make_host_mesh(2, 2))["hlo"]["flops"]
+             for a, s in spec["cells"]}
+    plans = []
+    for sets in spec["overrides"]:
+        cfg = get_config("qwen2-moe-a2.7b")
+        cfg, plan = apply_overrides(cfg, plan_for(cfg, get_shape("train_4k")), sets)
+        plans.append({"plan": dataclasses.asdict(plan), "moe": dataclasses.asdict(cfg.moe)})
+    print("REF " + json.dumps({"flops": flops, "plans": plans}))
+    """
+)
+
+
+def _jsonable(x):
+    return json.loads(json.dumps(x))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's lower_cell FLOPs of PARITY_CELLS (smoke configs at
+    the cells' shapes on a 2 x 2 host mesh) and its apply_overrides of
+    OVERRIDES."""
+    spec = {"tmp": str(tmp_path_factory.mktemp("ref_dryrun")), "cells": PARITY_CELLS,
+            "overrides": OVERRIDES}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _REF_CHILD, json.dumps(spec)], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("REF "))
+    return json.loads(line[4:])
+
+
+@pytest.fixture
+def small_shapes(monkeypatch):
+    from repro_torch.configs.base import ShapeConfig
+
+    monkeypatch.setattr(dryrun, "get_shape", lambda n: (
+        ShapeConfig(n, *SMALL[n], get_shape(n).kind) if n in SMALL else get_shape(n)))
+
+
+def _smoke_lower(arch, shape_name):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with fake_world(4, device_type="cpu"):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        return dryrun.lower_cell(arch, shape_name, mesh=mesh, cfg=smoke(get_config(arch)),
+                                 device_type="cpu")
+
+
+# ---------------------------------------------------------------------------
+# roofline arithmetic
+# ---------------------------------------------------------------------------
+
+def test_cells_are_the_references():
+    assert cells() == jax_cells() and len(cells()) == 32
+
+
+@pytest.mark.parametrize("arch,shape_name", jax_cells())
+def test_model_flops_and_floor_equal_reference(arch, shape_name):
+    cfg, shape = get_config(arch), get_shape(shape_name)
+    jcfg, jshape = jax_get_config(arch), jax_get_shape(shape_name)
+    assert roofline.model_flops(cfg, shape) == jax_roofline.model_flops(jcfg, jshape)
+    for dev in (256, 512):
+        assert (roofline.hbm_floor_bytes(cfg, shape, dev)
+                == jax_roofline.hbm_floor_bytes(jcfg, jshape, dev))
+
+
+def test_constants_are_an_h100s():
+    assert (roofline.PEAK_FLOPS, roofline.HBM_BW, roofline.LINK_BW) == (989e12, 3.35e12, 50e9)
+    assert roofline.RESULTS_DIR.name == "torch_dryrun"
+    assert dryrun.RESULTS_DIR == roofline.RESULTS_DIR
+    assert PERF_DIR.name == "torch_perf"
+
+
+@pytest.mark.parametrize("arch,shape_name,devices", [
+    ("olmo-1b", "train_4k", 256), ("deepseek-67b", "decode_32k", 512),
+    ("mamba2-130m", "long_500k", 256), ("qwen2-moe-a2.7b", "prefill_32k", 512)])
+def test_roofline_terms_equal_reference_with_its_constants(monkeypatch, arch, shape_name,
+                                                           devices):
+    for name in ("PEAK_FLOPS", "HBM_BW", "LINK_BW"):
+        monkeypatch.setattr(roofline, name, getattr(jax_roofline, name))
+    rec = {"arch": arch, "shape": shape_name, "devices": devices,
+           "hlo": {"flops": 3.1e13, "hbm_bytes": 7.7e11, "collective_wire_bytes": 2.9e9}}
+    assert roofline.roofline_terms(rec) == jax_roofline.roofline_terms(rec)
+
+
+def test_roofline_summarize_reads_records(monkeypatch, tmp_path):
+    monkeypatch.setattr(roofline, "RESULTS_DIR", tmp_path)
+    rec = {"arch": "olmo-1b", "shape": "decode_32k", "devices": 256,
+           "hlo": {"flops": 1e10, "hbm_bytes": 5e9, "collective_wire_bytes": 1e6}}
+    (tmp_path / "olmo-1b__decode_32k__singlepod.json").write_text(json.dumps(rec))
+    (tmp_path / "olmo-1b__train_4k__singlepod.json").write_text(
+        json.dumps({"arch": "olmo-1b", "shape": "train_4k", "error": "x"}))
+    table = roofline.summarize()
+    assert "| olmo-1b | decode_32k | **memory** |" in table
+    assert "| olmo-1b | train_4k | ERROR |" in table
+
+
+def test_apply_overrides_equal_reference(reference):
+    for sets, ref in zip(OVERRIDES, reference["plans"]):
+        cfg = get_config("qwen2-moe-a2.7b")
+        cfg, plan = apply_overrides(cfg, plan_for(cfg, get_shape("train_4k")), dict(sets))
+        assert _jsonable(dataclasses.asdict(plan)) == ref["plan"], sets
+        assert _jsonable(dataclasses.asdict(cfg.moe)) == ref["moe"], sets
+    with pytest.raises(KeyError, match="unknown override"):
+        apply_overrides(get_config("olmo-1b"), plan_for(get_config("olmo-1b"),
+                                                        get_shape("train_4k")), {"x": "1"})
+
+
+# ---------------------------------------------------------------------------
+# cache specs and meshes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_cache_specs_equal_reference(arch):
+    cfg = smoke(get_config(arch))
+    specs = get_model(cfg).cache_specs(cfg)
+    assert specs == jax_get_model(jax_get_config(arch)).cache_specs(jax_get_config(arch))
+    cache = get_model(cfg).init_cache(cfg, 2, 16, device="cpu")
+    assert set(specs) == set(cache)
+    assert all(len(specs[k]) == cache[k].ndim for k in cache)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_over_a_fake_world(multi_pod):
+    n = 512 if multi_pod else 256
+    with pytest.raises(ValueError, match="no process group"):
+        make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+    with fake_world(n, device_type="cpu"):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        assert mesh.size() == n
+        assert mesh.mesh_dim_names == (("pod", "data", "model") if multi_pod
+                                       else ("data", "model"))
+        with pytest.raises(ValueError, match=f"has {n}"):  # the other mesh's size
+            make_production_mesh(multi_pod=not multi_pod, device_type="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# lower_cell
+# ---------------------------------------------------------------------------
+
+REF_KEYS = {"arch", "shape", "kind", "fn", "mesh", "devices", "plan", "params", "active_params",
+            "memory", "cost_analysis", "hlo", "timing_s"}
+
+
+@pytest.mark.parametrize("kind", sorted(KIND_SHAPES))
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_lower_cell_every_family_and_kind(small_shapes, family, kind):
+    arch = FAMILY_ARCHS[family]
+    rec = _smoke_lower(arch, KIND_SHAPES[kind])
+    assert REF_KEYS <= set(rec) and "error" not in rec
+    assert rec["kind"] == kind and rec["devices"] == 4
+    assert rec["mesh"] == {"data": 2, "model": 2}
+    assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes",
+                                  "alias_bytes", "code_bytes"}
+    assert set(rec["hlo"]) == {"flops", "hbm_bytes", "collective_wire_bytes",
+                               "collective_by_kind", "collective_counts", "num_computations"}
+    assert rec["hlo"]["flops"] > 0 and rec["hlo"]["hbm_bytes"] > 0
+    assert rec["cost_analysis"] == {"flops": rec["hlo"]["flops"],
+                                    "bytes_accessed": rec["hlo"]["hbm_bytes"]}
+    mem = rec["memory"]
+    assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
+    if kind == "train":  # params and moments donated, written in place
+        assert rec["fn"] == "train_step"
+        assert rec["hlo"]["collective_wire_bytes"] > 0
+        assert sum(rec["hlo"]["collective_counts"].values()) > 0
+        assert 0 < mem["alias_bytes"] <= mem["output_bytes"]
+    if kind == "decode":  # the cache, updated in place
+        assert mem["alias_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,shape_name", PARITY_CELLS)
+def test_lower_cell_flops_match_reference(reference, arch, shape_name):
+    rec = _smoke_lower(arch, shape_name)
+    assert rec["hlo"]["flops"] == pytest.approx(reference["flops"][f"{arch}:{shape_name}"],
+                                                rel=0.02)
+
+
+def test_production_decode_cell_over_256_fake_ranks():
+    rec = dryrun.lower_cell("olmo-1b", "decode_32k", device_type="cpu")
+    assert not torch.distributed.is_initialized()  # its fake world is gone
+    assert rec["devices"] == 256 and rec["mesh"] == {"data": 16, "model": 16}
+    assert rec["plan"] == {"remat": "none", "q_block": None, "num_microbatches": 1}
+    cfg = get_config("olmo-1b")
+    # bf16 params: vocab and heads over the 16 model ranks, replicated over data
+    assert rec["memory"]["argument_bytes"] > 2 * cfg.param_count() / 16
+    # one token of 128 rows against a 32k cache: at least the analytic work a device
+    mf = roofline.model_flops(cfg, get_shape("decode_32k")) / 256
+    assert rec["hlo"]["flops"] >= 0.9 * mf
+    terms = roofline.roofline_terms(rec)
+    assert terms["bound"] in ("compute", "memory", "collective")
+    assert terms["step_seconds"] == max(terms["compute_s"], terms["memory_s"],
+                                        terms["collective_s"])
+
+
+def test_run_cell_writes_record_and_table_and_reanalyzes(monkeypatch, small_shapes, tmp_path):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    monkeypatch.setattr(dryrun, "get_config", lambda a: smoke(get_config(a)))
+    with fake_world(4, device_type="cpu"):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell("olmo-1b", "prefill_32k", False, mesh=mesh, device_type="cpu")
+    path = tmp_path / "olmo-1b__prefill_32k__singlepod.json"
+    table = tmp_path / "olmo-1b__prefill_32k__singlepod.ops.jsonl.gz"
+    assert path.exists() and table.exists() and "error" not in rec
+    assert json.loads(path.read_text())["hlo"] == rec["hlo"]
+    stale = dict(rec, hlo={}, cost_analysis={})
+    path.write_text(json.dumps(stale))
+    assert dryrun.reanalyze_all() == 1
+    assert json.loads(path.read_text())["hlo"] == rec["hlo"]
+    # a cached record is read back, not traced again
+    assert dryrun.run_cell("olmo-1b", "prefill_32k", False, mesh=None)["hlo"] == rec["hlo"]
