@@ -162,14 +162,26 @@ with ``Dim3`` geometry, ``enqueue_read``):
         the whole tensors (32 a step, as train's); losses within 1e-5 of
         train's; ``reset_runtime()`` destroys the group.
   dryrun  ``python -m repro_torch.launch.dryrun`` in child processes:
-        OLMo-1B's train_4k and decode_32k cells over a fake world of 256
-        ranks and train_4k over 512, each step traced once on fake tensors
-        (``impl="ref"``; no kernel, nothing allocated): per-device memory,
-        FLOPs, HBM bytes, collectives and H100 roofline terms, no error,
-        collective traffic in the train cells.  Then the train phase's own
-        step traced here on one device: its roofline step against the
-        measured step, the measured step's MFU, its argument + temporary
-        bytes against the measured peak.
+        OLMo-1B's train_4k and decode_32k cells and Qwen1.5-MoE-A2.7B's
+        prefill_32k over a fake world of 256 ranks and train_4k over 512,
+        each step traced once on fake tensors (``impl="ref"``; no kernel,
+        nothing allocated): per-device memory, FLOPs, HBM bytes,
+        collectives and H100 roofline terms, no error, collective traffic
+        in the train cells, and the MoE prefill's output (its KV cache)
+        at least 16x below the replicated cache of the earlier records.
+        Then the train phase's own step traced here on one device: its
+        roofline step against the measured step, the measured step's MFU,
+        its argument + temporary bytes against the measured peak.
+  serve_paged_legacy  ``examples/torch_paged_serving.py``'s toy GQA model
+        (the reference's weights) through ``PagedServeEngine`` on its
+        legacy two-callable contract: 8 prompts grouped by token budget,
+        decode at warm counts 1, 2, 4, 8 on CUDA graphs, the paged_attention
+        kernel each step; TTFT and step ms; tokens equal to the same
+        prompts served one at a time.
+  examples  the five examples that follow the reference's (quickstart,
+        overlap_pipeline, async_pipeline on the partition_map kernel,
+        serve_batch, paged_serving) through their ``main()`` on the card:
+        each returns 0 and prints its check line.
 
 The paged phases decode on CUDA graphs, one per warm row count: every
 decode step is a replay except the first at each count.  A graph's kernels
@@ -182,7 +194,8 @@ Every kernel is built from ``src/repro_torch/kernels/csrc`` first (one
 paged serve run; the graph, fleet, graph_fleet, engine and serve_engine
 phases, each run of the moe and encdec phases, each train run, each
 grad_parity run, each part of train_elastic, each ship path of
-serve_paged_ship, here and in the worker, and train_mesh's run) and read
+serve_paged_ship, here and in the worker, train_mesh's run, the measured
+run of serve_paged_legacy and each example) and read
 just after; a
 kernel the run did not launch fails it (train_elastic's replays run their
 kernels without the wrappers: the wrappers count the warm-ups and captures,
@@ -248,8 +261,8 @@ from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.models import get_model, make_batch  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, RequestEngine,  # noqa: E402
-                                 cache_to_rows, make_serve_engine, make_serve_fanout,
+from repro_torch.serving import (LanePolicy, PagedKVCache, PagedServeEngine, PageSpec,  # noqa: E402
+                                 RequestEngine, cache_to_rows, make_serve_engine, make_serve_fanout,
                                  rows_to_cache)
 from repro_torch.pytree import tree_flatten_with_path, tree_unflatten  # noqa: E402
 from repro_torch.serving.paged import sample_token  # noqa: E402
@@ -398,7 +411,19 @@ SHIP_DECODE = "repro_torch.serving.paged:paged_worker_decode"
 TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 4, 1e-5
 # the dryrun phase: production cells traced in a child process over a fake
 # world of 256 ranks (and 512 with --multi-pod), each call's time limit
-DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k")
+DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k", "qwen2-moe-a2.7b:prefill_32k")
+# the MoE prefill cell's output bytes a device and FLOPs in the records traced
+# before its KV cache was sharded (a replicated cache of the global shape)
+DRYRUN_REPLICATED_CACHE = {"qwen2-moe-a2.7b:prefill_32k": (206158506176, 4.5954426404864e13)}
+# the examples phase: each example's module and the line its main() prints
+# when its check passes
+EXAMPLE_CHECKS = {
+    "torch_quickstart": "sum of 1000 ones = 1000",
+    "torch_overlap_pipeline": "(>1 == overlap really happened)",
+    "torch_async_pipeline": "futurized results equal the synchronous ones",
+    "torch_serve_batch": "greedy tokens equal the forward's argmax",
+    "torch_paged_serving": "tokens identical across schedules OK",
+}
 DRYRUN_MULTI_POD_CELLS = ("olmo-1b:train_4k",)
 DRYRUN_TIMEOUT_S = 400
 # Seconds after which a hung run dumps its threads' stacks and exits (a run
@@ -1376,6 +1401,101 @@ def phase_serve_engine(dev) -> dict:
 # ---------------------------------------------------------------------------
 # the moe and encdec families: Qwen1.5-MoE-A2.7B and whisper-tiny
 # ---------------------------------------------------------------------------
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_serve_paged_legacy(dev) -> dict:
+    """``examples/torch_paged_serving.py``'s toy GQA model through
+    ``PagedServeEngine(contract="legacy")`` on the card, by the example's
+    own ``serve``: its batched policies (grouped prefill, decode at warm
+    counts 1, 2, 4, 8 on CUDA graphs) after a warm-up request, the launch
+    counters set to 0 just before the prompts and read just after; then the
+    same prompts one at a time (the example's serial engine), and batched
+    again through a model whose decode runs the plain paged attention
+    (``impl="ref"``).  Tokens must be equal across the three, every decode
+    step but each count's first a replay, and paged_attention launched.
+    The batched and serial runs are the example's ``main()``: the examples
+    phase takes its result from here."""
+    ex = load_example("torch_paged_serving")
+
+    def start():
+        dev.synchronize()
+        reset_launch_counts()
+
+    tokens, metrics = ex.serve(dev, ex.make_model(dev.torch_device), "smoke-legacy", warm=True,
+                               on_start=start, **ex.policies(False))
+    counted = launch_counts()["paged_attention"]
+    run = {"metrics": metrics, "wall_s": metrics["wall_s"]}
+    serial, _ = ex.serve(dev, ex.make_model(dev.torch_device), "smoke-legacy-serial",
+                         **ex.policies(True))
+    plain, _ = ex.serve(dev, ex.make_model(dev.torch_device, impl="ref"), "smoke-legacy-plain",
+                        **ex.policies(False))
+    same = lambda xs, ys: all(np.array_equal(a, b) for a, b in zip(xs, ys))  # noqa: E731
+    out = {"prompts": [len(p) for p in ex.prompts()], "new_tokens": ex.NEW_TOKENS,
+           **paged_times(run), "launches_counted": counted,
+           "paged_attention_on_device": paged_device_launches(run, "paged_attention", counted),
+           "tokens_equal_serial": same(tokens, serial), "tokens_equal_plain": same(tokens, plain),
+           "decode_shape": legacy_decode_shape(ex)}
+    graph_steps_check("serve_paged_legacy", metrics)
+    require(out["tokens_equal_serial"], "serve_paged_legacy: the batched engine's tokens differ "
+            "from the one-at-a-time run's")
+    require(out["tokens_equal_plain"], "serve_paged_legacy: the kernel's tokens differ from "
+            "those of the plain paged attention")
+    require(out["paged_attention_on_device"] > 0,
+            f"serve_paged_legacy: paged_attention was not launched: {out}")
+    return out
+
+
+def legacy_decode_shape(ex) -> dict:
+    """The legacy example's decode shape as ``paged_entry`` takes it: every
+    prompt's row at its last decode step, its heads, pages of ``ex.PAGE``, a
+    table as wide as ``ex.MAXLEN``."""
+    lengths = [n + ex.NEW_TOKENS - 1 for n in ex.PROMPT_LENS]
+    return {"shape": [len(lengths), ex.HEADS, ex.KV_HEADS, ex.HEAD_DIM, ex.PAGE,
+                      ex.MAXLEN // ex.PAGE], "lengths": lengths}
+
+
+def phase_examples(legacy: dict) -> dict:
+    """Each example's ``main()`` on the card, its standard output captured:
+    it must return 0 and print its check line.  The launch counters are set
+    to 0 before each and read after.  ``torch_paged_serving``'s result is
+    ``legacy``'s, the serve_paged_legacy phase, which ran its ``main()``'s
+    two schedules through its own ``serve``."""
+    import contextlib
+    import io
+
+    out = {}
+    for name, check in EXAMPLE_CHECKS.items():
+        if name == "torch_paged_serving":
+            equal = legacy["tokens_equal_serial"]
+            out[name] = {"returncode": 0 if equal else 1, "seconds": legacy["seconds"],
+                         "check": equal,
+                         "launches": {}, "from_phase": "serve_paged_legacy",
+                         "lines": [check if equal else "schedules diverged"]}
+            require(equal, f"examples: {name}: schedules diverged")
+            continue
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = load_example(name).main()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        out[name] = {"returncode": rc, "seconds": secs, "check": check in text,
+                     "launches": {k: v for k, v in launch_counts().items() if v},
+                     "lines": text.splitlines()[-4:]}
+        require(rc == 0 and check in text, f"examples: {name} returned {rc}: {text[-2000:]}")
+    return out
 
 
 def router_probs(x2d: "torch.Tensor", wr: "torch.Tensor") -> "torch.Tensor":
@@ -2715,6 +2835,7 @@ def dryrun_summary(rec: dict) -> dict:
     mem, h = rec["memory"], rec["hlo"]
     return {"devices": rec["devices"], "mesh": rec["mesh"], "plan": rec["plan"],
             "argument_gb": mem["argument_bytes"] / 1e9, "temp_gb": mem["temp_bytes"] / 1e9,
+            "output_bytes": mem["output_bytes"],
             "flops": h["flops"], "hbm_bytes": h["hbm_bytes"],
             "collective_by_kind": h["collective_by_kind"],
             "collective_counts": h["collective_counts"],
@@ -2725,41 +2846,70 @@ def dryrun_summary(rec: dict) -> dict:
 
 
 def phase_dryrun(train_out: dict) -> dict:
-    """The dry run (``python -m repro_torch.launch.dryrun``) of OLMo-1B's
-    train_4k and decode_32k cells over a fake world of 256 ranks, and of
-    train_4k over 512 (``--multi-pod``), in child processes (a fake world
-    cannot share a process with a real group; the mesh's device type is
-    cuda): each record free of errors, the train cells with collective
-    traffic.  Then the train phase's own step (OLMo-1B, 4 x 2048, the
-    plan's remat full, bf16 over f32 masters, ``impl="ref"``) traced here
-    on fake tensors on one device with no mesh: its roofline step against
-    the train phase's measured step, the MFU of that measured step, and
-    its argument + peak temporary bytes against the measured peak."""
+    """The dry run (``python -m repro_torch.launch.dryrun``) of
+    ``DRYRUN_CELLS`` over a fake world of 256 ranks and of
+    ``DRYRUN_MULTI_POD_CELLS`` over 512 (``--multi-pod``), in two child
+    processes run at once (a fake world cannot share a process with a real
+    group; the mesh's device type is cuda): each record free of errors
+    (``dryrun_records``).  Meanwhile the train phase's own step (OLMo-1B,
+    4 x 2048, the plan's remat full, bf16 over f32 masters, ``impl="ref"``)
+    is traced here (``dryrun_train_step``)."""
     out = {"cells": {}, "processes": []}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for cells, multi_pod in ((DRYRUN_CELLS, False), (DRYRUN_MULTI_POD_CELLS, True)):
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force"]
-        cmd += [f"--cell={c}" for c in cells] + (["--multi-pod"] if multi_pod else [])
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=DRYRUN_TIMEOUT_S)
-        secs = time.perf_counter() - t0
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[ok", "[FAIL", "done"))]
-        out["processes"].append({"cells": list(cells), "multi_pod": multi_pod,
-                                 "returncode": proc.returncode, "seconds": secs, "lines": lines})
-        require(proc.returncode == 0, f"dryrun: {' '.join(cmd[1:])} exited "
-                f"{proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
-        for cell in cells:
-            arch, shape_name = cell.split(":")
-            rec = json.loads(dryrun.cell_path(arch, shape_name, multi_pod).read_text())
-            key = f"{cell}:{'multipod' if multi_pod else 'singlepod'}"
-            require("error" not in rec, f"dryrun {key}: {rec.get('error', '')[-2000:]}")
-            r = out["cells"][key] = dryrun_summary(rec)
-            r["process_seconds"] = secs
-            if rec["kind"] == "train":
-                require(r["collective_wire_bytes"] > 0 and sum(r["collective_counts"].values()),
-                        f"dryrun {key}: no collective traffic in a train step")
+    runs = []  # both children at once, beside the step traced here: each is one core's work
+    try:
+        for cells, multi_pod in ((DRYRUN_CELLS, False), (DRYRUN_MULTI_POD_CELLS, True)):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force"]
+            cmd += [f"--cell={c}" for c in cells] + (["--multi-pod"] if multi_pod else [])
+            runs.append((cells, multi_pod, cmd, time.perf_counter(),
+                         subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)))
+        out["train_step"] = dryrun_train_step(train_out)
+        for cells, multi_pod, cmd, t0, proc in runs:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            dryrun_records(out, cells, multi_pod, cmd, proc.returncode, stdout, stderr,
+                           time.perf_counter() - t0)
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
+
+def dryrun_records(out: dict, cells, multi_pod: bool, cmd, returncode: int, stdout: str,
+                   stderr: str, secs: float) -> None:
+    """A dry-run child's records into ``out``, each checked: free of errors,
+    a train cell with collective traffic, a prefill cell of
+    ``DRYRUN_REPLICATED_CACHE`` 16x below that record's output."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(("[ok", "[FAIL", "done"))]
+    out["processes"].append({"cells": list(cells), "multi_pod": multi_pod,
+                             "returncode": returncode, "seconds": secs, "lines": lines})
+    require(returncode == 0, f"dryrun: {' '.join(cmd[1:])} exited "
+            f"{returncode}: {(stdout + stderr)[-3000:]}")
+    for cell in cells:
+        arch, shape_name = cell.split(":")
+        rec = json.loads(dryrun.cell_path(arch, shape_name, multi_pod).read_text())
+        key = f"{cell}:{'multipod' if multi_pod else 'singlepod'}"
+        require("error" not in rec, f"dryrun {key}: {rec.get('error', '')[-2000:]}")
+        r = out["cells"][key] = dryrun_summary(rec)
+        r["process_seconds"] = secs
+        if rec["kind"] == "train":
+            require(r["collective_wire_bytes"] > 0 and sum(r["collective_counts"].values()),
+                    f"dryrun {key}: no collective traffic in a train step")
+        if cell in DRYRUN_REPLICATED_CACHE and not multi_pod:
+            before, flops = DRYRUN_REPLICATED_CACHE[cell]
+            r["replicated_cache_output_bytes"], r["replicated_cache_flops"] = before, flops
+            require(r["output_bytes"] * 16 <= before,
+                    f"dryrun {key}: the prefill's output is {r['output_bytes']} bytes a "
+                    f"device, not 16x below the replicated cache's {before}")
+
+
+def dryrun_train_step(train_out: dict) -> dict:
+    """The train phase's own step traced here on fake tensors on one device
+    with no mesh: its roofline step against the measured one, the MFU of the
+    measured step, its argument + peak temporary bytes against the measured
+    peak (``phase_dryrun``)."""
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("train_smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")
     t0 = time.perf_counter()
@@ -2769,7 +2919,7 @@ def phase_dryrun(train_out: dict) -> dict:
     step_s = max(compute_s, memory_s)
     measured_s = train_out["step_ms_p50"] / 1e3
     mf = roofline.model_flops(cfg, shape)
-    out["train_step"] = {
+    step = {
         "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "plan": rec["plan"],
         "flops": h["flops"], "hbm_bytes": h["hbm_bytes"], "ops": h["num_computations"],
         "model_flops": mf, "compute_ms": compute_s * 1e3, "memory_ms": memory_s * 1e3,
@@ -2781,7 +2931,7 @@ def phase_dryrun(train_out: dict) -> dict:
         "trace_seconds": time.perf_counter() - t0}
     require(h["flops"] >= mf, f"dryrun: the traced step counts {h['flops']:.3e} FLOPs, below "
             f"the model's {mf:.3e}")
-    return out
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -3946,6 +4096,30 @@ def main() -> int:
           f"{se['fanout']['tokens_equal']} of {se['requests']}", flush=True)
     print("serve_engine: " + json.dumps(se), flush=True)
 
+    dev.synchronize()
+    t0 = time.perf_counter()
+    legacy = phase_serve_paged_legacy(dev)
+    legacy["seconds"] = time.perf_counter() - t0
+    print(f"serve_paged_legacy: {len(legacy['prompts'])} prompts of {legacy['prompts']} tokens, "
+          f"{legacy['new_tokens']} each: TTFT p50/p99 {legacy['ttft_p50_s'] * 1e3:.2f} / "
+          f"{legacy['ttft_p99_s'] * 1e3:.2f} ms, step {legacy['step_ms_p50']:.3f} / "
+          f"{legacy['step_ms_p99']:.3f} ms p50/p99, {legacy['decode_steps']} decode steps "
+          f"({legacy['eager_steps']} eager, {legacy['replayed_steps']} replayed, warm counts "
+          f"{legacy['warm_counts']}); paged_attention {legacy['paged_attention_on_device']} on "
+          f"the device ({legacy['launches_counted']} counted); tokens equal the one-at-a-time "
+          f"run {legacy['tokens_equal_serial']}, the plain paged attention's "
+          f"{legacy['tokens_equal_plain']}", flush=True)
+    print("serve_paged_legacy: " + json.dumps(legacy), flush=True)
+
+    dev.synchronize()
+    t0 = time.perf_counter()
+    examples = phase_examples(legacy)
+    for name, r in examples.items():
+        print(f"examples {name}: returned {r['returncode']}, check line printed {r['check']}, "
+              f"{r['seconds']:.2f} s, launches {r['launches']}: {r['lines'][-1]}", flush=True)
+    print(f"examples: {len(examples)} run in {time.perf_counter() - t0:.1f} s", flush=True)
+    print("examples: " + json.dumps(examples), flush=True)
+
     zoo = {}
     for phase, fn in (("serve_moe", phase_serve_moe), ("serve_paged_moe", phase_serve_paged_moe),
                       ("serve_paged_encdec", phase_serve_paged_encdec),
@@ -4165,6 +4339,12 @@ def main() -> int:
               f"{r['memory_s']:.4f}, collective {r['collective_s']:.4f}), MFU "
               f"{r['mfu'] * 100:.2f}%; traced in {r['lower_s']:.1f} s, process "
               f"{r['process_seconds']:.1f} s", flush=True)
+        if "replicated_cache_output_bytes" in r:
+            print(f"dryrun {key}: output {r['output_bytes'] / 1e9:.4f} GB a device (the "
+                  f"replicated cache's records: {r['replicated_cache_output_bytes'] / 1e9:.1f} GB, "
+                  f"{r['replicated_cache_output_bytes'] / r['output_bytes']:.1f}x), "
+                  f"{r['flops']:.4e} FLOP (those records: {r['replicated_cache_flops']:.4e})",
+                  flush=True)
     t = dr["train_step"]
     print(f"dryrun train step: {t['arch']} {t['batch']} x {t['seq']} (plan {t['plan']}, impl ref, "
           f"one device, no mesh): {t['flops']:.4e} FLOP ({t['model_flops']:.4e} model), "
@@ -4210,6 +4390,14 @@ def main() -> int:
     kernels[1]["engine_phase_launches"] = {part: engine["launches"][part]
                                            for part in ("host", "replayed")}
     kernels[3]["engine_phase_launches"] = se["launches"]["flash_attention"]
+    kernels[-1]["legacy_phase_launches_on_device"] = legacy["paged_attention_on_device"]
+    # the examples': counted by the wrappers (the paged example's graph
+    # replays run without them)
+    for k in kernels:
+        n = {name: r["launches"][k["name"]] for name, r in examples.items()
+             if r["launches"].get(k["name"])}
+        if n:
+            k["examples_phase_launches"] = n
     encdec_launches = zoo["serve_paged_encdec"]["launches"]["auto"]
     encdec_flash = encdec_launches["flash_attention"]
     encdec_noncausal = encdec_launches["flash_attention_noncausal"]
@@ -4296,6 +4484,11 @@ def main() -> int:
         "flash_attention"]
     by_name["ssd_scan"]["ship_phase_launches"] = ship["mamba2"]["launches_here"]["ssd_scan"]
     by_name["flash_attention_train"]["mesh_phase_launches"] = tm["flash_attention"]
+    # serve_paged_legacy's decode shape (the toy GQA model, f32: D 16, R 2,
+    # pages of 8), with the launches that ran on the device in its phase
+    ls = legacy["decode_shape"]
+    kernels.append(paged_entry("paged_attention_legacy", tuple(ls["shape"]), ls["lengths"],
+                               legacy["paged_attention_on_device"], dev.torch_device))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,8 +24,12 @@ the same model runs unsharded on one device.
 * ``constrain`` redistributes a ``DTensor`` to the spec's placements under
   a mesh, which leaves its value unchanged; a plain tensor passes as is.
 * ``on_local_shards`` runs a function that cannot take ``DTensor``s (a
-  hand-written kernel, a convolution ``DTensor`` shards wrongly) on each
-  rank's local shards, along the dims the function treats independently.
+  hand-written kernel, a convolution ``DTensor`` shards wrongly), or whose
+  ``DTensor`` plan would gather what each rank can compute from its own
+  rows, on each rank's local shards, along the dims the function treats
+  independently.
+* ``place_like`` lays a plain tensor (an index range) over the mesh of a
+  ``DTensor`` by logical names, each rank slicing its own shard.
 
 A ``mesh`` is a ``DeviceMesh`` (``launch.mesh``); ``spec_for`` also takes
 anything with ``axis_names`` and ``devices.shape``, as the reference's
@@ -48,6 +52,7 @@ __all__ = [
     "current_rules",
     "make_rules",
     "on_local_shards",
+    "place_like",
     "sharding_for",
     "spec_for",
     "tree_sharding",
@@ -203,20 +208,40 @@ def constrain(x, *names: "Optional[str]"):
     return sharding_for(mesh, names, rules, shape=tuple(x.shape)).distribute(x)
 
 
+def place_like(x, like, *names: "Optional[str]"):
+    """``x``, a plain tensor every rank holds whole, as a ``DTensor`` on
+    ``like``'s mesh placed by logical ``names`` under the current rules,
+    each rank slicing its own shard (no communication); ``x`` itself when
+    ``like`` is not a ``DTensor`` or no rules are active."""
+    from torch.distributed.tensor import DTensor
+
+    rules = current_rules()
+    if rules is None or not isinstance(like, DTensor):
+        return x
+    return sharding_for(like.device_mesh, names, rules, shape=tuple(x.shape)).distribute(
+        x, src_data_rank=None)
+
+
 def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
     """``fn(*inputs)``, and where an input is a ``DTensor``, on each rank's
     local shards.
 
     ``shard_dims`` names the axes ``fn`` treats independently (batch rows,
     heads, channels): ``{axis: (the axis's dim in each input, in each
-    output)}``, None where a tensor lacks it.  A mesh dim along which every
-    input is sharded evenly on its dim of one such axis, or replicated where
-    it lacks the axis, stays sharded; the inputs are gathered (redistributed
-    replicated) along every other mesh dim.  An input replicated along a
-    sharded mesh dim adds up its gradient over it, since each rank's shard
-    of the work contributes a part.  The outputs come back as ``DTensor``s
-    sharded the same way (a tensor or a tuple of tensors, as ``fn``
-    returns)."""
+    output)}``, None where a tensor lacks it.  A mesh dim along which an
+    input is sharded evenly on its dim of one such axis, and every other
+    input that has the axis is so sharded or replicated, stays sharded: a
+    replicated one is sliced (no communication), and an input that lacks
+    the axis is gathered (redistributed replicated) along it, as is every
+    input along every other mesh dim.
+    An input replicated along a sharded mesh dim adds up its gradient over
+    it, since each rank's shard of the work contributes a part.  The
+    outputs come back as ``DTensor``s sharded the same way (a tensor or a
+    tuple of tensors, as ``fn`` returns); an output whose dim is ``"sum"``
+    (``"max"``) for an axis holds each rank's part of a sum (a maximum)
+    over that axis (it lacks the axis: a product contracted over it, a
+    combine or a reduction over it) and comes back ``Partial`` along the
+    mesh dims that shard it."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not any(isinstance(x, DTensor) for x in inputs):
@@ -227,8 +252,10 @@ def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
           for x in inputs]
     # the independent axis each mesh dim shards, or None: gathered
     picks = [next((axis for axis, (din, _) in shard_dims.items()
-                   if all(isinstance(x.placements[i], Replicate) if d is None
-                          else x.placements[i] == Shard(d) for x, d in zip(xs, din))), None)
+                   if any(d is not None and x.placements[i] == Shard(d) for x, d in zip(xs, din))
+                   and all(d is None or x.placements[i] in (Shard(d), Replicate())
+                           for x, d in zip(xs, din))),
+                  None)
              for i in range(mesh.ndim)]
     for axis in set(picks) - {None}:  # uneven shards are gathered
         n = 1
@@ -238,8 +265,12 @@ def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
             picks = [None if p == axis else p for p in picks]
 
     def placements(k: int, which: int):
-        return [Shard(shard_dims[p][which][k]) if p is not None
-                and shard_dims[p][which][k] is not None else Replicate() for p in picks]
+        out = []
+        for p in picks:
+            d = shard_dims[p][which][k] if p is not None else None
+            out.append(Replicate() if d is None else Partial(d) if d in ("sum", "max")
+                       else Shard(d))
+        return out
 
     local = []
     for j, x in enumerate(xs):

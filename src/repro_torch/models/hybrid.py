@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import tree_map
@@ -190,7 +191,8 @@ def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: b
         q = _q(cfg, lp["attn"], h, cos, sin)
         k, v = _kv(cfg, lp["attn"], h, cos, sin) if "wk" in lp["attn"] else shared
         o = _prefill_attend(cfg, l, q, k, v, q_block=q_block, impl=impl)
-        return _fuse_mlp(cfg, lp, x, L.out_proj(cfg, lp["attn"], o), y_ssm), (k, v), cache
+        x = _fuse_mlp(cfg, lp, x, L.out_proj(cfg, lp["attn"], o), y_ssm)
+        return constrain(x, "batch", "seq", "embed"), (k, v), cache
 
     for l, lp in enumerate(params["layers"]):
         x, (k, v), cache = L.remat_call(remat, block, x, lp, l, shared)

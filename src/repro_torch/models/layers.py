@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distribution.sharding import constrain, on_local_shards
+from repro_torch.distribution.sharding import constrain, on_local_shards, place_like
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -464,6 +464,25 @@ class _GradThrough(torch.autograd.Function):
         return g, None
 
 
+def stacked_like(t, n: int):
+    """An uninitialised (n, *t.shape) buffer of ``t``'s dtype, to hold ``n``
+    tensors like ``t`` stacked: under a mesh a ``DTensor`` placed as ``t``
+    is along its dims, so each rank holds its own shard of every slice
+    (``new_empty`` of a ``DTensor`` replicates it at its global shape)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t.new_empty((n, *t.shape))
+    local = t.to_local()
+    pl = [Shard(q.dim + 1) if q.is_shard() else q for q in t.placements]
+    buf = local.new_empty((n, *local.shape))
+    shape, stride = (n, *t.shape), [1]
+    for d in reversed(shape[1:]):
+        stride.insert(0, stride[0] * d)
+    return DTensor.from_local(buf, t.device_mesh, pl, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
 def split_heads(t, n: int, hd: int, dim: int = -1):
     """``t`` with dim ``dim`` (of n * hd) split into (n, hd)."""
     from torch.distributed.tensor import DTensor
@@ -552,11 +571,26 @@ def embed(cfg, p, tokens):
                      "batch", "seq", "embed")
 
 
+# rows (batch and position) of the unembedding are independent, and so are
+# its vocab columns
+_UNEMBED_SHARD_DIMS = {"batch": ((0, None), (0,)), "seq": ((1, None), (1,)),
+                       "vocab": ((None, 1), (2,))}
+
+
+def _logits(x, w):
+    return torch.matmul(x.float(), w.float())
+
+
 def unembed(cfg, p, x):
     """f32 logits; bf16 operands are widened exactly, so the products and
-    their sums are f32 as in the reference."""
+    their sums are f32 as in the reference.  Under a mesh on each rank's
+    own rows and vocab columns, the weight gathered over the batch ranks:
+    its gradient is then each rank's product of its own rows, summed over
+    the batch ranks (``DTensor``'s plan for the product's backward gathers
+    the whole batch's logits gradient instead)."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
-    return constrain(torch.matmul(x.float(), w.float()), "batch", "seq", "vocab")
+    return constrain(on_local_shards(_logits, (x, w), _UNEMBED_SHARD_DIMS),
+                     "batch", "seq", "vocab")
 
 
 # rows (batch and position) of the cross-entropy are independent
@@ -567,16 +601,60 @@ def _gold_logit(logits, labels):
     return torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
+# vocab-parallel cross-entropy: rows independent; over the vocab columns a
+# rank's maximum, its sum of exponentials and its gold logit (a row's label
+# lies in one shard; the others give 0) are combined by max and sum
+_XENT_MAX_DIMS = {"batch": ((0,), (0,)), "seq": ((1,), (1,)), "vocab": ((2,), ("max",))}
+_XENT_SUMEXP_DIMS = {"batch": ((0, 0), (0,)), "seq": ((1, 1), (1,)), "vocab": ((2, None), ("sum",))}
+_XENT_VOCAB_DIMS = {"batch": ((0, 0, None), (0,)), "seq": ((1, 1, None), (1,)),
+                    "vocab": ((2, None, 0), ("sum",))}
+
+
+def _row_max(logits):
+    return torch.amax(logits, dim=-1)
+
+
+def _sum_exp(logits, m):
+    return torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+
+
+def _gold_logit_of_shard(logits, labels, vocab):
+    """The gold logit where the label is one of ``vocab`` (the ids whose
+    columns ``logits`` holds, a contiguous range), else 0."""
+    local = labels.long() - vocab[0]
+    own = (local >= 0) & (local < vocab.shape[0])
+    gold = torch.gather(logits, -1, local.clamp(0, vocab.shape[0] - 1)[..., None])[..., 0]
+    return torch.where(own, gold, torch.zeros_like(gold))
+
+
+def _vocab_sharded(logits) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(logits, DTensor) and any(q.is_shard(logits.ndim - 1)
+                                               for q in logits.placements)
+
+
 def xent_loss(logits, labels, mask=None):
     """Mean next-token cross-entropy in f32: logsumexp minus the gold
     logit; with ``mask``, the mask-weighted mean (at least 1 in the
-    denominator).  Under a mesh the gold logit is gathered from whole vocab
-    rows (the logits are first redistributed unsharded over the vocab), on
-    each rank's own rows: ``DTensor``'s gather backward would hold the
-    gradient of the whole batch's logits on every rank."""
-    logits = constrain(logits.float(), "batch", "seq", None)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = on_local_shards(_gold_logit, (logits, labels), _XENT_SHARD_DIMS)
+    denominator).  Under a mesh, on each rank's own rows: with the vocab
+    sharded, vocab-parallel (each rank's max, sum of exponentials and gold
+    logit over its columns, combined over the vocab ranks), as the
+    reference's GSPMD partitions the reductions, so no rank holds a row's
+    whole vocab; otherwise the gold logit from whole vocab rows.
+    ``DTensor``'s own gather backward would hold the gradient of the whole
+    batch's logits on every rank."""
+    logits = logits.float()
+    if _vocab_sharded(logits):
+        m = constrain(on_local_shards(_row_max, (logits.detach(),), _XENT_MAX_DIMS),
+                      "batch", "seq")
+        lse = torch.log(on_local_shards(_sum_exp, (logits, m), _XENT_SUMEXP_DIMS)) + m
+        vocab = place_like(torch.arange(logits.shape[-1], device=logits.device), logits, "vocab")
+        gold = on_local_shards(_gold_logit_of_shard, (logits, labels, vocab), _XENT_VOCAB_DIMS)
+    else:
+        logits = constrain(logits, "batch", "seq", None)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = on_local_shards(_gold_logit, (logits, labels), _XENT_SHARD_DIMS)
     nll = lse - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

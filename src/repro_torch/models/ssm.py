@@ -156,8 +156,9 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int):
 
 def _ssd_shard_dims(G: int) -> dict:
     """The dims of (xs, dt, A, Bg, Cg) -> (y, state) the SSD scan treats
-    independently, for its kernel under a mesh: batch rows, and heads when
-    every head reads the one group's B and C (G == 1)."""
+    independently, for its kernel or ``ssd_chunked`` under a mesh: batch
+    rows, and heads when every head reads the one group's B and C (G ==
+    1)."""
     dims = {"batch": ((0, 0, None, 0, 0), (0, 0))}
     if G == 1:
         dims["heads"] = ((2, 2, 0, None, None), (2, 1))
@@ -189,8 +190,9 @@ def _mixer(cfg, p, x, impl: str):
             functools.partial(ssd_ops.ssd, impl="cuda", return_state=True),
             functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg,
             shard_dims=_ssd_shard_dims(G))
-    else:
-        y, state = ssd_chunked(xs, dt, A, Bg, Cg, s.chunk)
+    else:  # under a mesh on local shards, as the kernel runs
+        y, state = on_local_shards(functools.partial(ssd_chunked, chunk=s.chunk),
+                                   (xs, dt, A, Bg, Cg), _ssd_shard_dims(G))
     y = y + xs * p["D"].float()[:, None]
     y = L.merge_heads(y, 2).to(x.dtype)
 

@@ -158,8 +158,10 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = 
         if aux is not None:
             auxs.append(aux)
         if return_kv:  # written layer by layer into the stacked cache: no second copy
+            names = cache_specs(cfg)["k"]
+            k, v = constrain(k, *names[1:]), constrain(v, *names[1:])
             if kv is None:
-                kv = {n: t.new_empty((cfg.num_layers, *t.shape)) for n, t in (("k", k), ("v", v))}
+                kv = {n: L.stacked_like(t, cfg.num_layers) for n, t in (("k", k), ("v", v))}
             kv["k"][i], kv["v"][i] = k, v
     x = L.apply_norm(cfg, x, params["final_norm"])
     if last_only:  # prefill: only the final position feeds sampling

@@ -69,9 +69,6 @@ depend on batch composition or fleet size.
   devices of one locality, as the reference's does, and refuses a fleet
   across localities.
 
-Not ported yet: the ``"legacy"`` two-callable contract (with the fig9
-port, ROADMAP.md Queue 1 item 4), which is refused.
-
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
 default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes a device, default 32
 MiB), ``REPRO_PREFILL_TOKEN_BUDGET`` (prefill lane batch bound, default
@@ -949,7 +946,8 @@ class PagedServeEngine:
     scheduler picks; one decode lane a device steps every resident sequence
     of its pool in batches padded to warm row counts.  ``scheduler=None``
     places with a ``Scheduler`` over the cache's devices (``least_loaded``).
-    Model contract (``"zoo"``):
+    Model contract ``"zoo"`` (the default, which ``from_config`` wires from
+    the model zoo's paged surface):
 
     ``prefill_fn(tokens, extras)``
         ``(B, T)`` int32 device tensor, ``extras`` None or a dict of device
@@ -963,6 +961,24 @@ class PagedServeEngine:
         pool's slabs (updated in place) and the batch's stacked state.
         On a CUDA device it is captured into a CUDA graph per warm row
         count, so it must not synchronise with the host.
+
+    Model contract ``"legacy"``, two callables with no state and no
+    sampling (``examples/torch_paged_serving.py``):
+
+    ``prefill_fn(tokens)``
+        ``(B, T)`` int32 device tensor ``-> (k, v, next)`` with k/v
+        ``(B, L, T, K, D)`` and ``next`` ``(B,)`` integer tokens: the
+        prompt's KV and its first token.
+    ``decode_fn(k_pages, v_pages, tokens, positions, tables, lengths)``
+        ``-> (k_pages, v_pages, next)``: one decode step over the pool's
+        slabs, scattering each row's incoming token's k/v into its page and
+        attending through the page table; ``next`` ``(B,)`` the tokens.  The
+        engine expects the slabs back updated in place (the reference
+        donates them): returning the same tensors costs nothing, and new
+        tensors are copied into the pool's slabs (a ``copy_`` the step's
+        CUDA graph captures).  As a zoo ``decode_fn`` it is captured into a
+        CUDA graph per warm row count, so it must not synchronise with the
+        host.
 
     ``decode_shapes`` seeds the decode lanes' warm row counts (see
     ``warm_rows``): a closed palette makes the set of captured step graphs
@@ -979,16 +995,14 @@ class PagedServeEngine:
                  decode_shapes: "Sequence[int] | None" = None,
                  contract: str = "zoo",
                  name: str = "paged"):
-        if contract == "legacy":
-            raise NotImplementedError(
-                "the legacy two-callable contract comes with the fig9 port "
-                "(ROADMAP.md Queue 1 item 4); use contract='zoo'")
-        if contract != "zoo":
-            raise ValueError(f"contract must be 'zoo' (or the unported 'legacy'), got {contract!r}")
+        if contract not in ("legacy", "zoo"):
+            raise ValueError(f"contract must be 'legacy' or 'zoo', got {contract!r}")
         self.kv = kv
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
         self.contract = contract
+        # the decode lanes' step, in the zoo contract's form
+        self._decode = decode_fn if contract == "zoo" else _legacy_decode(decode_fn)
         self.decode_shapes = (
             tuple(sorted({int(s) for s in decode_shapes if int(s) > 0}))
             if decode_shapes is not None else ())
@@ -1242,11 +1256,16 @@ class PagedServeEngine:
         with self._on_stream():
             with self.kv.gate.shared():
                 tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
-                k, v, state, logits = self.prefill_fn(tokens, _stack_extras(group, dev))
-                logits = logits.float().cpu().numpy()
-            # First token samples host-side at position 0 of each
-            # request's own PRNG stream — batch composition cannot leak.
-            nxt = [sample_token(logits[i], r.sampling, r.rid, 0) for i, r in enumerate(group)]
+                if self.contract == "zoo":
+                    k, v, state, logits = self.prefill_fn(tokens, _stack_extras(group, dev))
+                    logits = _host(logits)
+                else:
+                    k, v, nxt = self.prefill_fn(tokens)
+                    state, nxt = None, [int(t) for t in _host(nxt)]
+            if self.contract == "zoo":
+                # First token samples host-side at position 0 of each
+                # request's own PRNG stream — batch composition cannot leak.
+                nxt = [sample_token(logits[i], r.sampling, r.rid, 0) for i, r in enumerate(group)]
             done = _now()
             with self._m_lock:
                 self._prefill_batches += 1
@@ -1411,7 +1430,28 @@ def _eager_step(decode_fn, pool: PagePool, W: int, tokens, lens, tbl, rows):
     ks, vs = pool.arrays()
     _, _, state, logits = decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
     pool.mark_written()
-    return logits.float().cpu().numpy(), state
+    return _host(logits), state
+
+
+def _host(out: "torch.Tensor") -> np.ndarray:
+    """A step's output on the host: logits as f32, a legacy step's tokens
+    as they are."""
+    return (out.float() if out.is_floating_point() else out).cpu().numpy()
+
+
+def _legacy_decode(decode_fn: Callable) -> Callable:
+    """A legacy ``decode_fn`` as a zoo step: no state, its tokens in place
+    of the logits, and slabs it returns as new tensors copied into the
+    pool's (nothing to copy when it returns the ones it was given)."""
+
+    def step(k_pages, v_pages, state, tokens, positions, tables, lengths):
+        k2, v2, nxt = decode_fn(k_pages, v_pages, tokens, positions, tables, lengths)
+        for pages, new in ((k_pages, k2), (v_pages, v2)):
+            if new is not pages:
+                pages.copy_(new)
+        return k_pages, v_pages, None, nxt
+
+    return step
 
 
 _LANE_COUNTS = ("eager_steps", "replayed_steps", "graphs_captured", "capture_s", "stalls",
@@ -1473,7 +1513,7 @@ class _DecodeLane:
         # graphs and replayed from them.
         self.stats: Counter = Counter()
         self.launches = {"captured": Counter(), "replayed": Counter()}
-        self._graphs = (_StepGraphs(engine.decode_fn, engine.kv, self.pool, device, self._tally)
+        self._graphs = (_StepGraphs(engine._decode, engine.kv, self.pool, device, self._tally)
                         if device.is_cuda else None)
         self._thread = threading.Thread(
             target=self._loop, name=f"paged:{engine.name}:decode:{device.key}", daemon=True)
@@ -1641,7 +1681,7 @@ class _DecodeLane:
         """One eager step of ``decode_fn`` at ``W`` rows on the current
         stream -> (host logits (W, V), stacked state or None)."""
         self._tally({"eager_steps": 1})
-        return _eager_step(self.engine.decode_fn, self.pool, W, tokens, lens, tbl, rows)
+        return _eager_step(self.engine._decode, self.pool, W, tokens, lens, tbl, rows)
 
     def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state,
                  t0: float) -> "list[_PagedRequest]":
@@ -1654,8 +1694,10 @@ class _DecodeLane:
         done: "list[_PagedRequest]" = []
         for i, r in enumerate(batch):
             # Position = tokens already emitted (prefill's token was
-            # position 0): identity-keyed, batch-independent.
-            nxt = sample_token(logits[i], r.sampling, r.rid, len(r.out))
+            # position 0): identity-keyed, batch-independent.  A legacy
+            # step's output is the token itself.
+            nxt = (int(logits[i]) if eng.contract == "legacy"
+                   else sample_token(logits[i], r.sampling, r.rid, len(r.out)))
             if state is not None:
                 r.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
             kv.note_decoded(r.seq)
@@ -1811,7 +1853,7 @@ class _StepGraphs:
             out = c.outs
         self.pool.mark_written()
         _, _, out_state, logits = out
-        host = logits.float().cpu().numpy()
+        host = _host(logits)
         if out_state is not None:
             out_state = _tree_map(lambda t: t.clone(), out_state)
         if c.graph is None:

@@ -1005,6 +1005,7 @@ PAGED_CASES = [
     (2, 36, 4, 128, 16, 16, [250, 129]),
     (8, 6, 6, 64, 16, 18, [64, 95, 70, 80, 256, 287, 260, 270]),
     (8, 16, 16, 128, 16, 128, [1000] * 4 + [2000] * 4),
+    (8, 4, 2, 16, 8, 8, [12, 12, 12, 19, 19, 19, 37, 37]),  # torch_paged_serving's decode
 ]
 
 
@@ -1517,6 +1518,36 @@ def test_torch_cuda_paged_graph_tokens_equal_eager_decode(arch):
     per = cfg.num_layers if cfg.family == "dense" else 0
     assert d["captured_launches"].get("paged_attention", 0) == 3 * per
     assert d["replayed_launches"].get("paged_attention", 0) == (len(rows) - 3) * per
+
+
+@pytest.mark.cuda
+def test_torch_cuda_legacy_contract_serves_on_graphs():
+    """``examples/torch_paged_serving.py``'s toy model through the legacy
+    two-callable contract on the card: batched at warm counts on CUDA
+    graphs (the slab writes and the paged_attention kernel captured), the
+    tokens equal the one-at-a-time run's and those of the same batched run
+    on the plain paged attention."""
+    import importlib.util
+
+    _need_cuda()
+    spec = importlib.util.spec_from_file_location(
+        "example_paged", os.path.join(os.path.dirname(__file__), "..", "examples",
+                                      "torch_paged_serving.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    dev = get_all_devices(1, 0).get()[0]
+    model = ex.make_model(dev.torch_device)
+    reset_launch_counts()
+    batched, m = ex.serve(dev, model, "t-legacy-graphs", **ex.policies(False))
+    counted = launch_counts()["paged_attention"]
+    serial, _ = ex.serve(dev, model, "t-legacy-serial", **ex.policies(True))
+    plain, _ = ex.serve(dev, ex.make_model(dev.torch_device, impl="ref"), "t-legacy-plain",
+                        **ex.policies(False))
+    assert all(np.array_equal(a, b) for a, b in zip(batched, serial))
+    assert all(np.array_equal(a, b) for a, b in zip(batched, plain))
+    d = m["decode"]
+    assert d["graphs_captured"] > 0 and d["replayed_steps"] > 0
+    assert counted >= d["eager_steps"] and d["replayed_launches"].get("paged_attention", 0) > 0
 
 
 @pytest.mark.cuda

@@ -15,6 +15,16 @@
   in a subprocess, as ``tests/test_multidevice_train.py`` runs them).
 * one production cell, olmo-1b decode_32k, over 256 fake ranks; records
   go to ``results/torch_dryrun/``, never the reference's directory.
+* the models under a mesh, held to the reference's placements: a rank's
+  train FLOPs and temporaries fall when the data ranks double (2 x 2 to
+  4 x 2) for every family; the prefill's stacked KV cache is sharded over
+  batch and kv heads; the MoE dispatch buffer and expert products are
+  placed over ("exp_groups", "experts") or, TP-MoE, the experts' d_ff; the
+  plain SSD's chunk products run on each rank's rows and heads; a MoE and
+  an ssm train cell count FLOPs near the reference's; and the train step
+  of whisper-tiny's multi-pod cell gathers no logits gradient over the
+  batch ranks (its unembedding's weight gradient is each rank's product
+  of its own rows, summed).
 """
 import dataclasses
 import json
@@ -44,8 +54,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY_ARCHS = {"dense": "olmo-1b", "moe": "qwen2-moe-a2.7b", "vlm": "qwen2-vl-72b",
                 "ssm": "mamba2-130m", "hybrid": "hymba-1.5b", "encdec": "whisper-tiny"}
 KIND_SHAPES = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
-# the cells whose FLOPs are held to the reference's lower_cell
-PARITY_CELLS = (("olmo-1b", "train_4k"), ("mamba2-130m", "decode_32k"))
+# the cells whose FLOPs are held to the reference's lower_cell, within 2%
+# but where PARITY_REL says otherwise
+PARITY_CELLS = (("olmo-1b", "train_4k"), ("mamba2-130m", "decode_32k"),
+                ("qwen2-moe-a2.7b", "train_4k"), ("mamba2-130m", "train_4k"),
+                ("qwen2-moe-a2.7b", "prefill_32k"))
+# the two FLOP counters differ for the ssm train step: torch's counts a
+# depthwise convolution's backward as a dense one, XLA's counts the scan's
+# elementwise work; on a 2 x 2 mesh they net to the port's +4.3%
+PARITY_REL = {("mamba2-130m", "train_4k"): 0.05}
 # cut sizes for the smoke lowerings: the op count, not the shapes, costs
 # time on fake tensors, and a chunked SSD scan or a blocked attention runs
 # a loop step a chunk or block
@@ -111,13 +128,34 @@ def small_shapes(monkeypatch):
         ShapeConfig(n, *SMALL[n], get_shape(n).kind) if n in SMALL else get_shape(n)))
 
 
-def _smoke_lower(arch, shape_name):
+def _smoke_lower(arch, shape_name, mesh_shape=(2, 2), ops_file=None, cfg=None):
     from torch.distributed.device_mesh import init_device_mesh
 
-    with fake_world(4, device_type="cpu"):
-        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        return dryrun.lower_cell(arch, shape_name, mesh=mesh, cfg=smoke(get_config(arch)),
-                                 device_type="cpu")
+    with fake_world(mesh_shape[0] * mesh_shape[1], device_type="cpu"):
+        mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+        return dryrun.lower_cell(arch, shape_name, mesh=mesh,
+                                 cfg=cfg if cfg is not None else smoke(get_config(arch)),
+                                 device_type="cpu", ops_file=ops_file)
+
+
+def _smoke_outputs(arch, shape_name, mesh_shape=(2, 2)):
+    """The outputs of ``shape_name``'s step of ``arch``'s smoke config on
+    fake tensors over a fake (data, model) mesh, as ``lower_cell`` runs it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distribution.sharding import axis_rules
+
+    cfg, shape = smoke(get_config(arch)), dryrun.get_shape(shape_name)
+    plan = plan_for(cfg, shape)
+    with fake_world(mesh_shape[0] * mesh_shape[1], device_type="cpu"):
+        mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            args, _, step, _ = dryrun._fake_inputs(get_model(cfg), cfg, shape, plan, mesh,
+                                                   torch.device("cpu"))
+            with axis_rules(plan.rules, mesh), implicit_replication():
+                return cfg, step(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +285,7 @@ def test_lower_cell_every_family_and_kind(small_shapes, family, kind):
 def test_lower_cell_flops_match_reference(reference, arch, shape_name):
     rec = _smoke_lower(arch, shape_name)
     assert rec["hlo"]["flops"] == pytest.approx(reference["flops"][f"{arch}:{shape_name}"],
-                                                rel=0.02)
+                                                rel=PARITY_REL.get((arch, shape_name), 0.02))
 
 
 def test_production_decode_cell_over_256_fake_ranks():
@@ -285,3 +323,142 @@ def test_run_cell_writes_record_and_table_and_reanalyzes(monkeypatch, small_shap
     assert json.loads(path.read_text())["hlo"] == rec["hlo"]
     # a cached record is read back, not traced again
     assert dryrun.run_cell("olmo-1b", "prefill_32k", False, mesh=None)["hlo"] == rec["hlo"]
+
+
+# ---------------------------------------------------------------------------
+# the models under a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid", "encdec"])
+def test_train_step_shrinks_when_the_data_ranks_double(small_shapes, family):
+    """2 x 2 to 4 x 2 ranks: a rank's train FLOPs fall by at least 1.8x and
+    its temporaries fall (a MoE buffer or an SSD scan held whole on every
+    data rank would keep them flat)."""
+    arch = FAMILY_ARCHS[family]
+    small, big = (_smoke_lower(arch, "train_4k", m) for m in ((2, 2), (4, 2)))
+    assert small["hlo"]["flops"] >= 1.8 * big["hlo"]["flops"]
+    assert big["memory"]["temp_bytes"] < small["memory"]["temp_bytes"]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-moe-a2.7b", "qwen2-vl-72b"])
+def test_prefill_kv_cache_is_sharded_over_batch_and_kv_heads(small_shapes, arch):
+    """The stacked prefill cache of every layer is placed as ``cache_specs``
+    names it: each rank holds its batch rows and kv heads (a buffer of the
+    global shape on every rank is the fault)."""
+    from torch.distributed.tensor import DTensor
+
+    cfg, (_, cache) = _smoke_outputs(arch, "prefill_32k")
+    B, S = SMALL["prefill_32k"][1], SMALL["prefill_32k"][0]
+    K = cfg.num_kv_heads
+    for name in ("k", "v"):
+        t = cache[name]
+        assert isinstance(t, DTensor)
+        assert tuple(t.shape) == (cfg.num_layers, B, S, K, cfg.hd)
+        assert tuple(t.to_local().shape) == (cfg.num_layers, B // 2, S,
+                                             K // 2 if K % 2 == 0 else K, cfg.hd)
+
+
+@pytest.mark.parametrize("arch,experts_local,mlp_local", [
+    ("phi3.5-moe-42b-a6.6b", 2, 1),  # EP: experts over model
+    ("qwen2-moe-a2.7b", 1, 2),       # TP-MoE: the experts' d_ff over model
+])
+def test_moe_dispatch_and_products_are_placed_over_groups_and_experts(
+        small_shapes, monkeypatch, arch, experts_local, mlp_local):
+    """Under a 2 x 2 mesh with 8 dispatch groups, each rank scatters into a
+    buffer of its own groups and experts (EP) and multiplies only those:
+    the local shapes the dispatch and the expert products see."""
+    from repro_torch.models import moe as M
+
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            seen.setdefault(name, [list(a.shape) for a in args])
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("_dispatch", "_gate_up", "_down"):
+        monkeypatch.setattr(M, name, spy(name, getattr(M, name)))
+    cfg = smoke(get_config(arch))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch_groups=8))
+    _smoke_lower(arch, "train_4k", cfg=cfg)
+    e = cfg.moe
+    G, E, f = 8, e.num_experts, e.d_ff_expert
+    xg, slot, keep, experts = seen["_dispatch"]
+    assert xg[0] == G // 2 and slot[0] == G // 2 and experts == [E // experts_local]
+    xe, wi_gate, wi_up = seen["_gate_up"]
+    assert xe[:2] == [G // 2, E // experts_local]
+    assert wi_gate == wi_up == [E // experts_local, cfg.d_model, f // mlp_local]
+    h, wo = seen["_down"]
+    assert h[:2] == [G // 2, E // experts_local] and h[3] == f // mlp_local
+    assert wo == [E // experts_local, f // mlp_local, cfg.d_model]
+
+
+def test_moe_one_group_combines_each_ranks_own_tokens(small_shapes, monkeypatch):
+    """With one dispatch group (every config's default, as the reference's)
+    every data rank holds the whole buffer, as the reference's plan holds
+    it, but combines only the slot-requests of its own tokens."""
+    from repro_torch.models import moe as M
+
+    seen = []
+    orig = M._combine
+
+    def spy(ye, slot, keep, weights, experts, **kw):
+        seen.append((list(ye.shape), list(slot.shape), list(weights.shape)))
+        return orig(ye, slot, keep, weights, experts, **kw)
+
+    monkeypatch.setattr(M, "_combine", spy)
+    cfg = smoke(get_config("qwen2-moe-a2.7b"))
+    _smoke_lower("qwen2-moe-a2.7b", "train_4k", cfg=cfg)
+    S, B = SMALL["train_4k"]
+    T, k = S * B, cfg.moe.top_k
+    ye, slot, weights = seen[0]
+    assert ye[0] == 1 and ye[1] == cfg.moe.num_experts  # the whole buffer
+    assert slot == [1, T * k // 2] and weights == [1, T // 2, k]  # the rank's tokens
+
+
+def test_plain_ssd_runs_on_each_ranks_rows_and_heads(small_shapes, tmp_path):
+    """mamba2's plain SSD under a 2 x 2 mesh: every chunk product (a bmm
+    over batch x heads) is of the rank's own rows and heads, so no chunk
+    product runs on gathered tensors."""
+    ops = tmp_path / "ops.jsonl.gz"
+    _smoke_lower("mamba2-130m", "train_4k", ops_file=ops)
+    cfg = smoke(get_config("mamba2-130m"))
+    H = cfg.ssm.n_heads(cfg.d_model)
+    local = SMALL["train_4k"][1] // 2 * H // 2
+    bmms = [r["args"][0]["s"][0] for r in dryrun._read_table(ops) if r["op"] == "aten.bmm.default"]
+    assert bmms and max(bmms) <= local
+
+
+def test_whisper_multipod_train_gathers_no_logits_gradient_over_the_batch(tmp_path):
+    """whisper-tiny train_4k over 512 fake ranks (its 51865-wide vocab
+    divides no model axis, so the vocab is whole on every rank): no
+    all-gather over the 32 batch ranks yields the global batch's logits or
+    their gradient, and the unembedding's weight gradient is a product of
+    the rank's own rows."""
+    ops = tmp_path / "ops.jsonl.gz"
+    rec = dryrun.lower_cell("whisper-tiny", "train_4k", multi_pod=True, device_type="cpu",
+                            ops_file=ops)
+    assert "error" not in rec and rec["devices"] == 512
+    shape, V = get_shape("train_4k"), get_config("whisper-tiny").vocab_size
+    table = dryrun._read_table(ops)
+    gathers = [r["out"][0]["s"] for r in table if r.get("coll") == "all-gather"]
+    assert not [s for s in gathers if s[0] == shape.global_batch and s[-1] == V]
+    rows = shape.global_batch // 32 * shape.seq_len
+    wgrad = [r["args"][0]["s"] for r in table if r["op"] == "aten.mm.default"
+             and r["args"][1]["s"][-1] == V and r["args"][0]["s"][0] != r["args"][1]["s"][0]]
+    assert all(a[1] <= rows for a in wgrad)
+
+
+def test_cross_entropy_is_vocab_parallel_under_a_sharded_vocab(small_shapes, tmp_path):
+    """olmo's train step over 4 x 2 ranks (the smoke vocab over the 2 model
+    ranks): no all-gather yields logits or their gradient, of a rank's
+    columns or of the whole vocab: the cross-entropy combines each rank's
+    maximum, sum of exponentials and gold logit over the vocab ranks."""
+    ops = tmp_path / "ops.jsonl.gz"
+    _smoke_lower("olmo-1b", "train_4k", (4, 2), ops_file=ops)
+    V, (S, B) = smoke(get_config("olmo-1b")).vocab_size, SMALL["train_4k"]
+    logits_like = [r["out"][0]["s"] for r in dryrun._read_table(ops)
+                   if r.get("coll") == "all-gather" and len(r["out"][0]["s"]) == 3
+                   and r["out"][0]["s"][1] == S and r["out"][0]["s"][-1] in (V, V // 2)]
+    assert not logits_like

@@ -115,17 +115,15 @@ report({"sharded": losses, "wq_placements": [str(p) for p in wq.placements],
 # _ssd_shard_dims), a stand-in kernel recording the local shapes it sees
 import repro_torch.models.ssm as S
 ssd_seen = []
-def routed_ssd(xs, dt, A, Bg, Cg, chunk, _orig=S.ssd_chunked):
-    if not isinstance(xs, DTensor):
-        return _orig(xs, dt, A, Bg, Cg, chunk)
-    plain = functools.partial(_orig, chunk=chunk)
+def routed_local(fn, inputs, shard_dims, _orig=S.on_local_shards):
+    if getattr(fn, "func", None) is not S.ssd_chunked or not isinstance(inputs[0], DTensor):
+        return _orig(fn, inputs, shard_dims)
     def kern(*ls):
         ssd_seen.append([list(t.shape) for t in ls])
         with torch.no_grad():
-            return plain(*ls)
-    return kernel_with_plain_grad(kern, plain, xs, dt, A, Bg, Cg,
-                                  shard_dims=S._ssd_shard_dims(Bg.shape[2]))
-S.ssd_chunked = routed_ssd
+            return fn(*ls)
+    return kernel_with_plain_grad(kern, fn, *inputs, shard_dims=shard_dims)
+S.on_local_shards = routed_local
 trained = {}
 for arch in ARCHS:
     out = train(arch, **KW, mesh=mesh, ckpt_dir=os.path.join(REF_DIR, "ckpt-" + arch),
@@ -261,12 +259,13 @@ def test_torch_train_driver_mesh_matches_unsharded(ref, ranks, arch):
     assert ranks[0][1][arch]["param_placements"] == ["S(1)", "S(0)"]
     if arch == "mamba2-130m":
         # the SSD scan's inputs reach the kernel wrapper with the batch over
-        # data (2 rows a rank) and are gathered along model: they do not all
-        # arrive sharded by heads, so every rank's kernel sees all H heads
+        # data (2 rows a rank) and the heads over model: dt and A arrive
+        # sharded by heads, and x, replicated along model, is sliced to the
+        # rank's heads, so every rank's kernel sees H / 2 heads
         cfg = smoke(get_config(arch))
         H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
         [(xs, dt, A, Bg, Cg)] = ranks[0][1][arch]["ssd_local"]
-        assert xs[:3] == [2, 32, H] and dt == [2, 32, H] and A == [H]
+        assert xs[:3] == [2, 32, H // 2] and dt == [2, 32, H // 2] and A == [H // 2]
         assert Bg[:3] == Cg[:3] == [2, 32, cfg.ssm.n_groups]
 
 

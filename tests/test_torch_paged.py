@@ -8,8 +8,14 @@ sweep of logits and sampling knobs.  The port's own checks: page 0 is
 never handed out, double frees and exhaustion raise, ``append`` zero-pads
 a partial page on the device and refuses a start off a page boundary, the
 AGAS record of a sequence carries its pages and state, and the engine
-refuses what it cannot run (the legacy contract, a fleet across
+refuses what it cannot run (an unknown contract, a fleet across
 localities).
+
+The legacy two-callable contract serves the reference's toy model
+(``tests/test_paged.py``'s ``_toy_paged_model``, ported with the same numpy
+embedding and the port's plain paged attention): the reference's engine
+tests aimed at the port, tokens bit-equal to the JAX engine's on the same
+prompts.
 """
 import os
 import subprocess
@@ -29,6 +35,11 @@ from repro.serving.paged import PagedKVCache as JaxPagedKVCache
 from repro.serving.paged import PageSpec as JaxPageSpec
 from repro.serving.paged import SamplingParams as JaxSamplingParams
 from repro.serving.paged import sample_token as jax_sample_token
+from repro.core import Scheduler as JaxScheduler
+from repro.serving.paged import PagedServeEngine as JaxPagedServeEngine
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.serving import LanePolicy
+from test_paged import _toy_paged_model as jax_toy_paged_model
 from repro_torch.core import Scheduler, agas, get_all_devices
 from repro_torch.serving import (
     EngineClosed,
@@ -248,8 +259,8 @@ def test_torch_engine_submit_refusals(device):
 
 
 def test_torch_engine_refuses_what_is_not_ported(device):
-    with pytest.raises(NotImplementedError, match="fig9 port"):
-        _toy_engine(device, contract="legacy")
+    with pytest.raises(ValueError, match="contract must be 'legacy' or 'zoo'"):
+        _toy_engine(device, contract="fig9")
     # A fleet across localities (a device keyed in locality 1): an engine
     # serves one locality's devices, as the reference's; decode elsewhere
     # goes through export_seq and a paged_worker_decode parcel.
@@ -338,3 +349,197 @@ def test_torch_engine_stress_many_submitters(device):
     assert m["requests_completed"] == len(jobs) and m["requests_failed"] == 0
     assert m["decode_rows"] == sum(new - 1 for _, _, new in jobs)
     assert kv.pool_of(device).used_pages == 0 and not kv._seqs
+
+
+# ---------------------------------------------------------------------------
+# the legacy two-callable contract on the reference's toy model
+# ---------------------------------------------------------------------------
+
+def _toy_paged_model(V=64, K=1, D=4, P=4):
+    """``tests/test_paged.py``'s toy model on the port: next token = (last +
+    1) % V, with the KV pools and the port's plain paged attention exercised
+    for real (a masking or table fault makes the attention non-finite,
+    which moves the token by 2**20).  The decode writes the pools in place
+    and returns them."""
+    emb = torch.from_numpy(np.random.default_rng(0).normal(size=(V, K, D)).astype(np.float32))
+
+    def prefill_fn(tokens):
+        e = emb.to(tokens.device)[tokens.long()]  # (B, T, K, D)
+        return e[:, None], e[:, None], (tokens[:, -1] + 1) % V
+
+    def decode_fn(kp, vp, tokens, positions, tables, lengths):
+        e = emb.to(tokens.device)[tokens.long()]
+        b = tokens.shape[0]
+        page = tables[torch.arange(b, device=tokens.device), (positions // P).long()].long()
+        slot = (positions % P).long()
+        kp[0, page, slot] = e
+        vp[0, page, slot] = e
+        o = paged_attention_ref(e.reshape(b, K, D), kp[0], vp[0], tables, lengths + 1)
+        guard = torch.where(torch.isfinite(o.sum(dim=(1, 2))), 0, 1 << 20).to(torch.int32)
+        return kp, vp, (tokens + 1) % V + guard
+
+    return prefill_fn, decode_fn
+
+
+def _legacy_engine(device, V=64, P=4, pool_pages=64, model=None, **kw):
+    prefill_fn, decode_fn = model or _toy_paged_model(V=V, P=P)
+    kv = PagedKVCache(PageSpec(1, P, 1, 4), devices=[device], pool_pages=pool_pages)
+    return PagedServeEngine(kv, prefill_fn, decode_fn, max_seq_len=32,
+                            scheduler=Scheduler([device]), contract="legacy", **kw)
+
+
+def _mixed_prompts(V, n, seed, most):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, V - 16, size=int(rng.integers(1, most))).astype(np.int32)
+            for _ in range(n)]
+
+
+def test_torch_legacy_engine_serves_mixed_lengths_with_zero_padding(device, jax_device):
+    """The reference's test on the port, with the JAX engine serving the
+    same prompts through the reference's toy model: tokens bit-equal."""
+    V = 64
+    prompts = _mixed_prompts(V, 9, 3, 10)  # mixed lengths share decode steps
+    eng = _legacy_engine(device, V=V, name="t-legacy")
+    assert eng.contract == "legacy"
+    try:
+        got = [list(f.get(timeout=120)) for f in [eng.submit(p, max_new_tokens=5)
+                                                  for p in prompts]]
+        m = eng.metrics()
+    finally:
+        eng.close()
+    jkv = JaxPagedKVCache(JaxPageSpec(1, 4, 1, 4), devices=[jax_device], pool_pages=64)
+    jeng = JaxPagedServeEngine(jkv, *jax_toy_paged_model(V=V, P=4), max_seq_len=32,
+                               scheduler=JaxScheduler([jax_device]), name="t-legacy-jax")
+    try:
+        want = [list(f.get(timeout=120)) for f in [jeng.submit(p, max_new_tokens=5)
+                                                   for p in prompts]]
+    finally:
+        jeng.close()
+    assert got == want
+    assert got == [[(int(p[-1]) + 1 + j) % V for j in range(5)] for p in prompts]
+    assert m["requests_completed"] == 9
+    # rows pad only when a shrinking tail reuses a warm row count, at most 2x
+    assert m["padding_waste"] <= 0.5
+    assert m["decode_steps"] < 9 * 4 + 5  # mixed lengths shared steps
+    assert eng.kv.pools[device.key].used_pages == 0  # every page back
+
+
+def test_torch_legacy_engine_admission_guards(device):
+    eng = _legacy_engine(device, pool_pages=16, name="t-legacy-guard")
+    try:
+        with pytest.raises(ValueError, match="empty prompt"):
+            eng.submit(np.zeros((0,), np.int32), 4)
+        with pytest.raises(ValueError, match="max_seq_len"):
+            eng.submit(np.ones((30,), np.int32), 8)
+    finally:
+        eng.close()
+
+
+def test_torch_legacy_engine_exact_tokens_under_spill_pressure(device):
+    """A concurrent spiller hammers the sequences a decode lane steps:
+    every token stays exact and every page comes back."""
+    V = 64
+    eng = _legacy_engine(device, V=V, name="t-legacy-spillrace")
+    kv = eng.kv
+    stop = threading.Event()
+
+    def spiller():
+        while not stop.is_set():
+            with kv._seq_lock:
+                seqs = list(kv._seqs.values())
+            for s in seqs:
+                try:
+                    s.spill().get(timeout=30)
+                except Exception:  # noqa: BLE001 - freed mid-flight is fine
+                    pass
+            time.sleep(0.001)
+
+    th = threading.Thread(target=spiller, daemon=True)
+    th.start()
+    prompts = _mixed_prompts(V, 8, 7, 9)
+    try:
+        futs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        for p, f in zip(prompts, futs):
+            assert list(f.get(timeout=120)) == [(int(p[-1]) + 1 + j) % V for j in range(6)]
+    finally:
+        stop.set()
+        th.join(timeout=30)
+        eng.close()
+    assert kv.pools[device.key].used_pages == 0
+
+
+def test_torch_legacy_prefill_partial_failure_fails_only_unadmitted(device):
+    """A mid-group prefill failure fails only the requests prefill still
+    owns: admitted members finish exactly, the lanes survive, drain()
+    returns, no page leaks."""
+    V = 64
+    eng = _legacy_engine(device, V=V, name="t-legacy-partial",
+                         prefill=LanePolicy(max_batch=8, max_delay_s=0.25, token_budget=4096))
+    orig = eng._pool_with_room
+    calls = {"n": 0}
+
+    def flaky(dev, need_pages):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise OutOfPages("injected mid-group failure")
+        return orig(dev, need_pages)
+
+    eng._pool_with_room = flaky
+    try:
+        prompts = [np.arange(4, dtype=np.int32) + i for i in range(4)]
+        futs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        for i in (0, 1):  # admitted before the failure: complete exactly
+            assert list(futs[i].get(timeout=120)) == [(int(prompts[i][-1]) + 1 + j) % V
+                                                      for j in range(4)]
+        for i in (2, 3):  # owned by prefill at the failure: fail cleanly
+            with pytest.raises(OutOfPages, match="injected"):
+                futs[i].get(timeout=120)
+        eng.drain()
+        eng._pool_with_room = orig
+        out = eng.submit(np.arange(4, dtype=np.int32), 3).get(timeout=120)
+        assert list(out) == [(3 + 1 + j) % V for j in range(3)]
+        m = eng.metrics()
+    finally:
+        eng.close()
+    assert m["requests_failed"] == 2 and m["requests_completed"] == 3
+    assert eng.kv.pools[device.key].used_pages == 0
+
+
+def test_torch_legacy_lane_policy_explicit_zero_not_treated_as_unset(device):
+    """``token_budget=0`` floors at one row a prefill batch and
+    ``max_delay_s=0.0`` dispatches at once: real bounds, not unset."""
+    V = 64
+    eng = _legacy_engine(device, V=V, name="t-legacy-zero",
+                         prefill=LanePolicy(max_batch=8, max_delay_s=0.05, token_budget=0),
+                         decode=LanePolicy(max_batch=64, max_delay_s=0.0))
+    try:
+        prompts = [np.arange(4, dtype=np.int32) for _ in range(3)]
+        futs = [eng.submit(p, 3) for p in prompts]
+        for p, f in zip(prompts, futs):
+            assert list(f.get(timeout=120)) == [(int(p[-1]) + 1 + j) % V for j in range(3)]
+        m = eng.metrics()
+    finally:
+        eng.close()
+    assert m["prefill_batches"] == 3
+
+
+def test_torch_legacy_new_slabs_are_copied_into_the_pool(device):
+    """A legacy ``decode_fn`` that returns new slab tensors (the reference's
+    functional update) has them copied into the pool's own slabs, which stay
+    the same tensors: the tokens are the in-place model's."""
+    V = 64
+    prefill_fn, inplace = _toy_paged_model(V=V)
+
+    def functional(kp, vp, *args):
+        k2, v2, nxt = inplace(kp.clone(), vp.clone(), *args)
+        return k2, v2, nxt
+
+    eng = _legacy_engine(device, V=V, model=(prefill_fn, functional), name="t-legacy-copy")
+    ks, vs = eng.kv.pool_of(device).arrays()
+    prompts = _mixed_prompts(V, 5, 11, 9)
+    try:
+        got = [list(f.get(timeout=120)) for f in [eng.submit(p, 6) for p in prompts]]
+    finally:
+        eng.close()
+    assert got == [[(int(p[-1]) + 1 + j) % V for j in range(6)] for p in prompts]
+    assert eng.kv.pool_of(device).arrays()[0] is ks and eng.kv.pool_of(device).arrays()[1] is vs

@@ -10,12 +10,14 @@ held against the JAX package on the CPU: the port of
 * Spill, refetch, ``migrate`` between logical devices (8 logical CPU
   devices, ``REPRO_LOGICAL_DEVICES``), LRU order, lock discipline (a spill
   waits for a held sequence; ``defrag`` never deadlocks against spillers).
-* The engine, driven through the zoo contract with smoke configs (the
-  reference drives a legacy toy model, which the port refuses): greedy
+* The engine, driven through the zoo contract with smoke configs: greedy
   tokens over 2 logical CPU devices under page pressure (spills, deferred
   steps, refetches), under a concurrent spiller and across a forced
   migration equal the JAX package's single-device padded oracle
   (``tests/test_paged_models.py``) for the dense and the mamba2 configs.
+* The reference's own fleet test, on its legacy toy model
+  (``test_torch_paged._toy_paged_model``, the legacy contract): 16
+  requests spread over 4 logical devices, every token exact.
 """
 import functools
 import sys
@@ -709,3 +711,31 @@ def test_torch_smoke_serve_paged_fleet_phase_rehearsed_on_cpu(smoke, monkeypatch
     assert out["near_tie_cuts_vs_serve_plain"] <= 8
     assert sum(d["placed"] for d in out["per_device"].values()) == 8
     assert set(out["per_device"]) == {"cpu:0", "cpu:0.1"}
+
+
+def test_torch_legacy_engine_spreads_over_four_devices(fleet):
+    """The reference's fleet test (``tests/test_paged.py``'s subprocess) on
+    the legacy contract: 16 requests of the toy model over 4 logical
+    devices spread over at least 2, pad rows only for warm-count reuse,
+    every token exact."""
+    from test_torch_paged import _toy_paged_model
+
+    V, P = 64, 4
+    devs = fleet[:4]
+    kv = PagedKVCache(PageSpec(1, P, 1, 4), devices=devs, pool_pages=64)
+    eng = PagedServeEngine(kv, *_toy_paged_model(V=V, P=P), max_seq_len=32,
+                           scheduler=Scheduler(devs, policy="least_loaded"), contract="legacy",
+                           name="t-legacy-fleet")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V - 16, size=int(rng.integers(1, 9))).astype(np.int32)
+               for _ in range(16)]
+    try:
+        got = [list(f.get(timeout=120)) for f in [eng.submit(p, max_new_tokens=6)
+                                                  for p in prompts]]
+        m = eng.metrics()
+    finally:
+        eng.close()
+    assert got == [[(int(p[-1]) + 1 + j) % V for j in range(6)] for p in prompts]
+    assert m["padding_waste"] <= 0.5
+    assert len([k for k, v in m["placements"].items() if v > 0]) >= 2, m["placements"]
+    _check_invariants(kv)
