@@ -411,10 +411,22 @@ SHIP_DECODE = "repro_torch.serving.paged:paged_worker_decode"
 TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 4, 1e-5
 # the dryrun phase: production cells traced in a child process over a fake
 # world of 256 ranks (and 512 with --multi-pod), each call's time limit
-DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k", "qwen2-moe-a2.7b:prefill_32k")
+DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k", "qwen2-moe-a2.7b:prefill_32k",
+                "qwen2-vl-72b:decode_32k")
 # the MoE prefill cell's output bytes a device and FLOPs in the records traced
 # before its KV cache was sharded (a replicated cache of the global shape)
 DRYRUN_REPLICATED_CACHE = {"qwen2-moe-a2.7b:prefill_32k": (206158506176, 4.5954426404864e13)}
+# each traced cell's FLOPs a device as the CPU counted them (python -m
+# repro_torch.launch.dryrun --force --both-meshes --device cpu), with the torch
+# it ran; the card's count, on its own torch, is held to them within 1%
+DRYRUN_CPU_FLOPS = {
+    "olmo-1b:train_4k:singlepod": (4.431332507648e13, "2.13.0+cpu"),
+    "olmo-1b:decode_32k:singlepod": (3.324248064e9, "2.13.0+cpu"),
+    "qwen2-moe-a2.7b:prefill_32k:singlepod": (1.72947154337792e14, "2.13.0+cpu"),
+    "qwen2-vl-72b:decode_32k:singlepod": (1.14408030208e11, "2.13.0+cpu"),
+    "olmo-1b:train_4k:multipod": (2.215666253824e13, "2.13.0+cpu"),
+}
+DRYRUN_CPU_FLOPS_RTOL = 0.01
 # the examples phase: each example's module and the line its main() prints
 # when its check passes
 EXAMPLE_CHECKS = {
@@ -2881,7 +2893,8 @@ def dryrun_records(out: dict, cells, multi_pod: bool, cmd, returncode: int, stdo
                    stderr: str, secs: float) -> None:
     """A dry-run child's records into ``out``, each checked: free of errors,
     a train cell with collective traffic, a prefill cell of
-    ``DRYRUN_REPLICATED_CACHE`` 16x below that record's output."""
+    ``DRYRUN_REPLICATED_CACHE`` 16x below that record's output, and every
+    cell's FLOPs a device within 1% of the CPU's (``DRYRUN_CPU_FLOPS``)."""
     lines = [ln for ln in stdout.splitlines() if ln.startswith(("[ok", "[FAIL", "done"))]
     out["processes"].append({"cells": list(cells), "multi_pod": multi_pod,
                              "returncode": returncode, "seconds": secs, "lines": lines})
@@ -2894,6 +2907,10 @@ def dryrun_records(out: dict, cells, multi_pod: bool, cmd, returncode: int, stdo
         require("error" not in rec, f"dryrun {key}: {rec.get('error', '')[-2000:]}")
         r = out["cells"][key] = dryrun_summary(rec)
         r["process_seconds"] = secs
+        r["cpu_flops"], r["cpu_torch"] = DRYRUN_CPU_FLOPS[key]
+        require(abs(r["flops"] / r["cpu_flops"] - 1) <= DRYRUN_CPU_FLOPS_RTOL,
+                f"dryrun {key}: {r['flops']:.5e} FLOPs a device on torch {torch.__version__}, "
+                f"not within 1% of the CPU's {r['cpu_flops']:.5e} (torch {r['cpu_torch']})")
         if rec["kind"] == "train":
             require(r["collective_wire_bytes"] > 0 and sum(r["collective_counts"].values()),
                     f"dryrun {key}: no collective traffic in a train step")
@@ -4339,6 +4356,9 @@ def main() -> int:
               f"{r['memory_s']:.4f}, collective {r['collective_s']:.4f}), MFU "
               f"{r['mfu'] * 100:.2f}%; traced in {r['lower_s']:.1f} s, process "
               f"{r['process_seconds']:.1f} s", flush=True)
+        print(f"dryrun {key}: {r['flops']:.5e} FLOP a device on torch {torch.__version__}, the "
+              f"CPU's {r['cpu_flops']:.5e} on torch {r['cpu_torch']}: ratio "
+              f"{r['flops'] / r['cpu_flops']:.5f}", flush=True)
         if "replicated_cache_output_bytes" in r:
             print(f"dryrun {key}: output {r['output_bytes'] / 1e9:.4f} GB a device (the "
                   f"replicated cache's records: {r['replicated_cache_output_bytes'] / 1e9:.1f} GB, "

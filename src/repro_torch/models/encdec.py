@@ -108,7 +108,7 @@ def _self_block(cfg, lp, x, *, causal, q_block, impl):
 
 def _cross(cfg, lp, x, ek, ev, *, impl="auto"):
     h = L.apply_norm(cfg, x, lp["ln_x"])
-    q = torch.matmul(h, lp["xattn"]["wq"])
+    q = L.linear(h, lp["xattn"]["wq"])
     if cfg.attn_qkv_bias:
         q = q + lp["xattn"]["bq"]
     o = L.attention(L.split_heads(q, cfg.num_heads, cfg.hd), ek, ev, causal=False, impl=impl)
@@ -139,8 +139,8 @@ def _cross_kv(cfg, params, enc):
     K, hd = cfg.num_kv_heads, cfg.hd
     out = []
     for lp in params["dec_layers"]:
-        k = torch.matmul(enc, lp["xattn"]["wk"])
-        v = torch.matmul(enc, lp["xattn"]["wv"])
+        k = L.linear(enc, lp["xattn"]["wk"])
+        v = L.linear(enc, lp["xattn"]["wv"])
         if cfg.attn_qkv_bias:
             k, v = k + lp["xattn"]["bk"], v + lp["xattn"]["bv"]
         out.append((L.split_heads(k, K, hd), L.split_heads(v, K, hd)))
@@ -164,7 +164,7 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = 
     x = L.embed(cfg, params["embed"], tokens)
     pos_tab = params["dec_pos"]
     idx = torch.arange(S, device=tokens.device) % pos_tab.shape[0]  # cells may exceed 448
-    x = x + pos_tab[idx][None].to(x.dtype)
+    x = x + L.table_rows(pos_tab, idx)[None].to(x.dtype)
 
     def dec_layer(x, lp, ek, ev):
         x, kv = _self_block(cfg, lp, x, causal=True, q_block=q_block, impl=impl)

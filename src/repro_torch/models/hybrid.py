@@ -131,15 +131,15 @@ def _rope(cfg, positions):
 
 
 def _q(cfg, p, h, cos, sin):
-    q = torch.matmul(h, p["wq"])
+    q = L.linear(h, p["wq"])
     if cfg.attn_qkv_bias:
         q = q + p["bq"]
     return L.apply_rope(L.split_heads(q, cfg.num_heads, cfg.hd), cos, sin)
 
 
 def _kv(cfg, p, h, cos, sin):
-    k = torch.matmul(h, p["wk"])
-    v = torch.matmul(h, p["wv"])
+    k = L.linear(h, p["wk"])
+    v = L.linear(h, p["wv"])
     if cfg.attn_qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     K = cfg.num_kv_heads

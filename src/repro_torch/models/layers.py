@@ -344,6 +344,7 @@ def attention(
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     B, Sq, H, D = q.shape
+    k, v = _kv_for_query_heads(q, k, v)
     if (impl == "auto" and q.is_cuda and q_offset == 0 and Sq == k.shape[1]
             and valid_len is None and softcap is None and window is None):
         return kernel_with_plain_grad(
@@ -358,6 +359,46 @@ def attention(
     # runs: DTensor would flatten two sharded dims into the products' batch
     # dim (torch 2.11's DTensor refuses to)
     return on_local_shards(plain, (q, k, v), ATTENTION_SHARD_DIMS)
+
+
+# a rank's kv heads, by index, from keys or values it holds whole
+_TAKE_HEADS_DIMS = {"batch": ((0, None), (0,)), "seq": ((1, None), (1,)),
+                    "heads": ((None, 0), (2,))}
+
+
+def _take_heads(t, idx):
+    return t.index_select(2, idx)
+
+
+def _kv_for_query_heads(q, k, v):
+    """``k`` and ``v`` ready to run on each rank's own query heads.  Where
+    the plan shards the query heads over a mesh dim whose ranks the kv
+    heads are too few to share (so k and v are replicated along it), and
+    each rank's query heads read one kv head, every rank takes that head
+    (no communication): k and v become (B, S, n, D) over the n ranks,
+    sharded like q's heads, so query head j still reads its own kv head
+    j // (H / K).  Otherwise (no mesh, kv heads sharded with the query
+    heads, or a rank's query heads spanning kv heads) k and v as they
+    are: ``attention`` then runs on the local shards or on gathered
+    heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor) and isinstance(v, DTensor)):
+        return k, v
+    H, K, mesh = q.shape[2], k.shape[2], q.device_mesh
+    n, pl = 1, []
+    for i, (a, b, c) in enumerate(zip(q.placements, k.placements, v.placements)):
+        if a == Shard(2):
+            if b != Replicate() or c != Replicate():
+                return k, v
+            n *= mesh.size(i)
+        pl.append(Shard(0) if a == Shard(2) else Replicate())
+    if n == 1 or K % n == 0 or H % n or (H // K) % (H // n):
+        return k, v
+    idx = torch.arange(n, device=q.device) * (H // n) // (H // K)  # rank r's kv head
+    idx = distribute_tensor(idx, mesh, pl, src_data_rank=None)
+    return (on_local_shards(_take_heads, (k, idx), _TAKE_HEADS_DIMS),
+            on_local_shards(_take_heads, (v, idx), _TAKE_HEADS_DIMS))
 
 
 def _plain_attention(q, k, v, *, causal, window, q_offset, q_block, valid_len, softcap):
@@ -381,6 +422,7 @@ def local_block_attention(q, k, v, *, window: int, q_offset: int = 0):
     is not a whole number of windows raises.  Plain PyTorch, one block at a
     time, so the peak score tensor is (B, K, R, window, 2 * window) f32.
     Under a mesh on the local shards of batch and heads, as ``attention``."""
+    k, v = _kv_for_query_heads(q, k, v)
     return on_local_shards(functools.partial(_local_block_attention, window=window,
                                              q_offset=q_offset), (q, k, v), ATTENTION_SHARD_DIMS)
 
@@ -508,12 +550,36 @@ def merge_heads(t, dim: int):
     return out
 
 
+def _linear_dims(nd: int) -> dict:
+    """``on_local_shards``' dims of ``x @ w`` for an ``nd``-dim ``x`` and a
+    2-dim ``w``: rows (batch, then position) independent, and so are the
+    weight's columns; a contraction over a dim both shard gives each
+    rank's part of the sum."""
+    dims = {a: ((d, None), (d,)) for a, d in (("batch", 0), ("seq", 1)) if d < nd - 1}
+    dims["in"] = ((nd - 1, 0), ("sum",))
+    dims["out"] = ((None, 1), (nd - 1,))
+    return dims
+
+
+def linear(x, w):
+    """``x @ w`` in ``x``'s dtype.  Under a mesh on each rank's own rows
+    and the weight's shards as the plan places them: a column-parallel
+    weight gives the rank's columns, a row-parallel one (its input dim
+    sharded with ``x``'s last) the rank's part of the sum (``Partial``),
+    and an FSDP weight is gathered over the batch ranks, so its gradient
+    is each rank's product of its own rows, summed over them.
+    ``DTensor``'s own plan may instead gather a whole weight or its
+    gradient (torch 2.13 does, for OLMo-1B's train step) or compute work
+    the plan gives another rank."""
+    return on_local_shards(torch.matmul, (x, w), _linear_dims(x.ndim))
+
+
 def qkv_proj(cfg, p, x):
     """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = torch.matmul(x, p["wq"])
-    k = torch.matmul(x, p["wk"])
-    v = torch.matmul(x, p["wv"])
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = constrain(split_heads(q, H, hd), "batch", "seq", "heads", "head_dim")
@@ -523,7 +589,7 @@ def qkv_proj(cfg, p, x):
 
 
 def out_proj(cfg, p, o):
-    y = torch.matmul(merge_heads(o, 2), p["wo"])
+    y = linear(merge_heads(o, 2), p["wo"])
     if cfg.attn_out_bias:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")
@@ -531,8 +597,8 @@ def out_proj(cfg, p, o):
 
 def mlp(cfg, p, x):
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = torch.matmul(x, p["wi_gate"])
-        u = torch.matmul(x, p["wi_up"])
+        g = linear(x, p["wi_gate"])
+        u = linear(x, p["wi_up"])
         if cfg.mlp_bias:
             g, u = g + p["bi_gate"], u + p["bi_up"]
         g = constrain(g, "batch", "seq", "mlp")
@@ -541,11 +607,11 @@ def mlp(cfg, p, x):
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
     else:
-        h = torch.matmul(x, p["wi"])
+        h = linear(x, p["wi"])
         if cfg.mlp_bias:
             h = h + p["bi"]
         h = F.gelu(constrain(h, "batch", "seq", "mlp"), approximate="tanh")
-    y = torch.matmul(h, p["wo"])
+    y = linear(h, p["wo"])
     if cfg.mlp_bias:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")
@@ -569,6 +635,14 @@ def embed(cfg, p, tokens):
     backward (``index_put``) fails on torch 2.11."""
     return constrain(on_local_shards(_lookup, (tokens, p["table"]), _EMBED_SHARD_DIMS),
                      "batch", "seq", "embed")
+
+
+def table_rows(table, idx):
+    """``table[idx]`` for an index every rank holds whole (positions).
+    Under a mesh each rank looks the rows up in the table gathered, so they
+    come back replicated: ``DTensor``'s own plan shards them over the
+    model ranks, and every product after them would follow."""
+    return on_local_shards(_lookup, (idx, table), {})
 
 
 # rows (batch and position) of the unembedding are independent, and so are
@@ -716,12 +790,36 @@ def cache_update(ck, cv, k_new, v_new, pos: int, *, ring: "Optional[int]" = None
     """Insert (B, s, K, D) new keys/values at slot ``pos`` (``ring``: a
     sliding-window ring of that length, slot ``pos % ring``).  Updates
     ``ck`` and ``cv`` IN PLACE (the reference returns new arrays) and
-    returns them."""
+    returns them.  Under a mesh whose plan shards the cache's slots, each
+    rank writes one token where it holds its slot (a slice assignment on
+    the ``DTensor`` would gather the cache)."""
     s = k_new.shape[1]
     slot = pos if ring is None else pos % ring
+    if _slots_sharded(ck) and s == 1:
+        kpos = torch.arange(ck.shape[1], device=ck.device)
+        for c, new in ((ck, k_new), (cv, v_new)):
+            on_local_shards(functools.partial(_write_slot, slot=slot), (c, new, kpos),
+                            _SLOT_WRITE_DIMS)
+        return ck, cv
     ck[:, slot:slot + s] = k_new.to(ck.dtype)
     cv[:, slot:slot + s] = v_new.to(cv.dtype)
     return ck, cv
+
+
+# a one-token write into a cache (B, S, K, D) whose slots are sharded: rows
+# and heads are independent, the slots the rank's own
+_SLOT_WRITE_DIMS = {"batch": ((0, 0, None), (0,)), "heads": ((2, 2, None), (2,)),
+                    "seq": ((1, None, 0), (1,))}
+
+
+def _write_slot(c, new, kpos, *, slot: int):
+    """Writes ``new`` (B, 1, K, D) IN PLACE at ``slot`` of ``c``, whose
+    slots are ``kpos``, if one of them is ``slot``; else rewrites a slot
+    with its own value."""
+    i = torch.clamp(slot - kpos[:1], 0, c.shape[1] - 1)
+    own = torch.any(kpos == slot)
+    c.index_copy_(1, i, torch.where(own, new.to(c.dtype), c.index_select(1, i)))
+    return c
 
 
 def decode_attend(cfg, q, ck, cv, pos: int, *, window: "Optional[int]" = None):
@@ -729,10 +827,70 @@ def decode_attend(cfg, q, ck, cv, pos: int, *, window: "Optional[int]" = None):
     K, D); slots past ``pos`` are masked.  Plain math: the flash kernel's
     causal mask counts query positions from 0.  With ``window`` the cache is
     a ring: every resident entry is in the window and in the past, so only
-    the ``min(pos + 1, ring)`` written slots count."""
+    the ``min(pos + 1, ring)`` written slots count.  Under a mesh whose
+    plan shards the cache's slots (flash decoding: the kv heads too few to
+    share the model axis), each rank attends every query head to its own
+    slots (``_slot_attend``); otherwise on the local shards of batch and
+    heads (``attention``)."""
+    valid = pos + 1 if window is None else min(pos + 1, ck.shape[1])
+    if _slots_sharded(ck):
+        return _slot_attend(q, ck, cv, valid)
     if window is None:
-        return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=pos + 1)
-    return attention(q, ck, cv, causal=False, valid_len=min(pos + 1, ck.shape[1]))
+        return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=valid)
+    return attention(q, ck, cv, causal=False, valid_len=valid)
+
+
+def _slots_sharded(cache) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(cache, DTensor) and any(p.is_shard(1) for p in cache.placements)
+
+
+# one-token attention over a cache whose slots are sharded: rows are
+# independent; the scores keep the slots' sharding (their dim 4), over which
+# a rank's maximum score, its sum of weights and its weighted values are
+# combined by max and sum
+_SLOT_SCORE_DIMS = {"batch": ((0, 0, None), (0,)), "seq": ((None, 1, 0), (4,))}
+_SLOT_MAX_DIMS = {"batch": ((0,), (0,)), "seq": ((4,), ("max",))}
+_SLOT_SUM_DIMS = {"batch": ((0, 0, 0), (0, 0)), "seq": ((4, 1, None), ("sum", "sum"))}
+_SLOT_NORM_DIMS = {"batch": ((0, 0), (0,))}
+
+
+def _slot_scores(q, k, kpos, *, valid):
+    """(B, K, R, 1, s) f32 scores of q (B, 1, H, D) against the slots
+    ``kpos`` of k (B, s, K, D), slots from ``valid`` on masked."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bqkrd,bskd->bkrqs", q.reshape(B, 1, K, H // K, D).float(), k.float())
+    return (s * (1.0 / math.sqrt(D))).masked_fill(kpos >= valid, NEG_INF)
+
+
+def _slot_max(s):
+    return torch.amax(s, dim=-1)
+
+
+def _slot_sums(s, v, m):
+    w = torch.exp(s - m[..., None])
+    return torch.sum(w, dim=-1), torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype), v)
+
+
+def _slot_normalize(o, total):
+    B, _, K, R, D = o.shape
+    return (o.float() / total.permute(0, 3, 1, 2)[..., None]).to(o.dtype).reshape(B, 1, K * R, D)
+
+
+def _slot_attend(q, ck, cv, valid):
+    """Flash decoding on each rank's own slots: the query gathered (one
+    token), its scores against the rank's slots, their maximum combined
+    over the slot ranks, then the weights' sum and the weighted values, so
+    the cache is never gathered; the reference's GSPMD partitions the
+    reductions the same way."""
+    kpos = torch.arange(ck.shape[1], device=q.device)
+    s = on_local_shards(functools.partial(_slot_scores, valid=valid), (q, ck, kpos),
+                        _SLOT_SCORE_DIMS)
+    m = on_local_shards(_slot_max, (s.detach(),), _SLOT_MAX_DIMS)
+    total, o = on_local_shards(_slot_sums, (s, cv, m), _SLOT_SUM_DIMS)
+    return on_local_shards(_slot_normalize, (o, total), _SLOT_NORM_DIMS)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ def route(x2d, wr, top_k: int, renormalize: bool):
     Router logits and softmax in f32.  The top k come from a stable
     descending sort, so equal probabilities rank the lower expert first,
     as ``jax.lax.top_k`` does (``torch.topk`` promises no order on ties)."""
-    logits = torch.matmul(x2d.to(F32), wr.to(F32))
+    logits = L.linear(x2d.to(F32), wr.to(F32))
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :top_k], idx[:, :top_k]
@@ -230,9 +230,9 @@ def moe_block(cfg, p, x, *, groups=None):
     # ---- always-on shared expert (qwen2-moe), sigmoid-gated
     if e.num_shared_experts:
         sp = p["shared"]
-        sh = F.silu(torch.matmul(x2d, sp["wi_gate"])) * torch.matmul(x2d, sp["wi_up"])
-        sy = torch.matmul(sh, sp["wo"])
-        gate = torch.sigmoid(torch.matmul(x2d.to(F32), sp["gate"].to(F32)))
+        sh = F.silu(L.linear(x2d, sp["wi_gate"])) * L.linear(x2d, sp["wi_up"])
+        sy = L.linear(sh, sp["wo"])
+        gate = torch.sigmoid(L.linear(x2d.to(F32), sp["gate"].to(F32)))
         y = y + sy * gate.to(x.dtype)
 
     return constrain(L.split_heads(y, B, S, dim=0), "batch", "seq", "embed"), aux

@@ -171,9 +171,9 @@ def _mixer(cfg, p, x, impl: str):
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     s, di, H, P, G, N = _dims(cfg)
-    z = constrain(torch.matmul(x, p["w_z"]), "batch", "seq", "ssm_inner")
-    xbc_raw = constrain(torch.matmul(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
-    dt_raw = torch.matmul(x.float(), p["w_dt"].float())
+    z = constrain(L.linear(x, p["w_z"]), "batch", "seq", "ssm_inner")
+    xbc_raw = constrain(L.linear(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
+    dt_raw = L.linear(x.float(), p["w_dt"].float())
 
     # f32 for the scan (no copy in f32); x, B and C are views of it
     xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"], p["conv_b"])).float()
@@ -198,7 +198,7 @@ def _mixer(cfg, p, x, impl: str):
 
     # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return constrain(torch.matmul(y, p["w_out"]), "batch", "seq", "embed"), state, xbc_raw
+    return constrain(L.linear(y, p["w_out"]), "batch", "seq", "embed"), state, xbc_raw
 
 
 def ssm_block(cfg, p, x, *, return_state: bool = False, impl: str = "auto"):
@@ -250,9 +250,9 @@ def ssm_decode_step(cfg, p, x, cache):
     Plain PyTorch: one token's update is a few small products."""
     s, di, H, P, G, N = _dims(cfg)
 
-    z = torch.matmul(x, p["w_z"])
-    xbc_t = torch.matmul(x, p["w_xbc"])
-    dt_raw = torch.matmul(x.float(), p["w_dt"].float())
+    z = L.linear(x, p["w_z"])
+    xbc_t = L.linear(x, p["w_xbc"])
+    dt_raw = L.linear(x.float(), p["w_dt"].float())
 
     # rolling causal conv window
     win = torch.cat([cache["conv"], xbc_t.to(cache["conv"].dtype)], dim=1)  # (B, W, C)
@@ -274,5 +274,5 @@ def ssm_decode_step(cfg, p, x, cache):
     y = L.merge_heads(y, 1)[:, None].to(x.dtype)
 
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    out = constrain(torch.matmul(y, p["w_out"]), "batch", "seq", "embed")
+    out = constrain(L.linear(y, p["w_out"]), "batch", "seq", "embed")
     return out, {"state": state, "conv": new_conv}
