@@ -162,13 +162,18 @@ with ``Dim3`` geometry, ``enqueue_read``):
         the whole tensors (32 a step, as train's); losses within 1e-5 of
         train's; ``reset_runtime()`` destroys the group.
   dryrun  ``python -m repro_torch.launch.dryrun`` in child processes:
-        OLMo-1B's train_4k and decode_32k cells and Qwen1.5-MoE-A2.7B's
-        prefill_32k over a fake world of 256 ranks and train_4k over 512,
-        each step traced once on fake tensors (``impl="ref"``; no kernel,
-        nothing allocated): per-device memory, FLOPs, HBM bytes,
+        OLMo-1B's train_4k and decode_32k cells, Qwen1.5-MoE-A2.7B's
+        prefill_32k, Qwen2-VL-72B's decode_32k, whisper-tiny's train_4k
+        (6 heads in head groups over the 16 model ranks, forward and
+        backward) and Mamba2-130M's prefill_32k (24 SSM heads in head
+        groups) over a fake world of 256 ranks and OLMo-1B's train_4k over
+        512, each step traced once on fake tensors (``impl="ref"``; no
+        kernel, nothing allocated): per-device memory, FLOPs, HBM bytes,
         collectives and H100 roofline terms, no error, collective traffic
-        in the train cells, and the MoE prefill's output (its KV cache)
-        at least 16x below the replicated cache of the earlier records.
+        in the train cells, each cell's FLOPs (and Qwen2-VL-72B decode's
+        wire bytes) within 1% of the CPU's, and the MoE prefill's output
+        (its KV cache) at least 16x below the replicated cache of the
+        earlier records.
         Then the train phase's own step traced here on one device: its
         roofline step against the measured step, the measured step's MFU,
         its argument + temporary bytes against the measured peak.
@@ -412,7 +417,10 @@ TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 4, 1e-5
 # the dryrun phase: production cells traced in a child process over a fake
 # world of 256 ranks (and 512 with --multi-pod), each call's time limit
 DRYRUN_CELLS = ("olmo-1b:train_4k", "olmo-1b:decode_32k", "qwen2-moe-a2.7b:prefill_32k",
-                "qwen2-vl-72b:decode_32k")
+                "qwen2-vl-72b:decode_32k", "whisper-tiny:train_4k")
+# traced in a child of its own beside the others (its SSD scan's chunks make
+# it the slowest cell to trace)
+DRYRUN_SSM_CELLS = ("mamba2-130m:prefill_32k",)
 # the MoE prefill cell's output bytes a device and FLOPs in the records traced
 # before its KV cache was sharded (a replicated cache of the global shape)
 DRYRUN_REPLICATED_CACHE = {"qwen2-moe-a2.7b:prefill_32k": (206158506176, 4.5954426404864e13)}
@@ -424,9 +432,14 @@ DRYRUN_CPU_FLOPS = {
     "olmo-1b:decode_32k:singlepod": (3.324248064e9, "2.13.0+cpu"),
     "qwen2-moe-a2.7b:prefill_32k:singlepod": (1.72947154337792e14, "2.13.0+cpu"),
     "qwen2-vl-72b:decode_32k:singlepod": (1.14408030208e11, "2.13.0+cpu"),
+    "whisper-tiny:train_4k:singlepod": (1.0672646651904e13, "2.13.0+cpu"),
+    "mamba2-130m:prefill_32k:singlepod": (1.361726201856e12, "2.13.0+cpu"),
     "olmo-1b:train_4k:multipod": (2.215666253824e13, "2.13.0+cpu"),
 }
 DRYRUN_CPU_FLOPS_RTOL = 0.01
+# and the wire bytes a device of the cells named here (the decode step's
+# vocab-parallel embedding: an all-reduce of its rows, not the table gathered)
+DRYRUN_CPU_WIRE = {"qwen2-vl-72b:decode_32k:singlepod": (7.2132e7, "2.13.0+cpu")}
 # the examples phase: each example's module and the line its main() prints
 # when its check passes
 EXAMPLE_CHECKS = {
@@ -2859,18 +2872,19 @@ def dryrun_summary(rec: dict) -> dict:
 
 def phase_dryrun(train_out: dict) -> dict:
     """The dry run (``python -m repro_torch.launch.dryrun``) of
-    ``DRYRUN_CELLS`` over a fake world of 256 ranks and of
-    ``DRYRUN_MULTI_POD_CELLS`` over 512 (``--multi-pod``), in two child
-    processes run at once (a fake world cannot share a process with a real
+    ``DRYRUN_CELLS`` and ``DRYRUN_SSM_CELLS`` over a fake world of 256 ranks
+    and of ``DRYRUN_MULTI_POD_CELLS`` over 512 (``--multi-pod``), in three
+    child processes run at once (a fake world cannot share a process with a real
     group; the mesh's device type is cuda): each record free of errors
     (``dryrun_records``).  Meanwhile the train phase's own step (OLMo-1B,
     4 x 2048, the plan's remat full, bf16 over f32 masters, ``impl="ref"``)
     is traced here (``dryrun_train_step``)."""
     out = {"cells": {}, "processes": []}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = []  # both children at once, beside the step traced here: each is one core's work
+    runs = []  # the children at once, beside the step traced here: each is one core's work
     try:
-        for cells, multi_pod in ((DRYRUN_CELLS, False), (DRYRUN_MULTI_POD_CELLS, True)):
+        for cells, multi_pod in ((DRYRUN_CELLS, False), (DRYRUN_SSM_CELLS, False),
+                                 (DRYRUN_MULTI_POD_CELLS, True)):
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force"]
             cmd += [f"--cell={c}" for c in cells] + (["--multi-pod"] if multi_pod else [])
             runs.append((cells, multi_pod, cmd, time.perf_counter(),
@@ -2894,7 +2908,8 @@ def dryrun_records(out: dict, cells, multi_pod: bool, cmd, returncode: int, stdo
     """A dry-run child's records into ``out``, each checked: free of errors,
     a train cell with collective traffic, a prefill cell of
     ``DRYRUN_REPLICATED_CACHE`` 16x below that record's output, and every
-    cell's FLOPs a device within 1% of the CPU's (``DRYRUN_CPU_FLOPS``)."""
+    cell's FLOPs a device within 1% of the CPU's (``DRYRUN_CPU_FLOPS``), and
+    the wire bytes of the cells ``DRYRUN_CPU_WIRE`` names."""
     lines = [ln for ln in stdout.splitlines() if ln.startswith(("[ok", "[FAIL", "done"))]
     out["processes"].append({"cells": list(cells), "multi_pod": multi_pod,
                              "returncode": returncode, "seconds": secs, "lines": lines})
@@ -2911,6 +2926,12 @@ def dryrun_records(out: dict, cells, multi_pod: bool, cmd, returncode: int, stdo
         require(abs(r["flops"] / r["cpu_flops"] - 1) <= DRYRUN_CPU_FLOPS_RTOL,
                 f"dryrun {key}: {r['flops']:.5e} FLOPs a device on torch {torch.__version__}, "
                 f"not within 1% of the CPU's {r['cpu_flops']:.5e} (torch {r['cpu_torch']})")
+        if key in DRYRUN_CPU_WIRE:
+            r["cpu_wire_bytes"] = DRYRUN_CPU_WIRE[key][0]
+            require(abs(r["collective_wire_bytes"] / r["cpu_wire_bytes"] - 1)
+                    <= DRYRUN_CPU_FLOPS_RTOL,
+                    f"dryrun {key}: {r['collective_wire_bytes']:.5e} wire bytes a device on torch "
+                    f"{torch.__version__}, not within 1% of the CPU's {r['cpu_wire_bytes']:.5e}")
         if rec["kind"] == "train":
             require(r["collective_wire_bytes"] > 0 and sum(r["collective_counts"].values()),
                     f"dryrun {key}: no collective traffic in a train step")
@@ -4359,6 +4380,11 @@ def main() -> int:
         print(f"dryrun {key}: {r['flops']:.5e} FLOP a device on torch {torch.__version__}, the "
               f"CPU's {r['cpu_flops']:.5e} on torch {r['cpu_torch']}: ratio "
               f"{r['flops'] / r['cpu_flops']:.5f}", flush=True)
+        if "cpu_wire_bytes" in r:
+            print(f"dryrun {key}: {r['collective_wire_bytes']:.5e} wire bytes a device on torch "
+                  f"{torch.__version__}, the CPU's {r['cpu_wire_bytes']:.5e} on torch "
+                  f"{DRYRUN_CPU_WIRE[key][1]}: ratio "
+                  f"{r['collective_wire_bytes'] / r['cpu_wire_bytes']:.5f}", flush=True)
         if "replicated_cache_output_bytes" in r:
             print(f"dryrun {key}: output {r['output_bytes'] / 1e9:.4f} GB a device (the "
                   f"replicated cache's records: {r['replicated_cache_output_bytes'] / 1e9:.1f} GB, "

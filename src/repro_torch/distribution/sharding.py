@@ -30,6 +30,15 @@ the same model runs unsharded on one device.
   independently.
 * ``place_like`` lays a plain tensor (an index range) over the mesh of a
   ``DTensor`` by logical names, each rank slicing its own shard.
+* ``per_rank`` lays a plain tensor of one block a rank (each rank's head
+  indices, its vocab range) over chosen mesh dims, each rank keeping its
+  own block.
+* ``make_groups``, ``to_groups``, ``from_groups`` and ``once_a_group``: a
+  group layout, work split over g groups of the m ranks of some mesh dims,
+  the ranks of a group computing the same (heads that the m ranks do not
+  divide, as the reference's GSPMD runs them); a tensor enters it from its
+  plain layout and leaves it into that layout, and every gradient inside
+  it is its group's whole part, so none is counted twice.
 
 A ``mesh`` is a ``DeviceMesh`` (``launch.mesh``); ``spec_for`` also takes
 anything with ``axis_names`` and ``devices.shape``, as the reference's
@@ -37,10 +46,14 @@ tests pass a stand-in of the production mesh.
 """
 from __future__ import annotations
 
+import functools
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
+
+import torch
 
 __all__ = [
     "NamedSharding",
@@ -50,11 +63,16 @@ __all__ = [
     "constrain",
     "current_mesh",
     "current_rules",
+    "from_groups",
+    "make_groups",
     "make_rules",
+    "once_a_group",
     "on_local_shards",
+    "per_rank",
     "place_like",
     "sharding_for",
     "spec_for",
+    "to_groups",
     "tree_sharding",
 ]
 
@@ -222,6 +240,18 @@ def place_like(x, like, *names: "Optional[str]"):
         x, src_data_rank=None)
 
 
+def per_rank(x, mesh, mesh_dims: "Sequence[int]"):
+    """``x``, a plain tensor every rank holds whole whose dim 0 is one equal
+    block a rank of ``mesh_dims`` (the ranks in mesh order, the first dim
+    outermost), as a ``DTensor`` on ``mesh`` sharded so on dim 0 over
+    those dims and replicated over the others: each rank keeps its own
+    block, with no communication."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = [Shard(0) if i in mesh_dims else Replicate() for i in range(mesh.ndim)]
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+
 def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
     """``fn(*inputs)``, and where an input is a ``DTensor``, on each rank's
     local shards.
@@ -283,6 +313,235 @@ def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
     res = tuple(DTensor.from_local(o, mesh, placements(k, 1), run_check=False)
                 for k, o in enumerate(outs))
     return res if isinstance(out, tuple) else res[0]
+
+
+# ---------------------------------------------------------------------------
+# group layouts
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Groups:
+    """A dim of ``cols`` entries in a group layout over the mesh dims
+    ``dims`` (m ranks in mesh order, g groups of ``per`` = m / g
+    consecutive ranks): in it each rank holds the entries its group reads,
+    the same number for every rank, so the dim has m times that many,
+    sharded over ``dims``.
+    ``take``, ``first`` and ``block`` hold one block a rank (``per_rank``):
+    the entries the rank's group reads (each once), 1.0 on the first rank
+    of each group (0.0 on the others), and the rank's own 1/m of the
+    entries (None where ``cols`` is no multiple of m, or where a rank's own
+    entries are not all read by its group and by no other).  ``own``: where
+    ``block`` is, the positions of those entries among the group's; ``sel``
+    (plain, whole on every rank): a position in the whole layout holding
+    each entry."""
+
+    dims: tuple
+    per: int
+    cols: int
+    take: Any
+    first: Any
+    block: Any
+    own: Any
+    sel: Any
+
+
+def make_groups(mesh, dims: "Sequence[int]", g: int, reads: "Sequence[Sequence[int]]",
+                cols: int, device) -> Groups:
+    """The group layout of ``cols`` entries over ``mesh``'s ``dims`` in g
+    groups, group j reading the entries ``reads[j]`` (tuples of one length,
+    no entry twice; every entry read by some group)."""
+    m = 1
+    for i in dims:
+        m *= mesh.size(i)
+    take, first, block, own, sel = _group_plan(m, g, tuple(map(tuple, reads)), cols)
+
+    def placed(rows, dtype=torch.int64):
+        return per_rank(torch.tensor(rows, dtype=dtype, device=device), mesh, dims)
+
+    return Groups(dims=tuple(dims), per=m // g, cols=cols, take=placed(take),
+                  first=placed(first, torch.float32),
+                  block=placed(block) if block is not None else None,
+                  own=placed(own) if own is not None else None,
+                  sel=torch.tensor(sel, dtype=torch.int64, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _group_plan(m: int, g: int, reads: tuple, cols: int):
+    """``make_groups``' indices as flat lists, one block a rank (``sel``
+    whole)."""
+    per, n = m // g, len(reads[0])
+    readers: dict = {}
+    for j, r in enumerate(reads):
+        for e in r:
+            readers.setdefault(e, set()).add(j)
+    pos = [{e: i for i, e in enumerate(r)} for r in reads]  # an entry's place in a group's
+    block = own = None
+    if cols % m == 0:
+        c = cols // m
+        if all(readers.get(e) == {p // per} for p in range(m) for e in range(p * c, (p + 1) * c)):
+            block = list(range(cols))
+            own = [pos[p // per][e] for p in range(m) for e in range(p * c, (p + 1) * c)]
+    where: dict = {}
+    for p in range(m):
+        for i, e in enumerate(reads[p // per]):
+            where.setdefault(e, p * n + i)
+    return ([e for p in range(m) for e in reads[p // per]],
+            [1.0 if p % per == 0 else 0.0 for p in range(m)], block, own,
+            [where[e] for e in range(cols)])
+
+
+def _contiguous(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+@dataclass(frozen=True)
+class _Like:
+    """What a group function's backward needs of a ``DTensor`` input, so
+    that it does not keep the tensor alive (a checkpointed layer frees it)."""
+
+    shape: tuple
+    placements: tuple
+    mesh: Any
+    dtype: Any
+    device: Any
+
+    @staticmethod
+    def of(t) -> "_Like":
+        return _Like(tuple(t.shape), tuple(t.placements), t.device_mesh, t.dtype, t.device)
+
+
+def _from_local(local, like: _Like, dim: int, size: int, placements):
+    """``local`` as a ``DTensor`` of ``like``'s shape but ``size`` along
+    ``dim``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(like.shape)
+    shape[dim] = size
+    return DTensor.from_local(local, like.mesh, placements, run_check=False,
+                              shape=tuple(shape), stride=_contiguous(shape))
+
+
+def _with(t, dims, placement) -> list:
+    return [placement if i in dims else q for i, q in enumerate(t.placements)]
+
+
+class _ToGroups(torch.autograd.Function):
+    """``to_groups``: forward the entries of each rank's group out of ``t``
+    gathered over the group dims; backward each rank's group's whole
+    gradient, its own entries taken (``Groups.block``), or else the first
+    rank's of each group summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, t, dim, groups, sizes):
+        from torch.distributed.tensor import Replicate, Shard
+
+        like = ctx.like = _Like.of(t)
+        ctx.dim, ctx.groups, ctx.sizes = dim, groups, sizes
+        full = t.redistribute(t.device_mesh, _with(t, groups.dims, Replicate())).to_local()
+        ctx.full_shape = full.shape
+        take = groups.take.to_local()
+        loc = full.index_select(dim, take)
+        pl = _with(t, groups.dims, Shard(dim))
+        m = groups.take.shape[0] // take.shape[0]
+        outs, off = [], 0
+        for n in sizes:
+            outs.append(_from_local(loc.narrow(dim, off, n).contiguous(), like, dim, m * n, pl))
+            off += n
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import Partial, Shard
+
+        t, dim, groups = ctx.like, ctx.dim, ctx.groups
+        pl = _with(t, groups.dims, Shard(dim))
+        shape = list(ctx.full_shape)
+        parts = []
+        for g, n in zip(grads, ctx.sizes):
+            shape[dim] = n
+            parts.append(g.redistribute(g.device_mesh, pl).to_local() if g is not None
+                         else torch.zeros(shape, dtype=t.dtype, device=t.device))
+        g = torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+        full = g.new_zeros(ctx.full_shape).index_add_(dim, groups.take.to_local(), g)
+        if groups.block is not None and all(t.placements[i] == Shard(dim) for i in groups.dims):
+            own = full.index_select(dim, groups.block.to_local())
+            return _from_local(own, t, dim, t.shape[dim], t.placements), None, None, None
+        mask = groups.first.to_local().reshape([1] * full.ndim)
+        part = _from_local(full * mask, t, dim, t.shape[dim], _with(t, groups.dims, Partial()))
+        return part.redistribute(t.mesh, t.placements), None, None, None
+
+
+def to_groups(t, dim: int, groups: Groups, sizes: "Sequence[int] | None" = None):
+    """``t`` (a ``DTensor`` whose dim ``dim`` holds ``groups.cols`` entries,
+    sharded over the group dims or whole there) in the group layout: each
+    rank the entries its group reads (all of them gathered first), in
+    pieces of ``sizes`` along ``dim`` (a tuple of tensors) or whole.  Its
+    backward takes each group's whole gradient on each of its ranks, as
+    the group layout's computations leave it."""
+    n = groups.take.to_local().shape[0]
+    out = _ToGroups.apply(t, dim, groups, tuple(sizes) if sizes is not None else (n,))
+    return out if sizes is not None else out[0]
+
+
+class _FromGroups(torch.autograd.Function):
+    """``from_groups``: forward each rank's own entries (``Groups.own``),
+    or the entries whole on every rank; backward the gradient gathered and
+    each rank's group's entries taken."""
+
+    @staticmethod
+    def forward(ctx, t, dim, groups, whole):
+        from torch.distributed.tensor import Replicate, Shard
+
+        like = ctx.like = _Like.of(t)
+        ctx.dim, ctx.groups = dim, groups
+        whole_pl = _with(t, groups.dims, Replicate())
+        if groups.own is not None:
+            own = t.to_local().index_select(dim, groups.own.to_local())
+            out = _from_local(own, like, dim, groups.cols, _with(t, groups.dims, Shard(dim)))
+            return out.redistribute(like.mesh, whole_pl) if whole else out
+        full = t.redistribute(like.mesh, whole_pl).to_local()
+        return _from_local(full.index_select(dim, groups.sel), like, dim, groups.cols, whole_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate, Shard
+
+        t, dim, groups = ctx.like, ctx.dim, ctx.groups
+        full = g.redistribute(g.device_mesh, _with(g, groups.dims, Replicate())).to_local()
+        loc = full.index_select(dim, groups.take.to_local())
+        return (_from_local(loc, t, dim, t.shape[dim], _with(t, groups.dims, Shard(dim))),
+                None, None, None)
+
+
+def from_groups(t, dim: int, groups: Groups, *, whole: bool = False):
+    """``t``, in the group layout along ``dim``, in its plain layout: each
+    rank its own 1/m of the entries (``Groups.own``, sharded over the group
+    dims: no communication), or with ``whole`` every entry on every rank
+    (gathered).  Its backward hands each group's ranks the whole gradient
+    of the group's entries."""
+    if groups.own is None and not whole:
+        raise ValueError("from_groups: the ranks' own entries do not lie in their groups")
+    return _FromGroups.apply(t, dim, groups, whole)
+
+
+class _OnceAGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.groups.per, None
+
+
+def once_a_group(t, groups: Groups):
+    """``t`` (whole over the group dims) as an input of a computation in
+    the group layout (through a function that runs on local shards): its
+    gradient there is a sum over the ranks (taken, or still a ``Partial``)
+    of each rank's group's whole part, so each group's m / g times; this
+    divides it by m / g."""
+    return _OnceAGroup.apply(t, groups)
 
 
 def _is_names(x) -> bool:

@@ -111,7 +111,7 @@ def _cross(cfg, lp, x, ek, ev, *, impl="auto"):
     q = L.linear(h, lp["xattn"]["wq"])
     if cfg.attn_qkv_bias:
         q = q + lp["xattn"]["bq"]
-    o = L.attention(L.split_heads(q, cfg.num_heads, cfg.hd), ek, ev, causal=False, impl=impl)
+    o = L.attention(L.group_heads(cfg, q, "q"), ek, ev, causal=False, impl=impl)
     return x + L.out_proj(cfg, lp["xattn"], o)
 
 
@@ -135,15 +135,15 @@ def encode(cfg, params, frames, *, remat: str = "none", impl: str = "auto"):
 
 
 def _cross_kv(cfg, params, enc):
-    """Cross-attention K/V of every decoder layer, from the encoder states."""
-    K, hd = cfg.num_kv_heads, cfg.hd
+    """Cross-attention K/V of every decoder layer, from the encoder states
+    (under head groups in the group layout, ``layers.group_heads``)."""
     out = []
     for lp in params["dec_layers"]:
         k = L.linear(enc, lp["xattn"]["wk"])
         v = L.linear(enc, lp["xattn"]["wv"])
         if cfg.attn_qkv_bias:
             k, v = k + lp["xattn"]["bk"], v + lp["xattn"]["bv"]
-        out.append((L.split_heads(k, K, hd), L.split_heads(v, K, hd)))
+        out.append((L.group_heads(cfg, k, "kv"), L.group_heads(cfg, v, "kv")))
     return out
 
 
@@ -182,7 +182,9 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = 
     logits = L.unembed(cfg, params["embed"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv:
-        return logits, aux, {"self": kvs, "cross": xkv}
+        whole = [tuple(L.whole_heads(cfg, t) for t in kv) for kv in kvs]
+        return logits, aux, {"self": whole, "cross": [tuple(L.whole_heads(cfg, t) for t in kv)
+                                                      for kv in xkv]}
     return logits, aux
 
 

@@ -28,10 +28,12 @@ in a Python loop.  Where the work goes on a CUDA tensor:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distribution.sharding import constrain
+from repro_torch.distribution.sharding import constrain, on_local_shards
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import tree_map
@@ -134,7 +136,7 @@ def _q(cfg, p, h, cos, sin):
     q = L.linear(h, p["wq"])
     if cfg.attn_qkv_bias:
         q = q + p["bq"]
-    return L.apply_rope(L.split_heads(q, cfg.num_heads, cfg.hd), cos, sin)
+    return L.apply_rope(L.group_heads(cfg, q, "q"), cos, sin)
 
 
 def _kv(cfg, p, h, cos, sin):
@@ -142,9 +144,7 @@ def _kv(cfg, p, h, cos, sin):
     v = L.linear(h, p["wv"])
     if cfg.attn_qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    K = cfg.num_kv_heads
-    return (L.apply_rope(L.split_heads(k, K, cfg.hd), cos, sin),
-            L.split_heads(v, K, cfg.hd))
+    return L.apply_rope(L.group_heads(cfg, k, "kv"), cos, sin), L.group_heads(cfg, v, "kv")
 
 
 def _fuse_mlp(cfg, lp, x, y_attn, y_ssm):
@@ -154,9 +154,19 @@ def _fuse_mlp(cfg, lp, x, y_attn, y_ssm):
     return x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, x, lp["ln2"]))
 
 
+# rows and heads of a (B, S, H, D) pad along S are independent
+_PAD_SHARD_DIMS = {"batch": ((0,), (0,)), "heads": ((2,), (2,))}
+
+
 def _pad_to(x, mult: int):
+    """``x`` (B, S, H, D) zero-padded along S to a multiple of ``mult``;
+    under a mesh on the local shards of rows and heads (torch 2.11's
+    ``DTensor`` failed to plan this pad in Hymba-1.5B's prefill_32k)."""
     pad = (-x.shape[1]) % mult
-    return F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad)) if pad else x
+    if not pad:
+        return x
+    return on_local_shards(functools.partial(F.pad, pad=(0, 0, 0, 0, 0, pad)), (x,),
+                           _PAD_SHARD_DIMS)
 
 
 def _prefill_attend(cfg, l: int, q, k, v, *, q_block, impl):
@@ -201,7 +211,7 @@ def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: b
         if _kv_producer(cfg, l) == l:
             shared = (k, v)
             if keep_kv:
-                kvs[l] = shared
+                kvs[l] = (L.whole_heads(cfg, k), L.whole_heads(cfg, v))
     x = L.apply_norm(cfg, x, params["final_norm"])
     return x[:, cfg.meta_tokens:], kvs, caches
 

@@ -41,7 +41,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distribution.sharding import constrain, on_local_shards, place_like
+from repro_torch.distribution.sharding import (axis_rules, constrain, current_mesh,
+                                                current_rules, from_groups, make_groups,
+                                                on_local_shards, per_rank, place_like,
+                                                to_groups)
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -205,7 +208,39 @@ def stack_specs(tree):
 # norms
 # ---------------------------------------------------------------------------
 
+# a norm over a last dim sharded over the mesh (the SSM's gated norm over
+# d_inner): rows are independent; a rank's sum of squares over its columns is
+# its part of the row's sum, and each rank scales its own columns
+_NORM_SUMSQ_DIMS = {"batch": ((0,), (0,)), "seq": ((1,), (1,)), "cols": ((2,), ("sum",))}
+_NORM_SCALE_DIMS = {"batch": ((0, 0, None), (0,)), "seq": ((1, 1, None), (1,)),
+                    "cols": ((2, None, 0), (2,))}
+
+
+def _sum_sq(x):
+    xf = x.float()
+    return torch.sum(xf * xf, dim=-1)
+
+
+def _rms_scale(x, r, w):
+    return (x.float() * r[..., None] * w.float()).to(x.dtype)
+
+
+def _last_dim_sharded(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor) and x.ndim == 3 and any(q.is_shard(2) for q in x.placements)
+
+
 def rmsnorm(x, w, eps: float):
+    """RMSNorm over the last dim in f32.  Under a mesh that shards the last
+    dim (B, S, C), each rank's sum of squares over its own columns, summed
+    over the ranks (an all-reduce of (B, S)), scales its columns, as the
+    reference's GSPMD partitions the reduction: the rows are never
+    gathered."""
+    if _last_dim_sharded(x):
+        ss = constrain(on_local_shards(_sum_sq, (x,), _NORM_SUMSQ_DIMS), "batch", "seq")
+        r = torch.rsqrt(ss / x.shape[-1] + eps)
+        return on_local_shards(_rms_scale, (x, r, w), _NORM_SCALE_DIMS)
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
@@ -340,7 +375,9 @@ def attention(
     either takes the plain path.  ``ref`` keeps every case on the plain
     path.  Under grad the flash kernel computes the forward and the
     backward differentiates the plain path in query blocks of
-    ``GRAD_Q_BLOCK`` (``kernels._autograd``)."""
+    ``GRAD_Q_BLOCK`` (``kernels._autograd``).  Under head groups
+    (``group_heads``) q, k, v and the result are in the group layout, and
+    each rank runs its group's heads."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     B, Sq, H, D = q.shape
@@ -401,6 +438,98 @@ def _kv_for_query_heads(q, k, v):
             on_local_shards(_take_heads, (v, idx), _TAKE_HEADS_DIMS))
 
 
+# ---------------------------------------------------------------------------
+# head groups: heads the model axis does not divide
+# ---------------------------------------------------------------------------
+
+def head_groups(t, n: int, rule: str = "heads"):
+    """How the reference's GSPMD runs ``n`` heads that the plan's ``rule``
+    puts on mesh dims whose m ranks do not divide n (``spec_for`` then
+    drops the rule, so the plan holds them whole on every rank): in g =
+    gcd(n, m) groups of m / g ranks, the ranks in mesh order, group j
+    running heads [j n / g, (j + 1) n / g).  Returns (those mesh dims of
+    ``t``'s mesh, m, g), or None without a mesh or the rule, where the rule
+    divides n, where g is 1 (the heads then stay whole on every rank, as in
+    the reference), or where the plan shards the sequence over those dims
+    (decode over a cache whose slots they shard: flash decoding)."""
+    from torch.distributed.tensor import DTensor
+
+    rules = current_rules()
+    r = rules.get(rule) if rules is not None else None
+    if r is None or not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    axes = (r,) if isinstance(r, str) else tuple(r)
+    seq = rules.get("seq")
+    if seq is not None and set(axes) & set((seq,) if isinstance(seq, str) else seq):
+        return None
+    dims = [names.index(a) for a in axes if a in names and mesh.size(names.index(a)) > 1]
+    m = math.prod(mesh.size(i) for i in dims)
+    g = math.gcd(n, m)
+    if n % m == 0 or g == 1:
+        return None
+    return dims, m, g
+
+
+@functools.lru_cache(maxsize=64)
+def _head_reads(n: int, k: int, hd: int, g: int):
+    """The columns each group reads of the query heads' projection and of
+    the kv heads', the kv heads its n / g query heads read (GQA)."""
+    hg, r = n // g, n // k
+    q = tuple(tuple(range(j * hg * hd, (j + 1) * hg * hd)) for j in range(g))
+    kv = tuple(tuple(range(j * hg // r * hd, (j * hg // r + max(hg // r, 1)) * hd))
+               for j in range(g))
+    return q, kv
+
+
+def _head_layouts(cfg, t):
+    """The group layouts (``distribution.sharding.make_groups``) of the
+    query and kv heads' columns under head groups, or None, also where a
+    group's query heads read part of a kv head's query heads and the next
+    group the rest (no config does)."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    grp = head_groups(t, H)
+    if grp is None or (H * hd) % grp[1]:
+        return None
+    dims, m, g = grp
+    hg, r = H // g, H // K
+    if hg % r and r % hg:
+        return None
+    q, kv = _head_reads(H, K, hd, g)
+    return (make_groups(t.device_mesh, dims, g, q, H * hd, t.device),
+            make_groups(t.device_mesh, dims, g, kv, K * hd, t.device))
+
+
+def group_heads(cfg, t, kind: str):
+    """``t`` (B, S, n * hd), the projection of the query heads (``kind``
+    "q", n = H) or of the kv heads ("kv", n = K), split into heads.  Under
+    head groups (``head_groups``) in the group layout: each rank the heads
+    its group runs, or the kv heads they read, (B, S, m n', hd) sharded
+    over the m ranks, taken from the projection gathered over them (as the
+    reference's GSPMD gathers it); its backward takes each rank's own
+    columns of its group's whole gradient (``to_groups``), which needs no
+    sum over the ranks."""
+    n = cfg.num_heads if kind == "q" else cfg.num_kv_heads
+    lay = _head_layouts(cfg, t)
+    if lay is None:
+        return split_heads(t, n, cfg.hd)
+    out = to_groups(t, 2, lay[0 if kind == "q" else 1])
+    return split_heads(out, out.shape[2] // cfg.hd, cfg.hd)
+
+
+def whole_heads(cfg, t):
+    """``t`` (B, S, K', hd), kv heads from ``group_heads``, as the K heads,
+    whole on every rank, as the plan places heads it cannot divide (a
+    prefill's KV cache): gathered over the group ranks.  ``t`` itself when
+    it is not in the group layout."""
+    if t.shape[2] == cfg.num_kv_heads:
+        return t
+    lay = _head_layouts(cfg, t)[1]
+    return split_heads(from_groups(merge_heads(t, 2), 2, lay, whole=True), cfg.num_kv_heads,
+                       cfg.hd)
+
+
 def _plain_attention(q, k, v, *, causal, window, q_offset, q_block, valid_len, softcap):
     B, Sq, H, D = q.shape
     K = k.shape[2]
@@ -421,7 +550,8 @@ def local_block_attention(q, k, v, *, window: int, q_offset: int = 0):
     when Sq == Skv and Sq % window == 0: the caller pads, and a length that
     is not a whole number of windows raises.  Plain PyTorch, one block at a
     time, so the peak score tensor is (B, K, R, window, 2 * window) f32.
-    Under a mesh on the local shards of batch and heads, as ``attention``."""
+    Under a mesh on the local shards of batch and heads (or head groups),
+    as ``attention``."""
     k, v = _kv_for_query_heads(q, k, v)
     return on_local_shards(functools.partial(_local_block_attention, window=window,
                                              q_offset=q_offset), (q, k, v), ATTENTION_SHARD_DIMS)
@@ -518,11 +648,9 @@ def stacked_like(t, n: int):
     local = t.to_local()
     pl = [Shard(q.dim + 1) if q.is_shard() else q for q in t.placements]
     buf = local.new_empty((n, *local.shape))
-    shape, stride = (n, *t.shape), [1]
-    for d in reversed(shape[1:]):
-        stride.insert(0, stride[0] * d)
+    shape = (n, *t.shape)
     return DTensor.from_local(buf, t.device_mesh, pl, run_check=False, shape=shape,
-                              stride=tuple(stride))
+                              stride=_contiguous(shape))
 
 
 def split_heads(t, n: int, hd: int, dim: int = -1):
@@ -575,21 +703,29 @@ def linear(x, w):
 
 
 def qkv_proj(cfg, p, x):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype."""
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype;
+    under head groups in the group layout (``group_heads``)."""
     q = linear(x, p["wq"])
     k = linear(x, p["wk"])
     v = linear(x, p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = constrain(split_heads(q, H, hd), "batch", "seq", "heads", "head_dim")
-    k = constrain(split_heads(k, K, hd), "batch", "seq", "kv_heads", "head_dim")
-    v = constrain(split_heads(v, K, hd), "batch", "seq", "kv_heads", "head_dim")
+    q = constrain(group_heads(cfg, q, "q"), "batch", "seq", "heads", "head_dim")
+    k = constrain(group_heads(cfg, k, "kv"), "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(group_heads(cfg, v, "kv"), "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def out_proj(cfg, p, o):
-    y = linear(merge_heads(o, 2), p["wo"])
+    """o (B, S, H, hd), or in the group layout of head groups, to (B, S,
+    D): there each rank takes its own 1/m of o's columns, which lie in its
+    group's heads (``from_groups``: no communication), and multiplies them
+    by its rows of ``wo``, a ``Partial`` sum in which no term is twice."""
+    grouped = o.shape[2] != cfg.num_heads
+    o = merge_heads(o, 2)
+    if grouped:
+        o = from_groups(o, 2, _head_layouts(cfg, o)[0])
+    y = linear(o, p["wo"])
     if cfg.attn_out_bias:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")
@@ -623,18 +759,47 @@ def mlp(cfg, p, x):
 
 # rows of a lookup are independent; the table has none of them (gathered)
 _EMBED_SHARD_DIMS = {"batch": ((0, None), (0,))}
+# a vocab-parallel lookup: rows independent; over the vocab's ranks each
+# rank's rows of the result (zero where a token is not among its rows) are its
+# part of a sum
+_EMBED_VOCAB_DIMS = {"vocab": ((None, 0, 0), ("sum",)), "batch": ((0, None, None), (0,))}
 
 
 def _lookup(tokens, table):
     return table[tokens]
 
 
+def _lookup_of_shard(tokens, table, vocab):
+    """The rows of ``table`` (the ids ``vocab``, a contiguous range) at
+    ``tokens``, zero where a token is not one of them; the backward adds
+    into the table's own rows (``index_add``)."""
+    local = tokens.long() - vocab[0]
+    own = (local >= 0) & (local < vocab.shape[0])
+    rows = table.index_select(0, local.clamp(0, vocab.shape[0] - 1).reshape(-1))
+    return rows.reshape(*tokens.shape, -1).masked_fill(~own[..., None], 0)
+
+
 def embed(cfg, p, tokens):
     """The table's rows at ``tokens``.  Under a mesh on each rank's own
-    rows, the table gathered: ``DTensor``'s strategy for the indexing's
-    backward (``index_put``) fails on torch 2.11."""
-    return constrain(on_local_shards(_lookup, (tokens, p["table"]), _EMBED_SHARD_DIMS),
-                     "batch", "seq", "embed")
+    rows; with the table's vocab sharded, vocab-parallel, as the
+    reference's GSPMD partitions ``jnp.take``: each rank looks the tokens
+    up in its own rows, and the ranks' parts are summed (an all-reduce of
+    (B, S, D)), so the table is gathered only over the batch ranks of an
+    FSDP layout; its backward is each rank's plain ``index_add`` into its
+    own rows.  An unsharded vocab is gathered as it is (``DTensor``'s
+    strategy for the indexing's backward, ``index_put``, fails on torch
+    2.11)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    table = p["table"]
+    if isinstance(table, DTensor) and Shard(0) in table.placements:
+        dims = [i for i, q in enumerate(table.placements) if q == Shard(0)]
+        vocab = per_rank(torch.arange(table.shape[0], device=table.device), table.device_mesh,
+                         dims)
+        x = on_local_shards(_lookup_of_shard, (tokens, table, vocab), _EMBED_VOCAB_DIMS)
+    else:
+        x = on_local_shards(_lookup, (tokens, table), _EMBED_SHARD_DIMS)
+    return constrain(x, "batch", "seq", "embed")
 
 
 def table_rows(table, idx):
@@ -661,10 +826,88 @@ def unembed(cfg, p, x):
     own rows and vocab columns, the weight gathered over the batch ranks:
     its gradient is then each rank's product of its own rows, summed over
     the batch ranks (``DTensor``'s plan for the product's backward gathers
-    the whole batch's logits gradient instead)."""
+    the whole batch's logits gradient instead).  Where the vocab is not
+    sharded, every model rank computes the same logits, and the weight's
+    gradient is split over those ranks by its rows (``_SplitWeightGrad``),
+    as the reference's GSPMD splits it."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
-    return constrain(on_local_shards(_logits, (x, w), _UNEMBED_SHARD_DIMS),
-                     "batch", "seq", "vocab")
+    dims = _repeated_dims(x, w)
+    if dims and torch.is_grad_enabled() and w.requires_grad:
+        logits = _SplitWeightGrad.apply(x, w, dims)
+    else:
+        logits = on_local_shards(_logits, (x, w), _UNEMBED_SHARD_DIMS)
+    return constrain(logits, "batch", "seq", "vocab")
+
+
+def _repeated_dims(x, w) -> list:
+    """The mesh dims over which ``x @ w`` would be computed whole on every
+    rank (x's rows and w both whole there), where their ranks divide w's
+    rows; none where x is sharded on its last dim."""
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or any(
+            q.is_shard(x.ndim - 1) or q.is_partial() for q in x.placements):
+        return []
+    mesh = x.device_mesh
+    dims = [i for i in range(mesh.ndim) if mesh.size(i) > 1
+            and x.placements[i].is_replicate() and w.placements[i].is_replicate()]
+    return dims if dims and w.shape[0] % math.prod(mesh.size(i) for i in dims) == 0 else []
+
+
+def _contiguous(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def _rows_grad(x, g, rows, *, dtype):
+    """The gradient of the weight's ``rows`` of ``x @ w``, from x's and the
+    logits gradient's local rows."""
+    xr = x.index_select(x.ndim - 1, rows).reshape(-1, rows.shape[0]).float()
+    return torch.matmul(xr.T, g.reshape(-1, g.shape[-1])).to(dtype)
+
+
+class _SplitWeightGrad(torch.autograd.Function):
+    """The logits of x's own rows against w gathered whole (an FSDP gather
+    over the batch ranks, kept for the backward, as the plain product keeps
+    it); in the backward each rank of the mesh dims ``dims``, where the
+    product repeats, computes the gradient of its own block of w's rows
+    only, a part of a sum over x's row ranks, and the blocks are laid out
+    as w is."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = x.device_mesh
+        wl = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        rows = per_rank(torch.arange(w.shape[0], device=w.device), mesh, dims).to_local()
+        xl = x.to_local()
+        ctx.save_for_backward(xl, wl, rows)
+        ctx.meta = (tuple(x.placements), tuple(w.placements), tuple(w.shape), tuple(dims),
+                    x.dtype, mesh)
+        y = _logits(xl, wl)
+        shape = (*x.shape[:-1], w.shape[1])
+        return DTensor.from_local(y, mesh, x.placements, run_check=False, shape=shape,
+                                  stride=_contiguous(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Shard
+
+        xl, wl, rows = ctx.saved_tensors
+        xp, wp, wshape, dims, xdtype, mesh = ctx.meta
+        gl = g.redistribute(mesh, xp).to_local()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            shape = (*g.shape[:-1], wshape[0])
+            dx = DTensor.from_local(torch.matmul(gl, wl.float().T).to(xdtype), mesh, xp,
+                                    run_check=False, shape=shape, stride=_contiguous(shape))
+        if ctx.needs_input_grad[1]:
+            part = _rows_grad(xl, gl, rows, dtype=wl.dtype)
+            pl = [Shard(0) if i in dims else Partial() if q.is_shard() else q
+                  for i, q in enumerate(xp)]
+            dw = DTensor.from_local(part, mesh, pl, run_check=False, shape=wshape,
+                                    stride=_contiguous(wshape)).redistribute(mesh, wp)
+        return dx, dw, None
 
 
 # rows (batch and position) of the cross-entropy are independent
@@ -763,6 +1006,23 @@ def remat_whole(remat: str) -> str:
     return "none" if remat == "none" else "full"
 
 
+def _under_rules(fn):
+    """``fn`` run under the axis rules and mesh active now, wherever it is
+    called: the autograd engine runs a CUDA tensor's backward, and so a
+    checkpoint's recompute, on a thread of its own, where this thread's
+    rules are not set (head groups would then lay the recompute out
+    otherwise than the forward)."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None:
+        return fn
+
+    def run(*args):
+        with axis_rules(rules, mesh):
+            return fn(*args)
+
+    return run
+
+
 def remat_call(remat: str, fn, *args):
     """``fn(*args)`` under the ``remat`` policy: ``none`` keeps every
     activation for the backward; ``full`` keeps the inputs and recomputes
@@ -771,9 +1031,11 @@ def remat_call(remat: str, fn, *args):
     launches again in each recompute.  The layers draw no random numbers,
     so the recompute does not stash and restore the RNG states (which a
     CUDA graph capture refuses: the elastic trainer captures the
-    backward)."""
+    backward).  A recompute runs under the axis rules and mesh of the
+    forward (``_under_rules``)."""
     if remat == "none":
         return fn(*args)
+    fn = _under_rules(fn)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     if remat == "dots":

@@ -22,7 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distribution.sharding import constrain, on_local_shards
+from repro_torch.distribution.sharding import (constrain, from_groups, make_groups,
+                                                on_local_shards, once_a_group, to_groups)
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
@@ -154,47 +155,89 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int):
     return torch.cat(ys, dim=1)[:, :S], state
 
 
-def _ssd_shard_dims(G: int) -> dict:
+def _ssd_shard_dims(G: int, grouped: bool = False) -> dict:
     """The dims of (xs, dt, A, Bg, Cg) -> (y, state) the SSD scan treats
     independently, for its kernel or ``ssd_chunked`` under a mesh: batch
     rows, and heads when every head reads the one group's B and C (G ==
-    1)."""
+    1); under head groups B and C come in the group layout too, one copy a
+    rank."""
     dims = {"batch": ((0, 0, None, 0, 0), (0, 0))}
     if G == 1:
-        dims["heads"] = ((2, 2, 0, None, None), (2, 1))
+        dims["heads"] = ((2, 2, 0, 2, 2) if grouped else (2, 2, 0, None, None), (2, 1))
     return dims
 
 
-def _mixer(cfg, p, x, impl: str):
+def _ssm_layouts(cfg, xbc):
+    """Under head groups of the SSM heads (``layers.head_groups``, rule
+    "ssm_heads"; one group of B and C, and d_inner a multiple of the
+    ranks), the group layouts of xBC's columns (each group its heads' x, and
+    B and C), of the heads, and of y's d_inner columns; else None."""
+    s, di, H, P, G, N = _dims(cfg)
+    grp = L.head_groups(xbc, H, "ssm_heads")
+    if grp is None or G != 1 or di % grp[1]:
+        return None
+    dims, m, g = grp
+    hg = H // g
+    heads = [list(range(j * hg, (j + 1) * hg)) for j in range(g)]
+    cols = [list(range(j * hg * P, (j + 1) * hg * P)) for j in range(g)]
+    bc = list(range(di, di + 2 * N))
+    mesh, dev = xbc.device_mesh, xbc.device
+    return (make_groups(mesh, dims, g, [c + bc for c in cols], di + 2 * N, dev),
+            make_groups(mesh, dims, g, heads, H, dev), make_groups(mesh, dims, g, cols, di, dev))
+
+
+def _mixer(cfg, p, x, impl: str, *, return_state: bool = True):
     """proj -> conv -> SSD -> gated norm -> out proj, shared by
-    ``ssm_block`` and ``ssm_prefill``.  Returns (out, final state, raw xBC)."""
+    ``ssm_block`` and ``ssm_prefill``.  Returns (out, final state, raw
+    xBC); the state is None under head groups without ``return_state``.
+
+    Under head groups of the SSM heads (``_ssm_layouts``) each rank runs
+    its group's heads, as the reference's GSPMD does: x, B and C from xBC
+    gathered over the model ranks (DTensor cannot name the group's ranks
+    alone), dt from ``w_dt``'s columns of the group's heads, A and D
+    theirs; each rank's own 1/m of y's columns meets its columns of z in
+    the gated norm, whose sum of squares is summed over the ranks, and its
+    rows of ``w_out``.  The state comes back with the heads whole."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     s, di, H, P, G, N = _dims(cfg)
     z = constrain(L.linear(x, p["w_z"]), "batch", "seq", "ssm_inner")
     xbc_raw = constrain(L.linear(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
-    dt_raw = L.linear(x.float(), p["w_dt"].float())
 
     # f32 for the scan (no copy in f32); x, B and C are views of it
     xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"], p["conv_b"])).float()
-    xs = L.split_heads(xbc[..., :di], H, P)
-    Bg = L.split_heads(xbc[..., di:di + G * N], G, N)
-    Cg = L.split_heads(xbc[..., di + G * N:], G, N)
-
-    dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, S, H) f32
-    A = -torch.exp(p["A_log"].float())  # (H,)
+    lay = _ssm_layouts(cfg, xbc)
+    w_dt, dt_bias, A_log, Dh = p["w_dt"], p["dt_bias"], p["A_log"], p["D"]
+    if lay is None:
+        xs = L.split_heads(xbc[..., :di], H, P)
+        Bg = L.split_heads(xbc[..., di:di + G * N], G, N)
+        Cg = L.split_heads(xbc[..., di + G * N:], G, N)
+        x_dt = x
+    else:
+        cols, heads, _ = lay
+        xs, Bg, Cg = to_groups(xbc, 2, cols, sizes=(cols.take.to_local().shape[0] - 2 * N, N, N))
+        xs = L.split_heads(xs, xs.shape[2] // P, P)
+        Bg, Cg = (L.split_heads(t, t.shape[2] // N, N) for t in (Bg, Cg))
+        w_dt, dt_bias, A_log, Dh = (to_groups(t, t.ndim - 1, heads)
+                                    for t in (w_dt, dt_bias, A_log, Dh))
+        x_dt = once_a_group(x, heads)
+    dt = F.softplus(L.linear(x_dt.float(), w_dt.float()) + dt_bias.float())  # (B, S, H) f32
+    A = -torch.exp(A_log.float())  # (H,)
+    dims = _ssd_shard_dims(G, lay is not None)
 
     if impl == "auto" and xs.is_cuda:
         # under grad: the kernel's forward, the gradient of ssd_chunked
         y, state = kernel_with_plain_grad(
             functools.partial(ssd_ops.ssd, impl="cuda", return_state=True),
-            functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg,
-            shard_dims=_ssd_shard_dims(G))
+            functools.partial(ssd_chunked, chunk=s.chunk), xs, dt, A, Bg, Cg, shard_dims=dims)
     else:  # under a mesh on local shards, as the kernel runs
         y, state = on_local_shards(functools.partial(ssd_chunked, chunk=s.chunk),
-                                   (xs, dt, A, Bg, Cg), _ssd_shard_dims(G))
-    y = y + xs * p["D"].float()[:, None]
-    y = L.merge_heads(y, 2).to(x.dtype)
+                                   (xs, dt, A, Bg, Cg), dims)
+    y = L.merge_heads(y + xs * Dh.float()[:, None], 2)
+    if lay is not None:
+        y = from_groups(y, 2, lay[2])
+        state = from_groups(state, 1, lay[1], whole=True) if return_state else None
+    y = y.to(x.dtype)
 
     # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
@@ -206,7 +249,7 @@ def ssm_block(cfg, p, x, *, return_state: bool = False, impl: str = "auto"):
 
     x: (B, S, D) -> (B, S, D) [, final ssm state (B, H, N, P) f32].
     ``impl="ref"`` keeps the scan on ``ssd_chunked``."""
-    out, state, _ = _mixer(cfg, p, x, impl)
+    out, state, _ = _mixer(cfg, p, x, impl, return_state=return_state)
     return (out, state) if return_state else out
 
 

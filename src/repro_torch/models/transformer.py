@@ -159,7 +159,7 @@ def forward(cfg, params, batch, *, q_block: "Optional[int]" = 512, remat: str = 
             auxs.append(aux)
         if return_kv:  # written layer by layer into the stacked cache: no second copy
             names = cache_specs(cfg)["k"]
-            k, v = constrain(k, *names[1:]), constrain(v, *names[1:])
+            k, v = (constrain(L.whole_heads(cfg, t), *names[1:]) for t in (k, v))
             if kv is None:
                 kv = {n: L.stacked_like(t, cfg.num_layers) for n, t in (("k", k), ("v", v))}
             kv["k"][i], kv["v"][i] = k, v
