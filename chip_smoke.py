@@ -438,8 +438,13 @@ DRYRUN_CPU_FLOPS = {
 }
 DRYRUN_CPU_FLOPS_RTOL = 0.01
 # and the wire bytes a device of the cells named here (the decode step's
-# vocab-parallel embedding: an all-reduce of its rows, not the table gathered)
-DRYRUN_CPU_WIRE = {"qwen2-vl-72b:decode_32k:singlepod": (7.2132e7, "2.13.0+cpu")}
+# vocab-parallel embedding: an all-reduce of its rows, not the table
+# gathered; whisper's projections reducing each shared input's gradient
+# once, in f32 as its f32 biases leave the activations; the SSM mixer
+# gathering B and C alone, and a head group's x over its own ranks)
+DRYRUN_CPU_WIRE = {"qwen2-vl-72b:decode_32k:singlepod": (7.2132e7, "2.13.0+cpu"),
+                   "whisper-tiny:train_4k:singlepod": (9.9043836225e9, "2.13.0+cpu"),
+                   "mamba2-130m:prefill_32k:singlepod": (5.694458112e9, "2.13.0+cpu")}
 # the examples phase: each example's module and the line its main() prints
 # when its check passes
 EXAMPLE_CHECKS = {

@@ -70,8 +70,10 @@ __all__ = [
     "on_local_shards",
     "per_rank",
     "place_like",
+    "reduce_grad_once",
     "sharding_for",
     "spec_for",
+    "split_last_dim",
     "to_groups",
     "tree_sharding",
 ]
@@ -252,7 +254,7 @@ def per_rank(x, mesh, mesh_dims: "Sequence[int]"):
     return distribute_tensor(x, mesh, pl, src_data_rank=None)
 
 
-def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
+def on_local_shards(fn, inputs: "Sequence", shard_dims: dict, *, partial_grads: bool = False):
     """``fn(*inputs)``, and where an input is a ``DTensor``, on each rank's
     local shards.
 
@@ -271,7 +273,11 @@ def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
     (``"max"``) for an axis holds each rank's part of a sum (a maximum)
     over that axis (it lacks the axis: a product contracted over it, a
     combine or a reduction over it) and comes back ``Partial`` along the
-    mesh dims that shard it."""
+    mesh dims that shard it.  With ``partial_grads`` an input already laid
+    out as ``fn`` takes it keeps its gradient's parts ``Partial``, for
+    ``reduce_grad_once`` to add to other parts before one reduction
+    (``layers.projections`` pairs them); otherwise each call reduces its
+    own."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not any(isinstance(x, DTensor) for x in inputs):
@@ -307,12 +313,113 @@ def on_local_shards(fn, inputs: "Sequence", shard_dims: dict):
         pl = placements(j, 0)
         grad = [Partial() if p is not None and isinstance(q, Replicate) else q
                 for p, q in zip(picks, pl)]
-        local.append(x.redistribute(mesh, pl).to_local(grad_placements=grad))
+        if not (partial_grads and list(x.placements) == pl):
+            x = x.redistribute(mesh, pl)
+        local.append(x.to_local(grad_placements=grad))
     out = fn(*local)
     outs = out if isinstance(out, tuple) else (out,)
     res = tuple(DTensor.from_local(o, mesh, placements(k, 1), run_check=False)
                 for k, o in enumerate(outs))
     return res if isinstance(out, tuple) else res[0]
+
+
+def split_last_dim(t, at: int):
+    """``t``'s last dim, of n entries sharded evenly over one mesh dim of m
+    ranks (rank q the entries [q n / m, (q + 1) n / m)), cut at ``at`` into
+    two parts, each sharded evenly over the same ranks (m dividing ``at``
+    and n - ``at``), by one all-to-all that sends each entry to its new
+    rank: the reference's GSPMD moves them by collective permutes.  Returns
+    the two parts as ``DTensor``s; None where ``t`` is not so sharded.  No
+    gradient (a decode step)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+
+    last = t.ndim - 1
+    if not isinstance(t, DTensor) or t.requires_grad:
+        return None
+    mesh = t.device_mesh
+    dims = [i for i, q in enumerate(t.placements) if q.is_shard(last) and mesh.size(i) > 1]
+    n = t.shape[last]
+    if len(dims) != 1 or any(q.is_partial() for q in t.placements):
+        return None
+    i = dims[0]
+    m = mesh.size(i)
+    if n % m or at % m or (n - at) % m:
+        return None
+    r, a, b = mesh.get_local_rank(i), at // m, (n - at) // m
+    local = t.to_local()
+    send_idx, send_sizes, recv_sizes, pos = _split_plan(n, at, m, r, local.device)
+    buf = local.index_select(last, send_idx).movedim(last, 0).contiguous()
+    out = funcol.all_to_all_single(buf, recv_sizes, send_sizes, (mesh, i))
+    if isinstance(out, funcol.AsyncCollectiveTensor):
+        out = out.wait()
+    out = out.movedim(0, last).index_select(last, pos)
+    parts = []
+    for lo, size, width in ((0, a, at), (a, b, n - at)):
+        shape = (*t.shape[:-1], width)
+        parts.append(DTensor.from_local(out.narrow(last, lo, size).contiguous(), mesh,
+                                        t.placements, run_check=False, shape=shape,
+                                        stride=_contiguous(shape)))
+    return tuple(parts)
+
+
+_split_plans: dict = {}
+
+
+def _split_plan(n: int, at: int, m: int, r: int, device):
+    """``split_last_dim``'s plan for rank r, made once a (n, at, m, r) and
+    device: the local entries it sends, in order, and where each of its
+    entries after the cut lies among those it receives (index tensors,
+    made outside any fake-tensor mode so that a traced step reads them
+    too), and the counts it sends to and receives from each rank."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    key = (n, at, m, r, str(device))
+    if key not in _split_plans:
+        c, a, b = n // m, at // m, (n - at) // m
+
+        def owned(j):  # rank j's entries after the cut, in order
+            return list(range(j * a, (j + 1) * a)) + list(range(at + j * b, at + (j + 1) * b))
+
+        send = [[e - r * c for e in owned(j) if r * c <= e < (r + 1) * c] for j in range(m)]
+        recv = [[e for e in owned(r) if q * c <= e < (q + 1) * c] for q in range(m)]
+        where = {e: k for k, e in enumerate(sum(recv, []))}
+        with unset_fake_temporarily():
+            _split_plans[key] = (
+                torch.tensor(sum(send, []), dtype=torch.int64, device=device),
+                [len(x) for x in send], [len(x) for x in recv],
+                torch.tensor([where[e] for e in owned(r)], dtype=torch.int64, device=device))
+    return _split_plans[key]
+
+
+class _ReduceGradOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if isinstance(g, DTensor) and any(q.is_partial() for q in g.placements):
+            g = g.redistribute(g.device_mesh, [Replicate() if q.is_partial() else q
+                                               for q in g.placements])
+        return g
+
+
+def reduce_grad_once(t):
+    """``t`` as the input of several projections (q, k and v; an MLP's gate
+    and up; the cross K/V of every decoder layer) that leave their
+    gradients' parts ``Partial`` (``on_local_shards(partial_grads=True)``,
+    through ``layers.projections``): the parts, each rank's share of a sum
+    where the weights shard their columns, are added while still partial
+    and reduced once, in the gradient's dtype, as the reference's XLA sums
+    them before its one all-reduce.  ``t`` itself outside a mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(t, DTensor) and t.requires_grad):
+        return t
+    return _ReduceGradOnce.apply(t)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +440,15 @@ class Groups:
     entries are not all read by its group and by no other).  ``own``: where
     ``block`` is, the positions of those entries among the group's; ``sel``
     (plain, whole on every rank): a position in the whole layout holding
-    each entry."""
+    each entry.  ``split``: with one group dim, the mesh over the same
+    ranks with that dim split in two, (g groups, per members), so that a
+    collective can run over the ranks of one group (its members dim) or
+    over one rank of each group (its groups dim), which a ``DTensor`` of
+    ``mesh`` cannot name; ``within``: each group reads its own ranks'
+    entries, in rank order (the layout of a dim sharded evenly over the
+    group dims is a gather over each group's ranks); ``across``: the
+    groups read the entries in order, each once (a gather over one rank of
+    each group makes them whole)."""
 
     dims: tuple
     per: int
@@ -343,6 +458,9 @@ class Groups:
     block: Any
     own: Any
     sel: Any
+    split: Any = None
+    within: bool = False
+    across: bool = False
 
 
 def make_groups(mesh, dims: "Sequence[int]", g: int, reads: "Sequence[Sequence[int]]",
@@ -353,7 +471,13 @@ def make_groups(mesh, dims: "Sequence[int]", g: int, reads: "Sequence[Sequence[i
     m = 1
     for i in dims:
         m *= mesh.size(i)
-    take, first, block, own, sel = _group_plan(m, g, tuple(map(tuple, reads)), cols)
+    reads = tuple(map(tuple, reads))
+    take, first, block, own, sel = _group_plan(m, g, reads, cols)
+    n = len(reads[0])
+    within = block is not None and all(r == tuple(range(j * n, (j + 1) * n))
+                                       for j, r in enumerate(reads))
+    across = sum(reads, ()) == tuple(range(cols))
+    split = _split_mesh(mesh, dims[0], g) if len(dims) == 1 and (within or across) else None
 
     def placed(rows, dtype=torch.int64):
         return per_rank(torch.tensor(rows, dtype=dtype, device=device), mesh, dims)
@@ -362,7 +486,51 @@ def make_groups(mesh, dims: "Sequence[int]", g: int, reads: "Sequence[Sequence[i
                   first=placed(first, torch.float32),
                   block=placed(block) if block is not None else None,
                   own=placed(own) if own is not None else None,
-                  sel=torch.tensor(sel, dtype=torch.int64, device=device))
+                  sel=torch.tensor(sel, dtype=torch.int64, device=device), split=split,
+                  within=within and split is not None, across=across and split is not None)
+
+
+def _split_mesh(mesh, dim: int, g: int):
+    """``mesh`` over the same ranks with dim ``dim`` split into (g, m / g):
+    its dim ``dim`` runs over one rank of each group, its dim ``dim + 1``
+    over the ranks of one group (``Groups.split``).  Made once a mesh
+    and world (a mesh of the same ranks may outlive its world, and be
+    handed out again in the next)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = torch.distributed.distributed_c10d._get_default_group()
+    made = mesh.__dict__.setdefault("_split_meshes", {})
+    if made.get((dim, g), (None,))[0] is not world:
+        with unset_fake_temporarily():  # made while a step is traced on fake tensors
+            ranks = torch.tensor(mesh.mesh.tolist(), dtype=torch.int64)
+            shape = list(ranks.shape)
+            shape[dim:dim + 1] = [g, shape[dim] // g]
+            made[dim, g] = (world, DeviceMesh(
+                mesh.device_type, ranks.reshape(shape),
+                mesh_dim_names=tuple(f"split{i}" for i in range(len(shape)))))
+    return made[dim, g][1]
+
+
+def _gather_local(local, dim: int, mesh, mesh_dim: int):
+    """``local`` gathered along ``dim`` over the ranks of ``mesh``'s dim
+    ``mesh_dim``, in rank order."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor  # torch 2.11
+    out = gather(local.contiguous(), dim, (mesh, mesh_dim))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+def _only_group_dim_shards(t, dim: int, groups: Groups) -> bool:
+    """Whether ``t``'s dim ``dim`` is sharded evenly over the one group dim
+    and by no other mesh dim (nor is ``t`` partial)."""
+    from torch.distributed.tensor import Shard
+
+    i = groups.dims[0]
+    return (t.placements[i] == Shard(dim) and t.shape[dim] % t.device_mesh.size(i) == 0
+            and not any(q.is_partial() or (j != i and q == Shard(dim))
+                        for j, q in enumerate(t.placements)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -427,66 +595,62 @@ def _with(t, dims, placement) -> list:
 
 class _ToGroups(torch.autograd.Function):
     """``to_groups``: forward the entries of each rank's group out of ``t``
-    gathered over the group dims; backward each rank's group's whole
+    gathered over the group dims (over the group's ranks alone where they
+    hold them, ``Groups.within``); backward each rank's group's whole
     gradient, its own entries taken (``Groups.block``), or else the first
     rank's of each group summed over the ranks."""
 
     @staticmethod
-    def forward(ctx, t, dim, groups, sizes):
+    def forward(ctx, t, dim, groups):
         from torch.distributed.tensor import Replicate, Shard
 
         like = ctx.like = _Like.of(t)
-        ctx.dim, ctx.groups, ctx.sizes = dim, groups, sizes
-        full = t.redistribute(t.device_mesh, _with(t, groups.dims, Replicate())).to_local()
-        ctx.full_shape = full.shape
+        ctx.dim, ctx.groups = dim, groups
         take = groups.take.to_local()
-        loc = full.index_select(dim, take)
-        pl = _with(t, groups.dims, Shard(dim))
+        if groups.within and _only_group_dim_shards(t, dim, groups):
+            # each group's entries are its ranks' shards: gathered over them alone
+            loc = _gather_local(t.to_local(), dim, groups.split, groups.dims[0] + 1)
+            shape = list(loc.shape)
+            shape[dim] = groups.cols
+            ctx.full_shape = torch.Size(shape)
+        else:
+            full = t.redistribute(t.device_mesh, _with(t, groups.dims, Replicate())).to_local()
+            ctx.full_shape = full.shape
+            loc = full.index_select(dim, take)
         m = groups.take.shape[0] // take.shape[0]
-        outs, off = [], 0
-        for n in sizes:
-            outs.append(_from_local(loc.narrow(dim, off, n).contiguous(), like, dim, m * n, pl))
-            off += n
-        return tuple(outs)
+        return _from_local(loc.contiguous(), like, dim, m * take.shape[0],
+                           _with(t, groups.dims, Shard(dim)))
 
     @staticmethod
-    def backward(ctx, *grads):
+    def backward(ctx, g):
         from torch.distributed.tensor import Partial, Shard
 
         t, dim, groups = ctx.like, ctx.dim, ctx.groups
-        pl = _with(t, groups.dims, Shard(dim))
-        shape = list(ctx.full_shape)
-        parts = []
-        for g, n in zip(grads, ctx.sizes):
-            shape[dim] = n
-            parts.append(g.redistribute(g.device_mesh, pl).to_local() if g is not None
-                         else torch.zeros(shape, dtype=t.dtype, device=t.device))
-        g = torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+        g = g.redistribute(g.device_mesh, _with(t, groups.dims, Shard(dim))).to_local()
         full = g.new_zeros(ctx.full_shape).index_add_(dim, groups.take.to_local(), g)
         if groups.block is not None and all(t.placements[i] == Shard(dim) for i in groups.dims):
             own = full.index_select(dim, groups.block.to_local())
-            return _from_local(own, t, dim, t.shape[dim], t.placements), None, None, None
+            return _from_local(own, t, dim, t.shape[dim], t.placements), None, None
         mask = groups.first.to_local().reshape([1] * full.ndim)
         part = _from_local(full * mask, t, dim, t.shape[dim], _with(t, groups.dims, Partial()))
-        return part.redistribute(t.mesh, t.placements), None, None, None
+        return part.redistribute(t.mesh, t.placements), None, None
 
 
-def to_groups(t, dim: int, groups: Groups, sizes: "Sequence[int] | None" = None):
+def to_groups(t, dim: int, groups: Groups):
     """``t`` (a ``DTensor`` whose dim ``dim`` holds ``groups.cols`` entries,
     sharded over the group dims or whole there) in the group layout: each
-    rank the entries its group reads (all of them gathered first), in
-    pieces of ``sizes`` along ``dim`` (a tuple of tensors) or whole.  Its
-    backward takes each group's whole gradient on each of its ranks, as
-    the group layout's computations leave it."""
-    n = groups.take.to_local().shape[0]
-    out = _ToGroups.apply(t, dim, groups, tuple(sizes) if sizes is not None else (n,))
-    return out if sizes is not None else out[0]
+    rank the entries its group reads (gathered over the group's ranks, or
+    all of them gathered first).  Its backward takes each group's whole
+    gradient on each of its ranks, as the group layout's computations leave
+    it."""
+    return _ToGroups.apply(t, dim, groups)
 
 
 class _FromGroups(torch.autograd.Function):
     """``from_groups``: forward each rank's own entries (``Groups.own``),
     or the entries whole on every rank; backward the gradient gathered and
-    each rank's group's entries taken."""
+    each rank's group's entries taken (over the group's ranks alone where
+    they hold them, ``Groups.within``)."""
 
     @staticmethod
     def forward(ctx, t, dim, groups, whole):
@@ -499,6 +663,10 @@ class _FromGroups(torch.autograd.Function):
             own = t.to_local().index_select(dim, groups.own.to_local())
             out = _from_local(own, like, dim, groups.cols, _with(t, groups.dims, Shard(dim)))
             return out.redistribute(like.mesh, whole_pl) if whole else out
+        if groups.across and _only_group_dim_shards(t, dim, groups):
+            # the groups' entries in order: gathered over one rank of each group
+            full = _gather_local(t.to_local(), dim, groups.split, groups.dims[0])
+            return _from_local(full, like, dim, groups.cols, whole_pl)
         full = t.redistribute(like.mesh, whole_pl).to_local()
         return _from_local(full.index_select(dim, groups.sel), like, dim, groups.cols, whole_pl)
 
@@ -507,8 +675,11 @@ class _FromGroups(torch.autograd.Function):
         from torch.distributed.tensor import Replicate, Shard
 
         t, dim, groups = ctx.like, ctx.dim, ctx.groups
-        full = g.redistribute(g.device_mesh, _with(g, groups.dims, Replicate())).to_local()
-        loc = full.index_select(dim, groups.take.to_local())
+        if groups.within and _only_group_dim_shards(g, dim, groups):
+            loc = _gather_local(g.to_local(), dim, groups.split, groups.dims[0] + 1)
+        else:
+            full = g.redistribute(g.device_mesh, _with(g, groups.dims, Replicate())).to_local()
+            loc = full.index_select(dim, groups.take.to_local())
         return (_from_local(loc, t, dim, t.shape[dim], _with(t, groups.dims, Shard(dim))),
                 None, None, None)
 

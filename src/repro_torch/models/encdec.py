@@ -111,7 +111,7 @@ def _cross(cfg, lp, x, ek, ev, *, impl="auto"):
     q = L.linear(h, lp["xattn"]["wq"])
     if cfg.attn_qkv_bias:
         q = q + lp["xattn"]["bq"]
-    o = L.attention(L.group_heads(cfg, q, "q"), ek, ev, causal=False, impl=impl)
+    o = L.cross_attend(L.group_heads(cfg, q, "q"), ek, ev, impl=impl)
     return x + L.out_proj(cfg, lp["xattn"], o)
 
 
@@ -136,11 +136,13 @@ def encode(cfg, params, frames, *, remat: str = "none", impl: str = "auto"):
 
 def _cross_kv(cfg, params, enc):
     """Cross-attention K/V of every decoder layer, from the encoder states
-    (under head groups in the group layout, ``layers.group_heads``)."""
+    (under head groups in the group layout, ``layers.group_heads``):
+    projections of one input (``layers.projections``)."""
+    lps = params["dec_layers"]
+    kv = L.projections(enc, *(lp["xattn"][w] for lp in lps for w in ("wk", "wv")))
     out = []
-    for lp in params["dec_layers"]:
-        k = L.linear(enc, lp["xattn"]["wk"])
-        v = L.linear(enc, lp["xattn"]["wv"])
+    for i, lp in enumerate(lps):
+        k, v = kv[2 * i], kv[2 * i + 1]
         if cfg.attn_qkv_bias:
             k, v = k + lp["xattn"]["bk"], v + lp["xattn"]["bv"]
         out.append((L.group_heads(cfg, k, "kv"), L.group_heads(cfg, v, "kv")))

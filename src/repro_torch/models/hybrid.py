@@ -132,19 +132,20 @@ def _rope(cfg, positions):
     return L.rope_angles(positions, int(cfg.hd * cfg.partial_rotary), cfg.rope_theta)
 
 
-def _q(cfg, p, h, cos, sin):
-    q = L.linear(h, p["wq"])
+def _qkv(cfg, p, h, cos, sin):
+    """q, and (k, v) where the layer makes its own (None for a consumer of
+    another layer's), from h: projections of one input
+    (``layers.projections``)."""
+    own = "wk" in p
+    names = ("q", "k", "v") if own else ("q",)
+    out = L.projections(h, *(p["w" + n] for n in names))
     if cfg.attn_qkv_bias:
-        q = q + p["bq"]
-    return L.apply_rope(L.group_heads(cfg, q, "q"), cos, sin)
-
-
-def _kv(cfg, p, h, cos, sin):
-    k = L.linear(h, p["wk"])
-    v = L.linear(h, p["wv"])
-    if cfg.attn_qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    return L.apply_rope(L.group_heads(cfg, k, "kv"), cos, sin), L.group_heads(cfg, v, "kv")
+        out = tuple(t + p["b" + n] for t, n in zip(out, names))
+    q = L.apply_rope(L.group_heads(cfg, out[0], "q"), cos, sin)
+    if not own:
+        return q, None
+    return q, (L.apply_rope(L.group_heads(cfg, out[1], "kv"), cos, sin),
+               L.group_heads(cfg, out[2], "kv"))
 
 
 def _fuse_mlp(cfg, lp, x, y_attn, y_ssm):
@@ -198,8 +199,8 @@ def _prefill(cfg, params, tokens, *, q_block, impl, keep_kv: bool, keep_state: b
             y_ssm, cache = S.ssm_prefill(cfg, lp["ssm"], h, impl=impl)
         else:
             y_ssm = S.ssm_block(cfg, lp["ssm"], h, impl=impl)
-        q = _q(cfg, lp["attn"], h, cos, sin)
-        k, v = _kv(cfg, lp["attn"], h, cos, sin) if "wk" in lp["attn"] else shared
+        q, kv = _qkv(cfg, lp["attn"], h, cos, sin)
+        k, v = kv if kv is not None else shared
         o = _prefill_attend(cfg, l, q, k, v, q_block=q_block, impl=impl)
         x = _fuse_mlp(cfg, lp, x, L.out_proj(cfg, lp["attn"], o), y_ssm)
         return constrain(x, "batch", "seq", "embed"), (k, v), cache
@@ -329,9 +330,9 @@ def decode_step(cfg, params, cache, tokens, pos: int):
                                                            "conv": cache["ssm_conv"][l]})
         cache["ssm_state"][l] = new["state"]
         cache["ssm_conv"][l] = new["conv"]
-        q = _q(cfg, lp["attn"], h, cos, sin)
-        if "wk" in lp["attn"]:
-            k, v = _kv(cfg, lp["attn"], h, cos, sin)
+        q, kv = _qkv(cfg, lp["attn"], h, cos, sin)
+        if kv is not None:
+            k, v = kv
             kind, i = slots[l]
             ck, cv = cache[f"{kind}_k"][i], cache[f"{kind}_v"][i]
             if kind == "glob":
@@ -409,9 +410,9 @@ def paged_decode_step(cfg, params, k_pages, v_pages, state, tokens, positions, t
                                                            "conv": state["ssm_conv"][:, l]})
         states.append(new["state"])
         convs.append(new["conv"])
-        q = _q(cfg, lp["attn"], h, cos, sin)
-        if "wk" in lp["attn"]:
-            k, v = _kv(cfg, lp["attn"], h, cos, sin)
+        q, kv = _qkv(cfg, lp["attn"], h, cos, sin)
+        if kv is not None:
+            k, v = kv
             i = prod_ix[l]
             kp, vp = L.page_scatter(k_pages[i], v_pages[i], k, v, tables, positions)
             if _is_global(cfg, l):

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.distribution.sharding import (axis_rules, constrain, current_mesh,
                                                 current_rules, from_groups, make_groups,
                                                 on_local_shards, per_rank, place_like,
-                                                to_groups)
+                                                reduce_grad_once, to_groups)
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -689,25 +689,51 @@ def _linear_dims(nd: int) -> dict:
     return dims
 
 
+def _matmul(x, w):
+    """``x @ w`` in the wider of their dtypes, as the reference's einsum
+    promotes: an f32 sum with a bias against a bf16 weight runs in f32 with
+    f32 partial sums (the narrower operand cast here, on the local shards,
+    after any gather)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
 def linear(x, w):
-    """``x @ w`` in ``x``'s dtype.  Under a mesh on each rank's own rows
-    and the weight's shards as the plan places them: a column-parallel
-    weight gives the rank's columns, a row-parallel one (its input dim
-    sharded with ``x``'s last) the rank's part of the sum (``Partial``),
-    and an FSDP weight is gathered over the batch ranks, so its gradient
-    is each rank's product of its own rows, summed over them.
-    ``DTensor``'s own plan may instead gather a whole weight or its
+    """``x @ w`` in the wider of their dtypes (``_matmul``).  Under a mesh
+    on each rank's own rows and the weight's shards as the plan places
+    them: a column-parallel weight gives the rank's columns, a row-parallel
+    one (its input dim sharded with ``x``'s last) the rank's part of the
+    sum (``Partial``), and an FSDP weight is gathered over the batch ranks,
+    so its gradient is each rank's product of its own rows, summed over
+    them.  ``DTensor``'s own plan may instead gather a whole weight or its
     gradient (torch 2.13 does, for OLMo-1B's train step) or compute work
     the plan gives another rank."""
-    return on_local_shards(torch.matmul, (x, w), _linear_dims(x.ndim))
+    return on_local_shards(_matmul, (x, w), _linear_dims(x.ndim))
+
+
+def projections(x, *ws):
+    """``linear(x, w)`` for each of ``ws``: projections of one input (q, k
+    and v; an MLP's gate and up), each a weight or a pair (f, w) for
+    ``linear(f(x), w)``, f linear and keeping x's layout (``once_a_group``).
+    Under a mesh their input gradients, each rank's share of a sum where
+    the weights shard their columns, are added while still partial and
+    reduced once (``reduce_grad_once``), as the reference's XLA sums them
+    before its one all-reduce."""
+    x = reduce_grad_once(x)
+    dims = _linear_dims(x.ndim)
+    out = []
+    for w in ws:
+        f, w = w if isinstance(w, tuple) else (None, w)
+        out.append(on_local_shards(_matmul, (x if f is None else f(x), w), dims,
+                                   partial_grads=True))
+    return tuple(out)
 
 
 def qkv_proj(cfg, p, x):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in x's dtype;
-    under head groups in the group layout (``group_heads``)."""
-    q = linear(x, p["wq"])
-    k = linear(x, p["wk"])
-    v = linear(x, p["wv"])
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), in the wider of
+    x's and the weights' dtypes; under head groups in the group layout
+    (``group_heads``)."""
+    q, k, v = projections(x, p["wq"], p["wk"], p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = constrain(group_heads(cfg, q, "q"), "batch", "seq", "heads", "head_dim")
@@ -725,16 +751,13 @@ def out_proj(cfg, p, o):
     o = merge_heads(o, 2)
     if grouped:
         o = from_groups(o, 2, _head_layouts(cfg, o)[0])
-    y = linear(o, p["wo"])
-    if cfg.attn_out_bias:
-        y = y + p["bo"]
-    return constrain(y, "batch", "seq", "embed")
+    y = constrain(linear(o, p["wo"]), "batch", "seq", "embed")
+    return y + p["bo"] if cfg.attn_out_bias else y
 
 
 def mlp(cfg, p, x):
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = linear(x, p["wi_gate"])
-        u = linear(x, p["wi_up"])
+        g, u = projections(x, p["wi_gate"], p["wi_up"])
         if cfg.mlp_bias:
             g, u = g + p["bi_gate"], u + p["bi_up"]
         g = constrain(g, "batch", "seq", "mlp")
@@ -747,10 +770,8 @@ def mlp(cfg, p, x):
         if cfg.mlp_bias:
             h = h + p["bi"]
         h = F.gelu(constrain(h, "batch", "seq", "mlp"), approximate="tanh")
-    y = linear(h, p["wo"])
-    if cfg.mlp_bias:
-        y = y + p["bo"]
-    return constrain(y, "batch", "seq", "embed")
+    y = constrain(linear(h, p["wo"]), "batch", "seq", "embed")
+    return y + p["bo"] if cfg.mlp_bias else y
 
 
 # ---------------------------------------------------------------------------
@@ -1100,6 +1121,18 @@ def decode_attend(cfg, q, ck, cv, pos: int, *, window: "Optional[int]" = None):
     if window is None:
         return attention(q, ck, cv, causal=True, q_offset=pos, valid_len=valid)
     return attention(q, ck, cv, causal=False, valid_len=valid)
+
+
+def cross_attend(q, k, v, *, impl: str = "auto"):
+    """Non-causal attention of q (B, Sq, H, D) against every slot of k/v
+    (B, S, K, D): cross-attention.  One token against a cache whose slots
+    the plan shards (a decode's cross K/V, the kv heads too few to share
+    the model axis): flash decoding on each rank's own slots
+    (``_slot_attend``), so no collective moves the cache, as the
+    reference's GSPMD partitions it; otherwise ``attention``."""
+    if q.shape[1] == 1 and _slots_sharded(k):
+        return _slot_attend(q, k, v, k.shape[1])
+    return attention(q, k, v, causal=False, impl=impl)
 
 
 def _slots_sharded(cache) -> bool:

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distribution.sharding import (constrain, from_groups, make_groups,
-                                                on_local_shards, once_a_group, to_groups)
+                                                on_local_shards, once_a_group, split_last_dim,
+                                                to_groups)
 from repro_torch.kernels._autograd import kernel_with_plain_grad
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
@@ -155,75 +156,159 @@ def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int):
     return torch.cat(ys, dim=1)[:, :S], state
 
 
-def _ssd_shard_dims(G: int, grouped: bool = False) -> dict:
+def _ssd_shard_dims(G: int) -> dict:
     """The dims of (xs, dt, A, Bg, Cg) -> (y, state) the SSD scan treats
     independently, for its kernel or ``ssd_chunked`` under a mesh: batch
     rows, and heads when every head reads the one group's B and C (G ==
-    1); under head groups B and C come in the group layout too, one copy a
-    rank."""
+    1), B and C whole on every rank."""
     dims = {"batch": ((0, 0, None, 0, 0), (0, 0))}
     if G == 1:
-        dims["heads"] = ((2, 2, 0, 2, 2) if grouped else (2, 2, 0, None, None), (2, 1))
+        dims["heads"] = ((2, 2, 0, None, None), (2, 1))
     return dims
 
 
-def _ssm_layouts(cfg, xbc):
+def _ssm_layouts(cfg, x):
     """Under head groups of the SSM heads (``layers.head_groups``, rule
     "ssm_heads"; one group of B and C, and d_inner a multiple of the
-    ranks), the group layouts of xBC's columns (each group its heads' x, and
-    B and C), of the heads, and of y's d_inner columns; else None."""
+    ranks), the group layouts of the heads and of x's (and y's) d_inner
+    columns; else None."""
     s, di, H, P, G, N = _dims(cfg)
-    grp = L.head_groups(xbc, H, "ssm_heads")
+    grp = L.head_groups(x, H, "ssm_heads")
     if grp is None or G != 1 or di % grp[1]:
         return None
     dims, m, g = grp
     hg = H // g
     heads = [list(range(j * hg, (j + 1) * hg)) for j in range(g)]
     cols = [list(range(j * hg * P, (j + 1) * hg * P)) for j in range(g)]
-    bc = list(range(di, di + 2 * N))
-    mesh, dev = xbc.device_mesh, xbc.device
-    return (make_groups(mesh, dims, g, [c + bc for c in cols], di + 2 * N, dev),
-            make_groups(mesh, dims, g, heads, H, dev), make_groups(mesh, dims, g, cols, di, dev))
+    mesh, dev = x.device_mesh, x.device
+    return make_groups(mesh, dims, g, heads, H, dev), make_groups(mesh, dims, g, cols, di, dev)
 
 
-def _mixer(cfg, p, x, impl: str, *, return_state: bool = True):
+def _columns_sharded(w) -> bool:
+    """Whether ``w`` (a ``DTensor``) has its last dim sharded over a mesh
+    dim of more than one rank."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(w, DTensor) and any(
+        q.is_shard(w.ndim - 1) and w.device_mesh.size(i) > 1 for i, q in enumerate(w.placements))
+
+
+def _gathered_columns(t):
+    """``t`` with its last dim gathered (replicated) over the mesh dims that
+    shard it, in its own dtype."""
+    from torch.distributed.tensor import Replicate
+
+    last = t.ndim - 1
+    return t.redistribute(t.device_mesh, [Replicate() if q.is_shard(last) else q
+                                          for q in t.placements])
+
+
+def _split_columns(t, at: int, names):
+    """``t``'s last dim, sharded over the model ranks, split at ``at`` into
+    two parts, each sharded as ``names`` (its logical names) place it: each
+    rank gets its own share of the x columns and of the B and C columns
+    (the plain shards, of (d_inner + 2 G N) / m columns, cut across them).
+    ``t`` is a weight, so it is gathered over the ranks that shard its
+    columns, not the activations of every row."""
+    whole = _gathered_columns(t)
+    return constrain(whole[..., :at], *names), constrain(whole[..., at:], *names)
+
+
+def _last(t, n: int):
+    """``t``'s last ``n`` positions (dim 1), all of them if it has fewer."""
+    return t[:, max(t.shape[1] - n, 0):]
+
+
+# the x and the B, C columns convolved together, on the local shards of
+# rows and of both parts' columns
+_CONV_PAIR_DIMS = {"batch": ((0, 0, None, None, None, None), (0, 0)),
+                   "channels": ((2, 2, 1, 1, 0, 0), (2, 2))}
+
+
+def _conv_silu_pair(x, bc, w_x, w_bc, b_x, b_bc):
+    """The conv and silu of x and of B, C, each rank's columns of both in
+    one depthwise conv (as many as its plain shard of xBC: one launch)."""
+    n = x.shape[-1]
+    y = F.silu(_depthwise_conv(torch.cat([x, bc], -1), torch.cat([w_x, w_bc], -1),
+                               torch.cat([b_x, b_bc], -1)))
+    return y[..., :n].contiguous(), y[..., n:].contiguous()
+
+
+def _mixer(cfg, p, x, impl: str, *, return_state: bool = True, window: bool = False):
     """proj -> conv -> SSD -> gated norm -> out proj, shared by
-    ``ssm_block`` and ``ssm_prefill``.  Returns (out, final state, raw
-    xBC); the state is None under head groups without ``return_state``.
+    ``ssm_block`` and ``ssm_prefill``.  Returns (out, final state, the raw
+    xBC of the last ``d_conv - 1`` positions or None without ``window``);
+    the state is None under head groups without ``return_state``.
+
+    Under a mesh that shards xBC's columns over the model ranks, as the
+    reference's GSPMD partitions it: ``w_xbc`` and the conv's weights are
+    split into the x part, each rank its own heads' columns, and the B and
+    C part, each rank an equal share (``_split_columns``: the weights
+    gathered, not the rows), so x is projected, convolved and scanned on
+    the rank that owns its heads with no communication, and only B and C
+    (2 G N columns) are gathered, once a layer, in the compute dtype; the
+    cast to f32 follows the split, as in the reference, whose conv and
+    split run in ``x.dtype``.  The conv is depthwise, so splitting the
+    columns before it gives the same values.
 
     Under head groups of the SSM heads (``_ssm_layouts``) each rank runs
-    its group's heads, as the reference's GSPMD does: x, B and C from xBC
-    gathered over the model ranks (DTensor cannot name the group's ranks
-    alone), dt from ``w_dt``'s columns of the group's heads, A and D
+    its group's heads, as the reference's GSPMD does: x, projected on each
+    rank's own 1/m of its columns, enters the group layout (gathered over
+    the group's ranks), B and C whole as above, their gradient counted once
+    a group, dt from ``w_dt``'s columns of the group's heads, A and D
     theirs; each rank's own 1/m of y's columns meets its columns of z in
     the gated norm, whose sum of squares is summed over the ranks, and its
-    rows of ``w_out``.  The state comes back with the heads whole."""
+    rows of ``w_out``.  The state comes back with the heads whole
+    (gathered over one rank of each group)."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl={impl!r}: use auto or ref")
     s, di, H, P, G, N = _dims(cfg)
-    z = constrain(L.linear(x, p["w_z"]), "batch", "seq", "ssm_inner")
-    xbc_raw = constrain(L.linear(x, p["w_xbc"]), "batch", "seq", "ssm_inner")
-
-    # f32 for the scan (no copy in f32); x, B and C are views of it
-    xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"], p["conv_b"])).float()
-    lay = _ssm_layouts(cfg, xbc)
     w_dt, dt_bias, A_log, Dh = p["w_dt"], p["dt_bias"], p["A_log"], p["D"]
-    if lay is None:
-        xs = L.split_heads(xbc[..., :di], H, P)
-        Bg = L.split_heads(xbc[..., di:di + G * N], G, N)
-        Cg = L.split_heads(xbc[..., di + G * N:], G, N)
-        x_dt = x
-    else:
-        cols, heads, _ = lay
-        xs, Bg, Cg = to_groups(xbc, 2, cols, sizes=(cols.take.to_local().shape[0] - 2 * N, N, N))
-        xs = L.split_heads(xs, xs.shape[2] // P, P)
-        Bg, Cg = (L.split_heads(t, t.shape[2] // N, N) for t in (Bg, Cg))
+    lay = _ssm_layouts(cfg, x)
+    if lay is not None:
+        heads, cols = lay
         w_dt, dt_bias, A_log, Dh = (to_groups(t, t.ndim - 1, heads)
                                     for t in (w_dt, dt_bias, A_log, Dh))
-        x_dt = once_a_group(x, heads)
-    dt = F.softplus(L.linear(x_dt.float(), w_dt.float()) + dt_bias.float())  # (B, S, H) f32
+    # z, xBC (or its x and its B, C parts) and dt (in f32; in head groups
+    # the group's heads, x counted once a group): projections of x, one
+    # input-gradient reduction for all
+    sharded = _columns_sharded(p["w_xbc"])  # else one device, or xBC's columns whole
+    ws = [p["w_z"], *(_split_columns(p["w_xbc"], di, ("p_embed", "p_ssm_inner")) if sharded
+                      else [p["w_xbc"]])]
+    ws.append(w_dt.float() if lay is None
+              else (functools.partial(once_a_group, groups=heads), w_dt.float()))
+    proj = L.projections(x, *ws)
+    z = constrain(proj[0], "batch", "seq", "ssm_inner")
+    W1 = cfg.ssm.d_conv - 1
+    tail = None
+    if not sharded:
+        xbc_raw = constrain(proj[1], "batch", "seq", "ssm_inner")
+        # f32 for the scan (no copy in f32); x, B and C are views of it
+        xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"], p["conv_b"])).float()
+        xc, bc = xbc[..., :di], xbc[..., di:]
+        if window:
+            tail = _last(xbc_raw, W1)
+    else:
+        cw_x, cw_bc = _split_columns(p["conv_w"], di, ("p_none", "p_ssm_inner"))
+        cb_x, cb_bc = _split_columns(p["conv_b"], di, ("p_ssm_inner",))
+        x_raw, bc_raw = (constrain(t, "batch", "seq", "ssm_inner") for t in proj[1:3])
+        xc, bc = on_local_shards(_conv_silu_pair, (x_raw, bc_raw, cw_x, cw_bc, cb_x, cb_bc),
+                                 _CONV_PAIR_DIMS)
+        bc = _gathered_columns(bc)
+        if window:
+            tail = constrain(torch.cat([_gathered_columns(_last(x_raw, W1)),
+                                        _gathered_columns(_last(bc_raw, W1))], dim=-1),
+                             "batch", None, "ssm_inner")
+    if lay is not None:
+        xc = to_groups(xc, 2, cols)
+        bc = once_a_group(bc, heads)
+    xs = L.split_heads(xc.float(), xc.shape[2] // P, P)
+    bc = bc.float()
+    Bg = L.split_heads(bc[..., :G * N], G, N)
+    Cg = L.split_heads(bc[..., G * N:], G, N)
+    dt = F.softplus(proj[-1] + dt_bias.float())  # (B, S, H) f32
     A = -torch.exp(A_log.float())  # (H,)
-    dims = _ssd_shard_dims(G, lay is not None)
+    dims = _ssd_shard_dims(G)
 
     if impl == "auto" and xs.is_cuda:
         # under grad: the kernel's forward, the gradient of ssd_chunked
@@ -235,13 +320,13 @@ def _mixer(cfg, p, x, impl: str, *, return_state: bool = True):
                                    (xs, dt, A, Bg, Cg), dims)
     y = L.merge_heads(y + xs * Dh.float()[:, None], 2)
     if lay is not None:
-        y = from_groups(y, 2, lay[2])
-        state = from_groups(state, 1, lay[1], whole=True) if return_state else None
+        y = from_groups(y, 2, lay[1])
+        state = from_groups(state, 1, lay[0], whole=True) if return_state else None
     y = y.to(x.dtype)
 
     # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return constrain(L.linear(y, p["w_out"]), "batch", "seq", "embed"), state, xbc_raw
+    return constrain(L.linear(y, p["w_out"]), "batch", "seq", "embed"), state, tail
 
 
 def ssm_block(cfg, p, x, *, return_state: bool = False, impl: str = "auto"):
@@ -261,9 +346,8 @@ def ssm_prefill(cfg, p, x, *, impl: str = "auto"):
     final state and the last ``d_conv - 1`` RAW (pre-silu-conv) xBC
     projections (left-zero-padded when S < d_conv - 1, matching the
     zero-initialized rolling window)."""
-    out, state, xbc_raw = _mixer(cfg, p, x, impl)
+    out, state, win = _mixer(cfg, p, x, impl, window=True)
     W1 = cfg.ssm.d_conv - 1
-    win = xbc_raw[:, max(x.shape[1] - W1, 0):]
     if win.shape[1] < W1:
         win = F.pad(win, (0, 0, W1 - win.shape[1], 0))
     return out, {"state": state, "conv": win.to(x.dtype)}
@@ -302,11 +386,21 @@ def ssm_decode_step(cfg, p, x, cache):
     conv_out = (win.float() * p["conv_w"].float()).sum(1) + p["conv_b"].float()
     xbc = F.silu(conv_out)[:, None, :].to(x.dtype)  # (B, 1, C)
     new_conv = win[:, 1:]
+    # the cache's window holds xBC's plain column shards: one all-to-all
+    # sends each rank its share of x's columns and of B and C's, and B and
+    # C are gathered, in the compute dtype (under grad, or where the ranks
+    # do not divide the parts, xBC is gathered once)
+    parts = split_last_dim(xbc, di) if _columns_sharded(xbc) else None
+    if parts is not None:
+        x_t, bc = parts[0], _gathered_columns(parts[1])
+    else:
+        xbc = _gathered_columns(xbc) if _columns_sharded(xbc) else xbc
+        x_t, bc = xbc[..., :di], xbc[..., di:]
 
     # per-head operands laid out as the state is: heads over the model axis
-    xs = constrain(L.split_heads(xbc[:, 0, :di], H, P).float(), "batch", "ssm_heads", None)
-    Bg = _expand_groups(L.split_heads(xbc[..., di:di + G * N], G, N), H)[:, 0].float()
-    Cg = _expand_groups(L.split_heads(xbc[..., di + G * N:], G, N), H)[:, 0].float()
+    xs = constrain(L.split_heads(x_t[:, 0], H, P).float(), "batch", "ssm_heads", None)
+    Bg = _expand_groups(L.split_heads(bc[..., :G * N], G, N), H)[:, 0].float()
+    Cg = _expand_groups(L.split_heads(bc[..., G * N:], G, N), H)[:, 0].float()
     Bg, Cg = (constrain(t, "batch", "ssm_heads", None) for t in (Bg, Cg))
 
     dt = F.softplus(dt_raw[:, 0] + p["dt_bias"].float())  # (B, H)

@@ -42,7 +42,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.distribution.recipes import plan_for
 from repro_torch.models import get_model, layers, make_batch
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.pytree import tree_flatten, tree_flatten_with_path
+from repro_torch.pytree import tree_flatten, tree_flatten_with_path, tree_map
 from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state, schedule
 from repro_torch.training.train_step import make_init, make_train_step
 
@@ -262,6 +262,55 @@ def test_torch_loss_fn_and_grads_match_reference(arch, remat):
         got = np.zeros(tuple(p.shape), np.float32) if g is None else g.numpy()
         np.testing.assert_allclose(got, jgrads["/".join(map(str, path))], **GRAD_TOL,
                                    err_msg=f"{arch} remat={remat} grad of {path}")
+
+
+# bf16 compute against the reference: each gradient leaf (of those above
+# 1e-2 of the largest leaf's norm; a k bias's is zero up to rounding)
+# within BF16_LEAF_REL of the reference's in relative L2 norm, and their
+# median within BF16_MEDIAN_REL.  Both compute in bf16 where both operands
+# are bf16, so rounding in other orders remains (7.6e-3 and 1.4e-3 for
+# whisper-tiny); a product whose f32 operand is cast to bf16 gave 1.5e-2
+# and 4.2e-3.
+BF16_LEAF_REL, BF16_MEDIAN_REL = 1e-2, 2.5e-3
+
+
+def test_torch_bf16_weights_f32_biases_loss_and_grads_match_reference():
+    """whisper-tiny (biases on every projection, per-layer leaves, so 1-D)
+    under the train steps' bf16 compute, leaves of ndim >= 2 cast to bf16
+    and biases and norms kept in f32: its residual stream is f32 after the
+    first bias add, and each product of an f32 activation and a bf16
+    weight runs in f32, as the reference's einsum promotes."""
+    arch = "whisper-tiny"
+    jc = jcfg.smoke(jcfg.get_config(arch))
+    m = jax_get_model(jc)
+    jparams = m.init(jc, jax.random.key(0))
+    batch = _jax_batch(arch)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: m.loss_fn(jc, jax.tree.map(
+        lambda x: x.astype(jnp.bfloat16) if x.ndim >= 2 else x, p), jbatch)))(jparams)
+    jgrads = {_path_key(p): np.asarray(g, np.float64)
+              for p, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]}
+    cfg = tcfg.smoke(tcfg.get_config(arch))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    pairs, _ = tree_flatten_with_path(params)
+    for _, p in pairs:
+        p.requires_grad_(True)
+    loss = get_model(cfg).loss_fn(
+        cfg, tree_map(lambda x: x.to(torch.bfloat16) if x.ndim >= 2 else x, params),
+        {k: torch.from_numpy(v.copy()) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, [p for _, p in pairs], allow_unused=True)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=2e-5)
+    err, norm = {}, {}
+    for (path, p), g in zip(pairs, grads):
+        key = "/".join(map(str, path))
+        got = np.zeros(tuple(p.shape)) if g is None else g.double().numpy()
+        err[key] = np.linalg.norm(got - jgrads[key])
+        norm[key] = np.linalg.norm(jgrads[key])
+    big = max(norm.values())
+    rel = {k: err[k] / norm[k] for k in err if norm[k] > 1e-2 * big}
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= BF16_LEAF_REL, (worst, rel[worst])
+    assert np.median(list(rel.values())) <= BF16_MEDIAN_REL, np.median(list(rel.values()))
 
 
 def test_torch_remat_recomputes_per_policy():
