@@ -853,8 +853,7 @@ def paged_times(run: dict) -> dict:
     m = run["metrics"]
     d = m["decode"]
     return {"wall_s": run["wall_s"], "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
-            "step_ms_p50": m["token_latency_p50_s"] * 1e3,
-            "step_ms_p99": m["token_latency_p99_s"] * 1e3,
+            "step_ms_mean": 1e3 * m["decode_s"] / max(m["decode_steps"], 1),
             "decode_tokens_per_s": m["decode_rows"] / max(m["decode_s"], 1e-9),
             "decode_steps": m["decode_steps"], "prefill_batches": m["prefill_batches"],
             "warm_counts": d["warm_counts"], "graphs_captured": d["graphs_captured"],
@@ -4055,9 +4054,8 @@ def main() -> int:
             r = paged[impl]
             print(f"{phase} {impl}: warm counts {r['warm_counts']}, {r['graphs_captured']} graphs "
                   f"captured in {r['capture_s']:.3f} s, padded_rows {r['padded_rows']}, decode steps "
-                  f"{r['eager_steps']} eager / {r['replayed_steps']} replayed; step p50/p99 "
-                  f"{r['step_ms_p50']:.3f} / "
-                  f"{r['step_ms_p99']:.3f} ms, TTFT p50/p99 {r['ttft_p50_s']:.4f} / "
+                  f"{r['eager_steps']} eager / {r['replayed_steps']} replayed; step mean "
+                  f"{r['step_ms_mean']:.3f} ms, TTFT p50/p99 {r['ttft_p50_s']:.4f} / "
                   f"{r['ttft_p99_s']:.4f} s, {r['decode_tokens_per_s']:.1f} decode tokens/s",
                   flush=True)
         print(f"{phase}: " + json.dumps(paged), flush=True)
@@ -4105,7 +4103,7 @@ def main() -> int:
               f"{d['refetches']} refetches, {d['stalls']} stalls ({d['deferred_rows']} rows "
               f"deferred), {d['migrations_out']} migrations out, warm counts {d['warm_counts']}, "
               f"{d['graphs_captured']} graphs captured", flush=True)
-    print(f"serve_paged_fleet: step p50/p99 {pf['step_ms_p50']:.3f} / {pf['step_ms_p99']:.3f} ms, "
+    print(f"serve_paged_fleet: step mean {pf['step_ms_mean']:.3f} ms, "
           f"TTFT p50/p99 {pf['ttft_p50_s']:.4f} / {pf['ttft_p99_s']:.4f} s, "
           f"{pf['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
     print("serve_paged_fleet: " + json.dumps(pf), flush=True)
@@ -4145,8 +4143,8 @@ def main() -> int:
     legacy["seconds"] = time.perf_counter() - t0
     print(f"serve_paged_legacy: {len(legacy['prompts'])} prompts of {legacy['prompts']} tokens, "
           f"{legacy['new_tokens']} each: TTFT p50/p99 {legacy['ttft_p50_s'] * 1e3:.2f} / "
-          f"{legacy['ttft_p99_s'] * 1e3:.2f} ms, step {legacy['step_ms_p50']:.3f} / "
-          f"{legacy['step_ms_p99']:.3f} ms p50/p99, {legacy['decode_steps']} decode steps "
+          f"{legacy['ttft_p99_s'] * 1e3:.2f} ms, step mean {legacy['step_ms_mean']:.3f} ms, "
+          f"{legacy['decode_steps']} decode steps "
           f"({legacy['eager_steps']} eager, {legacy['replayed_steps']} replayed, warm counts "
           f"{legacy['warm_counts']}); paged_attention {legacy['paged_attention_on_device']} on "
           f"the device ({legacy['launches_counted']} counted); tokens equal the one-at-a-time "
@@ -4199,8 +4197,8 @@ def main() -> int:
             for impl in ("auto", "ref"):
                 x = r[impl]
                 print(f"{phase} {impl}: {x['graphs_captured']} graphs, decode steps "
-                      f"{x['eager_steps']} eager / {x['replayed_steps']} replayed; step p50/p99 "
-                      f"{x['step_ms_p50']:.3f} / {x['step_ms_p99']:.3f} ms, TTFT p50/p99 "
+                      f"{x['eager_steps']} eager / {x['replayed_steps']} replayed; step mean "
+                      f"{x['step_ms_mean']:.3f} ms, TTFT p50/p99 "
                       f"{x['ttft_p50_s']:.4f} / {x['ttft_p99_s']:.4f} s, "
                       f"{x['decode_tokens_per_s']:.1f} decode tokens/s", flush=True)
         if phase == "serve_paged_hybrid":
@@ -4210,9 +4208,8 @@ def main() -> int:
                   f"({la['ssd_scan_kernels']} kernels), paged_attention "
                   f"{la['paged_attention_on_device']} on the device in "
                   f"{r['auto']['decode_steps']} steps; TTFT p50/p99 {r['auto']['ttft_p50_s']:.4f} / "
-                  f"{r['auto']['ttft_p99_s']:.4f} s, step p50/p99 {r['auto']['step_ms_p50']:.3f} / "
-                  f"{r['auto']['step_ms_p99']:.3f} ms (plain {r['ref']['step_ms_p50']:.3f} / "
-                  f"{r['ref']['step_ms_p99']:.3f} ms); KV bytes a request "
+                  f"{r['auto']['ttft_p99_s']:.4f} s, step mean {r['auto']['step_ms_mean']:.3f} ms "
+                  f"(plain {r['ref']['step_ms_mean']:.3f} ms); KV bytes a request "
                   f"{r['kv_bytes_per_request']}, state {r['state_bytes_per_request']}; near-tie "
                   f"cuts vs the oracle {r['auto']['near_tie_cuts_vs_oracle']} (kernel) / "
                   f"{r['ref']['near_tie_cuts_vs_oracle']} (plain), kernel vs plain "

@@ -69,6 +69,13 @@ depend on batch composition or fleet size.
   devices of one locality, as the reference's does, and refuses a fleet
   across localities.
 
+* Spans.  While a ``torch.profiler`` session records, the engine keeps a
+  span of each request's wait in the queue, of each prefill batch and each
+  decode step, and of their parts (``SERVE_SPANS``, ``_Spans``), each a
+  profiler range as well, on the clock the profiler stamps device
+  operations on; ``metrics()["spans"]`` returns them.  Otherwise a span's
+  site costs one flag check and stores nothing.
+
 Env knobs, as the reference's: ``REPRO_PAGE_SIZE`` (tokens per page,
 default 16), ``REPRO_PAGE_POOL_BYTES`` (pool bytes a device, default 32
 MiB), ``REPRO_PREFILL_TOKEN_BUDGET`` (prefill lane batch bound, default
@@ -79,6 +86,7 @@ from __future__ import annotations
 import concurrent.futures as _cf
 import contextlib
 from collections import Counter
+import itertools
 import os
 import threading
 import time
@@ -88,6 +96,8 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from repro_torch.core import agas
 from repro_torch.core.buffer import _to_host, _to_host_value, torch_dtype
@@ -101,6 +111,7 @@ __all__ = [
     "PagePool",
     "PagedKVCache",
     "PagedServeEngine",
+    "SERVE_SPANS",
     "SamplingParams",
     "SeqPages",
     "OutOfPages",
@@ -278,6 +289,100 @@ def sample_token(logits, params: "SamplingParams | None",
     idx = int(np.searchsorted(np.cumsum(probs), u, side="right"))
     idx = min(idx, probs.size - 1)
     return int(order[idx])
+
+
+# The engine's spans, in the order its work runs: a request's wait in the
+# queue; a prefill batch and its parts; a decode step and its parts.  Each
+# is a torch.profiler range of its name as well (but ``serve.queue``, which
+# opens on the submitting thread and closes on the prefill lane's).
+SERVE_SPANS = ("serve.queue", "serve.prefill", "prefill.forward", "prefill.logits",
+               "prefill.sample", "prefill.page_in", "serve.decode", "decode.locks",
+               "decode.prepare", "decode.launch", "decode.logits", "decode.sample",
+               "decode.capture")
+_SPAN_CAP = 1 << 16
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _recording() -> bool:
+    """True while a ``torch.profiler`` session records, on any thread."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Spans:
+    """The spans an engine keeps while a ``torch.profiler`` session records
+    (``_recording``), each opened as a ``record_function`` range too.  A
+    span is ``(name, start_ns, end_ns, span_id, parent_id, attrs)`` on
+    ``time.time_ns()``, the clock Kineto stamps device operations on;
+    ``parent_id`` is the span open on the same thread when it opened (None
+    at the top).  The first ``cap`` spans since ``clear`` are kept and
+    ``dropped`` counts the rest.  Not recording, ``span`` returns a context
+    that stores nothing and gives None to ``as``."""
+
+    def __init__(self, cap: int = _SPAN_CAP):
+        self.cap = int(cap)
+        self.dropped = 0
+        self._kept: "list[tuple]" = []
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._open = threading.local()
+
+    def span(self, name: str):
+        """A context timing ``name``; its ``attrs`` dict takes the span's
+        attributes."""
+        return _Span(self, name) if _recording() else _NO_SPAN
+
+    def add(self, name: str, start_ns: int, end_ns: int, **attrs) -> None:
+        """Keep a span timed elsewhere, with no parent."""
+        self._keep((name, start_ns, end_ns, next(self._ids), None, attrs))
+
+    def _stack(self) -> "list[int]":
+        stack = getattr(self._open, "ids", None)
+        if stack is None:
+            stack = self._open.ids = []
+        return stack
+
+    def _keep(self, span: tuple) -> None:
+        with self._lock:
+            if len(self._kept) < self.cap:
+                self._kept.append(span)
+            else:
+                self.dropped += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._kept = []
+            self.dropped = 0
+
+    def snapshot(self) -> "tuple[list[tuple], int]":
+        """The spans kept, in the order they closed, and the count dropped."""
+        with self._lock:
+            return list(self._kept), self.dropped
+
+
+class _Span:
+    """One open span of a ``_Spans`` (see there)."""
+
+    __slots__ = ("log", "name", "attrs", "id", "parent", "start", "_range")
+
+    def __init__(self, log: _Spans, name: str):
+        self.log, self.name, self.attrs = log, name, {}
+
+    def __enter__(self) -> "_Span":
+        stack = self.log._stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(self.log._ids)
+        stack.append(self.id)
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        self._range.__exit__(*exc)
+        self.log._stack().pop()
+        self.log._keep((self.name, self.start, end, self.id, self.parent, self.attrs))
+        return False
 
 
 # Consecutive empty decode steps (nothing fits in the pool) tolerated
@@ -913,7 +1018,7 @@ class PagedKVCache:
 
 
 class _PagedRequest:
-    __slots__ = ("tokens", "max_new", "promise", "arrived", "seq", "out",
+    __slots__ = ("tokens", "max_new", "promise", "arrived", "queued_ns", "seq", "out",
                  "first_token_s", "handed_off", "rid", "sampling", "extras")
 
     def __init__(self, tokens, max_new, promise, arrived, rid=0, sampling=None, extras=None):
@@ -921,6 +1026,7 @@ class _PagedRequest:
         self.max_new = max_new
         self.promise = promise
         self.arrived = arrived
+        self.queued_ns = time.time_ns()  # where its ``serve.queue`` span starts
         # ``rid`` keys the sampling PRNG stream, ``sampling`` is a
         # SamplingParams (None = greedy).
         self.rid = rid
@@ -1051,7 +1157,8 @@ class PagedServeEngine:
 
         # Metrics.
         self._m_lock = threading.Lock()
-        self._started_at = _now()
+        self._spans = _Spans()
+        self._batch_ids = itertools.count()
         self._submitted = 0
         self._completed = 0
         self._failed = 0
@@ -1064,8 +1171,6 @@ class PagedServeEngine:
         self._decode_s = 0.0
         self._migrations = 0
         self._placed: Counter = Counter()  # sequences placed, by device key
-        self._token_lat: "list[float]" = []
-        self._seq_lat: "list[float]" = []
         self._ttft: "list[float]" = []
 
         self._prefill_thread = threading.Thread(
@@ -1153,10 +1258,10 @@ class PagedServeEngine:
         return promise.get_future()
 
     def reset_metrics(self) -> None:
-        """Zero the counters and latency lists (resident pages are
-        untouched), e.g. after a warm-up pass."""
+        """Zero the counters, the TTFT list and the spans (resident pages
+        are untouched), e.g. after a warm-up pass."""
+        self._spans.clear()
         with self._m_lock:
-            self._started_at = _now()
             self._submitted = self._completed = self._failed = 0
             self._prefill_batches = self._prefill_tokens = self._prefill_rows = 0
             self._decode_steps = self._decode_rows = self._decode_padded = 0
@@ -1170,8 +1275,6 @@ class PagedServeEngine:
             for pool in self.kv.pools.values():
                 with pool.lock:
                     pool.spills = pool.refetches = 0
-            self._token_lat.clear()
-            self._seq_lat.clear()
             self._ttft.clear()
 
     def __enter__(self) -> "PagedServeEngine":
@@ -1240,6 +1343,10 @@ class PagedServeEngine:
                         kept.append(r)
                 self._queue[:] = kept
                 self._inflight += len(group)
+                taken = time.time_ns() if _recording() else None
+            if taken is not None:
+                for r in group:
+                    self._spans.add("serve.queue", r.queued_ns, taken, rid=r.rid)
             if group:
                 try:
                     self._run_prefill(group)
@@ -1253,44 +1360,55 @@ class PagedServeEngine:
     def _run_prefill(self, group: "list[_PagedRequest]") -> None:
         dev = self.device.torch_device
         sched = self.scheduler
-        with self._on_stream():
+        spans = self._spans
+        with spans.span("serve.prefill") as top, self._on_stream():
+            if top is not None:
+                top.attrs.update(batch=next(self._batch_ids), rows=len(group),
+                                 tokens=int(group[0].tokens.size), rids=[r.rid for r in group])
             with self.kv.gate.shared():
-                tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T: no padding
-                if self.contract == "zoo":
-                    k, v, state, logits = self.prefill_fn(tokens, _stack_extras(group, dev))
-                    logits = _host(logits)
-                else:
-                    k, v, nxt = self.prefill_fn(tokens)
-                    state, nxt = None, [int(t) for t in _host(nxt)]
+                with spans.span("prefill.forward"):
+                    tokens = _to_device(np.stack([r.tokens for r in group]), dev)  # equal T
+                    if self.contract == "zoo":
+                        k, v, state, logits = self.prefill_fn(tokens, _stack_extras(group, dev))
+                    else:
+                        k, v, nxt = self.prefill_fn(tokens)
+                with spans.span("prefill.logits"):
+                    if self.contract == "zoo":
+                        logits = _host(logits)
+                    else:
+                        state, nxt = None, [int(t) for t in _host(nxt)]
             if self.contract == "zoo":
                 # First token samples host-side at position 0 of each
                 # request's own PRNG stream — batch composition cannot leak.
-                nxt = [sample_token(logits[i], r.sampling, r.rid, 0) for i, r in enumerate(group)]
+                with spans.span("prefill.sample"):
+                    nxt = [sample_token(logits[i], r.sampling, r.rid, 0)
+                           for i, r in enumerate(group)]
             done = _now()
             with self._m_lock:
                 self._prefill_batches += 1
                 self._prefill_tokens += tokens.numel()
                 self._prefill_rows += len(group)
             need = self.kv.spec.pages_for(k.shape[2]) + 1
-            for i, req in enumerate(group):
-                pool = self._pool_with_room(sched.select(args=()), need)
-                try:
-                    req.seq = self.kv.new_seq(pool.device)
-                    # k[i]: (L, T', Kh, D) — the whole prompt pages in as one write.
-                    self.kv.append(req.seq, k[i], v[i])
-                finally:
-                    pool.admit(-1)
-                if state is not None:
-                    req.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
-                with self._m_lock:
-                    self._placed[pool.device.key] += 1
-                req.out.append(nxt[i])
-                req.first_token_s = done - req.arrived
-                if req.max_new <= 1:
-                    self._finish(req)
-                else:
-                    self._lane_for(pool.device).admit(req)
-                self._prefill_done(req)
+            with spans.span("prefill.page_in"):
+                for i, req in enumerate(group):
+                    pool = self._pool_with_room(sched.select(args=()), need)
+                    try:
+                        req.seq = self.kv.new_seq(pool.device)
+                        # k[i]: (L, T', Kh, D) — the whole prompt pages in as one write.
+                        self.kv.append(req.seq, k[i], v[i])
+                    finally:
+                        pool.admit(-1)
+                    if state is not None:
+                        req.seq.set_state(_tree_map(lambda t, i=i: t[i], state))
+                    with self._m_lock:
+                        self._placed[pool.device.key] += 1
+                    req.out.append(nxt[i])
+                    req.first_token_s = done - req.arrived
+                    if req.max_new <= 1:
+                        self._finish(req)
+                    else:
+                        self._lane_for(pool.device).admit(req)
+                    self._prefill_done(req)
 
     def _pool_with_room(self, dev, need_pages: int) -> PagePool:
         """The chosen device's pool if it has room, else that pool after
@@ -1356,7 +1474,6 @@ class PagedServeEngine:
             return
         with self._m_lock:
             self._completed += 1
-            self._seq_lat.append(_now() - req.arrived)
             if req.first_token_s is not None:
                 self._ttft.append(req.first_token_s)
 
@@ -1370,11 +1487,13 @@ class PagedServeEngine:
         return xs[int(q * (len(xs) - 1))]
 
     def metrics(self) -> dict:
-        """Counters and latency percentiles since the last
+        """Counters, TTFT percentiles and spans since the last
         ``reset_metrics``.  ``decode`` sums the lanes' graph counters
         (``decode_by_device`` has each lane's); ``kv`` has each pool's
         pages, spills and refetches; ``placed`` the sequences placed on
-        each device and ``placements`` the scheduler's decisions."""
+        each device and ``placements`` the scheduler's decisions; ``spans``
+        the spans kept while a profiler recorded (``_Spans``; empty with
+        none) and ``spans_dropped`` those past the buffer's bound."""
         lanes = self._lanes_now()
         with self._m_lock:
             rows = self._prefill_rows + self._decode_rows
@@ -1391,19 +1510,14 @@ class PagedServeEngine:
                 "rows": rows,
                 "padded_rows": self._decode_padded,
                 "padding_waste": (self._decode_padded / rows) if rows else 0.0,
-                "token_latency_p50_s": self._pct(self._token_lat, 0.50),
-                "token_latency_p99_s": self._pct(self._token_lat, 0.99),
                 "ttft_p50_s": self._pct(self._ttft, 0.50),
                 "ttft_p99_s": self._pct(self._ttft, 0.99),
-                "seq_latency_p99_s": self._pct(self._seq_lat, 0.99),
                 "migrations": self._migrations,
                 "placed": dict(self._placed),
                 "decode": _sum_lanes(by_device.values()),
                 "decode_by_device": by_device,
             }
-        elapsed = max(_now() - self._started_at, 1e-9)
-        m["elapsed_s"] = elapsed
-        m["seqs_per_s"] = m["requests_completed"] / elapsed
+        m["spans"], m["spans_dropped"] = self._spans.snapshot()
         m["kv"] = self.kv.stats()
         m["spills"] = sum(p["spills"] for p in m["kv"].values())
         m["refetches"] = sum(p["refetches"] for p in m["kv"].values())
@@ -1417,20 +1531,24 @@ class PagedServeEngine:
                 f"{self._submitted} sequences)")
 
 
-def _eager_step(decode_fn, pool: PagePool, W: int, tokens, lens, tbl, rows):
+def _eager_step(decode_fn, pool: PagePool, W: int, tokens, lens, tbl, rows, spans: _Spans):
     """One eager step of ``decode_fn`` at ``W`` rows over ``pool``'s slabs
     on the current stream, its tokens, lengths and tables going to the
     device as one copy -> (host logits (W, V), stacked state or None)."""
-    step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
-                         pool.device.torch_device)
-    tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
-    state = None
-    if rows[0] is not None:
-        state = _tree_map(lambda *xs: torch.stack(xs), *rows)
-    ks, vs = pool.arrays()
-    _, _, state, logits = decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
-    pool.mark_written()
-    return _host(logits), state
+    with spans.span("decode.launch") as sp:
+        if sp is not None:
+            sp.attrs["replayed"] = False
+        step_in = _to_device(np.concatenate([tokens, lens, tbl.reshape(-1)]),
+                             pool.device.torch_device)
+        tok_d, lens_d, tbl_d = step_in[:W], step_in[W:2 * W], step_in[2 * W:].view(W, -1)
+        state = None
+        if rows[0] is not None:
+            state = _tree_map(lambda *xs: torch.stack(xs), *rows)
+        ks, vs = pool.arrays()
+        _, _, state, logits = decode_fn(ks, vs, state, tok_d, lens_d, tbl_d, lens_d)
+        pool.mark_written()
+    with spans.span("decode.logits"):
+        return _host(logits), state
 
 
 def _host(out: "torch.Tensor") -> np.ndarray:
@@ -1513,7 +1631,8 @@ class _DecodeLane:
         # graphs and replayed from them.
         self.stats: Counter = Counter()
         self.launches = {"captured": Counter(), "replayed": Counter()}
-        self._graphs = (_StepGraphs(engine._decode, engine.kv, self.pool, device, self._tally)
+        self._graphs = (_StepGraphs(engine._decode, engine.kv, self.pool, device, self._tally,
+                                    engine._spans)
                         if device.is_cuda else None)
         self._thread = threading.Thread(
             target=self._loop, name=f"paged:{engine.name}:decode:{device.key}", daemon=True)
@@ -1593,18 +1712,30 @@ class _DecodeLane:
         neither free nor renumber a page the step reads, and the step's
         event is recorded on each sequence before its lock goes.  A step
         graph the step left to capture is captured after the locks and the
-        gate are released, holding the gate alone."""
+        gate are released, holding the gate alone.  A step that ran carries
+        its ``step``, real rows ``B``, row count ``W`` and the real rows'
+        resident lengths ``lens`` on its ``serve.decode`` span; one that
+        found no row ready, ``B`` 0."""
+        spans = self.engine._spans
         t0 = _now()
         held = []
-        try:
-            for r in sorted(batch, key=lambda q: q.seq.seq_id):
-                r.seq._lock.acquire()
-                held.append(r.seq)
-            with self.engine.kv.gate.shared():
-                prep = self._prepare(batch)
+        with spans.span("serve.decode") as top, contextlib.ExitStack() as gate:
+            try:
+                with spans.span("decode.locks"):
+                    for r in sorted(batch, key=lambda q: q.seq.seq_id):
+                        r.seq._lock.acquire()
+                        held.append(r.seq)
+                    gate.enter_context(self.engine.kv.gate.shared())
+                with spans.span("decode.prepare"):
+                    prep = self._prepare(batch)
                 if prep is None:
+                    if top is not None:
+                        top.attrs["B"] = 0
                     return
                 ready, inputs = prep
+                if top is not None:
+                    top.attrs.update(step=self._steps, B=len(ready), W=inputs[0],
+                                     lens=inputs[2][:len(ready)].tolist())
                 with self._on_stream():
                     for r in ready:
                         r.seq._wait_ready()
@@ -1613,22 +1744,24 @@ class _DecodeLane:
                     ev = _record(self.device.torch_device)
                 for r in ready:
                     r.seq._ready = ev
-                done = self._advance(ready, inputs[0], logits, state, t0)
-        finally:
-            for s in held:
-                s._lock.release()
-        if self._graphs is not None:
-            with self._on_stream():
-                self._graphs.capture_pending()
-        self._retire(done)
-        charge = getattr(self.engine.scheduler, "charge", None)
-        if callable(charge):
-            # This step never passed a lane queue: the recency counter is
-            # the only sign least_loaded has of its rows.
-            charge(self.device, len(ready))
-        self._steps += 1
-        if self._steps % self.engine.rebalance_every == 0:
-            self._maybe_rebalance([r for r in ready if r not in done])
+                with spans.span("decode.sample"):
+                    done = self._advance(ready, inputs[0], logits, state, t0)
+            finally:
+                gate.close()
+                for s in held:
+                    s._lock.release()
+            if self._graphs is not None:
+                with self._on_stream():
+                    self._graphs.capture_pending()
+            self._retire(done)
+            charge = getattr(self.engine.scheduler, "charge", None)
+            if callable(charge):
+                # This step never passed a lane queue: the recency counter is
+                # the only sign least_loaded has of its rows.
+                charge(self.device, len(ready))
+            self._steps += 1
+            if self._steps % self.engine.rebalance_every == 0:
+                self._maybe_rebalance([r for r in ready if r not in done])
 
     def _prepare(self, batch: "list[_PagedRequest]"):
         """Make spilled sequences resident and grow tails by a page where
@@ -1681,7 +1814,8 @@ class _DecodeLane:
         """One eager step of ``decode_fn`` at ``W`` rows on the current
         stream -> (host logits (W, V), stacked state or None)."""
         self._tally({"eager_steps": 1})
-        return _eager_step(self.engine._decode, self.pool, W, tokens, lens, tbl, rows)
+        return _eager_step(self.engine._decode, self.pool, W, tokens, lens, tbl, rows,
+                           self.engine._spans)
 
     def _advance(self, batch: "list[_PagedRequest]", W: int, logits, state,
                  t0: float) -> "list[_PagedRequest]":
@@ -1710,7 +1844,6 @@ class _DecodeLane:
             eng._decode_rows += B
             eng._decode_padded += W - B
             eng._decode_s += step_s
-            eng._token_lat.extend([step_s] * B)
         with self._cv:
             for r in done:
                 self._active.remove(r)
@@ -1805,8 +1938,9 @@ class _StepGraphs:
     one row): one per warm row count, all in one memory pool, each captured
     against the pool's slabs by address.  ``decode_fn`` is the engine's
     seven-argument step, ``kv`` the cache whose gate a capture holds,
-    ``pool`` the device's page pool and ``tally(counts, launches)`` the
-    owner's counter.
+    ``pool`` the device's page pool, ``tally(counts, launches)`` the
+    owner's counter and ``spans`` the owner's ``_Spans`` (a step's
+    ``decode.launch`` and ``decode.logits``, a capture's ``decode.capture``).
 
     The first step at a count runs ``decode_fn`` eagerly on the count's
     static tensors and uses its result; after the step (``capture_pending``)
@@ -1823,8 +1957,9 @@ class _StepGraphs:
     outputs overwritten."""
 
     def __init__(self, decode_fn: Callable, kv: PagedKVCache, pool: PagePool, device,
-                 tally: Callable):
+                 tally: Callable, spans: _Spans):
         self.decode_fn, self.kv, self.pool, self.tally = decode_fn, kv, pool, tally
+        self.spans = spans
         self._dev = device.torch_device
         self._counts: "dict[int, _CountGraph]" = {}
         self._pool = None
@@ -1837,23 +1972,27 @@ class _StepGraphs:
     def step(self, W: int, tokens, lens, tbl, rows):
         """One step at ``W`` rows on the lane's stream -> (host logits
         (W, V), the stacked state cloned out of the graph, or None)."""
-        ks, vs = self.pool.arrays()
-        if self._slabs is not None and self._slabs != (ks.data_ptr(), vs.data_ptr()):
-            self._counts, self._pool, self._slabs = {}, None, None  # stale: drop every graph
-        c = self._counts.get(W)
-        if c is None:
-            c = self._counts[W] = _CountGraph(W, tbl.shape[1], self._dev)
-        state = c.load(tokens, lens, tbl, rows)
-        if c.graph is None:
-            self.tally({"eager_steps": 1})
-            out = self.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
-        else:
-            c.graph.replay()
-            self.tally({"replayed_steps": 1}, ("replayed", c.recorded))
-            out = c.outs
-        self.pool.mark_written()
+        with self.spans.span("decode.launch") as sp:
+            ks, vs = self.pool.arrays()
+            if self._slabs is not None and self._slabs != (ks.data_ptr(), vs.data_ptr()):
+                self._counts, self._pool, self._slabs = {}, None, None  # stale: drop every graph
+            c = self._counts.get(W)
+            if c is None:
+                c = self._counts[W] = _CountGraph(W, tbl.shape[1], self._dev)
+            if sp is not None:
+                sp.attrs["replayed"] = c.graph is not None
+            state = c.load(tokens, lens, tbl, rows)
+            if c.graph is None:
+                self.tally({"eager_steps": 1})
+                out = self.decode_fn(ks, vs, state, c.tok, c.lens, c.tbl, c.lens)
+            else:
+                c.graph.replay()
+                self.tally({"replayed_steps": 1}, ("replayed", c.recorded))
+                out = c.outs
+            self.pool.mark_written()
         _, _, out_state, logits = out
-        host = _host(logits)
+        with self.spans.span("decode.logits"):
+            host = _host(logits)
         if out_state is not None:
             out_state = _tree_map(lambda t: t.clone(), out_state)
         if c.graph is None:
@@ -1867,7 +2006,9 @@ class _StepGraphs:
             return
         c, ks, vs, state = self._pending
         self._pending = None
-        with self.kv.gate.exclusive():
+        with self.spans.span("decode.capture") as sp, self.kv.gate.exclusive():
+            if sp is not None:
+                sp.attrs["W"] = c.W
             self._capture(c, ks, vs, state)
 
     def _capture(self, c: _CountGraph, ks, vs, state) -> None:
@@ -1941,8 +2082,9 @@ class _WorkerDecoder:
         self.stats: Counter = Counter()
         self.launches = {"captured": Counter(), "replayed": Counter()}
         self.step_s: "list[float]" = []
+        self.spans = _Spans(cap=0)  # profiler ranges only: nothing reads a worker's spans
         self._stream = torch.cuda.Stream(device.torch_device) if device.is_cuda else None
-        self._graphs = (_StepGraphs(dec, kv, self.pool, device, self._tally)
+        self._graphs = (_StepGraphs(dec, kv, self.pool, device, self._tally, self.spans)
                         if device.is_cuda else None)
 
     def _tally(self, counts: dict, launches: "tuple[str, dict] | None" = None) -> None:
@@ -1967,7 +2109,7 @@ class _WorkerDecoder:
                 else:
                     self._tally({"eager_steps": 1})
                     logits, state = _eager_step(self.decode_fn, self.pool, 1, tokens,
-                                                lens, tbl, [seq.state])
+                                                lens, tbl, [seq.state], self.spans)
                 seq._ready = _record(self.device.torch_device)
             if state is not None:
                 seq.set_state(_tree_map(lambda t: t[0], state))
